@@ -10,29 +10,45 @@ and nothing of JAX. Phases:
 
 1. Card and build: the card's name and power limit, then every kernel
    built from ``csrc/`` (one ``nvcc`` per source, in parallel), timed.
-2. Each kernel against its plain PyTorch version on the card, at the
-   slice's shapes (B=4, KH=8, G=4, dh=128, page 64, INT8 pool; prefill
-   T=64, decode seq lens 65-128) plus edge cases (ragged lengths,
-   skipped padding / invalid positions, a second prefill chunk, a
-   sliding window with a tanh softcap, bf16 and f32 pools). Prints the
-   max difference and its tolerance, the kernel's and the plain
-   version's time, the bound, and for attention the time of
-   ``scaled_dot_product_attention`` over a dense gathered copy (a
-   yardstick the port never calls).
-3. The slice: ``Engine`` on llama3-8b (bf16 weights from a seed, INT8
-   paged KV, page 64, prefill chunk 256, the pool ``bench.py`` sizes)
-   runs ``generate_batch_fused`` on 4 random 64-token prompts for 64
-   greedy tokens, with every kernel's launch count reset just before
-   and read just after. Then the same prompts are teacher-forced
-   through the kernels, the plain versions, an SDPA reference and a
-   lower-precision control (the last three are backends this script
-   defines; the port has no such option), with bf16 and with f32
-   weights: the kernels and the SDPA reference must stay within the
-   logit limit, the control must not. The fused loop at B=4 is held
-   against the step path's tokens and against the plain fused loop, and
-   ``generate_stream`` runs once.
-4. A ``{"kernels": [...]}`` summary line, then the card's line, then
-   ``{"ok": true, "device": {...}}`` as the last line.
+2. Each kernel against its plain PyTorch version on the card.
+   Attention (B1/B2) and appends (B3/B4) at slice 1's shapes (B=4, KH=8,
+   G=4, dh=128, page 64, INT8 pool; prefill T=64, decode seq lens
+   65-128) plus edge cases. The quantized-weight products (B10
+   ``int8_matmul``, B11 ``w8_matmul``, B12 ``w4_matmul``) at every
+   Llama-3-8B projection's shape (qkv, wo, gate-up, down) at decode M=4
+   and prefill M=256, at the LM head (N=128256, INT4 block width 768),
+   and at edge shapes (M 1 and 17, K and N that fit no tile, bias and
+   activation, f32 output). Prints the max difference and its tolerance,
+   the kernel's and the plain version's device time, the bound, and a
+   library yardstick the port never calls (``scaled_dot_product_attention``
+   over a dense gathered copy; ``torch._int_mm``; a bf16 cuBLAS product
+   over a pre-widened weight; ``torch._weight_int4pack_mm`` over the same
+   INT4 values repacked with bf16 scales).
+3. The paths, each ``Engine`` on llama3-8b at full width and full depth
+   (32 layers, weights from a seed, INT8 paged KV, page 64, prefill chunk
+   256, the pool ``bench.py`` sizes) running ``generate_batch_fused`` on 4
+   random 64-token prompts for 64 greedy tokens, with every kernel's
+   launch count reset just before and checked just after against the
+   exact count the loop implies:
+   a. bf16 weights (``quant="none"``, slice 1);
+   b. w8a8 INT8 weights (``quant="int8"``, ``bench.py``'s default), the
+      main path of slice 2: B10 in every projection, B11 in the LM head;
+   c. weight-only INT8 (``quant="int8-weight"``): B11 everywhere;
+   d. INT4 (``quant="int4"``): B12 everywhere.
+   On every path the same prompts are then teacher-forced through the
+   kernels, the plain versions, an SDPA reference (SDPA attention and,
+   for quantized weights, products computed another way: B10's and
+   B11's library products above, B12 one product per K-group) and a
+   lower-precision control (the last three are references this script
+   defines; the port has no such option): the kernels and the reference
+   must stay within the path's logit limit, the control must not; (a)
+   also with f32 weights and activations. For (a) and (b) the fused loop
+   at B=4 is held against the step path's tokens and against the plain
+   fused loop, and ``generate_stream`` against the fused loop on a lone
+   prompt, and one fused run is profiled; (b) also holds
+   ``Engine.score_nll`` against the plain path.
+4. A ``{"paths": ...}`` summary line, a ``{"kernels": [...]}`` line, the
+   card's line, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Exits non-zero with no ok line if any phase fails, if there is no CUDA
 card, or if the port's package is not beside this script.
@@ -41,6 +57,7 @@ card, or if the port's package is not beside this script.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -53,17 +70,23 @@ PKG = "pagedattention_based_transformer_decoder_inference_framework_tpu_torch"
 #: the JAX package's directory, where the TPU kernels the port replaces live
 TPU_PKG = "pagedattention_based_transformer_decoder_inference_framework_tpu"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
-#: peak rate by the type of a kernel's query input (H100 SXM data sheet,
-#: dense): bf16 products of bf16 q and int8/bf16 K/V are exact in the
-#: tensor cores' f32 accumulation, so the least time is at the bf16 rate;
-#: f32 inputs use the rate outside the tensor cores
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+#: peak rate by the type of a kernel's inputs (H100 SXM data sheet,
+#: dense): bf16 products of bf16 q and int8/bf16 K/V (or weights) are
+#: exact in the tensor cores' f32 accumulation, so the least time is at
+#: the bf16 rate; s8 x s8 at the int8 rate; f32 inputs use the rate
+#: outside the tensor cores
+PEAK_FLOPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
 SEED = 0
-#: teacher-forced logit limits, as a fraction of max|logit|: set from the
-#: readings of the sdpa reference (which must pass) and of the
-#: lower-precision control (which must fail); see PERF.md
-TOL_BF16, TOL_F32 = 0.10, 0.012
+#: teacher-forced logit limits, as a fraction of max|logit|, by weights
+#: and activation dtype: set from the readings of the sdpa reference
+#: (which must pass) and of the lower-precision control (which must
+#: fail); see PERF.md
+TOL = {("none", "bf16"): 0.10, ("none", "f32"): 0.012,
+       ("int8", "bf16"): 0.25, ("int8-weight", "bf16"): 0.10,
+       ("int4", "bf16"): 0.10}
 LOWP_NAME = {"bf16": "fp8-q", "f32": "bf16-attention"}
+#: ``score_nll`` of the kernels against the plain path, relative
+TOL_SCORE = 1e-2
 
 
 class PhaseError(RuntimeError):
@@ -73,6 +96,17 @@ class PhaseError(RuntimeError):
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise PhaseError(msg)
+
+
+#: failed logit-limit checks; phase 3 runs every path and its readings,
+#: then fails with all of them
+LIMIT_FAILURES: list = []
+
+
+def check_limit(cond: bool, msg: str) -> None:
+    if not cond:
+        print(f"  LIMIT FAILED: {msg}", flush=True)
+        LIMIT_FAILURES.append(msg)
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 3) -> float:
@@ -94,12 +128,12 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, match: str = "") -> float:
+def device_ms(fn, iters: int = 20, match=("",)) -> float:
     """Device time per call from torch.profiler (CUPTI): the summed time
-    of the GPU kernels whose name contains ``match`` (all kernels if
-    empty), over ``iters`` calls. CUPTI now and then hands back a trace
-    without the kernels' records; such a trace is taken again, up to
-    three times."""
+    of the GPU kernels whose name contains one of ``match`` (all kernels
+    if empty), over ``iters`` calls. CUPTI now and then hands back a
+    trace without the kernels' records; such a trace is taken again, up
+    to three times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -116,11 +150,13 @@ def device_ms(fn, iters: int = 20, match: str = "") -> float:
         total_us = sum(
             getattr(e, "self_device_time_total", 0.0)
             for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and match in e.key)
+            if e.device_type == DeviceType.CUDA
+            and any(m in e.key for m in match))
         if total_us > 0:
             return total_us / iters / 1e3
         print(f"  (trace {attempt + 1} held no device time for "
-              f"{match or 'the plain version'}; tracing again)", flush=True)
+              f"{match[0] or 'the plain version'}; tracing again)",
+              flush=True)
     raise PhaseError(f"profiler saw no device time for {match or fn}")
 
 
@@ -134,11 +170,15 @@ def bound(bytes_moved: float, flops: float, rate: str = "f32"):
 
 B, KH, G, DH, PAGE, L, NUM_PAGES, MP = 4, 8, 4, 128, 64, 2, 80, 5
 H = KH * G
-#: each wrapper's CUDA kernel, as the profiler names it
-KERNEL_NAMES = {"paged_attention": "paged_attention_kernel<",
-                "paged_attention_decode": "paged_attention_decode_kernel<",
-                "kv_append_decode": "append_decode_kernel",
-                "kv_append_prefill": "append_prefill_kernel"}
+#: each wrapper's CUDA kernels, as the profiler names them
+KERNEL_NAMES = {
+    "paged_attention": ("paged_attention_kernel<",),
+    "paged_attention_decode": ("paged_attention_decode_kernel<",),
+    "kv_append_decode": ("append_decode_kernel",),
+    "kv_append_prefill": ("append_prefill_kernel",),
+    "int8_matmul": ("qmm::gemv_kernel<0,", "qmm::tiled_kernel<0,"),
+    "w8_matmul": ("qmm::gemv_kernel<1,", "qmm::tiled_kernel<1,"),
+    "w4_matmul": ("qmm::gemv_kernel<2,", "qmm::tiled_kernel<2,")}
 
 
 def make_pool(torch, gen, dtype, dev):
@@ -348,16 +388,319 @@ def append_checks(torch, dev, results):
               f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})", flush=True)
 
 
-# -- phase 3: the slice ------------------------------------------------------
+#: Llama-3-8B's projections (name, K, N) as the engine fuses them, and
+#: its LM head
+PROJECTIONS = [("qkv", 4096, 6144), ("wo", 4096, 4096),
+               ("gate-up", 4096, 28672), ("down", 14336, 4096)]
+LM_HEAD = ("lm-head", 4096, 128256)
+#: weight bytes the timing cycles through, so each call finds its weight
+#: outside the 50 MB L2, as a decode step does
+COLD_BYTES = 160e6
 
-def slice_config():
+
+def within_bf16_step(out, ref) -> bool:
+    """One bf16 step of ``ref``, or 1e-5 of max|ref| where cancellation
+    leaves an output so small that f32 summation order moves it more."""
+    import torch
+
+    d = (out.float() - ref.float()).abs()
+    r = ref.float().abs()
+    step = torch.exp2(torch.floor(torch.log2(r.clamp_min(2.0 ** -126))) - 7)
+    return bool((d <= torch.maximum(step, 1e-5 * r.max())).all())
+
+
+def matmul_close(out, ref) -> bool:
+    """B11/B12 against their plain versions (f32 sums in another order):
+    1e-5 of max|ref|, and with bf16 out also one bf16 step of ``ref``."""
+    import torch
+
+    if out.dtype != ref.dtype or out.shape != ref.shape:
+        return False
+    if out.dtype == torch.bfloat16:
+        return within_bf16_step(out, ref)
+    return bool(((out - ref).abs() <= 1e-5 * ref.abs().max()).all())
+
+
+def int8_matmul_library(xq, x_scale, wq, w_scale, bias=None, *, act=None,
+                        out_dtype=None):
+    """B10's function with ``torch._int_mm`` (cuBLASLt, which takes
+    M >= 17) for the s32 product; a yardstick and a reference for this
+    script only, never called by the port."""
+    from importlib import import_module
+
+    import torch
+
+    i8 = import_module(f"{PKG}.ops.int8_matmul")
+    M = xq.shape[0]
+    if M < 17:
+        xq = torch.cat([xq, xq.new_zeros((17 - M, xq.shape[1]))])
+    acc = torch._int_mm(xq, wq)[:M]
+    return i8.epilogue(acc.float() * x_scale.float().reshape(-1, 1), bias,
+                       act, out_dtype or torch.bfloat16,
+                       w_scale.reshape(1, -1))
+
+
+def w8_matmul_library(x, wq, w_scale, bias=None, *, act=None,
+                      out_dtype=None, widened=None):
+    """B11's function as one cuBLAS product over a widened weight (bf16 x:
+    a bf16 GEMM with an f32 output; f32 x: an f32 GEMM), then the
+    epilogue; a yardstick and a reference for this script only."""
+    from importlib import import_module
+
+    import torch
+
+    i8 = import_module(f"{PKG}.ops.int8_matmul")
+    w = widened if widened is not None else wq.to(x.dtype)
+    y = (torch.mm(x, w, out_dtype=torch.float32)
+         if x.dtype == torch.bfloat16 else torch.mm(x, w))
+    return i8.epilogue(y, bias, act, out_dtype or torch.bfloat16,
+                       w_scale.reshape(1, -1))
+
+
+def int4pack(q4):
+    """The INT4 values of ``q4`` repacked for ``torch._weight_int4pack_mm``
+    (tinygemm computes ``(u - 8) * scale + zero`` per group of K rows,
+    ``u`` unsigned; the port's value is ``u - 8``), with its scales in
+    bf16 and zero 0: the same weight up to the scales' bf16 rounding. For
+    the library yardstick and reference only."""
+    from importlib import import_module
+
+    import torch
+
+    qt = import_module(f"{PKG}.quant.tensor")
+    u = (qt.unpack_int4(q4.packed, q4.bn).to(torch.int32) + 8).t()  # [N, K]
+    u8 = ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8).contiguous()
+    packed = torch._convert_weight_to_int4pack(u8, 8)
+    sz = torch.stack([q4.scales, torch.zeros_like(q4.scales)], dim=-1)
+    return packed, sz.to(torch.bfloat16).contiguous(), q4.group
+
+
+def w4_matmul_library(x, pack, bias=None, *, act=None, out_dtype=None):
+    """B12's function as one ``torch._weight_int4pack_mm`` call (bf16 x)
+    over :func:`int4pack`'s ``pack``, then the epilogue; a yardstick and a
+    reference for this script only."""
+    from importlib import import_module
+
+    import torch
+
+    i8 = import_module(f"{PKG}.ops.int8_matmul")
+    check(x.dtype == torch.bfloat16, "the INT4 library product takes bf16 x")
+    packed, sz, group = pack
+    y = torch._weight_int4pack_mm(x, packed, group, sz)
+    return i8.epilogue(y.float(), bias, act, out_dtype or torch.bfloat16)
+
+
+def w4_matmul_grouped(x, packed, scales, bias=None, *, group, bn,
+                      act=None, out_dtype=None):
+    """B12's function computed another way, for the path's sound
+    reference: one f32 product per K-group over the INT4 values (exact in
+    f32), each group's product times its scales, summed over the groups;
+    then the epilogue. (tinygemm's bf16 scales make it a lower precision
+    than the function, so it serves as the yardstick only.)"""
+    from importlib import import_module
+
+    import torch
+
+    i8 = import_module(f"{PKG}.ops.int8_matmul")
+    qt = import_module(f"{PKG}.quant.tensor")
+    M, K = x.shape
+    G = K // group
+    q = qt.unpack_int4(packed, bn).float().reshape(G, group, -1)
+    xg = x.float().reshape(M, G, group).transpose(0, 1)
+    y = (torch.bmm(xg, q) * scales[:, None, :]).sum(0)
+    return i8.epilogue(y, bias, act, out_dtype or torch.bfloat16)
+
+
+def cold_calls(fn_of, weights):
+    """A zero-argument callable that calls ``fn_of(w)`` on the next of
+    ``weights`` each time."""
+    state = {"i": 0}
+
+    def call():
+        w = weights[state["i"] % len(weights)]
+        state["i"] += 1
+        return fn_of(w)
+    return call
+
+
+def matmul_checks(torch, dev, results):
+    """B10/B11/B12 against their plain versions at Llama-3-8B's shapes and
+    at edge shapes; device times at decode (M=4) and at prefill (M=256),
+    each call (the library yardsticks' too) on a weight outside L2."""
+    from importlib import import_module
+
+    i8 = import_module(f"{PKG}.ops.int8_matmul")
+    i4 = import_module(f"{PKG}.ops.int4_matmul")
+    qt = import_module(f"{PKG}.quant.tensor")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    bf16 = torch.bfloat16
+    worst = {"int8_matmul": 0.0, "w8_matmul": 0.0, "w4_matmul": 0.0}
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    def verify(kname, label, out, ref):
+        if kname == "int8_matmul":
+            ok = torch.equal(out, ref)
+            tol = "0, bit-exact"
+        else:
+            ok = matmul_close(out, ref)
+            tol = ("one bf16 step or 1e-5 of max|out|"
+                   if out.dtype == bf16 else "1e-5 of max|out|")
+        err = (out.float() - ref.float()).abs().max().item()
+        ok = ok and bool(torch.isfinite(out).all())
+        print(f"  [{kname}] {label}: max|kernel-plain| = {err:.3e} "
+              f"(tol {tol}) {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"{kname} {label}: kernel differs from plain ({err})")
+        worst[kname] = max(worst[kname], err)
+
+    rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "library_ms": 0.0, "by": set()}
+            for k in ("int8_matmul", "w4_matmul")}
+    for name, K, N in PROJECTIONS + [LM_HEAD]:
+        head = name == "lm-head"
+        w = randn(K, N, scale=0.02)
+        wq, w4 = qt.quantize_per_channel(w), qt.quantize_int4_groupwise(w)
+        del w
+        copies = max(1, int(np.ceil(COLD_BYTES / wq.values.numel())))
+        wqs = [wq] + [qt.QTensor(wq.values.clone(), wq.scales.clone())
+                      for _ in range(copies - 1)]
+        w4s = [w4] + [qt.Q4Tensor(w4.packed.clone(), w4.scales.clone(),
+                                  w4.group, w4.bn)
+                      for _ in range(2 * copies - 1)]
+        # the library yardsticks' forms of the same weights: B11's widened
+        # to bf16, B12's repacked for tinygemm
+        libs = {"int8_matmul": (lambda q: int8_matmul_library(
+                    xq.values, xq.scales, q.values, q.scales), wqs),
+                "w8_matmul": (lambda wb: w8_matmul_library(
+                    x, wq.values, wq.scales, widened=wb),
+                    [q.values.to(bf16) for q in wqs]),
+                "w4_matmul": (lambda p: w4_matmul_library(x, p),
+                              [int4pack(q) for q in w4s])}
+        for M in (4, 256):
+            x = randn(M, K).to(bf16)
+            xq = qt.quantize_per_row(x)
+            b10 = lambda q, f=i8.int8_matmul: f(
+                xq.values, xq.scales, q.values, q.scales)
+            b11 = lambda q, f=i8.w8_matmul: f(x, q.values, q.scales)
+            b12 = lambda q, f=i4.w4_matmul: f(
+                x, q.packed, q.scales, group=q.group, bn=q.bn)
+            cases = [("w8_matmul", b11, wqs, i8.w8_matmul_plain),
+                     ("w4_matmul", b12, w4s, i4.w4_matmul_plain)]
+            if not head:          # the w8a8 LM head is B11 (weight-only)
+                cases.insert(0, ("int8_matmul", b10, wqs,
+                                 i8.int8_matmul_plain))
+            for kname, fn_of, ws, plain in cases:
+                label = f"{name} M={M} (K={K}, N={N}" + (
+                    f", bn={w4.bn})" if kname == "w4_matmul" else ")")
+                out = fn_of(ws[0])
+                ref = {"int8_matmul": lambda: plain(
+                    xq.values, xq.scales, wq.values, wq.scales),
+                    "w8_matmul": lambda: plain(x, wq.values, wq.scales),
+                    "w4_matmul": lambda: plain(
+                        x, w4.packed, w4.scales, group=w4.group,
+                        bn=w4.bn)}[kname]
+                torch.cuda.synchronize()
+                expect = ref()
+                verify(kname, label, out, expect)
+                # device times; decode with a cold weight per call
+                ms = device_ms(cold_calls(fn_of, ws),
+                               match=KERNEL_NAMES[kname])
+                plain_ms = device_ms(ref, iters=5)
+                w_bytes = (w4.packed.numel() + 4 * w4.scales.numel()
+                           if kname == "w4_matmul"
+                           else wq.values.numel() + 4 * N)
+                x_bytes = (M * K + 4 * M if kname == "int8_matmul"
+                           else 2 * M * K)
+                b_ms, b_by = bound(x_bytes + w_bytes + 2 * M * N,
+                                   2 * M * K * N,
+                                   "int8" if kname == "int8_matmul"
+                                   else "bf16")
+                # the yardstick computes the same function (B12's with
+                # bf16-rounded scales): a loose check that it does
+                lib_of, lib_ws = libs[kname]
+                lib_err = (lib_of(lib_ws[0]).float()
+                           - expect.float()).abs().max().item()
+                lib_tol = 1e-2 * expect.float().abs().max().item()
+                check(lib_err <= lib_tol, f"{kname} {label}: the library "
+                      f"yardstick differs from plain by {lib_err}")
+                lib_ms = device_ms(cold_calls(lib_of, lib_ws), iters=5)
+                print(f"  [{kname}] {label} device time: kernel {ms:.4f} ms"
+                      f", plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+                      f"({b_by}, {b_ms / ms:.2f} of it reached), library "
+                      f"{lib_ms:.4f} ms (its max|library-plain| "
+                      f"{lib_err:.3e}, tol {lib_tol:.3e})", flush=True)
+                if M != 4:
+                    continue
+                if kname == "w8_matmul" and head:
+                    results[kname].update(ms=ms, plain_ms=plain_ms,
+                                          bound_ms=b_ms, bound_by=b_by,
+                                          library_ms=lib_ms)
+                elif kname != "w8_matmul" and not head:
+                    r = rows[kname]
+                    r["ms"] += ms
+                    r["plain_ms"] += plain_ms
+                    r["bound_ms"] += b_ms
+                    r["library_ms"] += lib_ms
+                    r["by"].add(b_by)
+        del wqs, w4s, libs
+        torch.cuda.empty_cache()
+    for kname, r in rows.items():
+        results[kname].update(ms=r["ms"], plain_ms=r["plain_ms"],
+                              bound_ms=r["bound_ms"],
+                              bound_by="/".join(sorted(r["by"])),
+                              library_ms=r["library_ms"])
+
+    # edge shapes: M 1 and 17, K and N that fit no tile, bias and an
+    # activation, f32 activations and outputs
+    for M, K, N, act, xdt, odt in [
+            (1, 1000, 1000, "gelu", torch.float32, torch.float32),
+            (17, 4096, 6144, "silu", bf16, bf16),
+            (17, 300, 200, "relu", torch.float32, bf16),
+            (1, 4096, 1000, None, bf16, torch.float32),
+            (5, 70, 36, "gelu", bf16, bf16)]:
+        w, bias = randn(K, N, scale=0.02), randn(N)
+        x = randn(M, K).to(xdt)
+        wq, xq = qt.quantize_per_channel(w), qt.quantize_per_row(x)
+        label = (f"edge M={M} K={K} N={N} act={act} x {str(xdt)[6:]} "
+                 f"out {str(odt)[6:]} bias")
+        kw = dict(act=act, out_dtype=odt)
+        a10 = (xq.values, xq.scales, wq.values, wq.scales, bias)
+        verify("int8_matmul", label, i8.int8_matmul(*a10, **kw),
+               i8.int8_matmul_plain(*a10, **kw))
+        a11 = (x, wq.values, wq.scales, bias)
+        verify("w8_matmul", label, i8.w8_matmul(*a11, **kw),
+               i8.w8_matmul_plain(*a11, **kw))
+        q4 = qt.quantize_int4_groupwise(w, group=64 if K % 64 == 0 else K)
+        k4 = dict(kw, group=q4.group, bn=q4.bn)
+        verify("w4_matmul", label + f" group={q4.group} bn={q4.bn}",
+               i4.w4_matmul(x, q4.packed, q4.scales, bias, **k4),
+               i4.w4_matmul_plain(x, q4.packed, q4.scales, bias, **k4))
+    for kname, err in worst.items():
+        results[kname].update(max_abs_err=err,
+                              tol=0.0 if kname == "int8_matmul"
+                              else "one bf16 step or 1e-5 of max|out|")
+
+
+# -- phase 3: the paths ------------------------------------------------------
+
+#: phase 3's paths: (name, quant), each Llama-3-8B at full width and depth
+PATHS = [("bf16", "none"), ("w8a8", "int8"), ("int8-weight", "int8-weight"),
+         ("int4", "int4")]
+#: the path each kernel's launch count in the kernels line comes from:
+#: slice 2's main path (w8a8), and for B12 the INT4 path
+LAUNCHES_FROM = {"w4_matmul": "int4"}
+
+
+def path_config(quant="none", dtype="bfloat16"):
     from importlib import import_module
 
     cfgmod = import_module(f"{PKG}.config")
     batch, steps, prompt_len, page = 4, 64, 64, 64
     cfg = cfgmod.FrameworkConfig()
     cfg.model = cfgmod.preset("llama3-8b")
-    cfg.model.quant = "none"
+    cfg.model.quant = quant
+    cfg.model.dtype = dtype
     total_len = prompt_len + steps + 1
     cdiv = lambda a, b: -(-a // b)
     # the pool bench.py sizes (bench.py:290-304)
@@ -371,22 +714,32 @@ def slice_config():
     return cfg, batch, steps, prompt_len
 
 
-def run_slice(torch, dev, results):
+def expected_launches(quant, n_layers, steps):
+    """Exact launch counts of one ``generate_batch_fused`` run: one prefill
+    chunk (the 64-token prompts fill one) and ``steps - 1`` decode steps,
+    each a forward over ``n_layers`` layers of four projections (fused
+    qkv, wo, fused gate-up, down) and then the LM head."""
+    decode = n_layers * (steps - 1)
+    out = {"paged_attention": n_layers, "kv_append_prefill": n_layers,
+           "paged_attention_decode": decode, "kv_append_decode": decode,
+           "int8_matmul": 0, "w8_matmul": 0, "w4_matmul": 0}
+    if quant == "int8":                   # w8a8; the head is weight-only
+        out["int8_matmul"] = 4 * n_layers * steps
+        out["w8_matmul"] = steps
+    elif quant == "int8-weight":
+        out["w8_matmul"] = (4 * n_layers + 1) * steps
+    elif quant == "int4":
+        out["w4_matmul"] = (4 * n_layers + 1) * steps
+    return out
+
+
+def drive(torch, eng, prompts, greedy, steps, name):
+    """The path's timed ``generate_batch_fused``, with every kernel's
+    launch count set to 0 just before and checked just after."""
     from importlib import import_module
 
     plat = import_module(f"{PKG}.utils.platform")
-    eng_mod = import_module(f"{PKG}.engine")
-    cfg, batch, steps, prompt_len = slice_config()
-    t0 = time.perf_counter()
-    eng = eng_mod.Engine(cfg, seed=SEED)
-    torch.cuda.synchronize()
-    print(f"  engine built (llama3-8b, bf16 weights from seed {SEED}) in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    rng = np.random.default_rng(SEED)
-    prompts = rng.integers(0, cfg.model.vocab_size,
-                           size=(batch, prompt_len)).tolist()
-    greedy = eng_mod.SamplingParams(temperature=0.0, eos_token_id=-1)
-
+    batch = len(prompts)
     eng.generate_batch_fused(prompts, 4, greedy)           # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -406,34 +759,105 @@ def run_slice(torch, dev, results):
           f"total {total_s * 1e3:.1f} ms, decode {decode_tps:.1f} tok/s "
           f"(B={batch}, {steps} tokens)", flush=True)
     print(f"  launches in that run: {json.dumps(counts)}", flush=True)
+    expect = expected_launches(eng.cfg.quant, eng.cfg.num_layers, steps)
+    check(counts == expect,
+          f"{name}: launches {counts}, expected exactly {expect}")
+    arr = np.asarray(toks)
+    check(arr.shape == (batch, steps), f"tokens shape {arr.shape}")
+    check(((arr >= 0) & (arr < eng.cfg.vocab_size)).all(),
+          "token ids out of range")
     # a decode step reads every weight but the embedding table (of which
     # it gathers B rows) once: the end-to-end floor of a step
     stream_bytes = sum(t.numel() * t.element_size()
-                       for key, t in _leaves(eng.params) if key != "embedding")
+                       for key, t in _leaves(eng.params)
+                       if key != "embedding")
     floor_ms = stream_bytes / HBM_BYTES_PER_S * 1e3
     print(f"  weight stream per decode step {stream_bytes / 1e9:.3f} GB: "
           f"floor {floor_ms:.3f} ms/step = {batch / floor_ms * 1e3:.0f} "
-          f"tok/s at B={batch}", flush=True)
-    n_layers = cfg.model.num_layers
-    expect = {"paged_attention": n_layers, "kv_append_prefill": n_layers,
-              "paged_attention_decode": n_layers * (steps - 1),
-              "kv_append_decode": n_layers * (steps - 1)}
-    for name, n in expect.items():
-        check(counts.get(name, 0) == n,
-              f"{name} launched {counts.get(name, 0)} times, expected {n}")
-        results[name]["launches"] = counts[name]
-    arr = np.asarray(toks)
-    check(arr.shape == (batch, steps), f"tokens shape {arr.shape}")
-    check(((arr >= 0) & (arr < cfg.model.vocab_size)).all(),
-          "token ids out of range")
+          f"tok/s at B={batch}; measured {decode_tps:.1f} tok/s = "
+          f"{batch / decode_tps * 1e3:.2f} ms/step", flush=True)
+    return {"decode_tok_s": decode_tps, "prefill_ms": prefill_s * 1e3,
+            "total_ms": total_s * 1e3, "weight_stream_gb": stream_bytes / 1e9,
+            "weight_stream_floor_ms": floor_ms, "launches": counts}
 
+
+def build_engine(torch, quant, dtype="bfloat16"):
+    from importlib import import_module
+
+    eng_mod = import_module(f"{PKG}.engine")
+    cfg, *_ = path_config(quant, dtype)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = eng_mod.Engine(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() / 1e9
+    print(f"  engine built (llama3-8b, quant={quant}, {dtype} activations, "
+          f"weights from seed {SEED}) in {time.perf_counter() - t0:.1f} s; "
+          f"holds {held:.2f} GB on the card (peak while building "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB)", flush=True)
+    return eng, held
+
+
+def run_paths(torch, dev, results):
+    from importlib import import_module
+
+    eng_mod = import_module(f"{PKG}.engine")
+    cfg, batch, steps, prompt_len = path_config()
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.model.vocab_size,
+                           size=(batch, prompt_len)).tolist()
+    greedy = eng_mod.SamplingParams(temperature=0.0, eos_token_id=-1)
     refs = reference_backends()
-    check(all(len(p) == prompt_len for p in prompts), "ragged prompts")
-    tf16 = logit_checks(torch, eng, refs, prompts, greedy, steps, TOL_BF16,
-                        "bf16")
-    fused = fused_checks(torch, eng, refs, prompts, greedy, steps,
-                         tf16["tokens"], tf16["tol"])
+    out = {}
+    for (name, quant), letter in zip(PATHS, "abcd"):
+        print(f"== phase 3{letter}: {name} (llama3-8b, quant={quant}, "
+              "INT8 KV)", flush=True)
+        eng, held = build_engine(torch, quant)
+        info = drive(torch, eng, prompts, greedy, steps, name)
+        info["engine_gb"] = held
+        for kname, n in info["launches"].items():
+            if LAUNCHES_FROM.get(kname, "w8a8") == name:
+                results[kname]["launches"] = n
+        tf16 = logit_checks(torch, eng, refs, prompts, greedy, steps,
+                            TOL[(quant, "bf16")], "bf16")
+        info.update(limit_readings(tf16, "bf16"))
+        if quant in ("none", "int8"):
+            info.update(full_checks(torch, eng, refs, prompts, greedy,
+                                    steps, tf16))
+        del eng
+        torch.cuda.empty_cache()
+        if quant == "none":
+            # the same checks with f32 weights and activations (same
+            # seed, unrounded)
+            eng32, _ = build_engine(torch, quant, "float32")
+            tf32 = logit_checks(torch, eng32, refs, prompts, greedy, steps,
+                                TOL[(quant, "f32")], "f32")
+            del eng32
+            torch.cuda.empty_cache()
+            info.update(limit_readings(tf32, "f32"))
+        out[name] = info
+    check(not LIMIT_FAILURES, "; ".join(LIMIT_FAILURES))
+    return out
 
+
+def limit_readings(tf, tag):
+    """The readings of :func:`logit_checks` for the paths line."""
+    info = {f"{tag}_tol_dlogit": tf["tol"],
+            f"{tag}_greedy_agreement": tf["kernels"]["agree"]}
+    for ref in ("kernels", "sdpa", "lowp"):
+        info[f"{tag}_{ref}_max_dlogit"] = tf[ref]["max"]
+    return info
+
+
+def full_checks(torch, eng, refs, prompts, greedy, steps, tf16):
+    """Given the teacher-forced readings ``tf16``: the fused loop at B=4
+    against the step path and the plain fused loop, ``generate_stream``
+    against the fused loop on a lone prompt, and a profile; for w8a8
+    also ``score_nll`` against the plain path."""
+    check(all(len(p) == len(prompts[0]) for p in prompts), "ragged prompts")
+    info = fused_checks(torch, eng, refs, prompts, greedy, steps,
+                        tf16["tokens"], tf16["tol"])
     # the streaming path (prefill + per-token decode, pages allocated as
     # it goes) against the fused loop on the same lone prompt: the same
     # shapes run the same GEMMs and kernels, so the tokens are identical.
@@ -445,48 +869,73 @@ def run_slice(torch, dev, results):
           f"on the same prompt alone: "
           f"{'identical' if stream == alone else 'DIFFERENT'}", flush=True)
     check(stream == alone, f"generate_stream {stream} != fused {alone}")
-    prof = profile_fused(torch, eng, prompts, greedy)
-    del eng
-    torch.cuda.empty_cache()
+    if eng.cfg.quant == "int8":
+        info.update(score_checks(eng, refs, prompts))
+    info.update(profile_fused(torch, eng, prompts, greedy))
+    return info
 
-    # the same checks with f32 weights (same seed, unrounded)
-    cfg32, *_ = slice_config()
-    cfg32.model.dtype = "float32"
-    eng32 = eng_mod.Engine(cfg32, seed=SEED)
-    tf32 = logit_checks(torch, eng32, refs, prompts, greedy, steps, TOL_F32,
-                        "f32")
-    del eng32
-    torch.cuda.empty_cache()
-    out = {"decode_tok_s": decode_tps, "prefill_ms": prefill_s * 1e3,
-           "total_ms": total_s * 1e3, "weight_stream_gb": stream_bytes / 1e9,
-           "weight_stream_floor_ms": floor_ms, **fused, **prof}
-    for tag, tf in (("bf16", tf16), ("f32", tf32)):
-        out[f"{tag}_tol_dlogit"] = tf["tol"]
-        out[f"{tag}_greedy_agreement"] = tf["kernels"]["agree"]
-        for ref in ("kernels", "sdpa", "lowp"):
-            out[f"{tag}_{ref}_max_dlogit"] = tf[ref]["max"]
-    return out
+
+def score_checks(eng, refs, prompts):
+    """``Engine.score_nll`` (B1/B4 and the matmul kernels at prefill
+    shapes) against the plain path on the same sequences."""
+    kern = eng.score_nll(prompts)
+    with recording(eng, refs["plain"]):
+        plain = eng.score_nll(prompts)
+    rel = float(np.abs(kern - plain).max() / np.abs(plain).max())
+    print(f"  score_nll: kernels {np.round(kern, 5).tolist()}, plain "
+          f"{np.round(plain, 5).tolist()}: max relative difference "
+          f"{rel:.3e} (tol {TOL_SCORE:g})", flush=True)
+    check(np.isfinite(kern).all() and rel <= TOL_SCORE,
+          "score_nll differs from the plain path")
+    check(eng.allocator.num_free == eng.cache.num_pages - 1,
+          "score_nll kept pages")
+    return {"score_nll_rel_diff": rel}
 
 
 def _leaves(params, key=""):
-    """``(name, tensor)`` of every tensor in a params tree."""
+    """``(name, tensor)`` of every tensor in a params tree, the values and
+    scales of quantized weights included."""
     if isinstance(params, dict):
         for k, v in params.items():
             yield from _leaves(v, k)
     elif isinstance(params, (tuple, list)):
         for v in params:
             yield from _leaves(v, key)
+    elif dataclasses.is_dataclass(params):          # QTensor, Q4Tensor
+        for f in dataclasses.fields(params):
+            v = getattr(params, f.name)
+            if hasattr(v, "element_size"):
+                yield key, v
     else:
         yield key, params
 
 
 @contextlib.contextmanager
-def recording(eng, backend=None):
-    """Inside: ``eng`` attends through ``backend`` (when given), and the
-    last-position logits ``[B, V]`` (f32, on the card) of every
-    ``model.forward`` call are appended to the list it yields: the
-    prefill's final logits (the prompts fill one chunk exactly), then
-    one row per decode step."""
+def swapped_matmuls(fns):
+    """Inside: ``linear`` reaches ``fns[name]`` in place of the port's
+    ``int8_matmul`` / ``w8_matmul`` / ``w4_matmul`` wrappers."""
+    from importlib import import_module
+
+    mods = {"int8_matmul": import_module(f"{PKG}.ops.int8_matmul"),
+            "w8_matmul": import_module(f"{PKG}.ops.int8_matmul"),
+            "w4_matmul": import_module(f"{PKG}.ops.int4_matmul")}
+    saved = {n: getattr(mods[n], n) for n in fns}
+    for n, f in fns.items():
+        setattr(mods[n], n, f)
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(mods[n], n, f)
+
+
+@contextlib.contextmanager
+def recording(eng, ref=None):
+    """Inside: ``eng`` runs through the reference ``ref`` (a backend class
+    and the matmuls it swaps in) when given, and the last-position logits
+    ``[B, V]`` (f32, on the card) of every ``model.forward`` call are
+    appended to the list it yields: the prefill's final logits (the
+    prompts fill one chunk exactly), then one row per decode step."""
     rows = []
     forward, saved = eng.model.forward, eng.backend
 
@@ -496,21 +945,24 @@ def recording(eng, backend=None):
         return logits, kv
 
     eng.model.forward = recording_forward
-    if backend is not None:
-        eng.backend = backend
-    try:
-        yield rows
-    finally:
-        del eng.model.forward
-        eng.backend = saved
+    with contextlib.ExitStack() as stack:
+        if ref is not None:
+            backend, matmuls = ref
+            eng.backend = backend(eng.cfg, eng.cache)
+            stack.enter_context(swapped_matmuls(matmuls))
+        try:
+            yield rows
+        finally:
+            del eng.model.forward
+            eng.backend = saved
 
 
-def forced_logits(torch, eng, backend, prompts, greedy, steps, feed=None):
-    """Prefill + ``steps - 1`` decode steps through ``backend`` (``None``:
-    the kernels), step ``s`` fed ``feed[:, s]``, else its own greedy
-    token. Returns the logits ``[steps, B, V]`` (f32, host) and the
+def forced_logits(torch, eng, ref, prompts, greedy, steps, feed=None):
+    """Prefill + ``steps - 1`` decode steps through the reference ``ref``
+    (``None``: the kernels), step ``s`` fed ``feed[:, s]``, else its own
+    greedy token. Returns the logits ``[steps, B, V]`` (f32, host) and the
     tokens fed ``[B, steps - 1]``."""
-    with recording(eng, backend) as rows, torch.inference_mode():
+    with recording(eng, ref) as rows, torch.inference_mode():
         state = eng.prefill(prompts, sampling=greedy)
         fed = []
         for s in range(steps - 1):
@@ -536,7 +988,8 @@ def compare(lk, lp):
     return {"diffs": d.max(axis=1).tolist(), "max": float(d.max()),
             "scale": float(np.abs(lp).max()), "agree": float(same.mean()),
             "decided": int(dec.sum()),
-            "decided_agree": float((same & dec).sum() / max(dec.sum(), 1))}
+            "decided_agree": (float((same & dec).sum() / dec.sum())
+                              if dec.any() else 1.0)}
 
 
 def logit_checks(torch, eng, refs, prompts, greedy, steps, frac, tag):
@@ -546,13 +999,12 @@ def logit_checks(torch, eng, refs, prompts, greedy, steps, frac, tag):
     lower-precision control (it must fail, or the limit could not tell a
     kernel computing at the control's precision from a right one). The
     limit is ``frac`` of max|logit|."""
-    mk = lambda name: refs[name](eng.cfg, eng.cache)
     lk, fed = forced_logits(torch, eng, None, prompts, greedy, steps)
-    lp, _ = forced_logits(torch, eng, mk("plain"), prompts, greedy, steps,
+    lp, _ = forced_logits(torch, eng, refs["plain"], prompts, greedy, steps,
                           fed)
     res = {"kernels": compare(lk, lp)}
     for ref in ("sdpa", "lowp"):
-        lr, _ = forced_logits(torch, eng, mk(ref), prompts, greedy, steps,
+        lr, _ = forced_logits(torch, eng, refs[ref], prompts, greedy, steps,
                               fed)
         res[ref] = compare(lr, lp)
     kern = res["kernels"]
@@ -568,10 +1020,13 @@ def logit_checks(torch, eng, refs, prompts, greedy, steps, frac, tag):
           f"overall, {kern['decided_agree']:.3f} over the "
           f"{kern['decided']} (step, row) pairs whose plain top-1 margin "
           f"exceeds 2x their max|dlogit| (tol == 1)", flush=True)
-    check(kern["max"] <= tol, f"{tag} teacher-forced logits beyond the limit")
-    check(res["sdpa"]["max"] <= tol, f"{tag} sdpa reference beyond the limit")
-    check(res["lowp"]["max"] > tol,
-          f"{tag} limit does not flag the {LOWP_NAME[tag]} control")
+    where = f"{tag} ({eng.cfg.quant} weights)"
+    check_limit(kern["max"] <= tol,
+                f"{where} teacher-forced logits beyond the limit")
+    check_limit(res["sdpa"]["max"] <= tol,
+                f"{where} sdpa reference beyond the limit")
+    check_limit(res["lowp"]["max"] > tol,
+                f"{where} limit does not flag the {LOWP_NAME[tag]} control")
     check(kern["decided_agree"] == 1.0, f"{tag} decidable greedy tokens differ")
     # the kernel path's greedy tokens: the prefill's, then each step's
     res["tokens"] = lk.argmax(-1).T.astype(np.int32)          # [B, steps]
@@ -590,7 +1045,7 @@ def fused_checks(torch, eng, refs, prompts, greedy, steps, forced, tol):
     with recording(eng) as rk:
         tk = np.asarray(eng.generate_batch_fused(prompts, steps, greedy))
         lk = torch.stack(rk).cpu().numpy()
-    with recording(eng, refs["plain"](eng.cfg, eng.cache)) as rp:
+    with recording(eng, refs["plain"]) as rp:
         tp = np.asarray(eng.generate_batch_fused(prompts, steps, greedy))
         lp = torch.stack(rp).cpu().numpy()
     n_same = int((tk == forced).sum())
@@ -614,7 +1069,7 @@ def fused_checks(torch, eng, refs, prompts, greedy, steps, forced, tol):
           f"{tol:.4e}); forks (row, step, plain margin, max|dlogit|): "
           f"{json.dumps(shown)} (each margin must be <= 2x its "
           f"max|dlogit|)", flush=True)
-    check(worst <= tol, "fused logits beyond the limit before the fork")
+    check_limit(worst <= tol, "fused logits beyond the limit before the fork")
     check(all(m <= 2 * d for _, _, m, d in forks),
           "fused loops forked on a decidable token")
     return {"fused_pairs_before_fork": compared,
@@ -652,13 +1107,16 @@ def sdpa_paged(q, kv_pages, block_tables, seq_lens, q_offsets,
 
 
 def reference_backends():
-    """The backends the kernel path is held against, each a
-    ``PagedKVBackend`` with its wrappers replaced (the port never uses
-    them): ``plain``, the kernels' plain PyTorch versions; ``sdpa``, plain
-    appends and :func:`sdpa_paged` attention; ``lowp``, the plain versions
-    at a lower precision (``LOWP_NAME``): for f32 queries, q and the
-    output rounded to bf16 (attention done in bf16); for bf16 queries, q
-    rounded to float8_e4m3 (an FP8 attention's query)."""
+    """The references the kernel path is held against, each a
+    ``PagedKVBackend`` with its wrappers replaced and the matmul wrappers
+    it swaps in (the port never uses them): ``plain``, the kernels' plain
+    PyTorch versions; ``sdpa``, plain appends, :func:`sdpa_paged`
+    attention and products computed another way (``torch._int_mm`` for
+    B10, a bf16 cuBLAS product over a widened weight for B11,
+    :func:`w4_matmul_grouped` for B12); ``lowp``, the plain versions with attention at
+    a lower precision (``LOWP_NAME``): for f32 queries, q and the output
+    rounded to bf16 (attention done in bf16); for bf16 queries, q rounded
+    to float8_e4m3 (an FP8 attention's query)."""
     from importlib import import_module
 
     import torch
@@ -666,6 +1124,14 @@ def reference_backends():
     pb = import_module(f"{PKG}.engine.paged_backend")
     pool = import_module(f"{PKG}.kvcache.pool")
     pa = import_module(f"{PKG}.ops.paged_attention")
+    i8 = import_module(f"{PKG}.ops.int8_matmul")
+    i4 = import_module(f"{PKG}.ops.int4_matmul")
+    plain_mm = {"int8_matmul": i8.int8_matmul_plain,
+                "w8_matmul": i8.w8_matmul_plain,
+                "w4_matmul": i4.w4_matmul_plain}
+    library_mm = {"int8_matmul": int8_matmul_library,
+                  "w8_matmul": w8_matmul_library,
+                  "w4_matmul": w4_matmul_grouped}
 
     def append_plain(kv, k, v, layer, positions, block_tables, *,
                      page_size):
@@ -698,7 +1164,8 @@ def reference_backends():
         attend_decode = staticmethod(
             lower_precision(pa.paged_attention_decode_plain))
 
-    return {"plain": Plain, "sdpa": Sdpa, "lowp": LowPrecision}
+    return {"plain": (Plain, plain_mm), "sdpa": (Sdpa, library_mm),
+            "lowp": (LowPrecision, plain_mm)}
 
 
 def profile_fused(torch, eng, prompts, greedy, steps=16):
@@ -724,16 +1191,20 @@ def profile_fused(torch, eng, prompts, greedy, steps=16):
             rows.append((dev_us, e.count, e.key))
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
-    # cuBLAS's GEMM kernels (the projections and the LM head)
+    # the projections and the LM head: cuBLAS's GEMM kernels (dense
+    # weights) or the port's quantized-weight kernels
     gemm_us = sum(r[0] for r in rows
                   if any(s in r[2].lower() for s in ("gemm", "nvjet")))
+    qmm_us = sum(r[0] for r in rows if "qmm::" in r[2])
     kernels_us = sum(r[0] for r in rows
-                     if any(m in r[2] for m in KERNEL_NAMES.values()))
+                     if any(m in r[2] for names in KERNEL_NAMES.values()
+                            for m in names))
     print(f"  profile of one fused run ({steps} tokens): wall "
           f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
           f"({busy_us / wall_us:.3f} of wall), of which cuBLAS GEMMs "
-          f"{gemm_us / 1e3:.1f} ms and the port's kernels "
-          f"{kernels_us / 1e3:.1f} ms; top device time:", flush=True)
+          f"{gemm_us / 1e3:.1f} ms, the port's kernels "
+          f"{kernels_us / 1e3:.1f} ms (its quantized products "
+          f"{qmm_us / 1e3:.1f} ms); top device time:", flush=True)
     for dev_us, count, key in rows[:12]:
         print(f"    {dev_us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}",
               flush=True)
@@ -741,6 +1212,7 @@ def profile_fused(torch, eng, prompts, greedy, steps=16):
             "profile_device_busy_ms": busy_us / 1e3,
             "profile_busy_share": busy_us / wall_us,
             "profile_gemm_ms": gemm_us / 1e3,
+            "profile_quant_matmul_ms": qmm_us / 1e3,
             "profile_port_kernels_ms": kernels_us / 1e3}
 
 
@@ -766,8 +1238,9 @@ def main() -> int:
         from importlib import import_module
 
         plat = import_module(f"{PKG}.utils.platform")
-        import_module(f"{PKG}.ops.paged_attention")
-        import_module(f"{PKG}.ops.kv_append")
+        for mod in ("paged_attention", "kv_append", "int8_matmul",
+                    "int4_matmul"):
+            import_module(f"{PKG}.ops.{mod}")
         check("jax" not in sys.modules, "jax was imported")
 
         print("== phase 1: card and build", flush=True)
@@ -791,9 +1264,14 @@ def main() -> int:
         with torch.inference_mode():
             attention_checks(torch, F_, dev, results)
             append_checks(torch, dev, results)
-        print("== phase 3: the slice (llama3-8b, bf16 weights, INT8 KV)",
-              flush=True)
-        e2e = run_slice(torch, dev, results)
+            matmul_checks(torch, dev, results)
+        e2e = run_paths(torch, dev, results)
+        for name, r in results.items():
+            check(r.get("launches", 0) > 0,
+                  f"{name} was not launched on its path")
+            check(all(r.get(k) is not None for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")),
+                f"{name} lacks a measurement")
         check("jax" not in sys.modules, "jax was imported")
     except Exception as exc:  # every phase failure ends the run
         import traceback
@@ -804,7 +1282,7 @@ def main() -> int:
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tol")
-    print(json.dumps({"slice": e2e}), flush=True)
+    print(json.dumps({"paths": e2e}), flush=True)
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys}
                                   for r in results.values()]}), flush=True)
     print(card, flush=True)                 # nvidia-smi's own line

@@ -20,7 +20,9 @@ import torch
 from ..config import FrameworkConfig
 from ..kvcache.allocator import PageAllocator
 from ..models.model import (DecoderModel, Params, fuse_projections,
-                            init_params, unstack_layers)
+                            init_params, init_params_quantized,
+                            quantize_params, quantize_params_int4,
+                            unstack_layers)
 from ..utils.common import cdiv
 from ..utils.platform import resolve_device
 from .paged_backend import PagedKVBackend
@@ -53,7 +55,11 @@ class Engine:
     ``device``: where the engine runs; ``None`` means ``cuda``, and
     raises if there is none. ``params``: the model's params (stacked or
     unrolled; see ``models/model.py``), else a random init from
-    ``seed``."""
+    ``seed``. Under ``cfg.quant`` (``int8`` w8a8, ``int8-weight``,
+    ``int4``) the matmul weights are INT8-quantized (a random init
+    straight into INT8, one layer at a time), unstacked and fused, and
+    for ``int4`` then repacked to group-wise INT4, as the JAX engine
+    builds them on one device."""
 
     def __init__(self, config: FrameworkConfig,
                  params: Optional[Params] = None, device=None, seed: int = 0):
@@ -62,10 +68,10 @@ class Engine:
         self.cache = config.cache
         self.runtime = config.runtime
         self.device = resolve_device(device)
-        if self.cfg.quant != "none":
-            raise NotImplementedError(
-                f"quant={self.cfg.quant!r}: quantized weights are ROADMAP "
-                "queue B items B10-B12 (w8a8 heads the next slice)")
+        quant = self.cfg.quant
+        if quant == "int4" and self.runtime.scan_layers:
+            raise ValueError("int4 repacking needs unrolled layers "
+                             "(scan_layers=False)")
         rope_len = (None if self.cfg.sliding_window > 0 else
                     self.cache.max_pages_per_seq * self.cache.page_size)
         self.model = DecoderModel(self.cfg, rope_len=rope_len)
@@ -73,12 +79,17 @@ class Engine:
         self.allocator = PageAllocator(self.cache.num_pages)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
-            params = init_params(self.cfg, gen, self.device)
+            init = init_params if quant == "none" else init_params_quantized
+            params = init(self.cfg, gen, self.device)
         self.params = _to_device(params, self.device)
+        if quant != "none":
+            self.params = quantize_params(self.params)  # no-op if already
         if not self.runtime.scan_layers:
             self.params = unstack_layers(self.params)
             if self.runtime.fuse_projections:
                 self.params = fuse_projections(self.params)
+        if quant == "int4":
+            self.params = quantize_params_int4(self.params)
 
     # -- helpers ----------------------------------------------------------
 
@@ -237,6 +248,65 @@ class Engine:
         state.last_tokens = toks
         self._mark_finished(state, toks, sampling)
         return toks
+
+    @torch.inference_mode()
+    def score_nll(self, prompts: Sequence[Sequence[int]],
+                  starts: Optional[Sequence[int]] = None,
+                  mean: bool = True) -> np.ndarray:
+        """Per-sequence NLL of ``tokens[start:]`` given their prefixes,
+        teacher-forced through the paged chunked-prefill path (``starts``
+        defaults to 1, every target); ``mean=False`` gives the sum. Only
+        one page-aligned chunk of logits exists at a time, each reduced
+        on the device to a per-sequence sum; pages are freed on
+        return."""
+        B = len(prompts)
+        lens = np.array([len(p) for p in prompts], np.int32)
+        start_arr = (np.ones((B,), np.int32) if starts is None
+                     else np.asarray(list(starts), np.int32))
+        if lens.min() < 2:
+            raise ValueError("scoring needs at least 2 tokens per sequence")
+        if not ((start_arr >= 1).all() and (start_arr < lens).all()):
+            raise ValueError("starts must leave at least one target per "
+                             "sequence")
+        page = self.cache.page_size
+        max_len = cdiv(int(lens.max()), page) * page
+        chunk = self._chunk(max_len)
+        pages = [self.allocator.alloc_many(cdiv(int(L), page)) for L in lens]
+        try:
+            bt = self._t(self._block_tables(pages))
+            kv = self.backend.init_cache(self.device)
+            tokens = self._prompt_tokens(prompts, max_len)
+            # targets[t] = token t + 1 (the last column is masked off)
+            targets = np.zeros_like(tokens)
+            targets[:, :-1] = tokens[:, 1:]
+            nll_sum = np.zeros((B,), np.float64)
+            cnt = np.zeros((B,), np.int64)
+            for c0 in range(0, max_len, chunk):
+                c1 = min(c0 + chunk, max_len)
+                pos = c0 + np.broadcast_to(np.arange(c1 - c0), (B, c1 - c0))
+                valid = ((pos + 1 < lens[:, None])
+                         & (pos + 1 >= start_arr[:, None]))
+                attn = self.backend.make_attn_fn(
+                    bt, self._t(np.clip(lens, 0, c1)),
+                    self._t(np.full((B,), c0)))
+                logits, kv = self.model.forward(
+                    self.params, self._t(tokens[:, c0:c1], torch.long),
+                    self._t(np.where(pos < lens[:, None], pos, -1),
+                            torch.long), kv, attn)
+                logp = torch.log_softmax(
+                    logits[..., :self.cfg.vocab_size].float(), dim=-1)
+                nll = -logp.gather(-1, self._t(targets[:, c0:c1],
+                                               torch.long)[..., None])[..., 0]
+                nll = torch.where(self._t(valid, torch.bool), nll, 0.0)
+                nll_sum += nll.sum(dim=1).cpu().numpy().astype(np.float64)
+                cnt += valid.sum(axis=1)
+        finally:
+            for ps in pages:
+                for p in ps:
+                    self.allocator.free(p)
+        if not mean:
+            return nll_sum
+        return nll_sum / np.maximum(cnt, 1)
 
     def free(self, state: EngineState) -> None:
         for ps in state.pages:

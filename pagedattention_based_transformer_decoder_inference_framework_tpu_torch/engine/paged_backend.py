@@ -44,11 +44,11 @@ class PagedKVBackend:
         if score_sink is not None:
             raise NotImplementedError(
                 "score_sink (per-page score export): the beam slice, "
-                "ROADMAP queue A item 10")
+                "ROADMAP queue A item 6")
         if gather_axis is not None:
             raise NotImplementedError(
                 "gather_axis (sequence-parallel prefill): ROADMAP queue A "
-                "item 14")
+                "item 10")
         page = self.cache.page_size
         block_tables = block_tables.to(torch.int32)
         seq_lens = seq_lens.to(torch.int32)

@@ -1,5 +1,7 @@
 from .model import (DecoderModel, fuse_projections, init_params,
-                    params_from_jax, unstack_layers)
+                    init_params_quantized, params_from_jax, quantize_params,
+                    quantize_params_int4, unstack_layers)
 
 __all__ = ["DecoderModel", "fuse_projections", "init_params",
-           "params_from_jax", "unstack_layers"]
+           "init_params_quantized", "params_from_jax", "quantize_params",
+           "quantize_params_int4", "unstack_layers"]

@@ -12,8 +12,12 @@ layout) or unrolled (a tuple of per-layer dicts, the engine's layout,
 optionally with fused ``w_qkv`` / ``w_gu``); the forward loops over
 layers in Python either way.
 
-Mixture-of-Experts, quantized weights, the chained megakernel and
-tensor parallelism are later slices (ROADMAP queue A items 12-14).
+Weights may be INT8 (:class:`QTensor`, per-output-channel scales) or
+INT4 (:class:`Q4Tensor`, group-wise scales) as the JAX package makes
+them: :func:`init_params_quantized`, :func:`quantize_params` and
+:func:`quantize_params_int4`. Mixture-of-Experts and Gemma-3's dual-theta
+RoPE (ROADMAP queue A item 8), tensor parallelism (item 10) and the
+chained megakernel (item 11) are later slices.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from ..config import ModelConfig
 from ..ops.common import activation_fn, layernorm, rmsnorm
 from ..ops.linear import linear
 from ..ops.rope import apply_rope, rope_table
+from ..quant.tensor import (Q4Tensor, QTensor, dequantize,
+                            quantize_int4_groupwise, quantize_per_channel)
 from ..utils.common import torch_dtype
 
 Params = Dict[str, Any]
@@ -37,26 +43,40 @@ AttentionFn = Callable[..., Tuple[torch.Tensor, Any]]
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device=None) -> Params:
+                device=None, quantize: bool = False) -> Params:
     """Random-init parameters (stacked layers) on ``device`` from
     ``generator`` (which must live on that device). Weights are
     ``0.02 * N(0, 1)`` drawn in f32 one layer at a time and cast to
-    ``cfg.dtype``, so the f32 transient is one layer's tensor."""
+    ``cfg.dtype``, so the f32 transient is one layer's tensor; with
+    ``quantize`` the matmul weights and the LM head are quantized to INT8
+    per output channel instead of cast (:func:`init_params_quantized`)."""
     if cfg.num_experts > 0:
-        raise NotImplementedError("MoE: ROADMAP queue A item 12")
+        raise NotImplementedError("MoE: ROADMAP queue A item 8")
     device = torch.device(device or generator.device)
     dt = torch_dtype(cfg.dtype)
     D, H, KH, dh, I_ = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
                         cfg.head_dim, cfg.intermediate_size)
     L = cfg.num_layers
 
-    def w(*shape, scale=0.02, stacked=True):
-        out = torch.empty(shape, dtype=dt, device=device)
-        for part in (out if stacked else (out,)):
+    def w(*shape, scale=0.02, stacked=True, quant=False):
+        if quant and quantize:
+            vals = torch.empty(shape, dtype=torch.int8, device=device)
+            scales = torch.empty(shape[:-2] + (1, shape[-1]),
+                                 dtype=torch.float32, device=device)
+            parts = zip(vals, scales) if stacked else ((vals, scales),)
+        else:
+            out = torch.empty(shape, dtype=dt, device=device)
+            parts = ((p, None) for p in (out if stacked else (out,)))
+        for part, part_scales in parts:
             tmp = torch.empty(part.shape, dtype=torch.float32, device=device)
-            tmp.normal_(generator=generator)
-            part.copy_(tmp.mul_(scale))
-        return out
+            tmp.normal_(generator=generator).mul_(scale)
+            if part_scales is None:
+                part.copy_(tmp)
+            else:
+                q = quantize_per_channel(tmp)
+                part.copy_(q.values)
+                part_scales.copy_(q.scales)
+        return QTensor(vals, scales) if quant and quantize else out
 
     def const(value, *shape):
         return torch.full(shape, value, dtype=dt, device=device)
@@ -64,10 +84,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     layers: Params = {
         "ln1_scale": const(1.0, L, D),
         "ln2_scale": const(1.0, L, D),
-        "wq": w(L, D, H * dh),
-        "wk": w(L, D, KH * dh),
-        "wv": w(L, D, KH * dh),
-        "wo": w(L, H * dh, D),
+        "wq": w(L, D, H * dh, quant=True),
+        "wk": w(L, D, KH * dh, quant=True),
+        "wv": w(L, D, KH * dh, quant=True),
+        "wo": w(L, H * dh, D, quant=True),
     }
     if cfg.norm == "layernorm":
         layers["ln1_bias"] = const(0.0, L, D)
@@ -84,12 +104,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         layers["q_norm_scale"] = const(1.0 - cfg.rms_offset, L, dh)
         layers["k_norm_scale"] = const(1.0 - cfg.rms_offset, L, dh)
     if cfg.is_glu:
-        layers["w_gate"] = w(L, D, I_)
-        layers["w_up"] = w(L, D, I_)
-        layers["w_down"] = w(L, I_, D)
+        layers["w_gate"] = w(L, D, I_, quant=True)
+        layers["w_up"] = w(L, D, I_, quant=True)
+        layers["w_down"] = w(L, I_, D, quant=True)
     else:
-        layers["w_up"] = w(L, D, I_)
-        layers["w_down"] = w(L, I_, D)
+        layers["w_up"] = w(L, D, I_, quant=True)
+        layers["w_down"] = w(L, I_, D, quant=True)
         if cfg.use_mlp_bias:
             layers["b_up"] = const(0.0, L, I_)
             layers["b_down"] = const(0.0, L, D)
@@ -104,8 +124,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         params["pos_embedding"] = w(cfg.max_seq_len, D, scale=0.01,
                                     stacked=False)
     if not cfg.tie_embeddings:
-        params["lm_head"] = w(D, cfg.vocab_size, stacked=False)
+        params["lm_head"] = w(D, cfg.vocab_size, stacked=False,
+                                  quant=True)
     return params
+
+
+def init_params_quantized(cfg: ModelConfig, generator: torch.Generator,
+                          device=None) -> Params:
+    """Random init straight into INT8 :class:`QTensor` matmul weights (the
+    JAX package's ``init_params_quantized``): each layer's weight is
+    drawn in f32, quantized per output channel and stored, so the f32
+    transient is one layer's tensor and an INT8 Llama-3-8B never exists
+    in bf16. Norms, biases and the embedding stay in ``cfg.dtype``."""
+    return init_params(cfg, generator, device, quantize=True)
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -119,35 +150,59 @@ def _to_tensor(a, device) -> torch.Tensor:
 
 def params_from_jax(np_params: Params, cfg: ModelConfig,
                     device="cpu") -> Params:
-    """The weight bridge: the JAX package's ``init_params`` pytree, as
-    numpy arrays (stacked layers), to the port's stacked params on
-    ``device``. Only dense weights are bridged; quantized leaves raise."""
+    """The weight bridge: the JAX package's params pytree with numpy
+    leaves (``jax.tree_util.tree_map(np.asarray, params)``) to the port's
+    params on ``device``: stacked layers from ``init_params``, or the JAX
+    engine's unstacked, fused tuple of layer dicts. Quantized leaves are
+    recognised by their attributes (the port cannot import the JAX
+    classes): ``packed``/``scales``/``group``/``bn`` make a
+    :class:`Q4Tensor`, ``values``/``scales`` a :class:`QTensor`."""
     if cfg.num_experts > 0:
-        raise NotImplementedError("MoE: ROADMAP queue A item 12")
+        raise NotImplementedError("MoE: ROADMAP queue A item 8")
 
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
-        if not hasattr(x, "dtype"):
-            raise NotImplementedError(
-                f"{type(x).__name__} leaves (quantized weights): ROADMAP "
-                "queue B items B10-B12")
+        if hasattr(x, "packed"):
+            return Q4Tensor(_to_tensor(x.packed, device),
+                            _to_tensor(x.scales, device), int(x.group),
+                            int(x.bn))
+        if hasattr(x, "values") and hasattr(x, "scales"):
+            return QTensor(_to_tensor(x.values, device),
+                           _to_tensor(x.scales, device))
+        if isinstance(x, (tuple, list)):
+            return tuple(conv(v) for v in x)
         return _to_tensor(x, device)
 
     return conv(np_params)
 
 
 def unstack_layers(params: Params) -> Params:
-    """Stacked ``[L, ...]`` layer weights -> a tuple of per-layer dicts
-    (views; no copy)."""
+    """Stacked ``[L, ...]`` layer weights (dense or :class:`QTensor`) ->
+    a tuple of per-layer dicts (views; no copy)."""
     if isinstance(params["layers"], (tuple, list)):
         return params
+
+    def layer(v, l):
+        if isinstance(v, QTensor):
+            return QTensor(v.values[l], v.scales[l])
+        return v[l]
+
     layers = params["layers"]
     L = next(iter(layers.values())).shape[0]
     out = dict(params)
-    out["layers"] = tuple({k: v[l] for k, v in layers.items()}
+    out["layers"] = tuple({k: layer(v, l) for k, v in layers.items()}
                           for l in range(L))
     return out
+
+
+def _cat_cols(ws):
+    """Concatenate along the output dim; a :class:`QTensor`'s values and
+    per-column scales both concatenate."""
+    if isinstance(ws[0], QTensor):
+        return QTensor(torch.cat([w.values for w in ws], dim=-1),
+                       torch.cat([w.scales for w in ws], dim=-1))
+    return torch.cat(ws, dim=-1)
 
 
 def fuse_projections(params: Params) -> Params:
@@ -160,18 +215,72 @@ def fuse_projections(params: Params) -> Params:
     for lp in params["layers"]:
         lp = dict(lp)
         if "wq" in lp:
-            lp["w_qkv"] = torch.cat([lp.pop("wq"), lp.pop("wk"),
-                                     lp.pop("wv")], dim=-1)
+            lp["w_qkv"] = _cat_cols([lp.pop("wq"), lp.pop("wk"),
+                                     lp.pop("wv")])
         if "bq" in lp:
-            lp["b_qkv"] = torch.cat([lp.pop("bq"), lp.pop("bk"),
-                                     lp.pop("bv")], dim=-1)
+            lp["b_qkv"] = _cat_cols([lp.pop("bq"), lp.pop("bk"),
+                                     lp.pop("bv")])
         if "w_gate" in lp:
-            lp["w_gu"] = torch.cat([lp.pop("w_gate"), lp.pop("w_up")],
-                                   dim=-1)
+            lp["w_gu"] = _cat_cols([lp.pop("w_gate"), lp.pop("w_up")])
         out_layers.append(lp)
     out = dict(params)
     out["layers"] = tuple(out_layers)
     return out
+
+
+#: the matmul weights the quantizers convert (norms, biases and the
+#: embedding stay in float)
+_QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+               "w_qkv", "w_gu")
+
+
+def quantize_params(params: Params) -> Params:
+    """INT8 per-output-channel conversion of every matmul weight (and the
+    LM head) that is not quantized yet, in the stacked or the unstacked /
+    fused layout."""
+
+    def quant_dict(layers: Params) -> Params:
+        layers = dict(layers)
+        for k in _QUANT_KEYS:
+            if isinstance(layers.get(k), torch.Tensor):
+                layers[k] = quantize_per_channel(layers[k])
+        return layers
+
+    out = dict(params)
+    if isinstance(params["layers"], (tuple, list)):
+        out["layers"] = tuple(quant_dict(lp) for lp in params["layers"])
+    else:
+        out["layers"] = quant_dict(params["layers"])
+    if isinstance(params.get("lm_head"), torch.Tensor):
+        out["lm_head"] = quantize_per_channel(params["lm_head"])
+    return out
+
+
+def quantize_params_int4(params: Params) -> Params:
+    """Nibble-packed INT4 with the quantizer's group-wise scales (groups of
+    128 rows) for every matmul weight (and the LM head), on the unstacked / fused layout, one weight at a
+    time and in place, so each original frees as soon as its INT4
+    replacement exists. INT8 weights are dequantized first (the double
+    rounding costs little against INT4's step). One device only: the
+    tensor-parallel splits of the JAX package are ROADMAP queue A item
+    10."""
+    if not isinstance(params["layers"], (tuple, list)):
+        raise ValueError("INT4 conversion runs after unstack_layers")
+
+    def to4(w):
+        if isinstance(w, Q4Tensor):
+            return w
+        if isinstance(w, QTensor):
+            w = dequantize(w)
+        return quantize_int4_groupwise(w)
+
+    for lp in params["layers"]:
+        for k in _QUANT_KEYS:
+            if k in lp:
+                lp[k] = to4(lp.pop(k))
+    if "lm_head" in params:
+        params["lm_head"] = to4(params.pop("lm_head"))
+    return params
 
 
 class DecoderModel:
@@ -182,10 +291,10 @@ class DecoderModel:
 
     def __init__(self, cfg: ModelConfig, rope_len: Optional[int] = None):
         if cfg.num_experts > 0:
-            raise NotImplementedError("MoE: ROADMAP queue A item 12")
+            raise NotImplementedError("MoE: ROADMAP queue A item 8")
         if cfg.rope_local_theta > 0:
             raise NotImplementedError(
-                "dual-theta RoPE (Gemma-3): ROADMAP queue A item 12")
+                "dual-theta RoPE (Gemma-3): ROADMAP queue A item 8")
         self.cfg = cfg
         self.rope_len = rope_len
         self._rope: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -245,20 +354,22 @@ class DecoderModel:
                positions: torch.Tensor, attn_fn: AttentionFn, rope_cs):
         cfg = self.cfg
         B, T, _ = x.shape
+        w8a8 = cfg.quant == "int8"
         h = self._norm(x, lp["ln1_scale"], lp.get("ln1_bias"))
         if "w_qkv" in lp:
             q, k, v = self._split_fused_qkv(
-                linear(h, lp["w_qkv"], lp.get("b_qkv")))
+                linear(h, lp["w_qkv"], lp.get("b_qkv"), w8a8=w8a8))
         else:
-            q = linear(h, lp["wq"], lp.get("bq"))
-            k = linear(h, lp["wk"], lp.get("bk"))
-            v = linear(h, lp["wv"], lp.get("bv"))
+            q = linear(h, lp["wq"], lp.get("bq"), w8a8=w8a8)
+            k = linear(h, lp["wk"], lp.get("bk"), w8a8=w8a8)
+            v = linear(h, lp["wv"], lp.get("bv"), w8a8=w8a8)
         q, k, v = self._heads(
             q, k, v, B, T, positions, rope_cs,
             qk_scales=((lp["q_norm_scale"], lp["k_norm_scale"])
                        if cfg.qk_norm else None))
         attn_out, kv = attn_fn(q, k, v, kv, layer, positions)
-        attn_proj = linear(attn_out.reshape(B, T, -1), lp["wo"])
+        attn_proj = linear(attn_out.reshape(B, T, -1), lp["wo"],
+                           w8a8=w8a8)
         if "bo" in lp:
             attn_proj = attn_proj + lp["bo"].to(attn_proj.dtype)
         if cfg.post_norms:
@@ -269,15 +380,17 @@ class DecoderModel:
         if cfg.is_glu:
             gact = cfg.glu_gate_act
             if "w_gu" in lp:
-                gate, up = linear(h2, lp["w_gu"]).chunk(2, dim=-1)
+                gate, up = linear(h2, lp["w_gu"],
+                                  w8a8=w8a8).chunk(2, dim=-1)
                 gate = activation_fn(gact)(gate.float()).to(up.dtype)
             else:
-                gate = linear(h2, lp["w_gate"], act=gact)
-                up = linear(h2, lp["w_up"])
-            mlp = linear(gate * up, lp["w_down"])
+                gate = linear(h2, lp["w_gate"], act=gact, w8a8=w8a8)
+                up = linear(h2, lp["w_up"], w8a8=w8a8)
+            mlp = linear(gate * up, lp["w_down"], w8a8=w8a8)
         else:
-            mid = linear(h2, lp["w_up"], lp.get("b_up"), act=cfg.activation)
-            mlp = linear(mid, lp["w_down"])
+            mid = linear(h2, lp["w_up"], lp.get("b_up"), act=cfg.activation,
+                         w8a8=w8a8)
+            mlp = linear(mid, lp["w_down"], w8a8=w8a8)
             if "b_down" in lp:
                 mlp = mlp + lp["b_down"].to(mlp.dtype)
         if cfg.post_norms:
@@ -292,12 +405,8 @@ class DecoderModel:
         Returns ``(logits [B, T, V] f32, kv_caches)``."""
         x = self.embed(params, tokens, positions)
         rope_cs = self.rope(x.device)
-        layers = params["layers"]
-        if isinstance(layers, dict):                 # stacked
-            L = next(iter(layers.values())).shape[0]
-            layers = [{k: v[l] for k, v in layers.items()} for l in range(L)]
         kv = kv_caches
-        for l, lp in enumerate(layers):
+        for l, lp in enumerate(unstack_layers(params)["layers"]):
             x, kv = self._block(lp, x, kv, l, positions, attn_fn, rope_cs)
         x = self._norm(x, params["final_norm_scale"],
                        params.get("final_norm_bias"))
@@ -308,7 +417,9 @@ class DecoderModel:
     def logits(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
         """LM head, f32 logits. A tied head contracts the stored operands
         with f32 accumulation; an untied head rounds to the activation
-        dtype first, as the JAX package's ``linear`` does."""
+        dtype first, as the JAX package's ``linear`` does. A quantized
+        head is weight-only INT8 (or INT4) even under w8a8: the JAX model
+        never quantizes the final hidden state."""
         if self.cfg.tie_embeddings:
             out = torch.matmul(hidden.float(),
                                params["embedding"].float().t())

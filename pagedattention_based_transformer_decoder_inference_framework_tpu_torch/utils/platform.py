@@ -3,7 +3,8 @@
 Kernels live in ``csrc/*.cu`` with a plain C interface. At first use each
 source is compiled by ``nvcc`` for ``sm_90a`` into a shared library in
 ``_build/`` beside this package (git-ignored), named by a digest of the
-source and flags so an edited source rebuilds, and loaded with
+source, the shared headers (``csrc/*.cuh``) and the flags so an edited
+source rebuilds, and loaded with
 ``ctypes``. One ``nvcc`` process per source, all started together
 (:func:`build_kernels`). Every C entry point returns
 ``cudaGetLastError()`` after its launch; :meth:`CudaKernel.launch` raises
@@ -57,9 +58,13 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> pathlib.Path:
+    """The built library of ``source``, named by a digest of the source,
+    every shared header (``csrc/*.cuh``) and the flags."""
     src = CSRC / source
+    data = src.read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        data + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 

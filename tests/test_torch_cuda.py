@@ -1,5 +1,6 @@
 """On the card: each hand-written CUDA kernel of the PyTorch port against
-its plain PyTorch version (B1/B2 paged attention, B3/B4 KV appends).
+its plain PyTorch version (B1/B2 paged attention, B3/B4 KV appends,
+B10/B11/B12 quantized-weight products).
 
 These tests import no JAX, so they run where the card is (the suite's
 ``conftest.py`` sets JAX up, hence ``--noconftest``):
@@ -9,7 +10,10 @@ These tests import no JAX, so they run where the card is (the suite's
 Without a CUDA card every test skips (the kernels have no CPU mode).
 Tolerances: f32 queries 1e-4 absolute (the kernel and the plain version
 sum the same terms in another order), bf16 queries 2e-2 (one bf16 step
-of outputs of magnitude ~1); appends are bit-exact.
+of outputs of magnitude ~1); appends are bit-exact. B10 is bit-exact
+(exact s32 sums, the same epilogue); B11/B12 sum f32 in another order:
+f32 outputs within 1e-5 of max|output|, bf16 outputs within one bf16
+step or that (where cancellation leaves an output tiny).
 """
 
 import numpy as np
@@ -18,9 +22,12 @@ import torch
 
 from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.kvcache import pool as tpool
 from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops import (
+    int4_matmul as i4,
+    int8_matmul as i8,
     kv_append as ka,
     paged_attention as pa,
 )
+from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.quant import tensor as qt
 
 PAGE, P, MP, L, LAYER, DH = 8, 32, 6, 2, 1, 128
 
@@ -160,3 +167,114 @@ def test_cuda_append_kernels_skip_out_of_table(cuda, T):
                     torch.where(bt < P, bt, 0))
     for a, b in zip(kv_k, kv_p):
         assert torch.equal(a, b)
+
+
+# (M, K, N): decode rows with K split across blocks, one row, rows past
+# the matrix-vector kernel, and K / N that fit no tile
+MATMUL_SHAPES = [(4, 512, 384), (1, 1024, 256), (17, 300, 200), (5, 70, 36)]
+
+
+def matmul_inputs(M, K, N, device, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((M, K), generator=g)
+    w = torch.randn((K, N), generator=g) * 0.05
+    b = torch.randn((N,), generator=g)
+    return x.to(device), w.to(device), b.to(device)
+
+
+def within(out, ref, out_dtype):
+    d = (out.float() - ref.float()).abs()
+    r = ref.float().abs()
+    if out_dtype == torch.bfloat16:
+        step = torch.exp2(torch.floor(torch.log2(r.clamp_min(2.0 ** -126)))
+                          - 7)
+        tol = torch.maximum(step, 1e-5 * r.max())
+    else:
+        tol = 1e-5 * r.max()
+    return bool((d <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("act", [None, "relu", "gelu", "silu"])
+@pytest.mark.parametrize("M,K,N", MATMUL_SHAPES)
+def test_cuda_int8_matmul_bit_exact(cuda, M, K, N, act, out_dtype):
+    x, w, b = matmul_inputs(M, K, N, cuda)
+    xq, wq = qt.quantize_per_row(x), qt.quantize_per_channel(w)
+    for bias in (None, b):
+        args = (xq.values, xq.scales, wq.values, wq.scales, bias)
+        out = i8.int8_matmul(*args, act=act, out_dtype=out_dtype)
+        ref = i8.int8_matmul_plain(*args, act=act, out_dtype=out_dtype)
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", MATMUL_SHAPES)
+def test_cuda_w8_matmul_matches_plain(cuda, M, K, N, x_dtype, out_dtype):
+    x, w, b = matmul_inputs(M, K, N, cuda, seed=1)
+    wq = qt.quantize_per_channel(w)
+    x = x.to(x_dtype)
+    for bias, act in ((None, None), (b, "gelu")):
+        args = (x, wq.values, wq.scales, bias)
+        out = i8.w8_matmul(*args, act=act, out_dtype=out_dtype)
+        ref = i8.w8_matmul_plain(*args, act=act, out_dtype=out_dtype)
+        assert within(out, ref, out_dtype)
+
+
+# (M, K, N, group): bn 768 (the LM head's width), a K of one group, a
+# width whose block (100) no vector load fits, rows past the
+# matrix-vector kernel
+W4_SHAPES = [(4, 384, 2304, 128), (1, 64, 512, 128), (3, 256, 100, 128),
+             (17, 256, 1024, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N,group", W4_SHAPES)
+def test_cuda_w4_matmul_matches_plain(cuda, M, K, N, group, x_dtype,
+                                      out_dtype):
+    x, w, b = matmul_inputs(M, K, N, cuda, seed=2)
+    q = qt.quantize_int4_groupwise(w, group=group)
+    x = x.to(x_dtype)
+    for bias, act in ((None, None), (b, "silu")):
+        kw = dict(group=q.group, bn=q.bn, act=act, out_dtype=out_dtype)
+        out = i4.w4_matmul(x, q.packed, q.scales, bias, **kw)
+        ref = i4.w4_matmul_plain(x, q.packed, q.scales, bias, **kw)
+        assert within(out, ref, out_dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_matmul_launches_are_counted(cuda):
+    from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.utils import platform
+
+    x, w, _ = matmul_inputs(4, 256, 128, cuda)
+    xq, wq = qt.quantize_per_row(x), qt.quantize_per_channel(w)
+    platform.reset_launch_counts()
+    i8.int8_matmul(xq.values, xq.scales, wq.values, wq.scales)
+    i8.int8_matmul_plain(xq.values, xq.scales, wq.values, wq.scales)
+    i8.w8_matmul(x, wq.values, wq.scales)
+    assert i8.INT8_MATMUL.launches == 1 and i8.W8_MATMUL.launches == 1
+
+
+@pytest.mark.cuda
+def test_cuda_split_k_on_two_streams(cuda):
+    """Split-K launches in flight on two streams at once keep separate
+    tile counters, so each sums its own partials."""
+    x, w, _ = matmul_inputs(4, 4096, 1024, cuda, seed=3)
+    wq = qt.quantize_per_channel(w)
+    assert i8.plan(4, 4096, 1024, True)[1] > 1          # K is split
+    xs = [x, x.flip(0)]
+    refs = [i8.w8_matmul_plain(a, wq.values, wq.scales) for a in xs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for s, a, o in zip(streams, xs, outs):
+            with torch.cuda.stream(s):
+                o.append(i8.w8_matmul(a, wq.values, wq.scales))
+    torch.cuda.synchronize()
+    for o, ref in zip(outs, refs):
+        assert all(within(y, ref, torch.bfloat16) for y in o)

@@ -24,6 +24,8 @@ MODULES = [
     "ops.kv_append", "ops.paged_attention", "kvcache.allocator",
     "kvcache.pool", "engine.backends", "engine.paged_backend",
     "engine.sampling", "engine.engine", "models.model", "cli.cli_app",
+    "quant", "quant.tensor", "quant.eval", "ops.int8_matmul",
+    "ops.int4_matmul",
 ]
 
 
@@ -62,16 +64,32 @@ def test_no_source_mentions_the_jax_package():
 
 
 def test_every_kernel_is_registered_with_its_source():
+    import pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops.int4_matmul  # noqa: F401
+    import pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops.int8_matmul  # noqa: F401
     import pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops.kv_append  # noqa: F401
     import pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops.paged_attention  # noqa: F401
 
     assert sorted(platform.KERNELS) == [
-        "kv_append_decode", "kv_append_prefill", "paged_attention",
-        "paged_attention_decode"]
+        "int8_matmul", "kv_append_decode", "kv_append_prefill",
+        "paged_attention", "paged_attention_decode", "w4_matmul",
+        "w8_matmul"]
+    headers = "".join(p.read_text() for p in platform.CSRC.glob("*.cuh"))
     for k in platform.KERNELS.values():
         src = (platform.CSRC / k.source).read_text()
         assert f"extern \"C\" int {k.symbol}(" in src
-        assert "cudaGetLastError" in src
+        assert "cudaGetLastError" in src + headers
+
+
+def test_a_header_edit_rebuilds_every_source(tmp_path, monkeypatch):
+    """The library name digests the shared headers too."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "a.cu").write_text('#include "h.cuh"')
+    (csrc / "h.cuh").write_text("// one")
+    monkeypatch.setattr(platform, "CSRC", csrc)
+    before = platform.library_path("a.cu")
+    (csrc / "h.cuh").write_text("// two")
+    assert platform.library_path("a.cu") != before
 
 
 def test_device_resolution(monkeypatch):

@@ -221,3 +221,29 @@ def test_stacked_forward_equals_unrolled_fused():
     a, _ = m.forward(tp, tokens, pos, d.init_cache(2, 16), d.attn_fn)
     b, _ = m.forward(tp_fused, tokens, pos, d.init_cache(2, 16), d.attn_fn)
     torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("quant", ["int8", "int8-weight"])
+def test_quantized_forward_dense_backend_matches_jax(quant):
+    """INT8 weights (``jax.jit(quantize_params)``, bridged) through the
+    stacked forward: w8a8 quantizes every projection's input per row,
+    weight-only widens the weights; the LM head is weight-only in both.
+    f32 model dtype, the dense-backend tolerance."""
+    jc, tc = model_cfgs("narrow-dh128")
+    jc.quant = tc.quant = quant
+    jp = jax.jit(jmodel.quantize_params)(jmodel.init_params(
+        jc, jax.random.key(0)))
+    tp = tmodel.params_from_jax(jax.tree_util.tree_map(np.asarray, jp), tc)
+    rng = np.random.default_rng(5)
+    B, T = 2, 7
+    tokens = rng.integers(0, jc.vocab_size, size=(B, T))
+    pos = np.broadcast_to(np.arange(T), (B, T))
+    jd, td = JaxDense(jc, "float32"), DenseKVBackend(tc, "float32")
+    jl, _ = jax.jit(lambda p, t_, q: jmodel.DecoderModel(jc).forward(
+        p, t_, q, jd.init_cache(B, 32), jd.attn_fn))(
+            jp, jnp.asarray(tokens), jnp.asarray(pos))
+    tl, _ = tmodel.DecoderModel(tc).forward(
+        tp, torch.from_numpy(tokens), torch.from_numpy(pos.copy()),
+        td.init_cache(B, 32), td.attn_fn)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4,
+                               rtol=1e-4)
