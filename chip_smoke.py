@@ -13,7 +13,13 @@ and nothing of JAX. Phases:
 2. Each kernel against its plain PyTorch version on the card.
    Attention (B1/B2) and appends (B3/B4) at slice 1's shapes (B=4, KH=8,
    G=4, dh=128, page 64, INT8 pool; prefill T=64, decode seq lens
-   65-128) plus edge cases. The quantized-weight products (B10
+   65-128) plus edge cases; B1 also at the verify chunk (T=9 from
+   offsets off the page grid) and B4 at a page-long chunk off the page
+   grid. B5 (``kv_append_tokens``) at the verify chunk (T=9 from
+   positions 64-127, one lane frozen; INT8 and bf16 pools) and across
+   page ends, bit-exact. B9 (``paged_attention_decode_append``) at B2's
+   shapes: output within B2's tolerance, pool bit-exact. The
+   quantized-weight products (B10
    ``int8_matmul``, B11 ``w8_matmul``, B12 ``w4_matmul``) at every
    Llama-3-8B projection's shape (qkv, wo, gate-up, down) at decode M=4
    and prefill M=256, at the LM head (N=128256, INT4 block width 768),
@@ -23,10 +29,13 @@ and nothing of JAX. Phases:
    library yardstick the port never calls (``scaled_dot_product_attention``
    over a dense gathered copy; ``torch._int_mm``; a bf16 cuBLAS product
    over a pre-widened weight; ``torch._weight_int4pack_mm`` over the same
-   INT4 values repacked with bf16 scales).
+   INT4 values repacked with bf16 scales); B9's yardstick is B3 and B2
+   back to back, the launches it replaces.
 3. The paths, each ``Engine`` on llama3-8b at full width and full depth
-   (32 layers, weights from a seed, INT8 paged KV, page 64, prefill chunk
-   256, the pool ``bench.py`` sizes) running ``generate_batch_fused`` on 4
+   (32 layers; (c) and (d) cut to 8; weights from a seed, INT8 paged KV,
+   page 64, prefill chunk 256, the pool ``bench.py`` sizes, for (b),
+   (e) and (f) the one it sizes for ``--mode spec``) running
+   ``generate_batch_fused`` on 4
    random 64-token prompts for 64 greedy tokens, with every kernel's
    launch count reset just before and checked just after against the
    exact count the loop implies:
@@ -34,8 +43,23 @@ and nothing of JAX. Phases:
    b. w8a8 INT8 weights (``quant="int8"``, ``bench.py``'s default), the
       main path of slice 2: B10 in every projection, B11 in the LM head;
    c. weight-only INT8 (``quant="int8-weight"``): B11 everywhere;
-   d. INT4 (``quant="int4"``): B12 everywhere.
-   On every path the same prompts are then teacher-forced through the
+   d. INT4 (``quant="int4"``): B12 everywhere;
+   e. spec (slice 3), on (b)'s engine: ``generate_batch_spec`` as
+      ``bench.py --mode spec`` runs it (spec_k 8, n-gram 2, prompts of a
+      random 16-token motif tiled, its pool), every verify forward a
+      9-token chunk through B5 and B1; launch counts from the counted
+      verify forwards; decode tokens/s against ``generate_batch_fused``
+      on the same prompts (both timed bare), whose tokens it must follow
+      up to each row's first fork, which must fall on an undecidable
+      token (in separate, recorded runs). Random weights accept no
+      draft, so the same run follows on a copy of the weights that
+      repeats its input token (layers damped, the LM head the
+      embedding's transpose), where drafts are accepted and a verify
+      emits several tokens;
+   f. fused-append (slice 3), on (b)'s engine: ``generate_batch_fused``
+      with ``PBT_FUSED_APPEND=1``, B9 in every decode layer and B2/B3
+      never; tokens held against (b)'s by the same fork rule.
+   On paths (a)-(d) the same prompts are then teacher-forced through the
    kernels, the plain versions, an SDPA reference (SDPA attention and,
    for quantized weights, products computed another way: B10's and
    B11's library products above, B12 one product per K-group) and a
@@ -66,6 +90,7 @@ import time
 
 import numpy as np
 
+T_START = time.perf_counter()
 PKG = "pagedattention_based_transformer_decoder_inference_framework_tpu_torch"
 #: the JAX package's directory, where the TPU kernels the port replaces live
 TPU_PKG = "pagedattention_based_transformer_decoder_inference_framework_tpu"
@@ -80,10 +105,10 @@ SEED = 0
 #: teacher-forced logit limits, as a fraction of max|logit|, by weights
 #: and activation dtype: set from the readings of the sdpa reference
 #: (which must pass) and of the lower-precision control (which must
-#: fail); see PERF.md
+#: fail) at each path's depth; see PERF.md
 TOL = {("none", "bf16"): 0.10, ("none", "f32"): 0.012,
-       ("int8", "bf16"): 0.25, ("int8-weight", "bf16"): 0.10,
-       ("int4", "bf16"): 0.10}
+       ("int8", "bf16"): 0.25, ("int8-weight", "bf16"): 0.06,
+       ("int4", "bf16"): 0.06}
 LOWP_NAME = {"bf16": "fp8-q", "f32": "bf16-attention"}
 #: ``score_nll`` of the kernels against the plain path, relative
 TOL_SCORE = 1e-2
@@ -107,6 +132,12 @@ def check_limit(cond: bool, msg: str) -> None:
     if not cond:
         print(f"  LIMIT FAILED: {msg}", flush=True)
         LIMIT_FAILURES.append(msg)
+
+
+def phase(title: str) -> None:
+    """A phase's header, with the seconds since the script started."""
+    print(f"== phase {title} (at {time.perf_counter() - T_START:.1f} s)",
+          flush=True)
 
 
 def cuda_ms(fn, iters: int = 50, warmup: int = 3) -> float:
@@ -170,12 +201,17 @@ def bound(bytes_moved: float, flops: float, rate: str = "f32"):
 
 B, KH, G, DH, PAGE, L, NUM_PAGES, MP = 4, 8, 4, 128, 64, 2, 80, 5
 H = KH * G
+#: the spec path's draft length and n-gram (bench.py --mode spec)
+SPEC_K, SPEC_NGRAM = 8, 2
 #: each wrapper's CUDA kernels, as the profiler names them
 KERNEL_NAMES = {
     "paged_attention": ("paged_attention_kernel<",),
     "paged_attention_decode": ("paged_attention_decode_kernel<",),
     "kv_append_decode": ("append_decode_kernel",),
     "kv_append_prefill": ("append_prefill_kernel",),
+    "kv_append_tokens": ("append_tokens_kernel",),
+    "paged_attention_decode_append": (
+        "paged_attention_decode_append_kernel<",),
     "int8_matmul": ("qmm::gemv_kernel<0,", "qmm::tiled_kernel<0,"),
     "w8_matmul": ("qmm::gemv_kernel<1,", "qmm::tiled_kernel<1,"),
     "w4_matmul": ("qmm::gemv_kernel<2,", "qmm::tiled_kernel<2,")}
@@ -228,6 +264,11 @@ def attention_checks(torch, F_, dev, results):
          64, [128, 100, 65, 128], [64] * 4, 0, 0.0, 2e-2),
         ("prefill window+softcap f32", "paged_attention", torch.float32,
          torch.int8, 64, [128, 100, 65, 128], [64] * 4, 48, 30.0, 1e-4),
+        # the spec path's verify chunk: T = spec_k + 1 from offsets off
+        # the page grid, seq_lens = q_offsets + T
+        ("verify chunk", "paged_attention", torch.bfloat16, torch.int8,
+         SPEC_K + 1, [79, 102, 120, 136], [70, 93, 111, 127], 0, 0.0,
+         2e-2),
         ("prefill bf16 pool f32", "paged_attention", torch.float32,
          torch.bfloat16, 64, [64, 57, 1, 40], [0] * 4, 0, 0.0, 1e-4),
         ("decode slice", "paged_attention_decode", torch.bfloat16,
@@ -266,28 +307,32 @@ def attention_checks(torch, F_, dev, results):
         check(ok, f"{kname} {name}: error {err} > {tol}")
         if qdt == torch.bfloat16:
             worst[kname] = max(worst[kname], err)
-        if name.endswith("slice"):
-            rows[kname] = (args, common, kern, plain, kv, bt, q, lens, qo,
-                           T, sl)
-    for kname, row in rows.items():
-        args, common, kern, plain, kv, bt, q, lens, qo, T, sl = row
+        if name.endswith("slice") or name == "verify chunk":
+            rows[name] = (kname, args, common, kern, plain, kv, bt, q, lens,
+                          qo, T, sl)
+    # the slice shapes go to the kernels line; the verify chunk is printed
+    for name, row in rows.items():
+        kname, args, common, kern, plain, kv, bt, q, lens, qo, T, sl = row
         ms = device_ms(lambda: kern(*args, **common),
                        match=KERNEL_NAMES[kname])
         call_ms = cuda_ms(lambda: kern(*args, **common))
         plain_ms = device_ms(lambda: plain(*args, **common))
-        # bytes: q in + out, every K/V page and scale the rows can see,
-        # the table and lengths; flops: QK and PV over visible pairs
+        # bytes: q in + out, every K/V row (with its scale) some query
+        # can see, the table and lengths; flops: QK and PV over visible
+        # pairs
         pairs = 0
-        pages = 0
+        seen = 0
         for b in range(B):
             if qo is None:                          # decode
                 pairs += lens[b]
+                seen += lens[b]
             else:
                 for t in range(T):
                     pairs += max(0, min(qo[b] + t + 1, lens[b]))
-            pages += -(-lens[b] // PAGE)
+                seen += max(0, min(qo[b] + T, lens[b]))
         pairs *= KH * G
-        kv_bytes = pages * KH * 2 * PAGE * (DH * kv[0].element_size() + 4)
+        kv_bytes = seen * KH * 2 * (DH * kv[0].element_size()
+                                    + 4 * (len(kv) - 1))
         bytes_moved = 2 * q.numel() * q.element_size() + kv_bytes + 4 * (
             bt.numel() + 2 * B)
         b_ms, b_by = bound(bytes_moved, 4 * DH * pairs,
@@ -308,10 +353,11 @@ def attention_checks(torch, F_, dev, results):
                     & (key < sl[:, None, None].long()))[:, None]
         lib_ms = device_ms(lambda: F_.scaled_dot_product_attention(
             qh, kd, vd, attn_mask=mask, scale=DH ** -0.5))
-        results[kname].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                              bound_by=b_by, library_ms=lib_ms,
-                              max_abs_err=worst[kname], tol=2e-2)
-        print(f"  [{kname}] slice shape, device time: kernel {ms:.4f} ms "
+        if name.endswith("slice"):
+            results[kname].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                  bound_by=b_by, library_ms=lib_ms,
+                                  max_abs_err=worst[kname], tol=2e-2)
+        print(f"  [{kname}] {name}, device time: kernel {ms:.4f} ms "
               f"(one wrapper call {call_ms:.4f} ms wall), plain "
               f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), sdpa "
               f"{lib_ms:.4f} ms", flush=True)
@@ -324,39 +370,64 @@ def append_checks(torch, dev, results):
     pool_mod = import_module(f"{PKG}.kvcache.pool")
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     layer = 1
+
+    def prompt_chunk(c0, lens):         # prompt padding is -1
+        ar = c0 + torch.arange(PAGE, device=dev)[None]
+        lim = torch.tensor(lens, device=dev)[:, None]
+        return torch.where(ar < lim, ar, -1).to(torch.int32)
+
+    def decode_rows(lens):              # the new token sits at len - 1
+        return torch.tensor([[n - 1] for n in lens], dtype=torch.int32,
+                            device=dev)
+
+    def verify(starts, T=SPEC_K + 1):   # T tokens from each lane's start
+        return torch.tensor(            # (None: a frozen lane, all -1)
+            [[-1] * T if s is None else list(range(s, s + T))
+             for s in starts], dtype=torch.int32, device=dev)
+
     cases = [
-        # name, kernel, pool dtype, chunk start (None: decode), seq lens
-        ("prefill slice", "kv_append_prefill", torch.int8, 0, [64] * 4),
-        ("prefill ragged", "kv_append_prefill", torch.int8, 0,
-         [64, 57, 1, 40]),
-        ("prefill 2nd chunk", "kv_append_prefill", torch.int8, 64,
-         [128, 100, 65, 128]),
-        ("prefill bf16 pool", "kv_append_prefill", torch.bfloat16, 0,
-         [64, 57, 1, 40]),
-        ("decode slice", "kv_append_decode", torch.int8, None,
-         [65, 90, 128, 101]),
-        ("decode invalid lane", "kv_append_decode", torch.int8, None,
-         [65, 0, 128, 101]),
-        ("decode f32 pool", "kv_append_decode", torch.float32, None,
-         [1, 64, 200, 320]),
+        # name, kernel, pool dtype, positions [B, T]
+        ("prefill slice", "kv_append_prefill", torch.int8,
+         prompt_chunk(0, [64] * 4)),
+        ("prefill ragged", "kv_append_prefill", torch.int8,
+         prompt_chunk(0, [64, 57, 1, 40])),
+        ("prefill 2nd chunk", "kv_append_prefill", torch.int8,
+         prompt_chunk(64, [128, 100, 65, 128])),
+        ("prefill bf16 pool", "kv_append_prefill", torch.bfloat16,
+         prompt_chunk(0, [64, 57, 1, 40])),
+        # a page-long chunk that starts off the page grid: the TPU's
+        # whole-page B4 would write it to the wrong slots (ROADMAP C)
+        ("page-long chunk off the page grid", "kv_append_prefill",
+         torch.int8, verify([5, 70, None, 130], PAGE)),
+        ("decode slice", "kv_append_decode", torch.int8,
+         decode_rows([65, 90, 128, 101])),
+        ("decode invalid lane", "kv_append_decode", torch.int8,
+         decode_rows([65, 0, 128, 101])),
+        ("decode f32 pool", "kv_append_decode", torch.float32,
+         decode_rows([1, 64, 200, 320])),
+        # the spec path's verify chunk (T = spec_k + 1) from positions
+        # 64-127, one lane frozen; and 5-token chunks across page ends
+        ("verify slice", "kv_append_tokens", torch.int8,
+         verify([70, 93, None, 120])),
+        ("verify bf16 pool", "kv_append_tokens", torch.bfloat16,
+         verify([64, 101, 127, None])),
+        ("verify crossing pages", "kv_append_tokens", torch.int8,
+         verify([62, 127, 190, 255], 5)),
     ]
+    wrappers = {"kv_append_decode": (ka.append_decode, ka.append_decode_plain),
+                "kv_append_prefill": (ka.append_prefill,
+                                      ka.append_prefill_plain),
+                "kv_append_tokens": (ka.append_tokens,
+                                     ka.append_tokens_plain)}
     slice_rows = {}
-    for name, kname, pdt, c0, lens in cases:
+    for name, kname, pdt, pos in cases:
         kv, bt = make_pool(torch, gen, pdt, dev)
         kv = tuple(x.zero_() for x in kv)
-        T = 1 if c0 is None else PAGE
+        T = pos.shape[1]
         k = torch.randn((B, T, KH, DH), generator=gen, device=dev)
         v = torch.randn((B, T, KH, DH), generator=gen, device=dev)
-        if c0 is None:                  # the new token sits at len - 1
-            pos = torch.tensor([[n - 1] for n in lens], dtype=torch.int32,
-                               device=dev)
-        else:                           # prompt padding is -1
-            ar = c0 + torch.arange(T, device=dev)[None]
-            lim = torch.tensor(lens, device=dev)[:, None]
-            pos = torch.where(ar < lim, ar, -1).to(torch.int32)
         news = pool_mod.stack_new_kv(kv, k, v)
-        kern = ka.append_decode if T == 1 else ka.append_prefill
-        plain = ka.append_decode_plain if T == 1 else ka.append_prefill_plain
+        kern, plain = wrappers[kname]
         kv_k = tuple(x.clone() for x in kv)
         kv_p = tuple(x.clone() for x in kv)
         kern(kv_k, news, layer, pos, bt)
@@ -385,7 +456,99 @@ def append_checks(torch, dev, results):
                               max_abs_err=0.0, tol=0.0)
         print(f"  [{kname}] slice shape, device time: kernel {ms:.4f} ms "
               f"(one wrapper call {call_ms:.4f} ms wall), plain "
-              f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by})", flush=True)
+              f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}); no "
+              f"library call writes both leaves", flush=True)
+
+
+def decode_append_checks(torch, dev, results):
+    """B9 against its plain version (the append's plain version, then
+    B2's) at B2's shapes: the output within B2's tolerance, the pool
+    bit-exact; timed beside its yardstick, B3 and B2 back to back (the
+    unfused decode step's two launches)."""
+    from importlib import import_module
+
+    pa = import_module(f"{PKG}.ops.paged_attention")
+    ka = import_module(f"{PKG}.ops.kv_append")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    kname = "paged_attention_decode_append"
+    layer, worst, timed = 1, 0.0, None
+    cases = [
+        # name, q (and new K/V) dtype, pool dtype, seq lens after the
+        # append, window, softcap, tolerance
+        ("decode slice", torch.bfloat16, torch.int8, [65, 90, 128, 101], 0,
+         0.0, 2e-2),
+        ("decode f32", torch.float32, torch.int8, [65, 90, 128, 101], 0, 0.0,
+         1e-4),
+        ("decode window+softcap f32", torch.float32, torch.int8,
+         [65, 90, 128, 300], 40, 30.0, 1e-4),
+        ("decode f32 pool", torch.float32, torch.float32, [1, 64, 200, 320],
+         0, 0.0, 1e-4),
+    ]
+    for name, qdt, pdt, lens, window, softcap, tol in cases:
+        kv, bt = make_pool(torch, gen, pdt, dev)
+        q = torch.randn((B, 1, H, DH), generator=gen, device=dev).to(qdt)
+        k = torch.randn((B, 1, KH, DH), generator=gen, device=dev).to(qdt)
+        v = torch.randn((B, 1, KH, DH), generator=gen, device=dev).to(qdt)
+        sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        pos = (sl - 1)[:, None]
+        common = dict(page_size=PAGE, num_q_heads=H, window=window,
+                      softcap=softcap, scale=DH ** -0.5)
+        kv_k = tuple(x.clone() for x in kv)
+        kv_p = tuple(x.clone() for x in kv)
+        args = (q, kv_k, k, v, bt, sl, pos, layer)
+        out_k, _ = pa.paged_attention_decode_append(*args, **common)
+        out_p, _ = pa.paged_attention_decode_append_plain(
+            q, kv_p, k, v, bt, sl, pos, layer, **common)
+        torch.cuda.synchronize()
+        err = (out_k.float() - out_p.float()).abs().max().item()
+        pool_err = max((a.float() - b.float()).abs().max().item()
+                       for a, b in zip(kv_k, kv_p))
+        ok = (err <= tol and pool_err == 0.0
+              and bool(torch.isfinite(out_k).all()))
+        print(f"  [{kname}] {name}: max|kernel-plain| = {err:.3e} (tol "
+              f"{tol:g}), over the pool {pool_err:.3e} (tol 0, bit-exact) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"{kname} {name}: error {err}, pool {pool_err}")
+        if qdt == torch.bfloat16:
+            worst = max(worst, err)
+        if name.endswith("slice"):
+            timed = (args, common, kv_k, q, k, v, bt, sl, pos, lens)
+    args, common, kv, q, k, v, bt, sl, pos, lens = timed
+    fused = lambda: pa.paged_attention_decode_append(*args, **common)
+    plain = lambda: pa.paged_attention_decode_append_plain(
+        q, kv, k, v, bt, sl, pos, layer, **common)
+
+    def unfused():                      # B3 then B2, as the decode step
+        ka.kv_append(kv, k, v, layer, pos, bt, page_size=PAGE)
+        return pa.paged_attention_decode(q, kv[0], bt, sl, kv[1], layer,
+                                         **common)
+    ms = device_ms(fused, match=KERNEL_NAMES[kname])
+    plain_ms = device_ms(plain)
+    pair_ms = device_ms(unfused, match=KERNEL_NAMES["kv_append_decode"]
+                        + KERNEL_NAMES["paged_attention_decode"])
+    # the wrappers' wall time, host issue included, taken in turns
+    walls = {fused: [], unfused: []}
+    for fn in (fused, unfused, unfused, fused):
+        walls[fn].append(cuda_ms(fn))
+    call_ms, pair_call_ms = (sum(walls[fn]) / 2 for fn in (fused, unfused))
+    # bytes: q in + out, the old rows B9 reads (keys < seq_len - 1) with
+    # their scales, the new K/V in, its pool rows and scales out, the
+    # table, positions and lengths; flops: QK and PV over every key
+    row = KH * 2 * (DH * kv[0].element_size() + 4 * (len(kv) - 1))
+    b_ms, b_by = bound(2 * q.numel() * q.element_size()
+                       + sum(n - 1 for n in lens) * row
+                       + 2 * k.numel() * k.element_size() + B * row
+                       + 4 * (bt.numel() + 2 * B),
+                       4 * DH * H * sum(lens), "bf16")
+    results[kname].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=None, max_abs_err=worst,
+                          tol=2e-2, unfused_ms=pair_ms)
+    print(f"  [{kname}] slice shape, device time: kernel {ms:.4f} ms (one "
+          f"wrapper call {call_ms:.4f} ms wall), plain {plain_ms:.4f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by}); yardstick B3 + B2 back to back "
+          f"{pair_ms:.4f} ms ({pair_call_ms:.4f} ms wall for the two "
+          f"wrapper calls); no library call appends and attends",
+          flush=True)
 
 
 #: Llama-3-8B's projections (name, K, N) as the engine fuses them, and
@@ -684,21 +847,31 @@ def matmul_checks(torch, dev, results):
 
 # -- phase 3: the paths ------------------------------------------------------
 
-#: phase 3's paths: (name, quant), each Llama-3-8B at full width and depth
-PATHS = [("bf16", "none"), ("w8a8", "int8"), ("int8-weight", "int8-weight"),
-         ("int4", "int4")]
+#: phase 3's paths: (name, quant, layers), each Llama-3-8B at full width
+#: and depth (layers None) but (c) and (d), whose depth is cut to 8 so
+#: that the run stays as long as slice 2's once paths (e) and (f) are in
+PATHS = [("bf16", "none", None), ("w8a8", "int8", None),
+         ("int8-weight", "int8-weight", 8), ("int4", "int4", 8)]
 #: the path each kernel's launch count in the kernels line comes from:
-#: slice 2's main path (w8a8), and for B12 the INT4 path
-LAUNCHES_FROM = {"w4_matmul": "int4"}
+#: slice 2's main path (w8a8); B12 the INT4 path, B5 the spec path, B9
+#: the fused-append path
+LAUNCHES_FROM = {"w4_matmul": "int4", "kv_append_tokens": "spec",
+                 "paged_attention_decode_append": "fused-append"}
 
 
-def path_config(quant="none", dtype="bfloat16"):
+def path_config(quant="none", dtype="bfloat16", layers=None, spec_k=0):
+    """A path's configuration; with ``spec_k`` the pool ``bench.py --mode
+    spec`` sizes (bench.py:314-317), ``cdiv(spec_k, page) + 1`` more
+    pages a sequence and ``batch`` times as many more in the pool (the
+    fused loop takes the same pages from it as from the smaller one)."""
     from importlib import import_module
 
     cfgmod = import_module(f"{PKG}.config")
     batch, steps, prompt_len, page = 4, 64, 64, 64
     cfg = cfgmod.FrameworkConfig()
     cfg.model = cfgmod.preset("llama3-8b")
+    if layers is not None:
+        cfg.model.num_layers = layers
     cfg.model.quant = quant
     cfg.model.dtype = dtype
     total_len = prompt_len + steps + 1
@@ -706,34 +879,61 @@ def path_config(quant="none", dtype="bfloat16"):
     # the pool bench.py sizes (bench.py:290-304)
     n_pages = batch * cdiv(total_len, page) + 64
     grain = max(1, 1024 // page)
+    extra = cdiv(spec_k, page) + 1 if spec_k else 0
     cfg.cache = cfgmod.CacheConfig(
-        page_size=page, num_pages=cdiv(n_pages, grain) * grain,
-        max_pages_per_seq=cdiv(total_len, page) + 2, kv_dtype="int8")
+        page_size=page, num_pages=cdiv(n_pages, grain) * grain + batch * extra,
+        max_pages_per_seq=cdiv(total_len, page) + 2 + extra, kv_dtype="int8")
     cfg.runtime.prefill_chunk = 256
     cfg.runtime.max_new_tokens = steps
     return cfg, batch, steps, prompt_len
 
 
-def expected_launches(quant, n_layers, steps):
+def expected_launches(quant, n_layers, steps, fused_append=False):
     """Exact launch counts of one ``generate_batch_fused`` run: one prefill
     chunk (the 64-token prompts fill one) and ``steps - 1`` decode steps,
     each a forward over ``n_layers`` layers of four projections (fused
-    qkv, wo, fused gate-up, down) and then the LM head."""
+    qkv, wo, fused gate-up, down) and then the LM head. With
+    ``fused_append`` (``PBT_FUSED_APPEND=1``) each decode layer launches
+    B9 in place of B3 and B2."""
     decode = n_layers * (steps - 1)
     out = {"paged_attention": n_layers, "kv_append_prefill": n_layers,
            "paged_attention_decode": decode, "kv_append_decode": decode,
-           "int8_matmul": 0, "w8_matmul": 0, "w4_matmul": 0}
-    if quant == "int8":                   # w8a8; the head is weight-only
-        out["int8_matmul"] = 4 * n_layers * steps
-        out["w8_matmul"] = steps
-    elif quant == "int8-weight":
-        out["w8_matmul"] = (4 * n_layers + 1) * steps
-    elif quant == "int4":
-        out["w4_matmul"] = (4 * n_layers + 1) * steps
+           "kv_append_tokens": 0, "paged_attention_decode_append": 0}
+    if fused_append:
+        out.update(paged_attention_decode=0, kv_append_decode=0,
+                   paged_attention_decode_append=decode)
+    out.update(matmul_launches(quant, n_layers, steps))
     return out
 
 
-def drive(torch, eng, prompts, greedy, steps, name):
+def matmul_launches(quant, n_layers, forwards):
+    """B10-B12 launches of ``forwards`` forwards over ``n_layers`` layers
+    (four projections each, then the LM head)."""
+    out = {"int8_matmul": 0, "w8_matmul": 0, "w4_matmul": 0}
+    if quant == "int8":                   # w8a8; the head is weight-only
+        out["int8_matmul"] = 4 * n_layers * forwards
+        out["w8_matmul"] = forwards
+    elif quant == "int8-weight":
+        out["w8_matmul"] = (4 * n_layers + 1) * forwards
+    elif quant == "int4":
+        out["w4_matmul"] = (4 * n_layers + 1) * forwards
+    return out
+
+
+def expected_spec_launches(quant, n_layers, verifies):
+    """Exact launch counts of one ``generate_batch_spec`` run: the prefill
+    chunk, then ``verifies`` verify forwards, each appending its
+    ``spec_k + 1``-token chunk with B5 and attending with B1."""
+    out = {"paged_attention": n_layers * (1 + verifies),
+           "kv_append_prefill": n_layers,
+           "kv_append_tokens": n_layers * verifies,
+           "paged_attention_decode": 0, "kv_append_decode": 0,
+           "paged_attention_decode_append": 0}
+    out.update(matmul_launches(quant, n_layers, 1 + verifies))
+    return out
+
+
+def drive(torch, eng, prompts, greedy, steps, name, fused_append=False):
     """The path's timed ``generate_batch_fused``, with every kernel's
     launch count set to 0 just before and checked just after."""
     from importlib import import_module
@@ -759,7 +959,8 @@ def drive(torch, eng, prompts, greedy, steps, name):
           f"total {total_s * 1e3:.1f} ms, decode {decode_tps:.1f} tok/s "
           f"(B={batch}, {steps} tokens)", flush=True)
     print(f"  launches in that run: {json.dumps(counts)}", flush=True)
-    expect = expected_launches(eng.cfg.quant, eng.cfg.num_layers, steps)
+    expect = expected_launches(eng.cfg.quant, eng.cfg.num_layers, steps,
+                               fused_append)
     check(counts == expect,
           f"{name}: launches {counts}, expected exactly {expect}")
     arr = np.asarray(toks)
@@ -781,25 +982,26 @@ def drive(torch, eng, prompts, greedy, steps, name):
             "weight_stream_floor_ms": floor_ms, "launches": counts}
 
 
-def build_engine(torch, quant, dtype="bfloat16"):
+def build_engine(torch, quant, dtype="bfloat16", layers=None, spec_k=0):
     from importlib import import_module
 
     eng_mod = import_module(f"{PKG}.engine")
-    cfg, *_ = path_config(quant, dtype)
+    cfg, *_ = path_config(quant, dtype, layers, spec_k)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = eng_mod.Engine(cfg, seed=SEED)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated() / 1e9
-    print(f"  engine built (llama3-8b, quant={quant}, {dtype} activations, "
+    print(f"  engine built (llama3-8b, {cfg.model.num_layers} layers, "
+          f"quant={quant}, {dtype} activations, "
           f"weights from seed {SEED}) in {time.perf_counter() - t0:.1f} s; "
           f"holds {held:.2f} GB on the card (peak while building "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB)", flush=True)
     return eng, held
 
 
-def run_paths(torch, dev, results):
+def run_paths(torch, dev, results, card):
     from importlib import import_module
 
     eng_mod = import_module(f"{PKG}.engine")
@@ -807,24 +1009,46 @@ def run_paths(torch, dev, results):
     rng = np.random.default_rng(SEED)
     prompts = rng.integers(0, cfg.model.vocab_size,
                            size=(batch, prompt_len)).tolist()
+    # bench.py --mode spec's prompts (bench.py:408-411): each a random
+    # 16-token motif tiled, drawn after the random prompts as there
+    motifs = rng.integers(0, cfg.model.vocab_size, (batch, 16)).tolist()
+    spec_prompts = [(m * -(-prompt_len // 16))[:prompt_len] for m in motifs]
     greedy = eng_mod.SamplingParams(temperature=0.0, eos_token_id=-1)
     refs = reference_backends()
     out = {}
-    for (name, quant), letter in zip(PATHS, "abcd"):
-        print(f"== phase 3{letter}: {name} (llama3-8b, quant={quant}, "
-              "INT8 KV)", flush=True)
-        eng, held = build_engine(torch, quant)
-        info = drive(torch, eng, prompts, greedy, steps, name)
-        info["engine_gb"] = held
+
+    def launches_from(name, info):
         for kname, n in info["launches"].items():
             if LAUNCHES_FROM.get(kname, "w8a8") == name:
                 results[kname]["launches"] = n
+
+    for (name, quant, layers), letter in zip(PATHS, "abcd"):
+        phase(f"3{letter}: {name} (llama3-8b, quant={quant}, INT8 KV)")
+        # paths (e) and (f) run on path (b)'s engine, built with the pool
+        # bench.py --mode spec sizes
+        eng, held = build_engine(torch, quant, layers=layers,
+                                 spec_k=SPEC_K if quant == "int8" else 0)
+        info = drive(torch, eng, prompts, greedy, steps, name)
+        info["engine_gb"] = held
+        launches_from(name, info)
         tf16 = logit_checks(torch, eng, refs, prompts, greedy, steps,
                             TOL[(quant, "bf16")], "bf16")
         info.update(limit_readings(tf16, "bf16"))
         if quant in ("none", "int8"):
-            info.update(full_checks(torch, eng, refs, prompts, greedy,
-                                    steps, tf16))
+            checks, base = full_checks(torch, eng, refs, prompts, greedy,
+                                       steps, tf16)
+            info.update(checks)
+        if quant == "int8":
+            phase("3e: spec (generate_batch_spec on the w8a8 engine, "
+                  f"spec_k={SPEC_K}, n-gram {SPEC_NGRAM})")
+            out["spec"] = spec_path(torch, eng, spec_prompts, greedy, steps,
+                                    card)
+            launches_from("spec", out["spec"])
+            phase("3f: fused-append (generate_batch_fused on the w8a8 "
+                  "engine with PBT_FUSED_APPEND=1)")
+            out["fused-append"] = fused_append_path(torch, eng, prompts,
+                                                    greedy, steps, card, base)
+            launches_from("fused-append", out["fused-append"])
         del eng
         torch.cuda.empty_cache()
         if quant == "none":
@@ -854,10 +1078,12 @@ def full_checks(torch, eng, refs, prompts, greedy, steps, tf16):
     """Given the teacher-forced readings ``tf16``: the fused loop at B=4
     against the step path and the plain fused loop, ``generate_stream``
     against the fused loop on a lone prompt, and a profile; for w8a8
-    also ``score_nll`` against the plain path."""
+    also ``score_nll`` against the plain path. Returns the readings and
+    the fused loop's kernel run (tokens and logits, as :func:`recording`
+    takes them)."""
     check(all(len(p) == len(prompts[0]) for p in prompts), "ragged prompts")
-    info = fused_checks(torch, eng, refs, prompts, greedy, steps,
-                        tf16["tokens"], tf16["tol"])
+    info, base = fused_checks(torch, eng, refs, prompts, greedy, steps,
+                              tf16["tokens"], tf16["tol"])
     # the streaming path (prefill + per-token decode, pages allocated as
     # it goes) against the fused loop on the same lone prompt: the same
     # shapes run the same GEMMs and kernels, so the tokens are identical.
@@ -871,8 +1097,9 @@ def full_checks(torch, eng, refs, prompts, greedy, steps, tf16):
     check(stream == alone, f"generate_stream {stream} != fused {alone}")
     if eng.cfg.quant == "int8":
         info.update(score_checks(eng, refs, prompts))
-    info.update(profile_fused(torch, eng, prompts, greedy))
-    return info
+    info.update(profile_run(torch, "fused", lambda n: eng.generate_batch_fused(
+        prompts, n, greedy)))
+    return info, base
 
 
 def score_checks(eng, refs, prompts):
@@ -1041,7 +1268,8 @@ def fused_checks(torch, eng, refs, prompts, greedy, steps, forced, tol):
     own bookkeeping: pages allocated up front, device-side seq_lens). The
     plain loop's tokens must equal them until a row's first fork, which
     must fall on a step whose plain top-1 margin is at most twice that
-    step's max|dlogit|; until then the logits stay within ``tol``."""
+    step's max|dlogit|; until then the logits stay within ``tol``.
+    Returns the readings and the kernel run's tokens and logits."""
     with recording(eng) as rk:
         tk = np.asarray(eng.generate_batch_fused(prompts, steps, greedy))
         lk = torch.stack(rk).cpu().numpy()
@@ -1053,27 +1281,218 @@ def fused_checks(torch, eng, refs, prompts, greedy, steps, forced, tol):
           f"teacher-forced kernel path: {n_same} of {tk.size} tokens "
           f"equal (tol == all)", flush=True)
     check(n_same == tk.size, "fused loop tokens differ from the step path")
+    compared, worst, forks = fork_checks(
+        "generate_batch_fused kernels vs plain", tk, tp, lk, lp, f"limit "
+        f"{tol:.4e}")
+    check_limit(worst <= tol, "fused logits beyond the limit before the fork")
+    return ({"fused_pairs_before_fork": compared,
+             "fused_max_dlogit": worst, "fused_forks": len(forks)}, (tk, lk))
+
+
+def fork_checks(what, tk, tr, lk, lr, note=""):
+    """Tokens ``tk`` against the reference run's ``tr`` (``[B, steps]``)
+    row by row up to each row's first fork, with the logits that chose
+    them (``lk``, ``lr``: ``[steps, B, V]`` f32). Each fork must fall on
+    a step whose reference top-1 margin is at most twice the max|dlogit|
+    there (a token the two runs' rounding can decide either way).
+    Returns the (step, row) pairs compared before the forks, their
+    max|dlogit|, and the forks as (row, step, margin, max|dlogit|)."""
     compared, worst, forks = 0, 0.0, []
     for b in range(tk.shape[0]):
-        for s in range(steps):
-            d = float(np.abs(lk[s, b] - lp[s, b]).max())
-            if tk[b, s] != tp[b, s]:
-                top2 = np.sort(lp[s, b])[-2:]
+        for s in range(tk.shape[1]):
+            d = float(np.abs(lk[s, b] - lr[s, b]).max())
+            if tk[b, s] != tr[b, s]:
+                top2 = np.sort(lr[s, b])[-2:]
                 forks.append((b, s, float(top2[1] - top2[0]), d))
                 break
             compared += 1
             worst = max(worst, d)
     shown = [(b, s, round(m, 5), round(d, 5)) for b, s, m, d in forks]
-    print(f"  generate_batch_fused kernels vs plain: {compared} (step, row) "
-          f"pairs before the rows fork, max|dlogit| {worst:.4e} (limit "
-          f"{tol:.4e}); forks (row, step, plain margin, max|dlogit|): "
-          f"{json.dumps(shown)} (each margin must be <= 2x its "
-          f"max|dlogit|)", flush=True)
-    check_limit(worst <= tol, "fused logits beyond the limit before the fork")
+    print(f"  {what}: {compared} (step, row) pairs before the rows fork, "
+          f"max|dlogit| {worst:.4e}{f' ({note})' if note else ''}; forks "
+          f"(row, step, reference margin, max|dlogit|): {json.dumps(shown)}"
+          f" (each margin must be <= 2x its max|dlogit|)", flush=True)
     check(all(m <= 2 * d for _, _, m, d in forks),
-          "fused loops forked on a decidable token")
-    return {"fused_pairs_before_fork": compared,
-            "fused_max_dlogit": worst, "fused_forks": len(forks)}
+          f"{what}: forked on a decidable token")
+    return compared, worst, forks
+
+
+@contextlib.contextmanager
+def forward_calls(eng, record=True):
+    """Inside: one entry per ``model.forward`` call is appended to the
+    list it yields: the call's positions (host) and logits (f32, on the
+    card) with ``record``, else ``None`` (a count that adds no copy and
+    no sync)."""
+    calls = []
+    forward = eng.model.forward
+
+    def counted_forward(params, tokens, positions, kv, attn):
+        logits, kv = forward(params, tokens, positions, kv, attn)
+        calls.append((positions.cpu().numpy(), logits.float())
+                     if record else None)
+        return logits, kv
+
+    eng.model.forward = counted_forward
+    try:
+        yield calls
+    finally:
+        del eng.model.forward
+
+
+@contextlib.contextmanager
+def token_repeating(eng, damp=2e-3):
+    """Inside: ``eng`` runs a copy of its w8a8 weights that repeats its
+    input token, so that drafts are accepted: every layer's attention
+    and MLP output scaled by ``damp`` (through the ``wo`` and ``w_down``
+    scales; the INT8 values are shared) and the LM head the embedding's
+    transpose (weight-only INT8, as the w8a8 head is). At Llama-3-8B's
+    width the 32 damped layers leave the final hidden state close to the
+    input token's embedding, whose own logit then leads by a wide
+    margin."""
+    from importlib import import_module
+
+    qt = import_module(f"{PKG}.quant.tensor")
+    saved = eng.params
+    params = dict(saved)
+    params["layers"] = tuple(
+        dict(lp, **{k: qt.QTensor(lp[k].values, lp[k].scales * damp)
+                    for k in ("wo", "w_down")})
+        for lp in saved["layers"])
+    params["lm_head"] = qt.quantize_per_channel(saved["embedding"].t())
+    eng.params = params
+    try:
+        yield
+    finally:
+        eng.params = saved
+
+
+def spec_path(torch, eng, prompts, greedy, steps, card):
+    """Path (e): :func:`spec_run` at ``bench.py --mode spec``'s
+    configuration, then on the same engine with token-repeating weights
+    (:func:`token_repeating`), where the verify chunk accepts drafts and
+    advances by several tokens; a profile of one spec run."""
+    info = spec_run(torch, eng, prompts, greedy, steps, card,
+                    "random weights")
+    with token_repeating(eng):
+        rep = spec_run(torch, eng, prompts, greedy, steps, card,
+                       "token-repeating weights")
+    check(rep["verify_forwards"] < steps - 1,
+          "the token-repeating spec run accepted no draft")
+    info.update({f"repeating_{k}": v for k, v in rep.items()
+                 if k != "launches"})
+    info.update(profile_run(torch, "spec", lambda n: eng.generate_batch_spec(
+        prompts, n, greedy, spec_k=SPEC_K, ngram=SPEC_NGRAM)))
+    return info
+
+
+def spec_run(torch, eng, prompts, greedy, steps, card, label):
+    """``generate_batch_spec`` and ``generate_batch_fused`` on the same
+    prompts, each timed bare; the spec run's launch counts checked
+    exactly against its counted verify forwards. Then one untimed run
+    of each that records the logits behind every token, and the spec
+    tokens held against the fused ones by the fork rule."""
+    from importlib import import_module
+
+    plat = import_module(f"{PKG}.utils.platform")
+    batch, L = len(prompts), len(prompts[0])
+    spec = lambda n: eng.generate_batch_spec(prompts, n, greedy,
+                                             spec_k=SPEC_K, ngram=SPEC_NGRAM)
+    fused = lambda n: eng.generate_batch_fused(prompts, n, greedy)
+
+    def timed(fn, n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(n)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    spec(4)                                                  # warm-ups
+    fused(4)
+    prefill_s = timed(fused, 1)[1]                           # prefill only
+    fused_s = timed(fused, steps)[1]
+    with forward_calls(eng, record=False) as calls:
+        plat.reset_launch_counts()
+        toks, spec_s = timed(spec, steps)
+        counts = {n: k.launches for n, k in plat.KERNELS.items()}
+    check(eng.allocator.num_free == eng.cache.num_pages - 1,
+          "generate_batch_spec kept pages")
+    verifies = len(calls) - 1                     # the first is the prefill
+    print(f"  [{label}] launches in the timed spec run: "
+          f"{json.dumps(counts)}", flush=True)
+    expect = expected_spec_launches(eng.cfg.quant, eng.cfg.num_layers,
+                                    verifies)
+    check(counts == expect,
+          f"spec ({label}): launches {counts}, expected exactly {expect}")
+    check(all(len(r) == steps for r in toks), "spec rows are not full")
+    with recording(eng) as rows:
+        tf = np.asarray(fused(steps))
+    lf = torch.stack(rows).cpu().numpy()                 # [steps, B, V]
+    with forward_calls(eng) as rec:
+        ts = np.asarray(spec(steps))
+    # the logits that chose each emitted token: the prefill's last
+    # position, then each verify position i (at absolute position p,
+    # choosing token p + 1); a later verify overwrites the candidates an
+    # earlier one did not emit
+    ls = torch.empty((steps, batch, eng.cfg.vocab_size),
+                     device=rec[0][1].device)
+    ls[0] = rec[0][1][:, L - 1]
+    for pos, logits in rec[1:]:
+        for b in range(batch):
+            for i in range(pos.shape[1]):
+                e = int(pos[b, i]) + 1 - L
+                if pos[b, i] >= 0 and 0 < e < steps:
+                    ls[e, b] = logits[b, i]
+    compared, worst, forks = fork_checks(
+        f"[{label}] generate_batch_spec vs generate_batch_fused", ts, tf,
+        ls.cpu().numpy(), lf)
+    tokens = batch * (steps - 1)
+    spec_tps = tokens / (spec_s - prefill_s)
+    fused_tps = tokens / (fused_s - prefill_s)
+    print(f"  [{label}] {verifies} verify forwards (T={SPEC_K + 1}) for "
+          f"{steps - 1} tokens a sequence after the first: "
+          f"{(steps - 1) / verifies:.3f} tokens per verify forward per "
+          f"sequence ({tokens / verifies:.2f} for the batch of {batch}; "
+          f"the recorded run took {len(rec) - 1})", flush=True)
+    print(f"  [{label}] decode tok/s on the motif prompts: spec "
+          f"{spec_tps:.1f} (total {spec_s * 1e3:.1f} ms), "
+          f"generate_batch_fused {fused_tps:.1f} (total "
+          f"{fused_s * 1e3:.1f} ms), prefill {prefill_s * 1e3:.2f} ms; "
+          f"spec/fused {spec_tps / fused_tps:.3f} ({card})", flush=True)
+    return {"verify_forwards": verifies,
+            "tokens_per_verify_per_seq": (steps - 1) / verifies,
+            "spec_decode_tok_s": spec_tps, "fused_decode_tok_s": fused_tps,
+            "prefill_ms": prefill_s * 1e3, "spec_total_ms": spec_s * 1e3,
+            "fused_total_ms": fused_s * 1e3, "launches": counts,
+            "spec_pairs_before_fork": compared, "spec_max_dlogit": worst,
+            "spec_forks": len(forks)}
+
+
+def fused_append_path(torch, eng, prompts, greedy, steps, card, base):
+    """Path (f): path (b)'s ``generate_batch_fused`` with
+    ``PBT_FUSED_APPEND=1`` set around the call, so every decode layer runs
+    B9 in place of B3 and B2: exact launch counts, and tokens held by the
+    fork rule against path (b)'s recorded kernel run ``base`` (tokens,
+    logits) on the same engine and prompts."""
+    saved = os.environ.get("PBT_FUSED_APPEND")
+    os.environ["PBT_FUSED_APPEND"] = "1"
+    try:
+        info = drive(torch, eng, prompts, greedy, steps, "fused-append",
+                     fused_append=True)
+        with recording(eng) as rows:
+            tf = np.asarray(eng.generate_batch_fused(prompts, steps, greedy))
+        lf = torch.stack(rows).cpu().numpy()
+    finally:
+        if saved is None:
+            del os.environ["PBT_FUSED_APPEND"]
+        else:
+            os.environ["PBT_FUSED_APPEND"] = saved
+    compared, worst, forks = fork_checks(
+        "fused append vs path (b)", tf, base[0], lf, base[1])
+    print(f"  fused-append decode {info['decode_tok_s']:.1f} tok/s ({card})",
+          flush=True)
+    info.update(pairs_before_fork=compared, max_dlogit=worst,
+                forks=len(forks))
+    return info
 
 
 def sdpa_paged(q, kv_pages, block_tables, seq_lens, q_offsets,
@@ -1154,6 +1573,8 @@ def reference_backends():
         append = staticmethod(append_plain)
         attend = staticmethod(pa.paged_attention_plain)
         attend_decode = staticmethod(pa.paged_attention_decode_plain)
+        attend_decode_append = staticmethod(
+            pa.paged_attention_decode_append_plain)
 
     class Sdpa(Plain):
         attend = staticmethod(sdpa_paged)
@@ -1168,9 +1589,9 @@ def reference_backends():
             "lowp": (LowPrecision, plain_mm)}
 
 
-def profile_fused(torch, eng, prompts, greedy, steps=16):
-    """Device busy share and time by kernel over one fused run, from
-    ``torch.profiler`` (CUPTI)."""
+def profile_run(torch, label, run, steps=16):
+    """Device busy share and time by kernel over one ``run(steps)`` (a
+    generation loop), from ``torch.profiler`` (CUPTI)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1178,7 +1599,7 @@ def profile_fused(torch, eng, prompts, greedy, steps=16):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.generate_batch_fused(prompts, steps, greedy)
+        run(steps)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []
@@ -1199,7 +1620,7 @@ def profile_fused(torch, eng, prompts, greedy, steps=16):
     kernels_us = sum(r[0] for r in rows
                      if any(m in r[2] for names in KERNEL_NAMES.values()
                             for m in names))
-    print(f"  profile of one fused run ({steps} tokens): wall "
+    print(f"  profile of one {label} run ({steps} tokens): wall "
           f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
           f"({busy_us / wall_us:.3f} of wall), of which cuBLAS GEMMs "
           f"{gemm_us / 1e3:.1f} ms, the port's kernels "
@@ -1243,7 +1664,7 @@ def main() -> int:
             import_module(f"{PKG}.ops.{mod}")
         check("jax" not in sys.modules, "jax was imported")
 
-        print("== phase 1: card and build", flush=True)
+        phase("1: card and build")
         smi = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -1260,12 +1681,13 @@ def main() -> int:
                        "source": f"{PKG}/csrc/{k.source}",
                        "replaces": f"{TPU_PKG}/{k.replaces}"}
                    for n, k in plat.KERNELS.items()}
-        print("== phase 2: kernels vs plain versions", flush=True)
+        phase("2: kernels vs plain versions")
         with torch.inference_mode():
             attention_checks(torch, F_, dev, results)
             append_checks(torch, dev, results)
+            decode_append_checks(torch, dev, results)
             matmul_checks(torch, dev, results)
-        e2e = run_paths(torch, dev, results)
+        e2e = run_paths(torch, dev, results, card)
         for name, r in results.items():
             check(r.get("launches", 0) > 0,
                   f"{name} was not launched on its path")
@@ -1280,8 +1702,12 @@ def main() -> int:
         print(f"FAILED: {exc}", file=sys.stderr)
         return 1
 
+    # unfused_ms: the device time of the port's own launches a kernel
+    # fuses (B9: B3 then B2), null for a kernel that fuses none
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "tol")
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "unfused_ms", "tol")
+    phase("4: summary")
     print(json.dumps({"paths": e2e}), flush=True)
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys}
                                   for r in results.values()]}), flush=True)

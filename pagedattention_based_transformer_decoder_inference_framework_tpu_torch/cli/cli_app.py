@@ -1,18 +1,25 @@
-"""Command line of the PyTorch port: ``generate`` and ``stream``.
+"""Command line of the PyTorch port: ``generate``, ``stream`` and
+``batch``.
 
     python -m pagedattention_based_transformer_decoder_inference_framework_tpu_torch.cli.cli_app \\
         generate --model llama-tiny --prompt "hello" --max-new-tokens 8
+    python -m ...cli.cli_app batch --input prompts.txt --output out.jsonl \\
+        --temperature 0 --spec-k 4
 
 Runs on ``cuda`` by default and raises without a card; ``--device cpu``
 runs the kernels' plain PyTorch versions. Weights are a random init
-from ``--seed`` (checkpoint import is a later slice). The JAX package's
-other subcommands (chat, log, batch, rerank, build_jsonl, serve) wait
-for the slices that port what they drive.
+from ``--seed`` (checkpoint import is a later slice). ``batch`` takes
+the speculative path (``Engine.generate_batch_spec``) when
+``runtime.spec_k > 0`` (``--spec-k``) and the request is greedy with no
+penalties or stop ids. The JAX package's other subcommands (chat, log,
+rerank, build_jsonl, serve) wait for the slices that port what they
+drive.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 from typing import List, Optional
 
@@ -41,7 +48,6 @@ def add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--stop-token-ids", type=int, nargs="*", default=None,
                    help="token ids that end generation like EOS")
     p.add_argument("--seed", type=int, default=None)
-    p.add_argument("--prompt", required=True)
 
 
 def build_config(args) -> FrameworkConfig:
@@ -52,7 +58,7 @@ def build_config(args) -> FrameworkConfig:
         cfg.tokenizer = args.tokenizer
     for key in ("max_new_tokens", "temperature", "top_k", "top_p",
                 "min_p", "repetition_penalty", "presence_penalty",
-                "frequency_penalty"):
+                "frequency_penalty", "spec_k"):
         v = getattr(args, key, None)
         if v is not None:
             setattr(cfg.runtime, key, v)
@@ -87,6 +93,28 @@ def cmd_generate(args) -> int:
     return 0
 
 
+def cmd_batch(args) -> int:
+    cfg, tok, eng = _setup(args)
+    with open(args.input) as f:
+        prompts = [line.rstrip("\n") for line in f if line.strip()]
+    ids = [tok.encode(p) for p in prompts]
+    sp = sampling(cfg, tok, args.stop_token_ids)
+    if (cfg.runtime.spec_k > 0 and sp.mode().greedy
+            and not (sp.has_penalties or sp.stop_token_ids
+                     or sp.logit_bias)):
+        # prompt-lookup speculative decoding (greedy-exact, engine/spec.py)
+        outs = eng.generate_batch_spec(ids, cfg.runtime.max_new_tokens, sp)
+    else:
+        outs = eng.generate_batch(ids, cfg.runtime.max_new_tokens, sp,
+                                  seed=args.seed)
+    with open(args.output, "w") as f:
+        for p, o in zip(prompts, outs):
+            f.write(json.dumps({"prompt": p, "completion": tok.decode(o)},
+                               ensure_ascii=False) + "\n")
+    print(f"wrote {len(outs)} completions to {args.output}")
+    return 0
+
+
 def cmd_stream(args) -> int:
     cfg, tok, eng = _setup(args)
     for t in eng.generate_stream(tok.encode(args.prompt),
@@ -104,10 +132,20 @@ def main(argv: Optional[List[str]] = None) -> int:
     sub = ap.add_subparsers(dest="cmd", required=True)
     p = sub.add_parser("generate", help="one-shot generation")
     add_common(p)
+    p.add_argument("--prompt", required=True)
     p.set_defaults(fn=cmd_generate)
     p = sub.add_parser("stream", help="token-at-a-time streaming")
     add_common(p)
+    p.add_argument("--prompt", required=True)
     p.set_defaults(fn=cmd_stream)
+    p = sub.add_parser("batch", help="file of prompts -> JSONL")
+    add_common(p)
+    p.add_argument("--input", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--spec-k", type=int, default=None,
+                   help="runtime.spec_k: draft tokens per speculative "
+                        "step (0 = plain decode)")
+    p.set_defaults(fn=cmd_batch)
     args = ap.parse_args(argv)
     return args.fn(args)
 

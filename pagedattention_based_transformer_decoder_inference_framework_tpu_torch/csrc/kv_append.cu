@@ -1,6 +1,6 @@
 // In-place KV appends into the [L, 2, KH, P, page, D] pool, for Hopper.
 //
-// Two kernels, one per Pallas kernel of the JAX package they replace:
+// Three kernels, one per Pallas kernel of the JAX package they replace:
 //
 //   pbt_kv_append_decode   <- ops/kv_append.py::_append_tokens_rmw_batch
 //                             (_rmw_batch_kernel): T = 1, one row per
@@ -8,8 +8,14 @@
 //   pbt_kv_append_prefill  <- ops/kv_append.py::_append_pages_pallas
 //                             (_prefill_kernel + the scales scan): a
 //                             page-aligned chunk, T % page == 0.
+//   pbt_kv_append_tokens   <- ops/kv_append.py::_append_tokens_rmw
+//                             (_rmw_kernel): any T > 1 chunk of
+//                             consecutive positions, such as the
+//                             speculative verify chunk (T = spec_k + 1),
+//                             which starts anywhere in a page and may
+//                             cross into the next.
 //
-// Both write token t of sequence b (position pos = positions[b, t]) to
+// All write token t of sequence b (position pos = positions[b, t]) to
 // slot pos % page of page block_tables[b, pos / page]: its D values at
 // [layer, kv, h, page_id, slot, :] and, for an INT8 pool, its f32 scale at
 // flat slot page_id * page + slot of the scales leaf [L, 2, KH, R, 128]
@@ -31,10 +37,14 @@
 //
 // What bounds them on the H100: bytes, and at the slice's shapes very few
 // of them (decode: 4 sequences x 2 x 8 heads x 128 B of INT8 values plus
-// 4 B scales per layer), so launch latency is the whole cost. Design: one
-// block per (sequence or chunk page, K/V, KV head), 16-byte vector copies
-// where the row allows, plain byte copies otherwise; no read-modify-write,
-// since a row is a whole number of bytes.
+// 4 B scales per layer; a verify chunk nine times that), so launch latency
+// is the whole cost. Design: one block per (sequence or chunk page, K/V,
+// KV head), 16-byte vector copies where the row allows, plain byte copies
+// otherwise; no read-modify-write, since a row is a whole number of bytes
+// and each scale its own 4-byte store. The TPU kernels move tile-sized
+// slabs through VMEM and patch them (hence the slab-overlap rules of
+// _rmw_kernel); here each token's row and scale are stored directly, so
+// tokens of one chunk that share a page or a scales row need no care.
 //
 // Every entry point returns cudaGetLastError() after its launch.
 
@@ -107,9 +117,29 @@ append_decode_kernel(Pool p, const uint8_t* __restrict__ news,
     *scale_at(p, kv, h, pid, slot) = new_scales[src_row];
 }
 
-// grid (B * T / page, 2, KH); news [B, 2, KH, T, row_bytes], new scales
-// [B, 2, KH, T]. Block (b, chunk page c) writes tokens c*page .. c*page +
-// page - 1 of sequence b; each warp copies one token row at a time.
+// One warp writes token t of sequence b's chunk (news [B, 2, KH, T,
+// row_bytes], new scales [B, 2, KH, T]) for (kv, h), skipping it as the
+// header says.
+__device__ __forceinline__ void append_token(
+    const Pool& p, const uint8_t* news, const float* new_scales,
+    const int* block_tables, const int* positions, int b, int kv, int h,
+    int t, int T, int mp, int lane) {
+  const int pos = positions[static_cast<long long>(b) * T + t];
+  if (pos < 0) return;
+  const int pid = page_of(p, block_tables, b, pos, mp);
+  if (pid < 0) return;
+  const int slot = pos % p.page;
+  const long long src_row =
+      ((static_cast<long long>(b) * 2 + kv) * p.KH + h) * T + t;
+  copy_row(p.vals + pool_row(p, kv, h, pid, slot) * p.row_bytes,
+           news + src_row * p.row_bytes, p.row_bytes, lane, 32);
+  if (p.scales != nullptr && lane == 0)
+    *scale_at(p, kv, h, pid, slot) = new_scales[src_row];
+}
+
+// grid (B * T / page, 2, KH). Block (b, chunk page c) writes tokens
+// c*page .. c*page + page - 1 of sequence b; each warp copies one token
+// row at a time.
 __global__ void __launch_bounds__(kThreads)
 append_prefill_kernel(Pool p, const uint8_t* __restrict__ news,
                       const float* __restrict__ new_scales,
@@ -117,22 +147,25 @@ append_prefill_kernel(Pool p, const uint8_t* __restrict__ news,
                       const int* __restrict__ positions, int T, int mp) {
   const int n_chunk = T / p.page;
   const int b = blockIdx.x / n_chunk, c = blockIdx.x % n_chunk;
-  const int kv = blockIdx.y, h = blockIdx.z;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long src_head = ((static_cast<long long>(b) * 2 + kv) * p.KH + h);
-  for (int s = warp; s < p.page; s += kThreads / 32) {
-    const int t = c * p.page + s;
-    const int pos = positions[static_cast<long long>(b) * T + t];
-    if (pos < 0) continue;
-    const int pid = page_of(p, block_tables, b, pos, mp);
-    if (pid < 0) continue;
-    const int slot = pos % p.page;
-    const long long src_row = src_head * T + t;
-    copy_row(p.vals + pool_row(p, kv, h, pid, slot) * p.row_bytes,
-             news + src_row * p.row_bytes, p.row_bytes, lane, 32);
-    if (p.scales != nullptr && lane == 0)
-      *scale_at(p, kv, h, pid, slot) = new_scales[src_row];
-  }
+  for (int s = warp; s < p.page; s += kThreads / 32)
+    append_token(p, news, new_scales, block_tables, positions, b,
+                 blockIdx.y, blockIdx.z, c * p.page + s, T, mp, lane);
+}
+
+// grid (B, 2, KH): block (b, kv, h) writes all T tokens of sequence b's
+// chunk for (kv, h), one token row per warp at a time. Positions are
+// consecutive in the engine's verify chunk, but nothing here needs them
+// to be: every token is addressed by its own position.
+__global__ void __launch_bounds__(kThreads)
+append_tokens_kernel(Pool p, const uint8_t* __restrict__ news,
+                     const float* __restrict__ new_scales,
+                     const int* __restrict__ block_tables,
+                     const int* __restrict__ positions, int T, int mp) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int t = warp; t < T; t += kThreads / 32)
+    append_token(p, news, new_scales, block_tables, positions, blockIdx.x,
+                 blockIdx.y, blockIdx.z, t, T, mp, lane);
 }
 
 }  // namespace
@@ -166,6 +199,22 @@ extern "C" int pbt_kv_append_prefill(void* pool, float* scales,
                layer, scale_stride};
   append_prefill_kernel<<<dim3(B * (T / page), 2, KH), kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
+      p, static_cast<const uint8_t*>(news), new_scales, block_tables,
+      positions, T, mp);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int pbt_kv_append_tokens(void* pool, float* scales,
+                                    const void* news, const float* new_scales,
+                                    const int* block_tables,
+                                    const int* positions, int B, int T,
+                                    int KH, int P, int page, int row_bytes,
+                                    int mp, int layer,
+                                    long long scale_stride, void* stream) {
+  const Pool p{static_cast<uint8_t*>(pool), scales, KH, P, page, row_bytes,
+               layer, scale_stride};
+  append_tokens_kernel<<<dim3(B, 2, KH), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
       p, static_cast<const uint8_t*>(news), new_scales, block_tables,
       positions, T, mp);
   return static_cast<int>(cudaGetLastError());

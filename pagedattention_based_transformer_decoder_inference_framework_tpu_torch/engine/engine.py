@@ -1,12 +1,14 @@
 """Inference engine: chunked prefill + decode steps over the paged KV
-pool, streaming generation, and the whole-batch fused generation loop.
+pool, streaming and static-batch generation, the whole-batch fused
+generation loop and its speculative (prompt-lookup) form.
 
 The JAX package's ``engine/engine.py`` for one device. PyTorch runs
 eagerly, so what JAX compiles into one program per step (or, for
-:meth:`Engine.generate_batch_fused`, one program per request batch) is
-a Python loop here with the same semantics; the pool is updated in
-place. Sampling stays on the device, and the fused loop reads tokens
-back to the host once, at its end.
+:meth:`Engine.generate_batch_fused` and
+:meth:`Engine.generate_batch_spec`, one program per request batch) is a
+Python loop here with the same semantics; the pool is updated in place.
+Sampling stays on the device; the fused loop reads tokens back to the
+host once, at its end, and the speculative loop one flag per iteration.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from ..utils.platform import resolve_device
 from .paged_backend import PagedKVBackend
 from .sampling import SamplingParams, bump_counts, hit_stop, sample, \
     token_counts
+from .spec import accept_counts, draft_ngram, gather_rows, write_rows
 
 
 @dataclasses.dataclass
@@ -417,6 +420,145 @@ class Engine:
             tok = nxt
             seq_lens = seq_lens + 1
         return torch.stack(out, dim=1).cpu().numpy()
+
+    @torch.inference_mode()
+    def generate_batch_spec(self, prompts: Sequence[Sequence[int]],
+                            max_new_tokens: Optional[int] = None,
+                            sampling: Optional[SamplingParams] = None,
+                            spec_k: Optional[int] = None,
+                            ngram: Optional[int] = None) -> List[List[int]]:
+        """Speculative (prompt-lookup) batch generation, greedy-exact:
+        token for token :meth:`generate_batch_fused`'s greedy output, in
+        fewer forwards whenever the text re-uses its own n-grams. Each
+        iteration drafts ``spec_k`` tokens per sequence from its history
+        (``engine/spec.py``), verifies them in one ``(spec_k + 1)``-token
+        forward, and emits the accepted prefix plus the bonus token; the
+        loop ends once every sequence has hit EOS or its budget. Pages
+        cover ``prompt + max_new + spec_k`` tokens (the verify chunk
+        writes up to ``spec_k`` past the budget) and are freed on
+        return."""
+        sampling = sampling or self._default_sampling()
+        if not sampling.mode().greedy:
+            raise ValueError("speculative decoding is greedy-exact only "
+                             "(temperature=0)")
+        if (sampling.has_penalties or sampling.stop_token_ids
+                or sampling.logit_bias):
+            raise ValueError(
+                "speculative decoding does not support penalties, stop "
+                "sets or logit bias (they change the greedy pick per "
+                "emitted token); use generate_batch_fused")
+        K = spec_k if spec_k is not None else (self.runtime.spec_k or 4)
+        n = ngram if ngram is not None else self.runtime.spec_ngram
+        if K < 1 or n < 1:
+            raise ValueError("spec_k and ngram must be >= 1")
+        max_new = max_new_tokens or self.runtime.max_new_tokens
+        lens = np.array([len(p) for p in prompts], np.int32)
+        if lens.min() < 1:
+            raise ValueError("every prompt needs at least one token")
+        page = self.cache.page_size
+        prompt_pad = cdiv(int(lens.max()), page) * page
+        horizon = [cdiv(int(L) + max_new + K, page) for L in lens]
+        if max(horizon) > self.cache.max_pages_per_seq:
+            raise ValueError(
+                f"prompt+max_new+spec_k needs {max(horizon)} pages > "
+                f"max_pages_per_seq={self.cache.max_pages_per_seq}")
+        pages = [self.allocator.alloc_many(h) for h in horizon]
+        try:
+            buf, emitted = self._spec(prompts, lens, pages, prompt_pad,
+                                      max_new, K, n, sampling)
+        finally:
+            for ps in pages:
+                for p in ps:
+                    self.allocator.free(p)
+        return [buf[b, lens[b]:lens[b] + emitted[b]].tolist()
+                for b in range(len(prompts))]
+
+    def _spec(self, prompts, lens, pages, prompt_pad, max_new, K, n,
+              sampling):
+        """The draft -> verify loop of :meth:`generate_batch_spec`; JAX's
+        ``while_loop`` as a Python loop whose condition reads one flag
+        from the device. Returns the history ``[B, M]`` and the emitted
+        counts ``[B]`` on the host."""
+        B = len(prompts)
+        V = self.cfg.vocab_size
+        # every lane writes K+1 candidates at cur <= prompt + max_new, so
+        # the history must not clamp that window
+        M = prompt_pad + max_new + K + 1
+        bt = self._t(self._block_tables(pages))
+        kv = self.backend.init_cache(self.device)
+        tokens = self._prompt_tokens(prompts, M)
+        final = self._prefill_chunks(kv, tokens[:, :prompt_pad], lens, bt,
+                                     self._chunk(prompt_pad))
+        mode = sampling.mode()
+        samp = sampling.as_arrays(B, self.device)
+        eos = samp["eos_token_id"]
+        first = sample(final, None, mode=mode, **samp)
+        lens_t = self._t(lens)
+        buf = write_rows(self._t(tokens), lens_t, first[:, None])
+        cur = lens_t + 1                      # tokens in buf (incl. first)
+        emitted = torch.ones_like(cur)
+        finished = hit_stop(first, eos, None) | (emitted >= max_new)
+        idxs = torch.arange(K + 1, dtype=torch.int32, device=self.device)
+        samp_w = {key: v.repeat_interleave(K + 1, dim=0)
+                  for key, v in samp.items()}
+        it = 0
+        while it < max_new and bool((~finished).any()):
+            drafts = draft_ngram(buf, cur, k=K, n=n)
+            inp = torch.cat([gather_rows(buf, cur - 1, 1), drafts], dim=1)
+            # the verify chunk's KV lands at cur-1 .. cur-1+K (slot cur-1
+            # holds the last sampled token, written here as a decode step
+            # would write it); frozen lanes write nothing (pos = -1)
+            pos = (cur - 1)[:, None] + idxs[None, :]
+            pos = torch.where(finished[:, None], torch.full_like(pos, -1),
+                              pos)
+            attn = self.backend.make_attn_fn(bt, cur + K, cur - 1)
+            logits, kv = self.model.forward(self.params, inp.long(),
+                                            pos.long(), kv, attn)
+            y = sample(logits[..., :V].reshape(B * (K + 1), V), None,
+                       mode=mode, **samp_w).reshape(B, K + 1)
+            a = accept_counts(drafts, y[:, :K])
+            # emit the accepted prefix + bonus, capped by the budget, cut
+            # at the first EOS; frozen lanes emit none
+            ok = idxs[None, :] <= a[:, None]
+            ok &= (emitted[:, None] + idxs[None, :]) < max_new
+            iseos = (eos[:, None] >= 0) & (y == eos[:, None])
+            eos_i = iseos.to(torch.int32)
+            ok &= ~((torch.cumsum(eos_i, dim=1) - eos_i) > 0)
+            ok &= ~finished[:, None]
+            cnt = ok.sum(dim=1, dtype=torch.int32)
+            # all K+1 candidates are written; slots past cnt are stale and
+            # the next iteration overwrites them before any read
+            buf = write_rows(buf, cur, y)
+            emitted = emitted + cnt
+            finished = (finished | (emitted >= max_new)
+                        | (iseos & ok).any(dim=1))
+            cur = cur + cnt
+            it += 1
+        return buf.cpu().numpy(), emitted.cpu().numpy()
+
+    def generate_batch(self, prompts: Sequence[Sequence[int]],
+                       max_new_tokens: Optional[int] = None,
+                       sampling: Optional[SamplingParams] = None,
+                       seed: Optional[int] = None) -> List[List[int]]:
+        """Static-batch generation: :meth:`prefill`, then :meth:`decode`
+        steps until every row has finished or ``max_new_tokens`` tokens
+        (continuous batching is the scheduler's)."""
+        sampling = sampling or self._default_sampling()
+        max_new = max_new_tokens or self.runtime.max_new_tokens
+        state = self.prefill(prompts, seed=seed, sampling=sampling)
+        outs: List[List[int]] = [[int(t)] for t in state.last_tokens]
+        try:
+            for _ in range(max_new - 1):
+                if state.finished.all():
+                    break
+                prev_finished = state.finished.copy()
+                toks = self.decode(state, sampling)
+                for b, t in enumerate(toks):
+                    if not prev_finished[b]:
+                        outs[b].append(int(t))
+            return outs
+        finally:
+            self.free(state)
 
 
 def _to_device(params, device):

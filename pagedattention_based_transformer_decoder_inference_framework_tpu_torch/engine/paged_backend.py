@@ -1,13 +1,17 @@
 """Paged KV attention backend: page pool + block tables + the kernels.
 
 The model's ``attn_fn`` appends the new K/V rows into their block-table
-slots (``ops/kv_append.py``, B3/B4) and attends over the page pool
+slots (``ops/kv_append.py``, B3/B4/B5) and attends over the page pool
 (``ops/paged_attention.py``, B1/B2), with the JAX package's
 ``engine/paged_backend.py`` dispatch: T=1 takes the decode kernel,
-everything else the general one.
+everything else the general one; with ``PBT_FUSED_APPEND=1`` in the
+environment (the JAX package's switch, off by default) T=1 takes the
+fused append + decode kernel (B9) where its gate allows.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
@@ -15,7 +19,9 @@ import torch.nn.functional as F
 from ..config import CacheConfig, ModelConfig
 from ..kvcache.pool import PagePool
 from ..ops.kv_append import kv_append
-from ..ops.paged_attention import paged_attention, paged_attention_decode
+from ..ops.paged_attention import (decode_append_supported,
+                                   paged_attention, paged_attention_decode,
+                                   paged_attention_decode_append)
 
 
 class PagedKVBackend:
@@ -26,6 +32,7 @@ class PagedKVBackend:
     append = staticmethod(kv_append)
     attend = staticmethod(paged_attention)
     attend_decode = staticmethod(paged_attention_decode)
+    attend_decode_append = staticmethod(paged_attention_decode_append)
 
     def __init__(self, cfg: ModelConfig, cache: CacheConfig):
         self.cfg = cfg
@@ -67,6 +74,13 @@ class PagedKVBackend:
                           window=self.cfg.window_for_layer(layer),
                           softcap=self.cfg.attn_logit_softcap,
                           scale=self.cfg.attn_scale)
+            if (q.shape[1] == 1
+                    and os.environ.get("PBT_FUSED_APPEND") == "1"
+                    and decode_append_supported(kv, dh_pool)):
+                out, kv = self.attend_decode_append(
+                    q, kv, k, v, block_tables, seq_lens, positions, layer,
+                    **common)
+                return out[..., :dh], kv
             kv = self.append(kv, k, v, layer, positions, block_tables,
                              page_size=page)
             scales = kv[1] if len(kv) == 2 else None

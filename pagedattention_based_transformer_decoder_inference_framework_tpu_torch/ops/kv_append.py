@@ -1,7 +1,7 @@
 """KV append into the page pool, in place.
 
-Two hand-written CUDA kernels (``csrc/kv_append.cu``), one per Pallas
-kernel of the JAX package's ``ops/kv_append.py`` on this slice's path:
+Three hand-written CUDA kernels (``csrc/kv_append.cu``), one per Pallas
+kernel of the JAX package's ``ops/kv_append.py``:
 
 * :func:`append_decode` (B3) replaces ``_append_tokens_rmw_batch``
   (``_rmw_batch_kernel``): the T=1 decode append of every sequence's K/V
@@ -9,15 +9,18 @@ kernel of the JAX package's ``ops/kv_append.py`` on this slice's path:
 * :func:`append_prefill` (B4) replaces ``_append_pages_pallas``
   (``_prefill_kernel`` + its scales scan): the page-aligned prefill
   chunk append.
+* :func:`append_tokens` (B5) replaces ``_append_tokens_rmw``
+  (``_rmw_kernel``): any other T>1 chunk, the speculative verify chunk.
 
-Both write only valid positions (``pos >= 0``), as the JAX package's
+All write only valid positions (``pos >= 0``), as the JAX package's
 ``append_to_pages_at_layer`` does; the TPU prefill kernel writes whole
-pages instead (see the note in ``csrc/kv_append.cu``). Bytes bound both
-on the H100, and at this slice's shapes so few bytes that launch latency
+pages instead (see the note in ``csrc/kv_append.cu``). Bytes bound them
+on the H100, and at the engine's shapes so few bytes that launch latency
 is their cost. Each wrapper runs its plain version
-(:func:`append_decode_plain`, :func:`append_prefill_plain`: both are
-:func:`append_plain`, the ``index_put_`` scatter of ``kvcache/pool.py``)
-for CPU tensors only; for CUDA tensors it launches the kernel or raises.
+(:func:`append_decode_plain`, :func:`append_prefill_plain`,
+:func:`append_tokens_plain`: all are :func:`append_plain`, the
+``index_put_`` scatter of ``kvcache/pool.py``) for CPU tensors only; for
+CUDA tensors it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -39,6 +42,10 @@ APPEND_PREFILL = CudaKernel(
     "kv_append_prefill", "kv_append.cu", "pbt_kv_append_prefill",
     _APPEND_ARGS + [I, I, I, I, I, I, I, I, LL, P],
     "ops/kv_append.py:62")
+APPEND_TOKENS = CudaKernel(
+    "kv_append_tokens", "kv_append.cu", "pbt_kv_append_tokens",
+    _APPEND_ARGS + [I, I, I, I, I, I, I, I, LL, P],
+    "ops/kv_append.py:391")
 
 
 def _check(kv, news, positions, block_tables):
@@ -101,14 +108,16 @@ def _launch(kernel: CudaKernel, kv, news, layer: int, positions,
 
 def append_plain(kv, news, layer: int, positions: torch.Tensor,
                  block_tables: torch.Tensor):
-    """Plain version of :func:`append_decode` and :func:`append_prefill`
-    (same signature): the ``index_put_`` scatter of valid positions."""
+    """Plain version of :func:`append_decode`, :func:`append_prefill`
+    and :func:`append_tokens` (same signature): the ``index_put_``
+    scatter of valid positions."""
     page = kv[0].shape[4]
     return write_news(kv, news, layer,
                       flat_slots(positions, block_tables, page))
 
 
-append_decode_plain = append_prefill_plain = append_plain
+append_decode_plain = append_prefill_plain = append_tokens_plain = \
+    append_plain
 
 
 def append_decode(kv, news, layer: int, positions: torch.Tensor,
@@ -145,15 +154,31 @@ def append_prefill(kv, news, layer: int, positions: torch.Tensor,
     return kv
 
 
+def append_tokens(kv, news, layer: int, positions: torch.Tensor,
+                  block_tables: torch.Tensor):
+    """B5: write a chunk ``news [B, 2, KH, T, D]`` (+ INT8 scales) at
+    ``positions [B, T]`` into ``kv`` at ``layer``, in place, each token
+    at its own position wherever the chunk starts; positions ``< 0`` are
+    skipped, and the kernel skips out-of-table ones as
+    :func:`append_decode` does. Returns ``kv``."""
+    _check(kv, news, positions, block_tables)
+    if not kv[0].is_cuda:
+        return append_tokens_plain(kv, news, layer, positions, block_tables)
+    _launch(APPEND_TOKENS, kv, news, layer, positions, block_tables,
+            *positions.shape)
+    return kv
+
+
 def kv_append(kv, k_new: torch.Tensor, v_new: torch.Tensor, layer: int,
               positions: torch.Tensor, block_tables: torch.Tensor, *,
               page_size: int):
     """Write ``k_new/v_new [B, T, KH, dh]`` at ``positions [B, T]`` into
     the pool (leaves ``[L, 2, KH, P, page, d]``) at ``layer``, in place.
     INT8 pools quantize here (plain PyTorch) and the scales ride along.
-    T=1 goes to B3, page-aligned chunks to B4; any other T (the
-    speculative verify chunk, kernel B5) is not ported yet and raises on
-    CUDA tensors. Returns ``kv``."""
+    The JAX package's dispatch: T=1 goes to B3, ``T % page == 0`` to B4
+    (which, unlike the TPU's whole-page B4, is right for a chunk that
+    starts off a page boundary too), any other T (the speculative verify
+    chunk) to B5. Returns ``kv``."""
     if kv[0].shape[4] != page_size:
         raise ValueError("page_size does not match the pool")
     news = stack_new_kv(kv, k_new, v_new)
@@ -164,8 +189,4 @@ def kv_append(kv, k_new: torch.Tensor, v_new: torch.Tensor, layer: int,
         return append_decode(kv, news, layer, positions, block_tables)
     if T % page_size == 0:
         return append_prefill(kv, news, layer, positions, block_tables)
-    if kv[0].is_cuda:
-        raise NotImplementedError(
-            "T>1 non-page-aligned append (_append_tokens_rmw): ROADMAP "
-            "queue B item B5")
-    return append_plain(kv, news, layer, positions, block_tables)
+    return append_tokens(kv, news, layer, positions, block_tables)

@@ -1,8 +1,7 @@
 """Paged attention over the page pool (prefill chunks and decode).
 
-Two hand-written CUDA kernels (``csrc/paged_attention.cu``), one per
-Pallas kernel of the JAX package's ``ops/paged_attention.py`` on this
-slice's path:
+Three hand-written CUDA kernels (``csrc/paged_attention.cu``), one per
+Pallas kernel of the JAX package's ``ops/paged_attention.py``:
 
 * :func:`paged_attention` (B1) replaces ``paged_attention``
   (``_kernel`` / ``_attend``): a T>=1 chunk, GQA rows ``t*G+g``, causal
@@ -11,17 +10,22 @@ slice's path:
   (K) and the probabilities (V).
 * :func:`paged_attention_decode` (B2) replaces ``paged_attention_decode``
   (``_decode_kernel``): T=1, mask ``key < seq_len`` (+ window).
+* :func:`paged_attention_decode_append` (B9) replaces
+  ``paged_attention_decode_append`` (``_decode_append_kernel``): B2 with
+  the T=1 KV append fused in; :func:`decode_append_supported` gates it.
 
 What bounds them on the H100 and what the design does about it is in
 the source's header note. The plain versions
 (:func:`paged_attention_plain`, :func:`paged_attention_decode_plain`)
 gather each sequence's pages through the block table and run a masked
-f32 softmax with the same fold order; the wrappers take them for CPU
-tensors only and launch the kernel (or raise) for CUDA tensors.
+f32 softmax with the same fold order;
+:func:`paged_attention_decode_append_plain` is the append's plain
+version followed by B2's. The wrappers take them for CPU tensors only
+and launch the kernel (or raise) for CUDA tensors.
 
-The grouped / packed / batched / fused-append decode variants of the
-JAX package (B6-B9) and the per-page score export (``return_scores``,
-the beam slice) are not ported yet and raise.
+The grouped / packed / batched decode variants of the JAX package
+(B6-B8) and the per-page score export (``return_scores``, the beam
+slice) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -31,8 +35,11 @@ from typing import Optional
 
 import torch
 
+from ..kvcache.pool import stack_new_kv
 from ..utils.platform import (DTYPE_CODES, CudaKernel, F, I, LL, P, ptr,
                               stream_handle)
+from .kv_append import append_plain
+from .kv_append import _check as _check_append
 
 _ATTN_ARGS = [P, P, P, P, P, P]        # q, out, pool, scales, bt, seq_lens
 ATTENTION = CudaKernel(
@@ -44,6 +51,11 @@ ATTENTION_DECODE = CudaKernel(
     "pbt_paged_attention_decode",
     _ATTN_ARGS + [I] * 8 + [LL, F, F, I, I, I, P],
     "ops/paged_attention.py:671")
+ATTENTION_DECODE_APPEND = CudaKernel(
+    "paged_attention_decode_append", "paged_attention.cu",
+    "pbt_paged_attention_decode_append",
+    _ATTN_ARGS + [P, P, P] + [I] * 8 + [LL, F, F, I, I, I, P],
+    "ops/paged_attention.py:1380")
 
 
 def _pooled(kv_pages, kv_scales, layer):
@@ -250,3 +262,91 @@ def paged_attention_decode(q: torch.Tensor, kv_pages: torch.Tensor,
         layer, sstride, float(scale), float(softcap), int(window), qd, kd,
         stream_handle(q))
     return out
+
+
+def decode_append_supported(kv, dh: int) -> bool:
+    """Gate of :func:`paged_attention_decode_append` for a pool ``kv``
+    whose head dim is ``dh``: what B2's kernel reads (a layer-pooled
+    ``[L, 2, KH, P, page, dh]`` pool of int8/bf16/f32 with ``dh % 128 ==
+    0`` and ``dh <= 256``, INT8 scales as the flat ``[L, 2, KH, R, 128]``
+    leaf). The JAX gate's other conditions are TPU facts and are dropped:
+    the whole context window in 4 MiB of VMEM, a page divisible by the
+    dtype's sublane tile, and 8-row slabs of the scales leaf (``R % 8``)."""
+    pool = kv[0]
+    if dh % 128 or dh > 256 or pool.dim() != 6 or pool.shape[5] != dh:
+        return False
+    if pool.dtype not in DTYPE_CODES:
+        return False
+    return len(kv) == 1 or kv[1].shape[-1] == 128
+
+
+def paged_attention_decode_append_plain(q, kv, k_new, v_new, block_tables,
+                                        seq_lens, positions, layer: int, *,
+                                        page_size: int, num_q_heads: int,
+                                        window: int = 0,
+                                        softcap: float = 0.0,
+                                        scale: Optional[float] = None):
+    """Plain version of :func:`paged_attention_decode_append` (same
+    signature): the append's plain version, then B2's over the updated
+    pool, which is what the JAX wrapper runs in interpret mode."""
+    append_plain(kv, stack_new_kv(kv, k_new, v_new), layer, positions,
+                 block_tables)
+    out = paged_attention_decode_plain(
+        q, kv[0], block_tables, seq_lens, kv[1] if len(kv) == 2 else None,
+        layer, page_size=page_size, num_q_heads=num_q_heads, window=window,
+        softcap=softcap, scale=scale)
+    return out, kv
+
+
+def paged_attention_decode_append(q: torch.Tensor, kv, k_new: torch.Tensor,
+                                  v_new: torch.Tensor,
+                                  block_tables: torch.Tensor,
+                                  seq_lens: torch.Tensor,
+                                  positions: torch.Tensor, layer: int, *,
+                                  page_size: int, num_q_heads: int,
+                                  window: int = 0, softcap: float = 0.0,
+                                  scale: Optional[float] = None):
+    """B9: T=1 decode attention with the KV append fused in. ``q [B, 1,
+    H, dh]``; ``kv`` the full pool (``(vals,)`` or INT8 ``(vals,
+    scales)``); ``k_new/v_new [B, 1, KH, dh]`` the new token's rows
+    (quantized here for an INT8 pool, as ``kv_append`` does);
+    ``seq_lens`` the lengths after the append; ``positions [B, 1]`` the
+    append targets (``< 0``: not written). Returns ``(out [B, 1, H,
+    dh], kv)``, the pool updated in place.
+
+    A lane with ``positions < 0`` (a frozen lane) writes nothing, and
+    its output is undefined: the kernel folds in the new row as the
+    JAX kernel does, the plain version reads key ``seq_len - 1`` from
+    the pool; the engine discards such a lane's output."""
+    if not q.is_cuda:
+        return paged_attention_decode_append_plain(
+            q, kv, k_new, v_new, block_tables, seq_lens, positions, layer,
+            page_size=page_size, num_q_heads=num_q_heads, window=window,
+            softcap=softcap, scale=scale)
+    B, T, H, D = q.shape
+    if not decode_append_supported(kv, D):
+        raise ValueError("decode_append_supported(kv, dh) is False for "
+                         "this pool")
+    pool, scales, layer = _pooled(kv[0], kv[1] if len(kv) == 2 else None,
+                                  layer)
+    _check(q, pool, block_tables, seq_lens, num_q_heads, page_size)
+    qd, kd, sstride = _launch_args(q, pool, scales)
+    if T != 1 or H // pool.shape[2] > 8:
+        raise ValueError("decode kernel takes T=1 and at most 8 query "
+                         "heads per KV head")
+    news = stack_new_kv(kv, k_new, v_new)
+    pos = positions.to(torch.int32).contiguous()
+    bt = block_tables.to(torch.int32).contiguous()
+    _check_append(kv, news, pos, bt)
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    q = q.contiguous()
+    sl = seq_lens.to(torch.int32).contiguous()
+    new_sc = news[1] if scales is not None else None
+    out = torch.empty_like(q)
+    ATTENTION_DECODE_APPEND.launch(
+        ptr(q), ptr(out), ptr(pool), ptr(scales), ptr(bt), ptr(sl),
+        ptr(pos), ptr(news[0]), ptr(new_sc), B, H, pool.shape[2], D,
+        pool.shape[3], page_size, bt.shape[1], layer, sstride,
+        float(scale), float(softcap), int(window), qd, kd,
+        stream_handle(q))
+    return out, kv

@@ -1,6 +1,6 @@
 """On the card: each hand-written CUDA kernel of the PyTorch port against
-its plain PyTorch version (B1/B2 paged attention, B3/B4 KV appends,
-B10/B11/B12 quantized-weight products).
+its plain PyTorch version (B1/B2 paged attention, B9 fused decode append,
+B3/B4/B5 KV appends, B10/B11/B12 quantized-weight products).
 
 These tests import no JAX, so they run where the card is (the suite's
 ``conftest.py`` sets JAX up, hence ``--noconftest``):
@@ -10,7 +10,7 @@ These tests import no JAX, so they run where the card is (the suite's
 Without a CUDA card every test skips (the kernels have no CPU mode).
 Tolerances: f32 queries 1e-4 absolute (the kernel and the plain version
 sum the same terms in another order), bf16 queries 2e-2 (one bf16 step
-of outputs of magnitude ~1); appends are bit-exact. B10 is bit-exact
+of outputs of magnitude ~1); appends are bit-exact, B9's pool too. B10 is bit-exact
 (exact s32 sums, the same epilogue); B11/B12 sum f32 in another order:
 f32 outputs within 1e-5 of max|output|, bf16 outputs within one bf16
 step or that (where cancellation leaves an output tiny).
@@ -20,6 +20,11 @@ import numpy as np
 import pytest
 import torch
 
+from pagedattention_based_transformer_decoder_inference_framework_tpu_torch import config as tconfig
+from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.engine import (
+    Engine,
+    SamplingParams,
+)
 from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.kvcache import pool as tpool
 from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops import (
     int4_matmul as i4,
@@ -137,7 +142,74 @@ def test_cuda_append_kernels_match_plain(cuda, kv_dtype, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [1, 2 * PAGE])
+@pytest.mark.parametrize("kv_dtype", ["int8", "float32", "bfloat16"])
+def test_cuda_append_tokens_matches_plain(cuda, kv_dtype):
+    """B5 through ``kv_append``'s dispatch: verify chunks (T = spec_k + 1)
+    that start off the page grid and cross a page, with a frozen lane."""
+    B, KH = 4, 2
+    rng = np.random.default_rng(8)
+    bt = block_table(rng, B, cuda)
+    shape = (L, 2, KH, P, PAGE, DH)
+    if kv_dtype == "int8":
+        kv_k = (torch.zeros(shape, dtype=torch.int8, device=cuda),
+                torch.zeros((L, 2, KH, P * PAGE // 128, 128), device=cuda))
+    else:
+        kv_k = (torch.zeros(shape, dtype=getattr(torch, kv_dtype),
+                            device=cuda),)
+    for T, starts in ((5, [6, -1, 21, 43]), (9, [0, 7, 30, 39])):
+        k = torch.randn((B, T, KH, DH), device=cuda)
+        v = torch.randn((B, T, KH, DH), device=cuda)
+        st = torch.tensor(starts, device=cuda)[:, None]
+        pos = torch.where(st >= 0, st + torch.arange(T, device=cuda), -1)
+        pos = pos.to(torch.int32)
+        kv_p = tuple(x.clone() for x in kv_k)
+        ka.APPEND_TOKENS.launches = 0
+        ka.kv_append(kv_k, k, v, LAYER, pos, bt, page_size=PAGE)
+        assert ka.APPEND_TOKENS.launches == 1
+        ka.append_tokens_plain(kv_p, tpool.stack_new_kv(kv_p, k, v), LAYER,
+                               pos, bt)
+        for a, b in zip(kv_k, kv_p):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,window,softcap", [(1, 0, 0.0), (4, 0, 0.0),
+                                              (4, 10, 20.0)])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pool_dtype", ["int8", "bfloat16"])
+def test_cuda_decode_append_matches_plain(cuda, pool_dtype, q_dtype, G,
+                                          window, softcap):
+    """B9: the output within B2's tolerance, the pool bit-exact; the
+    first token of a sequence, a new page's first slot, the table's last
+    slot, a lane mid-page, and a frozen lane (``pos = -1``: nothing
+    written, its output undefined and not compared)."""
+    rng = np.random.default_rng(9)
+    B, KH = 5, 2
+    H = KH * G
+    vals, sc = make_pool(rng, KH, pool_dtype, cuda)
+    bt = block_table(rng, B, cuda)
+    kv_k = (vals,) if sc is None else (vals, sc)
+    kv_p = tuple(x.clone() for x in kv_k)
+    q = torch.randn((B, 1, H, DH), device=cuda).to(q_dtype)
+    k = torch.randn((B, 1, KH, DH), device=cuda).to(q_dtype)
+    v = torch.randn((B, 1, KH, DH), device=cuda).to(q_dtype)
+    sl = torch.tensor([1, 17, MP * PAGE, 30, 40], device=cuda)
+    pos = (sl - 1).to(torch.int32)[:, None]
+    pos[4] = -1
+    kw = dict(page_size=PAGE, num_q_heads=H, window=window, softcap=softcap)
+    out, _ = pa.paged_attention_decode_append(q, kv_k, k, v, bt, sl, pos,
+                                              LAYER, **kw)
+    ref, _ = pa.paged_attention_decode_append_plain(q, kv_p, k, v, bt, sl,
+                                                    pos, LAYER, **kw)
+    tol = 1e-4 if q_dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(out[:4].float(), ref[:4].float(), atol=tol,
+                               rtol=0)
+    for a, b in zip(kv_k, kv_p):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 5, 2 * PAGE])
 def test_cuda_append_kernels_skip_out_of_table(cuda, T):
     """A position past the block table, or a table entry outside the
     pool, is not written; every other token is, as the plain version
@@ -160,13 +232,55 @@ def test_cuda_append_kernels_skip_out_of_table(cuda, T):
             torch.zeros((L, 2, KH, P * PAGE // 128, 128), device=cuda))
     kv_p = tuple(x.clone() for x in kv_k)
     news = tpool.stack_new_kv(kv_k, k, v)
-    kern = ka.append_decode if T == 1 else ka.append_prefill
+    kern = {1: ka.append_decode, 5: ka.append_tokens,
+            2 * PAGE: ka.append_prefill}[T]
     kern(kv_k, news, LAYER, pos, bt)
+    if T == 1:          # B9 skips the same positions when it appends
+        kv_f = tuple(x.clone() for x in kv_p)
+        q = torch.randn((B, 1, 2 * KH, DH), device=cuda)
+        pa.paged_attention_decode_append(
+            q, kv_f, k, v, bt, (pos[:, 0] + 1).clamp_max(MP * PAGE), pos,
+            LAYER, page_size=PAGE, num_q_heads=2 * KH)
     ka.append_plain(kv_p, news, LAYER,
                     torch.where(in_table, pos, -1).to(torch.int32),
                     torch.where(bt < P, bt, 0))
     for a, b in zip(kv_k, kv_p):
         assert torch.equal(a, b)
+    if T == 1:
+        for a, b in zip(kv_f, kv_p):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["int8", "bfloat16"])
+def test_cuda_spec_accepted_drafts_equal_fused(cuda, kv_dtype):
+    """``generate_batch_spec`` (B1 + B5 verify chunks) against
+    ``generate_batch_fused`` (B2 + B3) on the card, on a model that
+    repeats its input token (attention and MLP outputs damped to a tenth,
+    the LM head the embedding's transpose), so drafts are accepted and
+    the verify chunk advances by several tokens: 4 verify forwards for
+    11 tokens, as ``tests/test_torch_spec.py`` counts them."""
+    cfg = tconfig.FrameworkConfig(
+        model=tconfig.preset("llama-tiny"),
+        cache=tconfig.CacheConfig(page_size=PAGE, num_pages=64,
+                                  max_pages_per_seq=8, kv_dtype=kv_dtype),
+        runtime=tconfig.RuntimeConfig(max_new_tokens=12))
+    cfg.model.dtype = "float32"
+    eng = Engine(cfg, device=cuda, seed=0)
+    for lp in eng.params["layers"]:
+        lp["wo"].mul_(0.1)
+        lp["w_down"].mul_(0.1)
+    eng.params["lm_head"] = eng.params["embedding"].t().contiguous()
+    prompts = [[5, 9, 3, 14, 5, 9, 3, 14, 5, 9], [1, 2, 3, 4, 5, 6, 7],
+               list(range(20, 44)), [11]]
+    greedy = SamplingParams(temperature=0.0, eos_token_id=-1)
+    forwards = []
+    forward = eng.model.forward
+    eng.model.forward = lambda *a: forwards.append(1) or forward(*a)
+    out = eng.generate_batch_spec(prompts, 12, greedy, spec_k=4, ngram=2)
+    assert len(forwards) == 1 + 4
+    assert out == [[p[-1]] * 12 for p in prompts]
+    assert out == eng.generate_batch_fused(prompts, 12, greedy)
 
 
 # (M, K, N): decode rows with K split across blocks, one row, rows past

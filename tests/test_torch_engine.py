@@ -10,7 +10,11 @@ weights, the JAX engine's own quantized, unstacked and fused params for
 the quantized modes. ``score_nll`` and the paged ``ppl_delta_report`` are
 held to the JAX package's within 1e-5 and 1e-3 relative (f32 sums in
 another order; the JAX report quantizes eagerly, the port as compiled).
+With ``PBT_FUSED_APPEND=1`` the decode steps take the fused append +
+attention (B9) and the streams stay the JAX package's.
 """
+
+import collections
 
 import numpy as np
 import pytest
@@ -34,6 +38,9 @@ from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.engi
 )
 from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.models import (
     params_from_jax,
+)
+from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops import (
+    kv_append as ka,
 )
 from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.quant import eval as teval
 from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.quant.tensor import (
@@ -136,6 +143,41 @@ def test_prefill_decode_matches_jax(engines, monkeypatch):
             np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-5)
     te.free(tst)
     je.free(jst)
+
+
+@pytest.mark.parametrize("name,kv_dtype", [("llama-tiny", "float32"),
+                                           ("narrow-dh128", "int8")])
+def test_fused_append_matches_jax(monkeypatch, name, kv_dtype):
+    """``PBT_FUSED_APPEND=1``: every layer of every decode step goes
+    through B9's wrapper and never through B2's or B3's. The JAX engine is
+    a fresh one, since it reads the variable while it traces; on the f32
+    pool it takes its own fused kernel, on the INT8 pool at page 8 its
+    gate (a page divisible by INT8's 32-row tile) keeps it unfused, and
+    the streams are equal either way."""
+    monkeypatch.setenv("PBT_FUSED_APPEND", "1")
+    jcfg, tcfg = frameworks(name, kv_dtype)
+    jp = jax_init_params(jcfg.model, jax.random.key(0))
+    je = JaxEngine(jcfg, params=jp, interpret=True)
+    te = Engine(tcfg, params=params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jp), tcfg.model), device="cpu")
+    calls = collections.Counter()
+
+    def counted(key, fn):
+        def call(*args, **kw):
+            calls[key] += 1
+            return fn(*args, **kw)
+        return call
+
+    for key in ("attend_decode_append", "attend_decode"):
+        monkeypatch.setattr(te.backend, key,
+                            counted(key, getattr(te.backend, key)))
+    monkeypatch.setattr(ka, "append_decode",
+                        counted("append_decode", ka.append_decode))
+    js, ts = greedy_pair()
+    assert te.generate_batch_fused(PROMPTS, NEW, ts) == \
+        je.generate_batch_fused(PROMPTS, NEW, js)
+    assert calls == {"attend_decode_append":
+                     tcfg.model.num_layers * (NEW - 1)}
 
 
 def test_eos_stops_fused_rows(engines):

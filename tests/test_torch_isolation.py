@@ -23,7 +23,8 @@ MODULES = [
     "ops.common", "ops.rope", "ops.linear", "ops.attention_ref",
     "ops.kv_append", "ops.paged_attention", "kvcache.allocator",
     "kvcache.pool", "engine.backends", "engine.paged_backend",
-    "engine.sampling", "engine.engine", "models.model", "cli.cli_app",
+    "engine.sampling", "engine.spec", "engine.engine", "models.model",
+    "cli.cli_app",
     "quant", "quant.tensor", "quant.eval", "ops.int8_matmul",
     "ops.int4_matmul",
 ]
@@ -71,8 +72,8 @@ def test_every_kernel_is_registered_with_its_source():
 
     assert sorted(platform.KERNELS) == [
         "int8_matmul", "kv_append_decode", "kv_append_prefill",
-        "paged_attention", "paged_attention_decode", "w4_matmul",
-        "w8_matmul"]
+        "kv_append_tokens", "paged_attention", "paged_attention_decode",
+        "paged_attention_decode_append", "w4_matmul", "w8_matmul"]
     headers = "".join(p.read_text() for p in platform.CSRC.glob("*.cuh"))
     for k in platform.KERNELS.values():
         src = (platform.CSRC / k.source).read_text()

@@ -1,10 +1,13 @@
 """Paged attention of the PyTorch port (B1 ``paged_attention``, B2
-``paged_attention_decode``) against the JAX package's Pallas kernels.
+``paged_attention_decode``, B9 ``paged_attention_decode_append``)
+against the JAX package's Pallas kernels.
 
 On the CPU the port's wrappers run their plain PyTorch versions; the JAX
 kernels run in interpret mode, as ``tests/test_paged_attention.py`` runs
 them. Inputs come from one numpy seed and go through both. Tolerance:
-f32 atol/rtol 1e-5 (the two sum the same terms in another order).
+f32 atol/rtol 1e-5 (the two sum the same terms in another order); B9's
+output 2e-6 and its pool bit-exact (the JAX wrapper in interpret mode
+runs the append's scatter and then B2, as the port's plain version does).
 
 ``tests/test_torch_cuda.py`` holds the hand-written CUDA kernels
 against the plain versions on a card.
@@ -20,6 +23,7 @@ import torch
 from pagedattention_based_transformer_decoder_inference_framework_tpu.ops.paged_attention import (
     paged_attention as jax_paged_attention,
     paged_attention_decode as jax_paged_attention_decode,
+    paged_attention_decode_append as jax_paged_attention_decode_append,
 )
 from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops import (
     paged_attention as pa,
@@ -60,11 +64,14 @@ def to_torch(kv, pool_dtype):
 
 
 # (seq_lens, q_offsets, window, softcap) for a T=5 chunk and B=3:
-# ragged first chunk (padding rows past a short prompt), and a second
-# chunk with a sliding window and a tanh softcap
+# ragged first chunk (padding rows past a short prompt), a second chunk
+# with a sliding window and a tanh softcap, and a speculative verify
+# chunk (T = spec_k + 1 with spec_k=4) at offsets off the page grid,
+# seq_lens = q_offsets + T
 PREFILL_CASES = {
     "first_chunk_ragged": ([5, 3, 1], [0, 0, 0], 0, 0.0),
     "second_chunk_window_softcap": ([13, 40, 9], [8, 35, 4], 6, 20.0),
+    "spec_verify": ([11, 18, 34], [6, 13, 29], 0, 0.0),
 }
 
 
@@ -123,6 +130,60 @@ def test_paged_attention_decode_matches_jax(pool_dtype, G, window,
         window=window, softcap=softcap, scale=scale)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize("KH,G,window,softcap", [
+    (2, 1, 0, 0.0), (2, 3, 0, 0.0), (2, 3, 10, 20.0)])
+@pytest.mark.parametrize("pool_dtype", ["int8", "float32"])
+def test_paged_attention_decode_append_matches_jax(pool_dtype, KH, G,
+                                                   window, softcap):
+    """B9's plain version: the first token of a sequence (no cached
+    keys), a new page's first slot, the table's last slot, and a frozen
+    lane (position -1, not written)."""
+    rng = np.random.default_rng(3)
+    B = 4
+    H = KH * G
+    kv = make_pool(rng, KH, pool_dtype)
+    bt = block_table(rng, B)
+    q = rng.normal(size=(B, 1, H, DH)).astype(np.float32)
+    k = rng.normal(size=(B, 1, KH, DH)).astype(np.float32)
+    v = rng.normal(size=(B, 1, KH, DH)).astype(np.float32)
+    sl = np.asarray([1, 17, MP * PAGE, 30], np.int32)   # after the append
+    pos = np.asarray([[0], [16], [MP * PAGE - 1], [-1]], np.int32)
+    common = dict(page_size=PAGE, num_q_heads=H, window=window,
+                  softcap=softcap, scale=DH ** -0.5)
+    jvals, jsc = to_jax(kv, pool_dtype)
+    jkv = (jvals,) if jsc is None else (jvals, jsc)
+    ref, ref_kv = jax_paged_attention_decode_append(
+        jnp.asarray(q), jkv, jnp.asarray(k), jnp.asarray(v),
+        jnp.asarray(bt), jnp.asarray(sl), jnp.asarray(pos),
+        jnp.int32(LAYER), interpret=True, **common)
+    tvals, tsc = to_torch(kv, pool_dtype)
+    tkv = (tvals,) if tsc is None else (tvals, tsc)
+    before = tvals.clone()
+    out, out_kv = pa.paged_attention_decode_append(
+        torch.from_numpy(q), tkv, torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(bt), torch.from_numpy(sl), torch.from_numpy(pos),
+        LAYER, **common)
+    assert out_kv is tkv                       # the pool is updated in place
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-6,
+                               rtol=0)
+    for o, r in zip(out_kv, ref_kv):
+        # P * PAGE is a multiple of 128: the scales leaf has no padding
+        # lanes, so every slot compares
+        np.testing.assert_array_equal(o.numpy(), np.asarray(r))
+    assert not torch.equal(out_kv[0], before)             # it appended
+
+
+def test_decode_append_gate():
+    pool = torch.zeros((L, 2, 2, P, PAGE, DH), dtype=torch.int8)
+    sc = torch.zeros((L, 2, 2, P * PAGE // 128, 128))
+    assert pa.decode_append_supported((pool, sc), DH)
+    assert pa.decode_append_supported((pool.float(),), DH)
+    assert not pa.decode_append_supported((pool[..., :64],), 64)
+    assert not pa.decode_append_supported((pool.double(),), DH)
+    assert not pa.decode_append_supported(
+        (pool, sc.reshape(L, 2, 2, P, PAGE, 1)), DH)
 
 
 def test_unported_variants_raise():

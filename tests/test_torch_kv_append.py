@@ -1,6 +1,7 @@
 """KV appends and the pool of the PyTorch port (B3 decode append, B4
-page-aligned prefill append, ``quantize_kv``, ``append_to_pages_at_layer``,
-``gather_kv_dense``) against the JAX package.
+page-aligned prefill append, B5 token-chunk append, ``quantize_kv``,
+``append_to_pages_at_layer``, ``gather_kv_dense``) against the JAX
+package.
 
 The same numpy inputs go through the JAX package's
 ``append_to_pages_at_layer`` and ``kv_append(interpret=True)`` and the
@@ -49,12 +50,23 @@ def positions_for(T, lens, c0):
 
 # (T, prompt lens, chunk start): the decode row (T=1; the middle lane
 # is invalid, -1), a page-aligned first chunk with ragged prompts, and a
-# page-aligned second chunk
+# page-aligned second chunk. The speculative verify chunks have no
+# prompt lens and a start per lane (None: a frozen lane, all -1): T=5
+# crossing a page (B5), and T=PAGE starting off a page boundary (B4 in
+# the port and in the JAX package, whose TPU kernel would write it to
+# whole pages; in interpret mode it runs the scatter, as the port does)
 CASES = {
     "decode": (1, None, None),
     "prefill_first_chunk": (2 * PAGE, [16, 9, 1], 0),
     "prefill_second_chunk": (2 * PAGE, [30, 17, 20], 2 * PAGE),
+    "spec_verify": (5, None, [6, None, 21]),
+    "spec_verify_page": (PAGE, None, [3, 13, None]),
 }
+
+
+def verify_positions(T, starts):
+    return np.asarray([[-1] * T if s is None else list(range(s, s + T))
+                       for s in starts], np.int32)
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -67,6 +79,8 @@ def test_kv_append_matches_jax(kv_dtype, case):
     v = rng.normal(size=(B, T, KH, DH)).astype(np.float32)
     if T == 1:
         pos = np.asarray([[12], [-1], [33]], np.int32)
+    elif lens is None:
+        pos = verify_positions(T, c0)
     else:
         pos = positions_for(T, lens, c0)
     jkv, tkv = empty_pools(kv_dtype)
