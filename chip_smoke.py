@@ -30,10 +30,18 @@ and nothing of JAX. Phases:
    over a dense gathered copy; ``torch._int_mm``; a bf16 cuBLAS product
    over a pre-widened weight; ``torch._weight_int4pack_mm`` over the same
    INT4 values repacked with bf16 scales); B9's yardstick is B3 and B2
-   back to back, the launches it replaces.
+   back to back, the launches it replaces. The decode kernels past B2
+   (slice 4): B8 (``paged_attention_decode_packed``) at path (g)'s shape
+   and at dh 32 with a window; B6 (``paged_attention_decode_grouped``) at
+   path (h)'s shape and at path (i)'s 516-page shape (B2 timed on the
+   same inputs), each with bf16 and with f32 queries, whose 1e-4 must
+   flag the output of a table with one group of 4 pages misread, and at
+   dh 64 with a softcap; B7
+   (``paged_attention_decode_batched``, on no path) at B2's shape with B2
+   beside it and at 8 ragged sequences.
 3. The paths, each ``Engine`` on llama3-8b at full width and full depth
-   (32 layers; (c) and (d) cut to 8; weights from a seed, INT8 paged KV,
-   page 64, prefill chunk 256, the pool ``bench.py`` sizes, for (b),
+   (32 layers; (a), (c) and (d) cut to 8; weights from a seed, INT8
+   paged KV, page 64, prefill chunk 256, the pool ``bench.py`` sizes, for (b),
    (e) and (f) the one it sizes for ``--mode spec``) running
    ``generate_batch_fused`` on 4
    random 64-token prompts for 64 greedy tokens, with every kernel's
@@ -58,18 +66,37 @@ and nothing of JAX. Phases:
       emits several tokens;
    f. fused-append (slice 3), on (b)'s engine: ``generate_batch_fused``
       with ``PBT_FUSED_APPEND=1``, B9 in every decode layer and B2/B3
-      never; tokens held against (b)'s by the same fork rule.
-   On paths (a)-(d) the same prompts are then teacher-forced through the
+      never; tokens held against (b)'s by the same fork rule;
+   and slice 4's decode routes past B2, each at its preset's full width
+   and depth, random bf16 or w8a8 weights from the seed, INT8 KV, page
+   64, the pool ``bench.py`` sizes, 64 greedy tokens:
+   g. packed: ``tinyllama-1.1b`` (bf16 weights) on an unpadded pool
+      (``pad_head_dim=False``, dh 64): B8 in every decode layer; batch 8,
+      64-token random prompts;
+   h. grouped-96: ``phi3-mini-4k`` (bf16 weights, dh 96, window 2047) on
+      an unpadded pool: B6 in every decode layer; batch 4, 2,048-token
+      random prompts (8 prefill chunks), so decode masks the keys before
+      the window;
+   i. long-context: ``llama3.1-8b`` (w8a8) at ``bench.py --mode longctx
+      --prompt-len 32768``'s table (516 pages: past the INT8 scales
+      budget of B2's route, so B6); one 32,768-token random prompt (128
+      prefill chunks), prefilled once: the references teacher-force the
+      decode steps from a copy of the kernels' prefilled pool (the plain
+      run also serves the fork rule), and a profile of
+      ``generate_batch_fused`` of 16 tokens resumed from that copy gives
+      the busy share and B6's time per layer.
+   On paths (a)-(d), (g) and (h) the same prompts are then
+   teacher-forced through the
    kernels, the plain versions, an SDPA reference (SDPA attention and,
    for quantized weights, products computed another way: B10's and
    B11's library products above, B12 one product per K-group) and a
    lower-precision control (the last three are references this script
    defines; the port has no such option): the kernels and the reference
    must stay within the path's logit limit, the control must not; (a)
-   also with f32 weights and activations. For (a) and (b) the fused loop
-   at B=4 is held against the step path's tokens and against the plain
-   fused loop, and ``generate_stream`` against the fused loop on a lone
-   prompt, and one fused run is profiled; (b) also holds
+   also with f32 weights and activations. For (a), (b), (g) and (h) the
+   fused loop is held against the step path's tokens and against the
+   plain fused loop, and ``generate_stream`` against the fused loop on a
+   lone prompt, and one fused run is profiled; (b) also holds
    ``Engine.score_nll`` against the plain path.
 4. A ``{"paths": ...}`` summary line, a ``{"kernels": [...]}`` line, the
    card's line, then ``{"ok": true, "device": {...}}`` as the last line.
@@ -106,9 +133,12 @@ SEED = 0
 #: and activation dtype: set from the readings of the sdpa reference
 #: (which must pass) and of the lower-precision control (which must
 #: fail) at each path's depth; see PERF.md
-TOL = {("none", "bf16"): 0.10, ("none", "f32"): 0.012,
+TOL = {("none", "bf16"): 0.06, ("none", "f32"): 0.005,
        ("int8", "bf16"): 0.25, ("int8-weight", "bf16"): 0.06,
-       ("int4", "bf16"): 0.06}
+       ("int4", "bf16"): 0.06,
+       # slice 4's paths, by name
+       ("packed", "bf16"): 0.05, ("grouped-96", "bf16"): 0.10,
+       ("long-context", "bf16"): 0.25}
 LOWP_NAME = {"bf16": "fp8-q", "f32": "bf16-attention"}
 #: ``score_nll`` of the kernels against the plain path, relative
 TOL_SCORE = 1e-2
@@ -164,7 +194,8 @@ def device_ms(fn, iters: int = 20, match=("",)) -> float:
     of the GPU kernels whose name contains one of ``match`` (all kernels
     if empty), over ``iters`` calls. CUPTI now and then hands back a
     trace without the kernels' records; such a trace is taken again, up
-    to three times."""
+    to three times, and then the call is timed by CUDA events
+    (:func:`cuda_ms`, host issue included), which the output says."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -185,10 +216,13 @@ def device_ms(fn, iters: int = 20, match=("",)) -> float:
             and any(m in e.key for m in match))
         if total_us > 0:
             return total_us / iters / 1e3
-        print(f"  (trace {attempt + 1} held no device time for "
-              f"{match[0] or 'the plain version'}; tracing again)",
-              flush=True)
-    raise PhaseError(f"profiler saw no device time for {match or fn}")
+        what = " / ".join(m for m in match if m) or "the call"
+        print(f"  (trace {attempt + 1} held no device time for {what}; "
+              "tracing again)", flush=True)
+    ms = cuda_ms(fn, iters)
+    print(f"  (no trace held device time for {what}: {ms:.4f} ms a call "
+          "by CUDA events, host issue included)", flush=True)
+    return ms
 
 
 def bound(bytes_moved: float, flops: float, rate: str = "f32"):
@@ -212,36 +246,42 @@ KERNEL_NAMES = {
     "kv_append_tokens": ("append_tokens_kernel",),
     "paged_attention_decode_append": (
         "paged_attention_decode_append_kernel<",),
+    "paged_attention_decode_grouped": ("decode_grouped_kernel<",
+                                       "decode_combine_kernel<"),
+    "paged_attention_decode_packed": ("decode_packed_kernel<",),
+    "paged_attention_decode_batched": ("decode_batched_kernel<",),
     "int8_matmul": ("qmm::gemv_kernel<0,", "qmm::tiled_kernel<0,"),
     "w8_matmul": ("qmm::gemv_kernel<1,", "qmm::tiled_kernel<1,"),
     "w4_matmul": ("qmm::gemv_kernel<2,", "qmm::tiled_kernel<2,")}
 
 
-def make_pool(torch, gen, dtype, dev):
+def make_pool(torch, gen, dtype, dev, batch=B, kv_heads=KH, dh=DH, mp=MP,
+              num_pages=NUM_PAGES):
     """A random pool [L, 2, KH, P, page, dh] (+ flat INT8 scales) and a
-    block table of distinct non-dump pages."""
-    shape = (L, 2, KH, NUM_PAGES, PAGE, DH)
+    block table [batch, mp] of distinct non-dump pages."""
+    shape = (L, 2, kv_heads, num_pages, PAGE, dh)
     if dtype == torch.int8:
         vals = torch.randint(-127, 128, shape, generator=gen, device=dev,
                              dtype=torch.int8)
-        R = NUM_PAGES * PAGE // 128
-        scales = (torch.rand((L, 2, KH, R, 128), generator=gen, device=dev)
-                  * 0.02 + 0.005)
+        R = -(-num_pages * PAGE // 128)
+        scales = (torch.rand((L, 2, kv_heads, R, 128), generator=gen,
+                             device=dev) * 0.02 + 0.005)
         kv = (vals, scales)
     else:
         kv = (torch.randn(shape, generator=gen, device=dev).to(dtype),)
-    perm = torch.randperm(NUM_PAGES - 1, generator=gen, device=dev) + 1
-    bt = perm[:B * MP].reshape(B, MP).to(torch.int32)
+    perm = torch.randperm(num_pages - 1, generator=gen, device=dev) + 1
+    bt = perm[:batch * mp].reshape(batch, mp).to(torch.int32)
     return kv, bt
 
 
 def dense_kv(torch, kv, bt, layer, seq_len_max):
     """Dequantized [B, KH, S, dh] K and V gathered through the table."""
+    _, _, kh, n_pages, page, dh = kv[0].shape
     vals = kv[0][layer].float()
     if len(kv) == 2:
-        sc = kv[1][layer].reshape(2, KH, NUM_PAGES, PAGE, 1)
-        vals = vals * sc
-    g = vals[:, :, bt.long()].reshape(2, KH, B, MP * PAGE, DH)
+        sc = kv[1][layer].reshape(2, kh, -1)[:, :, :n_pages * page]
+        vals = vals * sc.reshape(2, kh, n_pages, page, 1)
+    g = vals[:, :, bt.long()].reshape(2, kh, bt.shape[0], -1, dh)
     g = g[:, :, :, :seq_len_max].permute(0, 2, 1, 3, 4)
     return g[0], g[1]
 
@@ -551,6 +591,165 @@ def decode_append_checks(torch, dev, results):
           flush=True)
 
 
+def decode_bound(torch, q, kv, bt, lens, window):
+    """The least time of a T=1 decode call: bytes are q in and out, every
+    K/V row (with its scale) a sequence's lone query sees, the table and
+    lengths; operations QK and PV over those keys."""
+    batch, _, heads, dh = q.shape
+    seen = sum(min(n, window) if window else n for n in lens)
+    row = kv[0].shape[2] * 2 * (dh * kv[0].element_size()
+                                + 4 * (len(kv) - 1))
+    return bound(2 * q.numel() * q.element_size() + seen * row
+                 + 4 * (bt.numel() + batch), 4 * dh * heads * seen,
+                 "bf16" if q.dtype == torch.bfloat16 else "f32")
+
+
+def sdpa_decode_call(torch, F_, q, kv, bt, sl, layer, window):
+    """The library yardstick of a T=1 decode call: one
+    scaled_dot_product_attention over a dense, dequantized, gathered copy
+    (made here, outside the timed call)."""
+    smax = int(sl.max().item())
+    k_d, v_d = dense_kv(torch, kv, bt, layer, smax)
+    G_ = q.shape[2] // k_d.shape[1]
+    kd = k_d.to(q.dtype).repeat_interleave(G_, dim=1)
+    vd = v_d.to(q.dtype).repeat_interleave(G_, dim=1)
+    key = torch.arange(smax, device=q.device)
+    n = sl.long()[:, None, None, None]
+    mask = key < n
+    if window:
+        mask &= key >= n - window
+    return lambda: F_.scaled_dot_product_attention(
+        q.transpose(1, 2), kd, vd, attn_mask=mask, scale=q.shape[3] ** -0.5)
+
+
+def misread_group(bt, lens, window, J=4):
+    """``bt`` with sequence 0's group of ``J`` pages in the middle of its
+    visible keys pointing at the next group's pages."""
+    first = max(lens[0] - window, 0) // PAGE if window else 0
+    g0 = (first + -(-lens[0] // PAGE)) // 2 // J * J
+    wrong = bt.clone()
+    wrong[0, g0:g0 + J] = bt[0, g0 + J:g0 + 2 * J]
+    return wrong
+
+
+def decode_variant_checks(torch, F_, dev, results):
+    """B6, B7 and B8 against their plain versions (B2's tolerances: 2e-2
+    with bf16 queries, 1e-4 with f32), each at the shapes its path gives
+    it, with device times beside the bound, the plain version and SDPA
+    (B6 at paths (h)'s and (i)'s shapes also with f32 queries, whose
+    tolerance must flag a table with one group of pages misread);
+    B2 timed on the same inputs at path (i)'s 516-page shape (B6's
+    yardstick) and at its own shape (B7's)."""
+    from importlib import import_module
+
+    pa = import_module(f"{PKG}.ops.paged_attention")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    layer = 1
+    worst = {}
+    cases = [
+        # name, kernel, q dtype, pool dtype, batch, KH, G, dh, table
+        # width, pool pages, seq lens, window, softcap, tolerance; the
+        # first case of each kernel goes to the kernels line
+        ("(g) shape: tinyllama-1.1b, B=8", "paged_attention_decode_packed",
+         bf16, i8, 8, 4, 8, 64, 5, 96,
+         [65, 72, 80, 96, 100, 112, 120, 128], 0, 0.0, 2e-2),
+        ("dh 32, window 40, f32", "paged_attention_decode_packed", f32, i8,
+         8, 4, 8, 32, 5, 96, [65, 72, 80, 96, 100, 112, 120, 320], 40, 0.0,
+         1e-4),
+        ("dh 32, window 40, bf16 pool", "paged_attention_decode_packed",
+         bf16, bf16, 8, 4, 8, 32, 5, 96, [1, 72, 80, 96, 100, 112, 120,
+                                          320], 40, 0.0, 2e-2),
+        ("(i) shape: llama3.1-8b, 516 pages, B=1",
+         "paged_attention_decode_grouped", bf16, i8, 1, 8, 4, 128, 516, 520,
+         [32832], 0, 0.0, 2e-2),
+        ("(i) shape, f32", "paged_attention_decode_grouped", f32, i8, 1,
+         8, 4, 128, 516, 520, [32832], 0, 0.0, 1e-4),
+        ("(h) shape: phi3-mini-4k, window 2047, B=4",
+         "paged_attention_decode_grouped", bf16, i8, 4, 32, 1, 96, 36, 150,
+         [2049, 2080, 2100, 2112], 2047, 0.0, 2e-2),
+        ("(h) shape, f32", "paged_attention_decode_grouped", f32, i8, 4, 32,
+         1, 96, 36, 150, [2049, 2080, 2100, 2112], 2047, 0.0, 1e-4),
+        ("dh 64, softcap 30, f32", "paged_attention_decode_grouped", f32,
+         i8, 4, 8, 4, 64, 5, 80, [65, 90, 128, 300], 0, 30.0, 1e-4),
+        ("B2's shape", "paged_attention_decode_batched", bf16, i8, 4, 8, 4,
+         128, 5, 80, [65, 90, 128, 101], 0, 0.0, 2e-2),
+        ("8 ragged sequences, f32", "paged_attention_decode_batched", f32, i8,
+         8, 8, 4, 128, 5, 80, [1, 65, 200, 320, 17, 128, 64, 250], 0, 0.0,
+         1e-4),
+    ]
+    for (name, kname, qdt, pdt, batch, kh, g, dh, mp, n_pages, lens, window,
+         softcap, tol) in cases:
+        kv, bt = make_pool(torch, gen, pdt, dev, batch, kh, dh, mp, n_pages)
+        scales = kv[1] if len(kv) == 2 else None
+        q = torch.randn((batch, 1, kh * g, dh), generator=gen,
+                        device=dev).to(qdt)
+        sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        args = (q, kv[0], bt, sl, scales, layer)
+        common = dict(page_size=PAGE, num_q_heads=kh * g, window=window,
+                      softcap=softcap, scale=dh ** -0.5)
+        kern = getattr(pa, kname)
+        plain = getattr(pa, kname + "_plain")
+        out_k = kern(*args, **common)
+        out_p = plain(*args, **common)
+        torch.cuda.synchronize()
+        err = (out_k.float() - out_p.float()).abs().max().item()
+        ok = err <= tol and bool(torch.isfinite(out_k).all())
+        print(f"  [{kname}] {name}: max|kernel-plain| = {err:.3e} "
+              f"(tol {tol:g}; max|plain| {out_p.float().abs().max().item():.3e})"
+              f" {'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"{kname} {name}: error {err} > {tol}")
+        if kname == "paged_attention_decode_grouped" and mp >= 8:
+            # what a B6 that read one group of 4 pages wrong would give:
+            # the plain version with that group's table entries pointing at
+            # the next group's pages; f32 queries must tell it apart
+            wrong = plain(q, kv[0], misread_group(bt, lens, window), sl,
+                          scales, layer, **common)
+            miss = (wrong.float() - out_p.float()).abs().max().item()
+            print(f"  [{kname}] {name}: one group of 4 pages misread moves "
+                  f"the output by {miss:.3e} (tol {tol:g})", flush=True)
+            check(qdt == bf16 or miss > tol,
+                  f"{kname} {name}: the tolerance {tol} does not flag a "
+                  f"misread group ({miss})")
+        if qdt == bf16:
+            worst[kname] = max(worst.get(kname, 0.0), err)
+        ms = device_ms(lambda: kern(*args, **common),
+                       match=KERNEL_NAMES[kname])
+        call_ms = cuda_ms(lambda: kern(*args, **common))
+        plain_ms = device_ms(lambda: plain(*args, **common), iters=5)
+        b_ms, b_by = decode_bound(torch, q, kv, bt, lens, window)
+        lib_ms = (device_ms(sdpa_decode_call(torch, F_, q, kv, bt, sl, layer,
+                                             window), iters=5)
+                  if softcap == 0 else None)
+        b2 = ""
+        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=lib_ms)
+        if dh % 128 == 0 and kname != "paged_attention_decode":
+            # B2 on the same inputs: B6's yardstick at 516 pages, B7's at
+            # B2's shape
+            b2_out = pa.paged_attention_decode(*args, **common)
+            b2_err = (b2_out.float() - out_p.float()).abs().max().item()
+            check(b2_err <= tol, f"B2 at {name}: error {b2_err}")
+            row["b2_ms"] = device_ms(
+                lambda: pa.paged_attention_decode(*args, **common),
+                match=KERNEL_NAMES["paged_attention_decode"])
+            b2 = (f"; B2 on the same inputs {row['b2_ms']:.4f} ms "
+                  f"(max|B2-plain| {b2_err:.3e}), "
+                  f"{row['b2_ms'] / ms:.2f}x the kernel's time")
+        print(f"  [{kname}] {name}, device time: kernel {ms:.4f} ms (one "
+              f"wrapper call {call_ms:.4f} ms wall), plain {plain_ms:.4f} "
+              f"ms, bound {b_ms:.5f} ms ({b_by}, {b_ms / ms:.3f} of it "
+              f"reached), sdpa "
+              f"{'n/a (softcap)' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+              f"{b2}", flush=True)
+        if "ms" not in results[kname]:
+            results[kname].update(row)
+        del kv, bt, out_k, out_p
+        torch.cuda.empty_cache()
+    for kname, err in worst.items():
+        results[kname].update(max_abs_err=err, tol=2e-2)
+
+
 #: Llama-3-8B's projections (name, K, N) as the engine fuses them, and
 #: its LM head
 PROJECTIONS = [("qkv", 4096, 6144), ("wo", 4096, 4096),
@@ -848,61 +1047,87 @@ def matmul_checks(torch, dev, results):
 # -- phase 3: the paths ------------------------------------------------------
 
 #: phase 3's paths: (name, quant, layers), each Llama-3-8B at full width
-#: and depth (layers None) but (c) and (d), whose depth is cut to 8 so
-#: that the run stays as long as slice 2's once paths (e) and (f) are in
-PATHS = [("bf16", "none", None), ("w8a8", "int8", None),
+#: and depth (layers None) but (a), (c) and (d), whose depth is cut to 8
+#: so that the run stays near slice 3's length with paths (e)-(i) in
+PATHS = [("bf16", "none", 8), ("w8a8", "int8", None),
          ("int8-weight", "int8-weight", 8), ("int4", "int4", 8)]
+#: slice 4's paths (g) and (h): (letter, name, preset, batch, prompt
+#: length, the decode kernel every decode layer must launch), bf16
+#: weights on an unpadded pool; path (i) is :func:`long_context_path`
+DECODE_PATHS = [
+    ("g", "packed", "tinyllama-1.1b", 8, 64, "paged_attention_decode_packed"),
+    ("h", "grouped-96", "phi3-mini-4k", 4, 2048,
+     "paged_attention_decode_grouped")]
+#: path (i): bench.py --mode longctx --prompt-len 32768 --steps 64
+#: --batch 1 on Llama-3.1-8B, w8a8
+LONG_MODEL, LONG_PROMPT = "llama3.1-8b", 32768
 #: the path each kernel's launch count in the kernels line comes from:
 #: slice 2's main path (w8a8); B12 the INT4 path, B5 the spec path, B9
-#: the fused-append path
+#: the fused-append path, B8 the packed path, B6 the long-context path
 LAUNCHES_FROM = {"w4_matmul": "int4", "kv_append_tokens": "spec",
-                 "paged_attention_decode_append": "fused-append"}
+                 "paged_attention_decode_append": "fused-append",
+                 "paged_attention_decode_packed": "packed",
+                 "paged_attention_decode_grouped": "long-context"}
+#: kernels no path runs (B7: neither engine calls it); each path checks
+#: that they were launched 0 times
+OFF_PATH = ("paged_attention_decode_batched",)
 
 
-def path_config(quant="none", dtype="bfloat16", layers=None, spec_k=0):
-    """A path's configuration; with ``spec_k`` the pool ``bench.py --mode
-    spec`` sizes (bench.py:314-317), ``cdiv(spec_k, page) + 1`` more
-    pages a sequence and ``batch`` times as many more in the pool (the
-    fused loop takes the same pages from it as from the smaller one)."""
+def path_config(quant="none", dtype="bfloat16", layers=None, spec_k=0,
+                model="llama3-8b", batch=4, prompt_len=64, steps=64,
+                pad_head_dim=None):
+    """A path's configuration: ``model`` at ``quant``, INT8 KV at page 64,
+    prefill chunk 256 and the pool ``bench.py`` sizes (bench.py:290-304)
+    for ``batch`` prompts of ``prompt_len`` tokens and ``steps`` new
+    ones; with ``spec_k`` the pool ``bench.py --mode spec`` sizes
+    (bench.py:314-317), ``cdiv(spec_k, page) + 1`` more pages a sequence
+    and ``batch`` times as many more in the pool (the fused loop takes the
+    same pages from it as from the smaller one)."""
     from importlib import import_module
 
     cfgmod = import_module(f"{PKG}.config")
-    batch, steps, prompt_len, page = 4, 64, 64, 64
+    page = 64
     cfg = cfgmod.FrameworkConfig()
-    cfg.model = cfgmod.preset("llama3-8b")
+    cfg.model = cfgmod.preset(model)
     if layers is not None:
         cfg.model.num_layers = layers
     cfg.model.quant = quant
     cfg.model.dtype = dtype
     total_len = prompt_len + steps + 1
     cdiv = lambda a, b: -(-a // b)
-    # the pool bench.py sizes (bench.py:290-304)
     n_pages = batch * cdiv(total_len, page) + 64
     grain = max(1, 1024 // page)
     extra = cdiv(spec_k, page) + 1 if spec_k else 0
     cfg.cache = cfgmod.CacheConfig(
         page_size=page, num_pages=cdiv(n_pages, grain) * grain + batch * extra,
-        max_pages_per_seq=cdiv(total_len, page) + 2 + extra, kv_dtype="int8")
+        max_pages_per_seq=cdiv(total_len, page) + 2 + extra, kv_dtype="int8",
+        pad_head_dim=pad_head_dim)
     cfg.runtime.prefill_chunk = 256
     cfg.runtime.max_new_tokens = steps
     return cfg, batch, steps, prompt_len
 
 
-def expected_launches(quant, n_layers, steps, fused_append=False):
-    """Exact launch counts of one ``generate_batch_fused`` run: one prefill
-    chunk (the 64-token prompts fill one) and ``steps - 1`` decode steps,
-    each a forward over ``n_layers`` layers of four projections (fused
-    qkv, wo, fused gate-up, down) and then the LM head. With
+def expected_launches(quant, n_layers, steps, fused_append=False, chunks=1,
+                      decode="paged_attention_decode"):
+    """Exact launch counts of one ``generate_batch_fused`` run: ``chunks``
+    page-aligned prefill chunks (B1 and B4 in each layer) and ``steps -
+    1`` decode steps (B3 and the ``decode`` kernel in each layer), each
+    forward over ``n_layers`` layers of four projections (fused qkv, wo,
+    fused gate-up, down) and then the LM head; every other kernel 0. With
     ``fused_append`` (``PBT_FUSED_APPEND=1``) each decode layer launches
     B9 in place of B3 and B2."""
-    decode = n_layers * (steps - 1)
-    out = {"paged_attention": n_layers, "kv_append_prefill": n_layers,
-           "paged_attention_decode": decode, "kv_append_decode": decode,
-           "kv_append_tokens": 0, "paged_attention_decode_append": 0}
+    from importlib import import_module
+
+    plat = import_module(f"{PKG}.utils.platform")
+    out = dict.fromkeys(plat.KERNELS, 0)
+    per_step = n_layers * (steps - 1)
+    out.update(paged_attention=n_layers * chunks,
+               kv_append_prefill=n_layers * chunks)
     if fused_append:
-        out.update(paged_attention_decode=0, kv_append_decode=0,
-                   paged_attention_decode_append=decode)
-    out.update(matmul_launches(quant, n_layers, steps))
+        out["paged_attention_decode_append"] = per_step
+    else:
+        out.update({"kv_append_decode": per_step, decode: per_step})
+    out.update(matmul_launches(quant, n_layers, chunks + steps - 1))
     return out
 
 
@@ -923,19 +1148,24 @@ def matmul_launches(quant, n_layers, forwards):
 def expected_spec_launches(quant, n_layers, verifies):
     """Exact launch counts of one ``generate_batch_spec`` run: the prefill
     chunk, then ``verifies`` verify forwards, each appending its
-    ``spec_k + 1``-token chunk with B5 and attending with B1."""
-    out = {"paged_attention": n_layers * (1 + verifies),
-           "kv_append_prefill": n_layers,
-           "kv_append_tokens": n_layers * verifies,
-           "paged_attention_decode": 0, "kv_append_decode": 0,
-           "paged_attention_decode_append": 0}
+    ``spec_k + 1``-token chunk with B5 and attending with B1; every other
+    kernel 0."""
+    from importlib import import_module
+
+    plat = import_module(f"{PKG}.utils.platform")
+    out = dict.fromkeys(plat.KERNELS, 0)
+    out.update(paged_attention=n_layers * (1 + verifies),
+               kv_append_prefill=n_layers,
+               kv_append_tokens=n_layers * verifies)
     out.update(matmul_launches(quant, n_layers, 1 + verifies))
     return out
 
 
-def drive(torch, eng, prompts, greedy, steps, name, fused_append=False):
+def drive(torch, eng, prompts, greedy, steps, name, fused_append=False,
+          decode="paged_attention_decode"):
     """The path's timed ``generate_batch_fused``, with every kernel's
-    launch count set to 0 just before and checked just after."""
+    launch count set to 0 just before and checked just after (``decode``:
+    the T=1 kernel the path's route takes)."""
     from importlib import import_module
 
     plat = import_module(f"{PKG}.utils.platform")
@@ -960,40 +1190,54 @@ def drive(torch, eng, prompts, greedy, steps, name, fused_append=False):
           f"(B={batch}, {steps} tokens)", flush=True)
     print(f"  launches in that run: {json.dumps(counts)}", flush=True)
     expect = expected_launches(eng.cfg.quant, eng.cfg.num_layers, steps,
-                               fused_append)
+                               fused_append, prefill_chunks(eng, prompts),
+                               decode)
     check(counts == expect,
           f"{name}: launches {counts}, expected exactly {expect}")
     arr = np.asarray(toks)
     check(arr.shape == (batch, steps), f"tokens shape {arr.shape}")
     check(((arr >= 0) & (arr < eng.cfg.vocab_size)).all(),
           "token ids out of range")
-    # a decode step reads every weight but the embedding table (of which
-    # it gathers B rows) once: the end-to-end floor of a step
-    stream_bytes = sum(t.numel() * t.element_size()
-                       for key, t in _leaves(eng.params)
-                       if key != "embedding")
-    floor_ms = stream_bytes / HBM_BYTES_PER_S * 1e3
-    print(f"  weight stream per decode step {stream_bytes / 1e9:.3f} GB: "
+    stream_gb, floor_ms = weight_stream(eng)
+    print(f"  weight stream per decode step {stream_gb:.3f} GB: "
           f"floor {floor_ms:.3f} ms/step = {batch / floor_ms * 1e3:.0f} "
           f"tok/s at B={batch}; measured {decode_tps:.1f} tok/s = "
           f"{batch / decode_tps * 1e3:.2f} ms/step", flush=True)
     return {"decode_tok_s": decode_tps, "prefill_ms": prefill_s * 1e3,
-            "total_ms": total_s * 1e3, "weight_stream_gb": stream_bytes / 1e9,
+            "total_ms": total_s * 1e3, "weight_stream_gb": stream_gb,
             "weight_stream_floor_ms": floor_ms, "launches": counts}
 
 
-def build_engine(torch, quant, dtype="bfloat16", layers=None, spec_k=0):
+def weight_stream(eng):
+    """A decode step reads every weight but the embedding table (of which
+    it gathers B rows) once: its bytes (GB) and their time at the card's
+    rate, the end-to-end floor of a step (ms)."""
+    stream_bytes = sum(t.numel() * t.element_size()
+                       for key, t in _leaves(eng.params)
+                       if key != "embedding")
+    return stream_bytes / 1e9, stream_bytes / HBM_BYTES_PER_S * 1e3
+
+
+def prefill_chunks(eng, prompts):
+    """The page-aligned prefill chunks ``generate_batch_fused`` runs for
+    ``prompts``."""
+    page = eng.cache.page_size
+    max_len = -(-max(len(p) for p in prompts) // page) * page
+    return -(-max_len // eng._chunk(max_len))
+
+
+def build_engine(torch, cfg):
     from importlib import import_module
 
     eng_mod = import_module(f"{PKG}.engine")
-    cfg, *_ = path_config(quant, dtype, layers, spec_k)
+    quant, dtype = cfg.model.quant, cfg.model.dtype
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     eng = eng_mod.Engine(cfg, seed=SEED)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated() / 1e9
-    print(f"  engine built (llama3-8b, {cfg.model.num_layers} layers, "
+    print(f"  engine built ({cfg.model.name}, {cfg.model.num_layers} layers, "
           f"quant={quant}, {dtype} activations, "
           f"weights from seed {SEED}) in {time.perf_counter() - t0:.1f} s; "
           f"holds {held:.2f} GB on the card (peak while building "
@@ -1026,13 +1270,13 @@ def run_paths(torch, dev, results, card):
         phase(f"3{letter}: {name} (llama3-8b, quant={quant}, INT8 KV)")
         # paths (e) and (f) run on path (b)'s engine, built with the pool
         # bench.py --mode spec sizes
-        eng, held = build_engine(torch, quant, layers=layers,
-                                 spec_k=SPEC_K if quant == "int8" else 0)
+        eng, held = build_engine(torch, path_config(
+            quant, layers=layers, spec_k=SPEC_K if quant == "int8" else 0)[0])
         info = drive(torch, eng, prompts, greedy, steps, name)
         info["engine_gb"] = held
         launches_from(name, info)
-        tf16 = logit_checks(torch, eng, refs, prompts, greedy, steps,
-                            TOL[(quant, "bf16")], "bf16")
+        tf16 = logit_checks(torch, eng, refs, forced_run(
+            torch, eng, prompts, greedy, steps), TOL[(quant, "bf16")], "bf16")
         info.update(limit_readings(tf16, "bf16"))
         if quant in ("none", "int8"):
             checks, base = full_checks(torch, eng, refs, prompts, greedy,
@@ -1054,15 +1298,263 @@ def run_paths(torch, dev, results, card):
         if quant == "none":
             # the same checks with f32 weights and activations (same
             # seed, unrounded)
-            eng32, _ = build_engine(torch, quant, "float32")
-            tf32 = logit_checks(torch, eng32, refs, prompts, greedy, steps,
-                                TOL[(quant, "f32")], "f32")
+            eng32, _ = build_engine(torch, path_config(quant, "float32",
+                                                       layers)[0])
+            tf32 = logit_checks(torch, eng32, refs, forced_run(
+                torch, eng32, prompts, greedy, steps), TOL[(quant, "f32")],
+                "f32")
             del eng32
             torch.cuda.empty_cache()
             info.update(limit_readings(tf32, "f32"))
         out[name] = info
+    for letter, name, model, batch_, prompt_len_, decode in DECODE_PATHS:
+        phase(f"3{letter}: {name} ({model}, bf16 weights, INT8 KV on an "
+              f"unpadded pool, B={batch_}, {prompt_len_}-token prompts: "
+              f"{decode} in every decode layer)")
+        out[name] = decode_path(torch, refs, greedy, name, model, batch_,
+                                prompt_len_, decode)
+        launches_from(name, out[name])
+    phase(f"3i: long-context ({LONG_MODEL}, w8a8, INT8 KV, one "
+          f"{LONG_PROMPT}-token prompt, bench.py --mode longctx's table)")
+    out["long-context"] = long_context_path(torch, refs, greedy, card)
+    launches_from("long-context", out["long-context"])
     check(not LIMIT_FAILURES, "; ".join(LIMIT_FAILURES))
     return out
+
+
+def decode_path(torch, refs, greedy, name, model, batch, prompt_len,
+                decode):
+    """Paths (g) and (h): ``model`` with bf16 weights at its full width
+    and depth on an unpadded INT8 pool; the timed run with exact launch
+    counts (``decode`` in every decode layer), the teacher-forced logit
+    checks and :func:`full_checks`."""
+    cfg, batch, steps, prompt_len = path_config(
+        model=model, batch=batch, prompt_len=prompt_len, pad_head_dim=False)
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.model.vocab_size, size=(batch, prompt_len)).tolist()
+    eng, held = build_engine(torch, cfg)
+    check(eng.backend.pool.pool_head_dim == cfg.model.head_dim,
+          f"{name}: the pool is padded")
+    info = drive(torch, eng, prompts, greedy, steps, name, decode=decode)
+    info["engine_gb"] = held
+    tf16 = logit_checks(torch, eng, refs, forced_run(
+        torch, eng, prompts, greedy, steps), TOL[(name, "bf16")], "bf16")
+    info.update(limit_readings(tf16, "bf16"))
+    checks, _ = full_checks(torch, eng, refs, prompts, greedy, steps, tf16)
+    info.update(checks)
+    del eng
+    torch.cuda.empty_cache()
+    return info
+
+
+@contextlib.contextmanager
+def decode_capture(torch, eng):
+    """Inside: ``eng``'s fused loop is watched. At its first T=1 forward
+    the card is synchronised and the time taken (the end of the prefill),
+    then the pool is copied (``"pool"``, the prefilled pool) and the time
+    taken again; the pages it allocates are kept (``"pages"``) and the
+    last-position logits of the prefill's last chunk and of every decode
+    step (``"rows"``, f32 on the card)."""
+    cap = {"rows": [], "pages": [], "prefill_end": None, "pool": None}
+    forward, alloc = eng.model.forward, eng.allocator.alloc_many
+
+    def watched_forward(params, tokens, positions, kv, attn):
+        if tokens.shape[1] == 1 and cap["pool"] is None:
+            torch.cuda.synchronize()
+            cap["prefill_end"] = time.perf_counter()
+            cap["pool"] = tuple(x.clone() for x in kv)
+            torch.cuda.synchronize()
+            cap["copy_end"] = time.perf_counter()
+        logits, kv = forward(params, tokens, positions, kv, attn)
+        if tokens.shape[1] > 1 and cap["rows"]:
+            cap["rows"][-1] = logits[:, -1].float()
+        else:
+            cap["rows"].append(logits[:, -1].float())
+        return logits, kv
+
+    def watched_alloc(n):
+        cap["pages"].append(alloc(n))
+        return cap["pages"][-1]
+
+    eng.model.forward = watched_forward
+    eng.allocator.alloc_many = watched_alloc
+    try:
+        yield cap
+    finally:
+        del eng.model.forward
+        del eng.allocator.alloc_many
+
+
+def decode_from_pool(torch, eng, ref, pool, bt, prompt_len, feed):
+    """Decode steps from a copy of the prefilled ``pool`` (block table
+    ``bt``, each sequence ``prompt_len`` tokens) through the reference
+    ``ref`` (``None``: the kernels), step ``s`` fed ``feed[:, s]``.
+    Returns the logits ``[steps, B, V]`` (f32, host) and the tokens
+    fed."""
+    batch = bt.shape[0]
+    with recording(eng, ref) as rows, torch.inference_mode():
+        kv = tuple(x.clone() for x in pool)
+        sl = torch.full((batch,), prompt_len, dtype=torch.int32,
+                        device=bt.device)
+        for s in range(feed.shape[1]):
+            tok = feed[:, s]
+            attn = eng.backend.make_attn_fn(bt, sl + 1, sl)
+            _, kv = eng.model.forward(
+                eng.params, torch.as_tensor(tok, device=bt.device).long()[
+                    :, None], sl.long()[:, None], kv, attn)
+            sl = sl + 1
+        del kv
+        logits = torch.stack(rows).cpu().numpy()
+    check(np.isfinite(logits).all(), "non-finite logits")
+    return logits, feed
+
+
+@contextlib.contextmanager
+def from_prefilled(eng, pool, pages, final):
+    """Inside: ``eng.generate_batch_fused`` resumes after a prefill it
+    does not run: its pages are ``pages`` (one list a sequence, claimed
+    from the allocator), its new pool takes a copy of the prefilled
+    ``pool`` in place of the prefill's chunks, whose last logits were
+    ``final``; the decode loop then runs as after the prefill."""
+    rows = iter(pages)
+
+    def claimed(n):
+        ps = next(rows)
+        check(n == len(ps), f"resumed run asks for {n} pages, not {len(ps)}")
+        for p in ps:
+            eng.allocator.claim(p)
+        return list(ps)
+
+    def prefilled(kv, tokens, lens, bt, chunk):
+        for dst, src in zip(kv, pool):
+            dst.copy_(src)
+        return final.clone()
+
+    eng.allocator.alloc_many = claimed
+    eng._prefill_chunks = prefilled
+    try:
+        yield
+    finally:
+        del eng.allocator.alloc_many
+        del eng._prefill_chunks
+
+
+def long_context_path(torch, refs, greedy, card):
+    """Path (i): Llama-3.1-8B, w8a8, at ``bench.py --mode longctx
+    --prompt-len 32768``'s table: one timed ``generate_batch_fused`` of
+    64 tokens (exact launch counts: B6 in every decode layer), its
+    prefill and decode timed apart (one synchronise at the first decode
+    step) and its prefilled pool copied; the teacher-forced logit checks
+    and the fork rule run from that copy (no second 32k prefill); a
+    profile of ``generate_batch_fused`` of 16 tokens resumed from it
+    (:func:`from_prefilled`) gives the busy share and B6's time per layer
+    against its bytes bound."""
+    from importlib import import_module
+
+    plat = import_module(f"{PKG}.utils.platform")
+    cfg, batch, steps, prompt_len = path_config(
+        "int8", model=LONG_MODEL, batch=1, prompt_len=LONG_PROMPT)
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.model.vocab_size, size=(batch, prompt_len)).tolist()
+    eng, held = build_engine(torch, cfg)
+    eng.generate_batch_fused([p[:256] for p in prompts], 4, greedy)  # warm-up
+    with decode_capture(torch, eng) as cap:
+        plat.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks = np.asarray(eng.generate_batch_fused(prompts, steps, greedy))
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        counts = {n: k.launches for n, k in plat.KERNELS.items()}
+    prefill_s = cap["prefill_end"] - t0
+    decode_s = t_end - cap["copy_end"]
+    decode_tps = batch * (steps - 1) / decode_s
+    stream_gb, floor_ms = weight_stream(eng)
+    copy_ms = (cap["copy_end"] - cap["prefill_end"]) * 1e3
+    print(f"  generate_batch_fused: prefill {prefill_s * 1e3:.1f} ms "
+          f"({prompt_len} tokens, {prefill_chunks(eng, prompts)} chunks), "
+          f"decode {decode_tps:.2f} tok/s = {decode_s / (steps - 1) * 1e3:.2f}"
+          f" ms/step (B={batch}, {steps} tokens; the pool copy at the "
+          f"first decode step, {copy_ms:.1f} ms, not counted); weight "
+          f"stream floor {floor_ms:.3f} ms/step", flush=True)
+    print(f"  launches in that run: {json.dumps(counts)}", flush=True)
+    expect = expected_launches(
+        cfg.model.quant, cfg.model.num_layers, steps,
+        chunks=prefill_chunks(eng, prompts),
+        decode="paged_attention_decode_grouped")
+    check(counts == expect,
+          f"long-context: launches {counts}, expected exactly {expect}")
+    check(toks.shape == (batch, steps), f"tokens shape {toks.shape}")
+    # the kernels' decode rows: the prefill's last row chose token 0,
+    # decode step s (fed token s) chose token s + 1
+    lk = torch.stack(cap["rows"]).cpu().numpy()
+    check(lk.shape[0] == steps, f"recorded {lk.shape[0]} rows")
+    bt = torch.zeros((batch, cfg.cache.max_pages_per_seq), dtype=torch.int32,
+                     device=eng.device)
+    for b, pages in enumerate(cap["pages"]):
+        bt[b, :len(pages)] = torch.tensor(pages)
+    pool, fed = cap["pool"], toks[:, :steps - 1]
+    plain_run = {}
+
+    def run(ref, feed):
+        if ref is None:
+            return lk[1:], fed
+        out = decode_from_pool(torch, eng, ref, pool, bt, prompt_len, feed)
+        if ref is refs["plain"]:
+            plain_run["logits"] = out[0]
+        return out
+
+    t_refs = time.perf_counter()
+    tf16 = logit_checks(torch, eng, refs, run,
+                        TOL[("long-context", "bf16")], "bf16")
+    print(f"  the three references' teacher-forced runs from the pool took "
+          f"{time.perf_counter() - t_refs:.1f} s", flush=True)
+    info = {"decode_tok_s": decode_tps, "prefill_ms": prefill_s * 1e3,
+            "weight_stream_gb": stream_gb, "weight_stream_floor_ms": floor_ms,
+            "engine_gb": held, "launches": counts}
+    info.update(limit_readings(tf16, "bf16"))
+    # the fork rule: the plain path greedy from the same pool emits, up to
+    # each row's first fork, what it emits teacher-forced with the
+    # kernels' tokens, so its teacher-forced run stands for it
+    lp = plain_run["logits"]
+    compared, worst, forks = fork_checks(
+        "long-context kernels vs plain, greedy from the prefilled pool",
+        toks[:, 1:], lp.argmax(-1).T, lk[1:], lp)
+    info.update(pairs_before_fork=compared, max_dlogit=worst,
+                forks=len(forks))
+    resumed = {}
+
+    def resume(n):
+        with from_prefilled(eng, pool, cap["pages"], cap["rows"][0]):
+            resumed["tokens"] = np.asarray(
+                eng.generate_batch_fused(prompts, n, greedy))
+
+    prof = profile_run(torch, "fused (resumed from the copied prefill)",
+                       resume)
+    info.update(prof)
+    n = resumed["tokens"].shape[1]
+    n_same = int((resumed["tokens"] == toks[:, :n]).sum())
+    print(f"  the resumed run's tokens equal the timed run's first {n}: "
+          f"{n_same} of {resumed['tokens'].size} (tol == all)", flush=True)
+    check(n_same == resumed["tokens"].size,
+          "the resumed fused run's tokens differ from the timed run's")
+    # B6 per layer against its bytes: the profiled decode steps' mean
+    # context (prompt_len + 1 .. prompt_len + n - 1 keys)
+    b6_ms = (prof["profile_kernel_ms"]["paged_attention_decode_grouped"]
+             / ((n - 1) * cfg.model.num_layers))
+    keys = prompt_len + n / 2
+    b6_bytes = keys * cfg.model.num_kv_heads * 2 * (cfg.model.head_dim + 4)
+    b6_bound = b6_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"  B6 in the profiled decode: {b6_ms:.4f} ms a layer against its "
+          f"bytes bound {b6_bound:.4f} ms ({b6_bytes / 1e6:.1f} MB of K/V "
+          f"values and scales at {keys:.1f} keys; {b6_bound / b6_ms:.3f} of "
+          f"it reached), {b6_ms * cfg.model.num_layers:.3f} ms a step "
+          f"against the weight-stream floor {floor_ms:.3f} ms ({card})",
+          flush=True)
+    info.update(b6_ms_per_layer=b6_ms, b6_bound_ms_per_layer=b6_bound)
+    del eng, pool
+    torch.cuda.empty_cache()
+    return info
 
 
 def limit_readings(tf, tag):
@@ -1161,14 +1653,21 @@ def recording(eng, ref=None):
     """Inside: ``eng`` runs through the reference ``ref`` (a backend class
     and the matmuls it swaps in) when given, and the last-position logits
     ``[B, V]`` (f32, on the card) of every ``model.forward`` call are
-    appended to the list it yields: the prefill's final logits (the
-    prompts fill one chunk exactly), then one row per decode step."""
+    appended to the list it yields, where a prefill chunk's row replaces
+    the row of the chunk before it: the prefill's final logits (the
+    prompts fill their chunks exactly), then one row per decode step."""
     rows = []
     forward, saved = eng.model.forward, eng.backend
+    state = {"chunk": False}
 
     def recording_forward(*args):
         logits, kv = forward(*args)
-        rows.append(logits[:, -1].float())
+        chunk = args[1].shape[1] > 1
+        if chunk and state["chunk"]:
+            rows[-1] = logits[:, -1].float()
+        else:
+            rows.append(logits[:, -1].float())
+        state["chunk"] = chunk
         return logits, kv
 
     eng.model.forward = recording_forward
@@ -1182,6 +1681,13 @@ def recording(eng, ref=None):
         finally:
             del eng.model.forward
             eng.backend = saved
+
+
+def forced_run(torch, eng, prompts, greedy, steps):
+    """:func:`logit_checks`'s ``run`` for a path whose references prefill
+    the prompts themselves: :func:`forced_logits`."""
+    return lambda ref, feed: forced_logits(torch, eng, ref, prompts, greedy,
+                                           steps, feed)
 
 
 def forced_logits(torch, eng, ref, prompts, greedy, steps, feed=None):
@@ -1219,20 +1725,20 @@ def compare(lk, lp):
                               if dec.any() else 1.0)}
 
 
-def logit_checks(torch, eng, refs, prompts, greedy, steps, frac, tag):
+def logit_checks(torch, eng, refs, run, frac, tag):
     """Teacher-forced logits of the kernel path and of two references,
     each against the plain path fed the same tokens: the SDPA path (a
     sound independent implementation; it must pass) and the
     lower-precision control (it must fail, or the limit could not tell a
     kernel computing at the control's precision from a right one). The
-    limit is ``frac`` of max|logit|."""
-    lk, fed = forced_logits(torch, eng, None, prompts, greedy, steps)
-    lp, _ = forced_logits(torch, eng, refs["plain"], prompts, greedy, steps,
-                          fed)
+    limit is ``frac`` of max|logit|. ``run(ref, feed)`` gives the logits
+    ``[steps, B, V]`` and the tokens fed of the kernels (``ref`` None,
+    fed their own greedy tokens) or of a reference fed ``feed``."""
+    lk, fed = run(None, None)
+    lp, _ = run(refs["plain"], fed)
     res = {"kernels": compare(lk, lp)}
     for ref in ("sdpa", "lowp"):
-        lr, _ = forced_logits(torch, eng, refs[ref], prompts, greedy, steps,
-                              fed)
+        lr, _ = run(refs[ref], fed)
         res[ref] = compare(lr, lp)
     kern = res["kernels"]
     tol = frac * kern["scale"]
@@ -1499,12 +2005,13 @@ def sdpa_paged(q, kv_pages, block_tables, seq_lens, q_offsets,
                kv_scales=None, layer=None, *, page_size, num_q_heads,
                window=0, softcap=0.0, scale=None):
     """Paged attention as one scaled_dot_product_attention call over a
-    dense, dequantized, gathered copy of the pages (f32). A reference
-    for this script only; the port never calls it."""
+    dense, dequantized, gathered copy of the pages (f32), the sliding
+    window in its mask. A reference for this script only; the port never
+    calls it."""
     import torch
     import torch.nn.functional as F_
 
-    assert window == 0 and softcap == 0.0
+    assert softcap == 0.0
     B, T, H, D = q.shape
     pool = kv_pages[layer]
     KH, page, mp = pool.shape[1], page_size, block_tables.shape[1]
@@ -1519,6 +2026,8 @@ def sdpa_paged(q, kv_pages, block_tables, seq_lens, q_offsets,
     qpos = q_offsets.long()[:, None] + torch.arange(T, device=q.device)
     key = torch.arange(mp * page, device=q.device)
     mask = (key <= qpos[:, :, None]) & (key < seq_lens.long()[:, None, None])
+    if window > 0:
+        mask &= key > qpos[:, :, None] - window
     out = F_.scaled_dot_product_attention(
         q.float().transpose(1, 2), k, v, attn_mask=mask[:, None],
         scale=scale)
@@ -1527,10 +2036,10 @@ def sdpa_paged(q, kv_pages, block_tables, seq_lens, q_offsets,
 
 def reference_backends():
     """The references the kernel path is held against, each a
-    ``PagedKVBackend`` with its wrappers replaced and the matmul wrappers
-    it swaps in (the port never uses them): ``plain``, the kernels' plain
-    PyTorch versions; ``sdpa``, plain appends, :func:`sdpa_paged`
-    attention and products computed another way (``torch._int_mm`` for
+    ``PagedKVBackend`` with its wrappers replaced (every decode route's
+    alike) and the matmul wrappers it swaps in (the port never uses
+    them): ``plain``, the kernels' plain PyTorch versions; ``sdpa``, plain
+    appends, :func:`sdpa_paged` attention and products computed another way (``torch._int_mm`` for
     B10, a bf16 cuBLAS product over a widened weight for B11,
     :func:`w4_matmul_grouped` for B12); ``lowp``, the plain versions with attention at
     a lower precision (``LOWP_NAME``): for f32 queries, q and the output
@@ -1573,17 +2082,22 @@ def reference_backends():
         append = staticmethod(append_plain)
         attend = staticmethod(pa.paged_attention_plain)
         attend_decode = staticmethod(pa.paged_attention_decode_plain)
+        attend_decode_grouped = staticmethod(
+            pa.paged_attention_decode_grouped_plain)
+        attend_decode_packed = staticmethod(
+            pa.paged_attention_decode_packed_plain)
         attend_decode_append = staticmethod(
             pa.paged_attention_decode_append_plain)
 
     class Sdpa(Plain):
         attend = staticmethod(sdpa_paged)
-        attend_decode = staticmethod(sdpa_decode)
+        attend_decode = attend_decode_grouped = attend_decode_packed = \
+            staticmethod(sdpa_decode)
 
     class LowPrecision(Plain):
         attend = staticmethod(lower_precision(pa.paged_attention_plain))
-        attend_decode = staticmethod(
-            lower_precision(pa.paged_attention_decode_plain))
+        attend_decode = attend_decode_grouped = attend_decode_packed = \
+            staticmethod(lower_precision(pa.paged_attention_decode_plain))
 
     return {"plain": (Plain, plain_mm), "sdpa": (Sdpa, library_mm),
             "lowp": (LowPrecision, plain_mm)}
@@ -1591,25 +2105,32 @@ def reference_backends():
 
 def profile_run(torch, label, run, steps=16):
     """Device busy share and time by kernel over one ``run(steps)`` (a
-    generation loop), from ``torch.profiler`` (CUPTI)."""
+    generation loop), from ``torch.profiler`` (CUPTI); a trace without
+    kernel records is taken again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(steps)
+    for attempt in range(3):
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:      # CPU ops repeat their
-            continue                              # kernels' time
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0.0))
-        if dev_us > 0:
-            rows.append((dev_us, e.count, e.key))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(steps)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        rows = []
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:  # CPU ops repeat their
+                continue                          # kernels' time
+            dev_us = getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+            if dev_us > 0:
+                rows.append((dev_us, e.count, e.key))
+        if rows:
+            break
+        print(f"  (trace {attempt + 1} of the {label} run held no device "
+              "time; tracing again)", flush=True)
+    check(bool(rows), f"profiler saw no device time in the {label} run")
     rows.sort(reverse=True)
     busy_us = sum(r[0] for r in rows)
     # the projections and the LM head: cuBLAS's GEMM kernels (dense
@@ -1617,9 +2138,9 @@ def profile_run(torch, label, run, steps=16):
     gemm_us = sum(r[0] for r in rows
                   if any(s in r[2].lower() for s in ("gemm", "nvjet")))
     qmm_us = sum(r[0] for r in rows if "qmm::" in r[2])
-    kernels_us = sum(r[0] for r in rows
-                     if any(m in r[2] for names in KERNEL_NAMES.values()
-                            for m in names))
+    by_kernel = {k: sum(r[0] for r in rows if any(m in r[2] for m in names))
+                 for k, names in KERNEL_NAMES.items()}
+    kernels_us = sum(by_kernel.values())
     print(f"  profile of one {label} run ({steps} tokens): wall "
           f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
           f"({busy_us / wall_us:.3f} of wall), of which cuBLAS GEMMs "
@@ -1634,7 +2155,9 @@ def profile_run(torch, label, run, steps=16):
             "profile_busy_share": busy_us / wall_us,
             "profile_gemm_ms": gemm_us / 1e3,
             "profile_quant_matmul_ms": qmm_us / 1e3,
-            "profile_port_kernels_ms": kernels_us / 1e3}
+            "profile_port_kernels_ms": kernels_us / 1e3,
+            "profile_kernel_ms": {k: us / 1e3 for k, us in by_kernel.items()
+                                  if us > 0}}
 
 
 def main() -> int:
@@ -1686,9 +2209,13 @@ def main() -> int:
             attention_checks(torch, F_, dev, results)
             append_checks(torch, dev, results)
             decode_append_checks(torch, dev, results)
+            decode_variant_checks(torch, F_, dev, results)
             matmul_checks(torch, dev, results)
         e2e = run_paths(torch, dev, results, card)
         for name, r in results.items():
+            if name in OFF_PATH:
+                r["launches"] = 0           # each path checked it exactly
+                continue
             check(r.get("launches", 0) > 0,
                   f"{name} was not launched on its path")
             check(all(r.get(k) is not None for k in (
@@ -1703,10 +2230,11 @@ def main() -> int:
         return 1
 
     # unfused_ms: the device time of the port's own launches a kernel
-    # fuses (B9: B3 then B2), null for a kernel that fuses none
+    # fuses (B9: B3 then B2), null for a kernel that fuses none; b2_ms: B2
+    # on the same inputs (B6 at path (i)'s 516 pages, B7 at B2's shape)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "unfused_ms", "tol")
+            "unfused_ms", "b2_ms", "tol")
     phase("4: summary")
     print(json.dumps({"paths": e2e}), flush=True)
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys}

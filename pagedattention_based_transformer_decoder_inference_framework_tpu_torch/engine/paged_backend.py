@@ -2,11 +2,15 @@
 
 The model's ``attn_fn`` appends the new K/V rows into their block-table
 slots (``ops/kv_append.py``, B3/B4/B5) and attends over the page pool
-(``ops/paged_attention.py``, B1/B2), with the JAX package's
-``engine/paged_backend.py`` dispatch: T=1 takes the decode kernel,
-everything else the general one; with ``PBT_FUSED_APPEND=1`` in the
-environment (the JAX package's switch, off by default) T=1 takes the
-fused append + decode kernel (B9) where its gate allows.
+(``ops/paged_attention.py``), with the JAX package's
+``engine/paged_backend.py`` dispatch: T>1 takes the general kernel (B1);
+T=1 takes the decode kernel that ``decode_route`` names for the pool's
+head dim and the block table's width: B2 for a lane-aligned head dim,
+B8 for an unpadded dh 16/32/64 pool, B6 otherwise and for every INT8
+table too wide for the JAX B2's scales budget (a 32k context at Llama-3
+geometry). With ``PBT_FUSED_APPEND=1`` in the environment (the JAX
+package's switch, off by default) T=1 takes the fused append + decode
+kernel (B9) where its gate allows, which is where the route is B2.
 """
 
 from __future__ import annotations
@@ -19,9 +23,16 @@ import torch.nn.functional as F
 from ..config import CacheConfig, ModelConfig
 from ..kvcache.pool import PagePool
 from ..ops.kv_append import kv_append
-from ..ops.paged_attention import (decode_append_supported,
+from ..ops.paged_attention import (decode_append_supported, decode_route,
                                    paged_attention, paged_attention_decode,
-                                   paged_attention_decode_append)
+                                   paged_attention_decode_append,
+                                   paged_attention_decode_grouped,
+                                   paged_attention_decode_packed)
+
+#: the backend's wrapper attribute for each T=1 route of ``decode_route``
+_DECODE_ATTR = {"paged_attention_decode": "attend_decode",
+                "paged_attention_decode_grouped": "attend_decode_grouped",
+                "paged_attention_decode_packed": "attend_decode_packed"}
 
 
 class PagedKVBackend:
@@ -32,6 +43,8 @@ class PagedKVBackend:
     append = staticmethod(kv_append)
     attend = staticmethod(paged_attention)
     attend_decode = staticmethod(paged_attention_decode)
+    attend_decode_grouped = staticmethod(paged_attention_decode_grouped)
+    attend_decode_packed = staticmethod(paged_attention_decode_packed)
     attend_decode_append = staticmethod(paged_attention_decode_append)
 
     def __init__(self, cfg: ModelConfig, cache: CacheConfig):
@@ -57,6 +70,7 @@ class PagedKVBackend:
                 "gather_axis (sequence-parallel prefill): ROADMAP queue A "
                 "item 10")
         page = self.cache.page_size
+        mp = block_tables.shape[1]
         block_tables = block_tables.to(torch.int32)
         seq_lens = seq_lens.to(torch.int32)
         q_offsets = q_offsets.to(torch.int32)
@@ -76,7 +90,7 @@ class PagedKVBackend:
                           scale=self.cfg.attn_scale)
             if (q.shape[1] == 1
                     and os.environ.get("PBT_FUSED_APPEND") == "1"
-                    and decode_append_supported(kv, dh_pool)):
+                    and decode_append_supported(kv, dh_pool, mp)):
                 out, kv = self.attend_decode_append(
                     q, kv, k, v, block_tables, seq_lens, positions, layer,
                     **common)
@@ -85,8 +99,10 @@ class PagedKVBackend:
                              page_size=page)
             scales = kv[1] if len(kv) == 2 else None
             if q.shape[1] == 1:
-                out = self.attend_decode(q, kv[0], block_tables, seq_lens,
-                                         scales, layer, **common)
+                attend = getattr(self, _DECODE_ATTR[decode_route(
+                    mp, kv[0].shape[2], page, dh_pool, scales is not None)])
+                out = attend(q, kv[0], block_tables, seq_lens, scales, layer,
+                             **common)
             else:
                 out = self.attend(q, kv[0], block_tables, seq_lens,
                                   q_offsets, scales, layer, **common)

@@ -1,6 +1,7 @@
 """On the card: each hand-written CUDA kernel of the PyTorch port against
-its plain PyTorch version (B1/B2 paged attention, B9 fused decode append,
-B3/B4/B5 KV appends, B10/B11/B12 quantized-weight products).
+its plain PyTorch version (B1/B2 paged attention, B6/B7/B8 decode
+attention, B9 fused decode append, B3/B4/B5 KV appends, B10/B11/B12
+quantized-weight products).
 
 These tests import no JAX, so they run where the card is (the suite's
 ``conftest.py`` sets JAX up, hence ``--noconftest``):
@@ -281,6 +282,89 @@ def test_cuda_spec_accepted_drafts_equal_fused(cuda, kv_dtype):
     assert len(forwards) == 1 + 4
     assert out == [[p[-1]] * 12 for p in prompts]
     assert out == eng.generate_batch_fused(prompts, 12, greedy)
+
+
+# the decode kernels past B2, each with the head dims it covers: B6 any
+# even dh (18: INT8 rows of 2-byte granules), B8 dh 16/32/64, B7 dh 128
+DECODE_VARIANTS = {
+    "grouped": (pa.paged_attention_decode_grouped, (18, 96, 128)),
+    "packed": (pa.paged_attention_decode_packed, (16, 32, 64)),
+    "batched": (pa.paged_attention_decode_batched, (128,)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G,window,softcap", [(1, 0, 0.0), (4, 0, 0.0),
+                                              (4, 10, 20.0)])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pool_dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("variant", sorted(DECODE_VARIANTS))
+def test_cuda_decode_variants_match_plain(cuda, variant, pool_dtype, q_dtype,
+                                          G, window, softcap):
+    """B6, B7 and B8 against their plain versions over a 40-page table: a
+    frozen lane (seq_len 0, no visible key: zeros), a window whose first
+    key lies inside a page, a lane mid-page, the table's last slot and a
+    long lane; B6 at several group widths. One launch per call."""
+    wrapper, dhs = DECODE_VARIANTS[variant]
+    plain = getattr(pa, wrapper.__name__ + "_plain")
+    kernel = {"grouped": pa.ATTENTION_DECODE_GROUPED,
+              "packed": pa.ATTENTION_DECODE_PACKED,
+              "batched": pa.ATTENTION_DECODE_BATCHED}[variant]
+    rng = np.random.default_rng(11)
+    B, KH, Pn, mp = 5, 2, 208, 40
+    H = KH * G
+    bt = torch.from_numpy((rng.permutation(Pn - 1)[:B * mp] + 1).reshape(
+        B, mp).astype(np.int32)).to(cuda)
+    sl = torch.tensor([0, 30, 17, mp * PAGE, 250], device=cuda)
+    tol = 1e-4 if q_dtype == torch.float32 else 2e-2
+    for dh in dhs:
+        shape = (L, 2, KH, Pn, PAGE, dh)
+        if pool_dtype == "int8":
+            vals = torch.from_numpy(rng.integers(-127, 128, size=shape).astype(
+                np.int8)).to(cuda)
+            sc = torch.from_numpy((rng.random((L, 2, KH, Pn * PAGE // 128,
+                                               128)) * 0.02 + 0.005).astype(
+                np.float32)).to(cuda)
+        else:
+            vals = torch.from_numpy(rng.normal(size=shape).astype(
+                np.float32)).to(cuda, torch.bfloat16)
+            sc = None
+        q = torch.from_numpy(rng.normal(size=(B, 1, H, dh)).astype(
+            np.float32)).to(cuda, q_dtype)
+        kw = dict(page_size=PAGE, num_q_heads=H, window=window,
+                  softcap=softcap)
+        ref = plain(q, vals, bt, sl, sc, LAYER, **kw)
+        for extra in ([{"group_pages": J} for J in (1, 4, 7)]
+                      if variant == "grouped" else [{}]):
+            kernel.launches = 0
+            out = wrapper(q, vals, bt, sl, sc, LAYER, **kw, **extra)
+            assert kernel.launches == 1
+            torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                       rtol=0)
+            assert not out[0].any()                  # the frozen lane
+
+
+@pytest.mark.cuda
+def test_cuda_decode_route_in_the_engine(cuda):
+    """A ``pad_head_dim=False`` engine on the card: dh 16 at page 8
+    decodes through B8, a dh-24 variant through B6, every decode layer
+    one launch."""
+    greedy = SamplingParams(temperature=0.0, eos_token_id=-1)
+    prompts = [[5, 9, 3, 14, 2], list(range(20, 39))]
+    for dh, kernel in ((16, pa.ATTENTION_DECODE_PACKED),
+                       (24, pa.ATTENTION_DECODE_GROUPED)):
+        cfg = tconfig.FrameworkConfig(
+            model=tconfig.preset("llama-tiny"),
+            cache=tconfig.CacheConfig(page_size=PAGE, num_pages=64,
+                                      max_pages_per_seq=8, kv_dtype="int8",
+                                      pad_head_dim=False),
+            runtime=tconfig.RuntimeConfig(max_new_tokens=8))
+        cfg.model.dtype, cfg.model.head_dim = "float32", dh
+        eng = Engine(cfg, device=cuda, seed=0)
+        kernel.launches = 0
+        out = eng.generate_batch_fused(prompts, 8, greedy)
+        assert kernel.launches == cfg.model.num_layers * 7
+        assert [len(r) for r in out] == [8, 8]
 
 
 # (M, K, N): decode rows with K split across blocks, one row, rows past

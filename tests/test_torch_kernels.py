@@ -178,20 +178,23 @@ def test_paged_attention_decode_append_matches_jax(pool_dtype, KH, G,
 def test_decode_append_gate():
     pool = torch.zeros((L, 2, 2, P, PAGE, DH), dtype=torch.int8)
     sc = torch.zeros((L, 2, 2, P * PAGE // 128, 128))
-    assert pa.decode_append_supported((pool, sc), DH)
-    assert pa.decode_append_supported((pool.float(),), DH)
-    assert not pa.decode_append_supported((pool[..., :64],), 64)
-    assert not pa.decode_append_supported((pool.double(),), DH)
+    assert pa.decode_append_supported((pool, sc), DH, MP)
+    assert pa.decode_append_supported((pool.float(),), DH, MP)
+    assert not pa.decode_append_supported((pool[..., :64],), 64, MP)
+    assert not pa.decode_append_supported((pool.double(),), DH, MP)
     assert not pa.decode_append_supported(
-        (pool, sc.reshape(L, 2, 2, P, PAGE, 1)), DH)
+        (pool, sc.reshape(L, 2, 2, P, PAGE, 1)), DH, MP)
 
 
 def test_unported_variants_raise():
+    """B2 keeps the JAX kernel's lane-aligned head dim and names the
+    kernels of a sub-128 pool; the per-page score export is not
+    ported."""
     q = torch.zeros((1, 1, 2, 64))
     kv = torch.zeros((1, 2, 1, 4, PAGE, 64))
     bt = torch.ones((1, 2), dtype=torch.int32)
     sl = torch.ones((1,), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="B6/B8"):
+    with pytest.raises(ValueError, match="B6/B8"):
         pa.paged_attention_decode(q, kv, bt, sl, None, 0, page_size=PAGE,
                                   num_q_heads=2)
     with pytest.raises(NotImplementedError, match="beam"):
