@@ -38,7 +38,18 @@ and nothing of JAX. Phases:
    flag the output of a table with one group of 4 pages misread, and at
    dh 64 with a softcap; B7
    (``paged_attention_decode_batched``, on no path) at B2's shape with B2
-   beside it and at 8 ragged sequences.
+   beside it and at 8 ragged sequences. The chained megakernel (slice
+   5): B14 (``chain_decode``) at Llama-3-8B's chain (bk 1024, bn 2048, G
+   104 blocks) at B=4 and B=1, with and without the next layer's qkv,
+   with bf16, int8-weight and w8a8 blocks, within 2e-2 of max|plain|;
+   each variant's plain output must move past that when two blocks are
+   swapped; and at GPT-2's widths (GELU, LayerNorm, biases), TinyLlama's
+   (I % bn != 0) and a hidden size of 1280 (square blocks); timed beside
+   its yardstick, the per-op layer on the same weights (its launches
+   counted). B15 (``packed_linear``) on the same chains at M=4, 36 and
+   256 for o, gate|up, down and the tail (w8a8 bit-exact), a layer's
+   four calls at M=256 timed beside ``torch._int_mm`` over the same
+   values.
 3. The paths, each ``Engine`` on llama3-8b at full width and full depth
    (32 layers; (a), (c) and (d) cut to 8; weights from a seed, INT8
    paged KV, page 64, prefill chunk 256, the pool ``bench.py`` sizes, for (b),
@@ -67,6 +78,15 @@ and nothing of JAX. Phases:
    f. fused-append (slice 3), on (b)'s engine: ``generate_batch_fused``
       with ``PBT_FUSED_APPEND=1``, B9 in every decode layer and B2/B3
       never; tokens held against (b)'s by the same fork rule;
+   j. megakernel (slice 5, ``bench.py --megakernel``): (b)'s w8a8
+      weights handed to an engine with ``megakernel`` and
+      ``megakernel_drop_weights``, which packs each layer's chain and
+      drops the per-op copies (its memory printed beside (b)'s): B14 in
+      every decode layer (with B10 for layer 0's qkv and B11 for the head)
+      and B15 for every prefill projection but layer 0's qkv; the checks
+      of (b) (teacher-forced logits within (b)'s limit, the fused loop,
+      ``generate_stream``, ``score_nll``, a profile), and its tokens
+      against (b)'s run by the fork rule;
    and slice 4's decode routes past B2, each at its preset's full width
    and depth, random bf16 or w8a8 weights from the seed, INT8 KV, page
    64, the pool ``bench.py`` sizes, 64 greedy tokens:
@@ -252,7 +272,9 @@ KERNEL_NAMES = {
     "paged_attention_decode_batched": ("decode_batched_kernel<",),
     "int8_matmul": ("qmm::gemv_kernel<0,", "qmm::tiled_kernel<0,"),
     "w8_matmul": ("qmm::gemv_kernel<1,", "qmm::tiled_kernel<1,"),
-    "w4_matmul": ("qmm::gemv_kernel<2,", "qmm::tiled_kernel<2,")}
+    "w4_matmul": ("qmm::gemv_kernel<2,", "qmm::tiled_kernel<2,"),
+    "chain_decode": ("chain::chain_kernel<",),
+    "packed_linear": ("chain::packed_kernel<",)}
 
 
 def make_pool(torch, gen, dtype, dev, batch=B, kv_heads=KH, dh=DH, mp=MP,
@@ -1044,6 +1066,328 @@ def matmul_checks(torch, dev, results):
                               else "one bf16 step or 1e-5 of max|out|")
 
 
+#: B14/B15 at Llama-3-8B's chain (D 4096, I 14336, next qkv 6144; bk
+#: 1024, bn 2048) and at edge chains: (label, D, I, N3, activation, norm,
+#: biases): GPT-2's widths with GELU, LayerNorm and biases; TinyLlama's
+#: (I % bn != 0); a hidden size no multiple of bk (square blocks of 1280)
+CHAIN_MAIN = ("llama3-8b", 4096, 14336, 6144, "swiglu", "rmsnorm", False)
+CHAIN_EDGES = [("gpt2 gelu+ln", 768, 3072, 2304, "gelu", "layernorm", True),
+               ("tinyllama I%bn", 2048, 5632, 2560, "swiglu", "rmsnorm",
+                False),
+               ("D%bk (D 1280)", 1280, 5120, 3840, "swiglu", "rmsnorm",
+                False)]
+#: B14 against its plain version, of max|plain|: h and the activation are
+#: rounded to bf16 (or re-quantized to INT8) between the ops, so an f32
+#: sum in another order can move one of them by a step
+CHAIN_TOL = 2e-2
+#: the variants: (weights, activations)
+CHAIN_VARIANTS = {"bf16": "dense", "int8-weight": "int8", "w8a8": "w8a8"}
+
+
+def chain_ops(torch, gen, dev, shape, tail=True):
+    """Random f32 per-op weights of one chain of ``shape``: ``[(op, W [K,
+    N], bias)]`` in stream order and the two norms' (scale, bias)."""
+    from importlib import import_module
+
+    cl = import_module(f"{PKG}.ops.chain_linear")
+    _, D, I, N3, act, norm, biased = shape
+
+    def r(*s_, scale=0.02):
+        return torch.randn(s_, generator=gen, device=dev) * scale
+
+    ops = [(cl.OP_O, r(D, D), r(D) if biased else None)]
+    ops += ([(cl.OP_G, r(D, I), None), (cl.OP_U, r(D, I), None)]
+            if act == "swiglu" else [(cl.OP_U, r(D, I), r(I) if biased
+                                      else None)])
+    ops += [(cl.OP_D, r(I, D), r(D) if biased else None)]
+    if tail:
+        ops += [(cl.OP_T, r(D, N3), r(N3) if biased else None)]
+    lns = [(1.0 + r(D, scale=0.1), r(D, scale=0.1) if biased else None)
+           for _ in range(2)]
+    return ops, lns
+
+
+def chain_variant(torch, ops, lns, shape, variant, tail=True):
+    """``ops`` (f32) as ``variant``'s weights, packed as
+    ``build_decode_chains`` packs them; returns the chain and the per-op
+    weights it holds."""
+    from importlib import import_module
+
+    cl = import_module(f"{PKG}.ops.chain_linear")
+    qt = import_module(f"{PKG}.quant.tensor")
+    chained = import_module(f"{PKG}.models.chained")
+    _, D, I, _, act, norm, _ = shape
+    kind = CHAIN_VARIANTS[variant]
+    conv = [(op, w.to(torch.bfloat16) if kind == "dense"
+             else qt.quantize_per_channel(w), b)
+            for op, w, b in ops if tail or op != cl.OP_T]
+    bk, bn = chained.chain_blocks(D, I)
+    pc = cl.pack_chain(conv, D=D, I=I, ln_after_o=lns[0],
+                       ln_after_down=lns[1] if tail else None, act_kind=act,
+                       norm_kind=norm, eps=1e-5, bk=bk, bn=bn,
+                       w_dtype=torch.bfloat16 if kind == "dense" else None,
+                       w8a8=kind == "w8a8")
+    return pc, conv
+
+
+def misread(torch, pc):
+    """``pc`` with its first two blocks swapped (the o-projection's first
+    two K blocks, each read where the other belongs)."""
+    w = pc.w.clone()
+    w[[0, 1]] = w[[1, 0]]
+    return dataclasses.replace(pc, w=w)
+
+
+def per_op_layer(torch, conv, lns, shape, w8a8):
+    """The per-op path B14 replaces, on the same weights: ``linear`` for
+    each projection (gate|up fused) with the norms, SwiGLU / GELU and
+    residual adds between them, as ``DecoderModel`` runs a layer and the
+    next layer's qkv; the yardstick of B14 (a callable of (attn_in, x))."""
+    from importlib import import_module
+
+    lin = import_module(f"{PKG}.ops.linear")
+    com = import_module(f"{PKG}.ops.common")
+    qt = import_module(f"{PKG}.quant.tensor")
+    _, D, I, _, act, norm, _ = shape
+    w = {op: (wt, b) for op, wt, b in conv}
+    gu = None
+    if act == "swiglu":
+        g_, u_ = w[1][0], w[2][0]
+        gu = (qt.QTensor(torch.cat([g_.values, u_.values], 1),
+                         torch.cat([g_.scales, u_.scales], 1))
+              if isinstance(g_, qt.QTensor) else torch.cat([g_, u_], 1))
+
+    def nrm(x, pair):
+        if norm == "rmsnorm":
+            return com.rmsnorm(x, pair[0], 1e-5)
+        return com.layernorm(x, pair[0], pair[1], 1e-5)
+
+    def layer(ain, x):
+        x = x + lin.linear(ain, w[0][0], w[0][1], w8a8=w8a8)
+        h = nrm(x, lns[0])
+        if gu is not None:
+            g, u = lin.linear(h, gu, w8a8=w8a8).chunk(2, dim=-1)
+            mid = com.activation_fn("silu")(g.float()).to(u.dtype) * u
+        else:
+            mid = lin.linear(h, w[2][0], w[2][1], act=act, w8a8=w8a8)
+        x = x + lin.linear(mid, w[3][0], w[3][1], w8a8=w8a8)
+        if 4 not in w:
+            return x, None
+        return x, lin.linear(nrm(x, lns[1]), w[4][0], w[4][1], w8a8=w8a8)
+    return layer
+
+
+def traced_launches(torch, fn, iters=5):
+    """Device kernels per call of ``fn`` (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / iters
+
+
+def chain_checks(torch, dev, results):
+    """B14 against its plain version at Llama-3-8B's chain at B=4 and B=1,
+    with and without the tail, in bf16 dense, int8-weight and w8a8, and at
+    the edge chains; each variant's plain output must move past the
+    tolerance when two blocks are swapped. B15 bit-exact under w8a8 (one
+    bf16 step or 1e-5 of max|out| otherwise) at M=4, 36 and 256 for the
+    o-projection, gate|up, down and the tail. Device times: B14 against
+    the per-op layer on the same weights (its yardstick and launch
+    count), B15 summed over a layer's four calls against ``torch._int_mm``
+    over the same values."""
+    from importlib import import_module
+
+    cl = import_module(f"{PKG}.ops.chain_linear")
+    qt = import_module(f"{PKG}.quant.tensor")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    bf16 = torch.bfloat16
+    worst = {"chain_decode": 0.0, "packed_linear": 0.0}
+
+    def hold(label, pc, B, tail):
+        ain = torch.randn((B, pc.K0), generator=gen, device=dev).to(bf16)
+        x = torch.randn((B, pc.D), generator=gen, device=dev).to(bf16)
+        out, t = cl.chain_decode(pc, ain, x)
+        ref, rt = cl.chain_decode_plain(pc, ain, x)
+        torch.cuda.synchronize()
+        check((t is None) == (not tail), f"{label}: tail {t is not None}")
+        ok, errs = True, []
+        for o, r in [(out, ref)] + ([(t, rt)] if tail else []):
+            scale = r.float().abs().max().item()
+            err = (o.float() - r.float()).abs().max().item()
+            ok &= (err <= CHAIN_TOL * scale
+                   and bool(torch.isfinite(o).all()))
+            errs.append((err, scale))
+            worst["chain_decode"] = max(worst["chain_decode"], err)
+        shown = ", ".join(f"{n} max|kernel-plain| {e:.3e} of max|plain| "
+                          f"{m:.3f}" for n, (e, m) in zip(("x", "tail"),
+                                                          errs))
+        print(f"  [chain_decode] {label} B={B}{'' if tail else ' no tail'}:"
+              f" {shown} (tol {CHAIN_TOL:g} of max|plain|) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"chain_decode {label}: kernel differs from plain")
+        return ain, x, ref
+
+    def hold_packed(label, pc, M):
+        runs = [((cl.OP_O,), None), ((cl.OP_D,), None)]
+        if pc.act_kind != "swiglu":
+            runs.append(((cl.OP_U,), pc.act_kind))
+        elif pc.I % pc.bn == 0:
+            runs.append(((cl.OP_G, cl.OP_U), None))
+        else:
+            runs += [((cl.OP_G,), None), ((cl.OP_U,), None)]
+        if pc.has_tail:
+            runs.append(((cl.OP_T,), None))
+        for ops, act in runs:
+            K = pc.I if ops == (cl.OP_D,) else pc.D
+            x = torch.randn((M, K), generator=gen, device=dev).to(bf16)
+            out = cl.packed_linear(pc, ops, x, act=act)
+            ref = cl.packed_linear_plain(pc, ops, x, act=act)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            ok = (torch.equal(out, ref) if pc.w8a8 and act is None
+                  else matmul_close(out, ref))
+            check(ok and bool(torch.isfinite(out).all()),
+                  f"packed_linear {label} ops {ops} M={M}: {err}")
+            worst["packed_linear"] = max(worst["packed_linear"], err)
+        print(f"  [packed_linear] {label} M={M}: {len(runs)} runs ok "
+              f"(w8a8 bit-exact, else one bf16 step or 1e-5 of max|out|)",
+              flush=True)
+
+    ops, lns = chain_ops(torch, gen, dev, CHAIN_MAIN)
+    for variant in CHAIN_VARIANTS:
+        w8a8 = variant == "w8a8"
+        label = f"{CHAIN_MAIN[0]} {variant}"
+        for tail in (True, False):
+            pc, conv = chain_variant(torch, ops, lns, CHAIN_MAIN, variant,
+                                     tail)
+            for B_ in (4, 1):
+                ain, x, ref = hold(label, pc, B_, tail)
+                if B_ == 4 and tail:
+                    moved = (cl.chain_decode_plain(misread(torch, pc), ain,
+                                                   x)[0].float()
+                             - ref.float()).abs().max().item()
+                    rel = moved / ref.float().abs().max().item()
+                    print(f"  [chain_decode] {label} control, two blocks "
+                          f"swapped: the plain output moves {rel:.3e} of "
+                          f"max|plain| (must exceed {CHAIN_TOL:g})",
+                          flush=True)
+                    check(rel > CHAIN_TOL, f"{label}: a misread chain "
+                          f"stays within the tolerance ({rel})")
+                if B_ == 4:
+                    timed = (ain, x)
+            ain, x = timed
+            ms = device_ms(lambda: cl.chain_decode(pc, ain, x),
+                           match=KERNEL_NAMES["chain_decode"])
+            plain_ms = device_ms(lambda: cl.chain_decode_plain(pc, ain, x),
+                                 iters=3)
+            layer = per_op_layer(torch, conv, lns, CHAIN_MAIN, w8a8)
+            lay_ref = layer(ain, x)
+            lay_err = (lay_ref[0].float() - cl.chain_decode_plain(
+                pc, ain, x)[0].float()).abs().max().item()
+            unfused_ms = device_ms(lambda: layer(ain, x))
+            unfused_n = traced_launches(torch, lambda: layer(ain, x))
+            io = 2 * (ain.numel() + 2 * x.numel()
+                      + (pc.N3 * 4 if tail else 0))
+            b_ms, b_by = bound(pc.w.numel() * pc.w.element_size()
+                               + 4 * (pc.sb.numel() + pc.ln.numel()) + io,
+                               2 * 4 * sum(g[4] * g[5]
+                                           for g in pc.ops_geom),
+                               "int8" if w8a8 else "bf16")
+            print(f"  [chain_decode] {label} B=4{'' if tail else ' no tail'}"
+                  f" device time: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                  f"ms, bound {b_ms:.5f} ms ({b_by}, {b_ms / ms:.2f} of it "
+                  f"reached; {pc.w.numel() * pc.w.element_size()} weight "
+                  f"bytes, G {pc.w.shape[0]}); yardstick the per-op layer "
+                  f"on the same weights {unfused_ms:.4f} ms in "
+                  f"{unfused_n:.0f} launches (its x within "
+                  f"{lay_err:.3e} of the chain's plain version); no "
+                  "library call computes a chain", flush=True)
+            if w8a8 and tail:
+                results["chain_decode"].update(
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=None, unfused_ms=unfused_ms)
+            if not tail:
+                continue
+            # B15 on the same chain
+            for M in (4, 36, 256):
+                hold_packed(label, pc, M)
+            if not w8a8:
+                continue
+            M = 256
+            xs = {K: torch.randn((M, K), generator=gen, device=dev).to(bf16)
+                  for K in (pc.D, pc.I)}
+            runs = [((cl.OP_O,), pc.D), ((cl.OP_G, cl.OP_U), pc.D),
+                    ((cl.OP_D,), pc.I), ((cl.OP_T,), pc.D)]
+            w = {op: wt for op, wt, _ in conv}
+            gu = qt.QTensor(torch.cat([w[1].values, w[2].values], 1),
+                            torch.cat([w[1].scales, w[2].scales], 1))
+            per_op = {(cl.OP_O,): w[0], (cl.OP_G, cl.OP_U): gu,
+                      (cl.OP_D,): w[3], (cl.OP_T,): w[4]}
+            tot = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+            by = set()
+            for run, K in runs:
+                x_ = xs[K]
+                kern = lambda r=run, a=x_: cl.packed_linear(pc, r, a)
+                ref = cl.packed_linear_plain(pc, run, x_)
+                xq = qt.quantize_per_row(x_)
+                wq = per_op[run]
+                lib = lambda a=xq, q=wq: int8_matmul_library(
+                    a.values, a.scales, q.values, q.scales)
+                lib_err = (lib().float() - ref.float()).abs().max().item()
+                check(lib_err <= 1e-2 * ref.float().abs().max().item(),
+                      f"packed_linear {run}: the library yardstick differs "
+                      f"from plain by {lib_err}")
+                N = ref.shape[-1]
+                b_ms, b_by = bound(M * K + 4 * M + wq.values.numel()
+                                   + 8 * N + 2 * M * N, 2 * M * K * N,
+                                   "int8")
+                tot["ms"] += device_ms(kern,
+                                       match=KERNEL_NAMES["packed_linear"])
+                tot["plain_ms"] += device_ms(
+                    lambda r=run, a=x_: cl.packed_linear_plain(pc, r, a),
+                    iters=3)
+                tot["bound_ms"] += b_ms
+                tot["library_ms"] += device_ms(lib, iters=5)
+                by.add(b_by)
+            print(f"  [packed_linear] {label} M={M}, a layer's four calls "
+                  f"(o, gate|up, down, next qkv) device time: kernel "
+                  f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, "
+                  f"bound {tot['bound_ms']:.5f} ms ({'/'.join(sorted(by))}, "
+                  f"{tot['bound_ms'] / tot['ms']:.2f} of it reached), "
+                  f"library torch._int_mm over the same values "
+                  f"{tot['library_ms']:.4f} ms", flush=True)
+            results["packed_linear"].update(bound_by="/".join(sorted(by)),
+                                            **tot)
+            del pc, conv
+            torch.cuda.empty_cache()
+    del ops, lns
+
+    for shape in CHAIN_EDGES:
+        ops, lns = chain_ops(torch, gen, dev, shape)
+        for variant in ("bf16", "w8a8"):
+            pc, _ = chain_variant(torch, ops, lns, shape, variant)
+            label = f"{shape[0]} {variant} (bk {pc.bk}, bn {pc.bn})"
+            ain, x, ref = hold(label, pc, 4, True)
+            moved = (cl.chain_decode_plain(misread(torch, pc), ain, x)[0]
+                     .float() - ref.float()).abs().max().item()
+            check(moved > CHAIN_TOL * ref.float().abs().max().item(),
+                  f"{label}: a misread chain stays within the tolerance")
+            hold_packed(label, pc, 36)
+    for kname, err in worst.items():
+        results[kname].update(
+            max_abs_err=err,
+            tol=(f"{CHAIN_TOL:g} of max|plain|" if kname == "chain_decode"
+                 else "0 (w8a8), one bf16 step or 1e-5 of max|out|"))
+
+
 # -- phase 3: the paths ------------------------------------------------------
 
 #: phase 3's paths: (name, quant, layers), each Llama-3-8B at full width
@@ -1063,11 +1407,13 @@ DECODE_PATHS = [
 LONG_MODEL, LONG_PROMPT = "llama3.1-8b", 32768
 #: the path each kernel's launch count in the kernels line comes from:
 #: slice 2's main path (w8a8); B12 the INT4 path, B5 the spec path, B9
-#: the fused-append path, B8 the packed path, B6 the long-context path
+#: the fused-append path, B8 the packed path, B6 the long-context path,
+#: B14 and B15 the megakernel path
 LAUNCHES_FROM = {"w4_matmul": "int4", "kv_append_tokens": "spec",
                  "paged_attention_decode_append": "fused-append",
                  "paged_attention_decode_packed": "packed",
-                 "paged_attention_decode_grouped": "long-context"}
+                 "paged_attention_decode_grouped": "long-context",
+                 "chain_decode": "megakernel", "packed_linear": "megakernel"}
 #: kernels no path runs (B7: neither engine calls it); each path checks
 #: that they were launched 0 times
 OFF_PATH = ("paged_attention_decode_batched",)
@@ -1108,14 +1454,18 @@ def path_config(quant="none", dtype="bfloat16", layers=None, spec_k=0,
 
 
 def expected_launches(quant, n_layers, steps, fused_append=False, chunks=1,
-                      decode="paged_attention_decode"):
+                      decode="paged_attention_decode", chained=False):
     """Exact launch counts of one ``generate_batch_fused`` run: ``chunks``
     page-aligned prefill chunks (B1 and B4 in each layer) and ``steps -
     1`` decode steps (B3 and the ``decode`` kernel in each layer), each
     forward over ``n_layers`` layers of four projections (fused qkv, wo,
     fused gate-up, down) and then the LM head; every other kernel 0. With
     ``fused_append`` (``PBT_FUSED_APPEND=1``) each decode layer launches
-    B9 in place of B3 and B2."""
+    B9 in place of B3 and B2. ``chained`` (the w8a8 megakernel with the
+    per-op copies dropped): layer 0's qkv (B10) and the LM head (B11) stay
+    per-op in every forward; a decode step runs one B14 a layer, a
+    prefill chunk its other projections through B15 (o, gate|up and down
+    of layer 0, then qkv, o, gate|up and down of each later layer)."""
     from importlib import import_module
 
     plat = import_module(f"{PKG}.utils.platform")
@@ -1127,7 +1477,13 @@ def expected_launches(quant, n_layers, steps, fused_append=False, chunks=1,
         out["paged_attention_decode_append"] = per_step
     else:
         out.update({"kv_append_decode": per_step, decode: per_step})
-    out.update(matmul_launches(quant, n_layers, chunks + steps - 1))
+    if chained:
+        check(quant == "int8", "the megakernel path is w8a8")
+        out.update(int8_matmul=chunks + steps - 1,
+                   w8_matmul=chunks + steps - 1, chain_decode=per_step,
+                   packed_linear=(4 * n_layers - 1) * chunks)
+    else:
+        out.update(matmul_launches(quant, n_layers, chunks + steps - 1))
     return out
 
 
@@ -1191,7 +1547,7 @@ def drive(torch, eng, prompts, greedy, steps, name, fused_append=False,
     print(f"  launches in that run: {json.dumps(counts)}", flush=True)
     expect = expected_launches(eng.cfg.quant, eng.cfg.num_layers, steps,
                                fused_append, prefill_chunks(eng, prompts),
-                               decode)
+                               decode, chained="chains" in eng.params)
     check(counts == expect,
           f"{name}: launches {counts}, expected exactly {expect}")
     arr = np.asarray(toks)
@@ -1293,6 +1649,14 @@ def run_paths(torch, dev, results, card):
             out["fused-append"] = fused_append_path(torch, eng, prompts,
                                                     greedy, steps, card, base)
             launches_from("fused-append", out["fused-append"])
+            phase("3j: megakernel (bench.py --megakernel: path (b)'s "
+                  "weights packed into chains, per-op copies dropped)")
+            holder = {"params": eng.params}
+            eng = None                  # (j) takes over (b)'s weights
+            out["megakernel"] = megakernel_path(
+                torch, holder, held, refs, prompts, greedy, steps, card,
+                base)
+            launches_from("megakernel", out["megakernel"])
         del eng
         torch.cuda.empty_cache()
         if quant == "none":
@@ -1631,13 +1995,16 @@ def _leaves(params, key=""):
 
 @contextlib.contextmanager
 def swapped_matmuls(fns):
-    """Inside: ``linear`` reaches ``fns[name]`` in place of the port's
-    ``int8_matmul`` / ``w8_matmul`` / ``w4_matmul`` wrappers."""
+    """Inside: ``linear`` and the model reach ``fns[name]`` in place of the
+    port's ``int8_matmul`` / ``w8_matmul`` / ``w4_matmul`` /
+    ``chain_decode`` / ``packed_linear`` wrappers."""
     from importlib import import_module
 
+    chain = import_module(f"{PKG}.ops.chain_linear")
     mods = {"int8_matmul": import_module(f"{PKG}.ops.int8_matmul"),
             "w8_matmul": import_module(f"{PKG}.ops.int8_matmul"),
-            "w4_matmul": import_module(f"{PKG}.ops.int4_matmul")}
+            "w4_matmul": import_module(f"{PKG}.ops.int4_matmul"),
+            "chain_decode": chain, "packed_linear": chain}
     saved = {n: getattr(mods[n], n) for n in fns}
     for n, f in fns.items():
         setattr(mods[n], n, f)
@@ -2001,6 +2368,62 @@ def fused_append_path(torch, eng, prompts, greedy, steps, card, base):
     return info
 
 
+def megakernel_path(torch, holder, held_b, refs, prompts, greedy, steps,
+                    card, base):
+    """Path (j), ``bench.py --megakernel``: an engine with ``megakernel``
+    and ``megakernel_drop_weights`` built on path (b)'s w8a8 weights
+    (``holder["params"]``, handed over, so the per-op copies are freed once
+    packed): chains held in place of the per-op weights, exact launch
+    counts (B14 a decode layer, B15 at prefill), teacher-forced logits
+    within (b)'s limit, :func:`full_checks` (score_nll and a profile
+    included), and its tokens against (b)'s recorded run ``base`` by the
+    fork rule."""
+    from importlib import import_module
+
+    eng_mod = import_module(f"{PKG}.engine")
+    cfg = path_config("int8")[0]
+    cfg.runtime.megakernel = True
+    cfg.runtime.megakernel_drop_weights = True
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = eng_mod.Engine(cfg, params=holder.pop("params"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    print(f"  engine built on path (b)'s weights in "
+          f"{time.perf_counter() - t0:.1f} s; holds {held:.2f} GB on the "
+          f"card (path (b)'s engine held {held_b:.2f} GB; peak while "
+          f"packing {torch.cuda.max_memory_allocated() / 1e9:.2f} GB, "
+          "both layouts)", flush=True)
+    layers, chains = eng.params["layers"], eng.params.get("chains", ())
+    check(len(chains) == cfg.model.num_layers, "megakernel: no chains")
+    check("wo" not in layers[1] and "w_qkv" not in layers[1]
+          and "w_gu" not in layers[1] and "w_qkv" in layers[0],
+          "megakernel: per-op copies kept")
+    info = drive(torch, eng, prompts, greedy, steps, "megakernel")
+    info.update(engine_gb=held, engine_gb_per_op=held_b)
+    tf16 = logit_checks(torch, eng, refs, forced_run(
+        torch, eng, prompts, greedy, steps), TOL[("int8", "bf16")], "bf16")
+    info.update(limit_readings(tf16, "bf16"))
+    checks, run = full_checks(torch, eng, refs, prompts, greedy, steps,
+                              tf16)
+    info.update(checks)
+    compared, worst, forks = fork_checks("megakernel vs path (b)", run[0],
+                                         base[0], run[1], base[1])
+    info.update(vs_b_pairs_before_fork=compared, vs_b_max_dlogit=worst,
+                vs_b_forks=len(forks))
+    per_layer = info["profile_kernel_ms"].get("chain_decode", 0.0) / (
+        cfg.model.num_layers * 15)
+    print(f"  megakernel decode {info['decode_tok_s']:.1f} tok/s ({card}); "
+          f"B14 {per_layer:.4f} ms a layer in the profiled run",
+          flush=True)
+    info["chain_decode_ms_per_layer"] = per_layer
+    del eng
+    torch.cuda.empty_cache()
+    return info
+
+
 def sdpa_paged(q, kv_pages, block_tables, seq_lens, q_offsets,
                kv_scales=None, layer=None, *, page_size, num_q_heads,
                window=0, softcap=0.0, scale=None):
@@ -2041,7 +2464,8 @@ def reference_backends():
     them): ``plain``, the kernels' plain PyTorch versions; ``sdpa``, plain
     appends, :func:`sdpa_paged` attention and products computed another way (``torch._int_mm`` for
     B10, a bf16 cuBLAS product over a widened weight for B11,
-    :func:`w4_matmul_grouped` for B12); ``lowp``, the plain versions with attention at
+    :func:`w4_matmul_grouped` for B12; B14/B15's plain versions, since no
+    library call computes a chain); ``lowp``, the plain versions with attention at
     a lower precision (``LOWP_NAME``): for f32 queries, q and the output
     rounded to bf16 (attention done in bf16); for bf16 queries, q rounded
     to float8_e4m3 (an FP8 attention's query)."""
@@ -2054,12 +2478,18 @@ def reference_backends():
     pa = import_module(f"{PKG}.ops.paged_attention")
     i8 = import_module(f"{PKG}.ops.int8_matmul")
     i4 = import_module(f"{PKG}.ops.int4_matmul")
+    cl = import_module(f"{PKG}.ops.chain_linear")
     plain_mm = {"int8_matmul": i8.int8_matmul_plain,
                 "w8_matmul": i8.w8_matmul_plain,
-                "w4_matmul": i4.w4_matmul_plain}
+                "w4_matmul": i4.w4_matmul_plain,
+                "chain_decode": cl.chain_decode_plain,
+                "packed_linear": cl.packed_linear_plain}
+    # no library call computes a chain: the chains' plain versions
     library_mm = {"int8_matmul": int8_matmul_library,
                   "w8_matmul": w8_matmul_library,
-                  "w4_matmul": w4_matmul_grouped}
+                  "w4_matmul": w4_matmul_grouped,
+                  "chain_decode": cl.chain_decode_plain,
+                  "packed_linear": cl.packed_linear_plain}
 
     def append_plain(kv, k, v, layer, positions, block_tables, *,
                      page_size):
@@ -2183,7 +2613,7 @@ def main() -> int:
 
         plat = import_module(f"{PKG}.utils.platform")
         for mod in ("paged_attention", "kv_append", "int8_matmul",
-                    "int4_matmul"):
+                    "int4_matmul", "chain_linear"):
             import_module(f"{PKG}.ops.{mod}")
         check("jax" not in sys.modules, "jax was imported")
 
@@ -2211,6 +2641,7 @@ def main() -> int:
             decode_append_checks(torch, dev, results)
             decode_variant_checks(torch, F_, dev, results)
             matmul_checks(torch, dev, results)
+            chain_checks(torch, dev, results)
         e2e = run_paths(torch, dev, results, card)
         for name, r in results.items():
             if name in OFF_PATH:

@@ -21,6 +21,7 @@ import torch
 
 from ..config import FrameworkConfig
 from ..kvcache.allocator import PageAllocator
+from ..models.chained import build_decode_chains, chains_supported
 from ..models.model import (DecoderModel, Params, fuse_projections,
                             init_params, init_params_quantized,
                             quantize_params, quantize_params_int4,
@@ -62,7 +63,10 @@ class Engine:
     ``int4``) the matmul weights are INT8-quantized (a random init
     straight into INT8, one layer at a time), unstacked and fused, and
     for ``int4`` then repacked to group-wise INT4, as the JAX engine
-    builds them on one device."""
+    builds them on one device. ``runtime.megakernel`` packs each layer's
+    decode chain (``models/chained.py``; B14 at decode) and
+    ``runtime.megakernel_drop_weights`` drops the per-op copies (B15 for
+    every multi-token forward); INT4 has no chain variant and raises."""
 
     def __init__(self, config: FrameworkConfig,
                  params: Optional[Params] = None, device=None, seed: int = 0):
@@ -75,6 +79,8 @@ class Engine:
         if quant == "int4" and self.runtime.scan_layers:
             raise ValueError("int4 repacking needs unrolled layers "
                              "(scan_layers=False)")
+        if quant == "int4" and self.runtime.megakernel:
+            raise ValueError("int4 has no chain-megakernel variant")
         rope_len = (None if self.cfg.sliding_window > 0 else
                     self.cache.max_pages_per_seq * self.cache.page_size)
         self.model = DecoderModel(self.cfg, rope_len=rope_len)
@@ -83,7 +89,8 @@ class Engine:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             init = init_params if quant == "none" else init_params_quantized
-            params = init(self.cfg, gen, self.device)
+            params = init(self.cfg, gen, self.device,
+                          unrolled=not self.runtime.scan_layers)
         self.params = _to_device(params, self.device)
         if quant != "none":
             self.params = quantize_params(self.params)  # no-op if already
@@ -93,6 +100,14 @@ class Engine:
                 self.params = fuse_projections(self.params)
         if quant == "int4":
             self.params = quantize_params_int4(self.params)
+        if (self.runtime.megakernel and "chains" not in self.params
+                and chains_supported(self.cfg, self.params)):
+            # params that hold "chains" already are taken as they are;
+            # an unsupported config (MoE, Gemma norms, stacked layers)
+            # runs the per-op path, as in the JAX engine
+            self.params = build_decode_chains(
+                self.params, self.cfg,
+                drop=self.runtime.megakernel_drop_weights)
 
     # -- helpers ----------------------------------------------------------
 

@@ -15,19 +15,25 @@ layers in Python either way.
 Weights may be INT8 (:class:`QTensor`, per-output-channel scales) or
 INT4 (:class:`Q4Tensor`, group-wise scales) as the JAX package makes
 them: :func:`init_params_quantized`, :func:`quantize_params` and
-:func:`quantize_params_int4`. Mixture-of-Experts and Gemma-3's dual-theta
-RoPE (ROADMAP queue A item 8), tensor parallelism (item 10) and the
-chained megakernel (item 11) are later slices.
+:func:`quantize_params_int4`. With ``"chains"`` in the params
+(:func:`~.chained.build_decode_chains`) a decode step runs one B14
+``chain_decode`` per layer, and with the per-op copies dropped every
+multi-token forward serves its matmuls from the packed blocks (B15
+``packed_linear``). Mixture-of-Experts and Gemma-3's dual-theta RoPE
+(ROADMAP queue A item 8) and tensor parallelism (item 10) are later
+slices.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import ModelConfig
+from ..ops import chain_linear as cl
 from ..ops.common import activation_fn, layernorm, rmsnorm
 from ..ops.linear import linear
 from ..ops.rope import apply_rope, rope_table
@@ -43,13 +49,17 @@ AttentionFn = Callable[..., Tuple[torch.Tensor, Any]]
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
-                device=None, quantize: bool = False) -> Params:
+                device=None, quantize: bool = False,
+                unrolled: bool = False) -> Params:
     """Random-init parameters (stacked layers) on ``device`` from
     ``generator`` (which must live on that device). Weights are
     ``0.02 * N(0, 1)`` drawn in f32 one layer at a time and cast to
     ``cfg.dtype``, so the f32 transient is one layer's tensor; with
     ``quantize`` the matmul weights and the LM head are quantized to INT8
-    per output channel instead of cast (:func:`init_params_quantized`)."""
+    per output channel instead of cast (:func:`init_params_quantized`).
+    ``unrolled`` gives the same values as a tuple of per-layer dicts whose
+    weights own their storage (:func:`unstack_layers` gives views of the
+    stacked tensors), so a per-layer weight that is dropped is freed."""
     if cfg.num_experts > 0:
         raise NotImplementedError("MoE: ROADMAP queue A item 8")
     device = torch.device(device or generator.device)
@@ -59,6 +69,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     L = cfg.num_layers
 
     def w(*shape, scale=0.02, stacked=True, quant=False):
+        if stacked and unrolled:            # the same draws, layer by layer
+            return [w(*shape[1:], scale=scale, stacked=False, quant=quant)
+                    for _ in range(shape[0])]
         if quant and quantize:
             vals = torch.empty(shape, dtype=torch.int8, device=device)
             scales = torch.empty(shape[:-2] + (1, shape[-1]),
@@ -126,17 +139,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = w(D, cfg.vocab_size, stacked=False,
                                   quant=True)
+    if unrolled:
+        params["layers"] = tuple({k: v[l] for k, v in layers.items()}
+                                 for l in range(L))
     return params
 
 
 def init_params_quantized(cfg: ModelConfig, generator: torch.Generator,
-                          device=None) -> Params:
+                          device=None, unrolled: bool = False) -> Params:
     """Random init straight into INT8 :class:`QTensor` matmul weights (the
     JAX package's ``init_params_quantized``): each layer's weight is
     drawn in f32, quantized per output channel and stored, so the f32
     transient is one layer's tensor and an INT8 Llama-3-8B never exists
     in bf16. Norms, biases and the embedding stay in ``cfg.dtype``."""
-    return init_params(cfg, generator, device, quantize=True)
+    return init_params(cfg, generator, device, quantize=True,
+                       unrolled=unrolled)
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -156,13 +173,26 @@ def params_from_jax(np_params: Params, cfg: ModelConfig,
     engine's unstacked, fused tuple of layer dicts. Quantized leaves are
     recognised by their attributes (the port cannot import the JAX
     classes): ``packed``/``scales``/``group``/``bn`` make a
-    :class:`Q4Tensor`, ``values``/``scales`` a :class:`QTensor`."""
+    :class:`Q4Tensor`, ``values``/``scales`` a :class:`QTensor`, and
+    ``w``/``sb``/``meta``/``ln``/``ops_geom`` a
+    :class:`~..ops.chain_linear.PackedChain` (a JAX megakernel engine's
+    ``"chains"``)."""
     if cfg.num_experts > 0:
         raise NotImplementedError("MoE: ROADMAP queue A item 8")
 
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
+        if all(hasattr(x, a) for a in ("w", "sb", "meta", "ln", "ops_geom")):
+            static = {f.name: getattr(x, f.name)
+                      for f in dataclasses.fields(cl.PackedChain)
+                      if f.name not in ("w", "sb", "meta", "ln")}
+            static["ops_geom"] = tuple(tuple(int(v) for v in g)
+                                       for g in static["ops_geom"])
+            return cl.PackedChain(
+                w=_to_tensor(x.w, device), sb=_to_tensor(x.sb, device),
+                meta=_to_tensor(x.meta, device),
+                ln=_to_tensor(x.ln, device), **static)
         if hasattr(x, "packed"):
             return Q4Tensor(_to_tensor(x.packed, device),
                             _to_tensor(x.scales, device), int(x.group),
@@ -351,12 +381,21 @@ class DecoderModel:
         return q, k, v
 
     def _block(self, lp: Params, x: torch.Tensor, kv: Any, layer: int,
-               positions: torch.Tensor, attn_fn: AttentionFn, rope_cs):
+               positions: torch.Tensor, attn_fn: AttentionFn, rope_cs,
+               chain: Optional[cl.PackedChain] = None,
+               qkv_chain: Optional[cl.PackedChain] = None):
+        """One layer. ``chain``/``qkv_chain`` serve its matmuls out of the
+        megakernel's packed blocks (B15) when the per-op copies were
+        dropped; ``qkv_chain`` is the PREVIOUS layer's chain, which
+        carries this layer's qkv projection as its tail op."""
         cfg = self.cfg
         B, T, _ = x.shape
         w8a8 = cfg.quant == "int8"
         h = self._norm(x, lp["ln1_scale"], lp.get("ln1_bias"))
-        if "w_qkv" in lp:
+        if qkv_chain is not None:
+            q, k, v = self._split_fused_qkv(
+                cl.packed_linear(qkv_chain, (cl.OP_T,), h))
+        elif "w_qkv" in lp:
             q, k, v = self._split_fused_qkv(
                 linear(h, lp["w_qkv"], lp.get("b_qkv"), w8a8=w8a8))
         else:
@@ -368,6 +407,9 @@ class DecoderModel:
             qk_scales=((lp["q_norm_scale"], lp["k_norm_scale"])
                        if cfg.qk_norm else None))
         attn_out, kv = attn_fn(q, k, v, kv, layer, positions)
+        if chain is not None:
+            return self._packed_rest(lp, chain, x,
+                                     attn_out.reshape(B, T, -1)), kv
         attn_proj = linear(attn_out.reshape(B, T, -1), lp["wo"],
                            w8a8=w8a8)
         if "bo" in lp:
@@ -397,17 +439,87 @@ class DecoderModel:
             mlp = self._norm(mlp, lp["post_mlp_scale"], None)
         return x + mlp, kv
 
+    def _packed_rest(self, lp: Params, chain: cl.PackedChain,
+                     x: torch.Tensor, ao: torch.Tensor) -> torch.Tensor:
+        """The layer after attention out of the packed blocks (the ops
+        carry their biases in the chain's ``sb`` table)."""
+        x = x + cl.packed_linear(chain, (cl.OP_O,), ao)
+        h2 = self._norm(x, lp["ln2_scale"], lp.get("ln2_bias"))
+        if self.cfg.activation == "swiglu":
+            if chain.I % chain.bn == 0:
+                # gate|up contiguous in the packing == the fused w_gu
+                gate, up = cl.packed_linear(
+                    chain, (cl.OP_G, cl.OP_U), h2).chunk(2, dim=-1)
+            else:
+                # gate's packed N is bn-padded: serve the two apart
+                gate = cl.packed_linear(chain, (cl.OP_G,), h2)
+                up = cl.packed_linear(chain, (cl.OP_U,), h2)
+            mid = activation_fn("silu")(gate.float()).to(up.dtype) * up
+        else:
+            mid = cl.packed_linear(chain, (cl.OP_U,), h2,
+                                   act=self.cfg.activation)
+        return x + cl.packed_linear(chain, (cl.OP_D,), mid)
+
     def forward(self, params: Params, tokens: torch.Tensor,
                 positions: torch.Tensor, kv_caches: Any,
                 attn_fn: AttentionFn, return_hidden: bool = False):
         """Run the decoder over ``tokens/positions [B, T]``. ``kv_caches``
         is the full multi-layer cache, updated in place by ``attn_fn``.
-        Returns ``(logits [B, T, V] f32, kv_caches)``."""
+        Returns ``(logits [B, T, V] f32, kv_caches)``. With ``"chains"``
+        in the params a decode step (T=1) runs :meth:`_forward_chained`;
+        with the per-op copies dropped a multi-token forward serves every
+        matmul but layer 0's qkv from the packed blocks."""
+        if "chains" in params and tokens.shape[1] == 1:
+            return self._forward_chained(params, tokens, positions,
+                                         kv_caches, attn_fn, return_hidden)
         x = self.embed(params, tokens, positions)
         rope_cs = self.rope(x.device)
+        layers = unstack_layers(params)["layers"]
+        chains = params.get("chains")
+        dropped = chains is not None and "wo" not in layers[0]
         kv = kv_caches
-        for l, lp in enumerate(unstack_layers(params)["layers"]):
-            x, kv = self._block(lp, x, kv, l, positions, attn_fn, rope_cs)
+        for l, lp in enumerate(layers):
+            x, kv = self._block(
+                lp, x, kv, l, positions, attn_fn, rope_cs,
+                chain=chains[l] if dropped else None,
+                qkv_chain=chains[l - 1] if dropped and l > 0 else None)
+        x = self._norm(x, params["final_norm_scale"],
+                       params.get("final_norm_bias"))
+        if return_hidden:
+            return x, kv
+        return self.logits(params, x), kv
+
+    def _forward_chained(self, params: Params, tokens: torch.Tensor,
+                         positions: torch.Tensor, kv_caches: Any,
+                         attn_fn: AttentionFn, return_hidden: bool = False):
+        """Decode (T=1) through the chained megakernel: layer 0's qkv as
+        a per-op ``linear`` (B10 under w8a8), then per layer attention and
+        one B14 :func:`~..ops.chain_linear.chain_decode` (o-proj, norm,
+        the MLP and the NEXT layer's qkv, the residual stream in f32
+        inside), then the final norm and the LM head. Every quant mode
+        the chains hold runs here, w8a8 included (its chains re-quantize
+        the activations themselves)."""
+        cfg = self.cfg
+        x = self.embed(params, tokens, positions)           # [B, 1, D]
+        rope_cs = self.rope(x.device)
+        layers, chains = params["layers"], params["chains"]
+        B = x.shape[0]
+        lp0 = layers[0]
+        h = self._norm(x, lp0["ln1_scale"], lp0.get("ln1_bias"))
+        qkv = linear(h, lp0["w_qkv"], lp0.get("b_qkv"),
+                     w8a8=cfg.quant == "int8")
+        kv = kv_caches
+        for l, lp in enumerate(layers):
+            q, k, v = self._heads(
+                *self._split_fused_qkv(qkv), B, 1, positions, rope_cs,
+                qk_scales=((lp["q_norm_scale"], lp["k_norm_scale"])
+                           if cfg.qk_norm else None))
+            attn_out, kv = attn_fn(q, k, v, kv, l, positions)
+            x2, tail = cl.chain_decode(chains[l], attn_out.reshape(B, -1),
+                                       x.reshape(B, -1))
+            x = x2[:, None, :]
+            if tail is not None:
+                qkv = tail[:, None, :]
         x = self._norm(x, params["final_norm_scale"],
                        params.get("final_norm_bias"))
         if return_hidden:

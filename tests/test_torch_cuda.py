@@ -1,7 +1,8 @@
 """On the card: each hand-written CUDA kernel of the PyTorch port against
 its plain PyTorch version (B1/B2 paged attention, B6/B7/B8 decode
 attention, B9 fused decode append, B3/B4/B5 KV appends, B10/B11/B12
-quantized-weight products).
+quantized-weight products, B14/B15 the chained decode megakernel and the
+product over its packed blocks).
 
 These tests import no JAX, so they run where the card is (the suite's
 ``conftest.py`` sets JAX up, hence ``--noconftest``):
@@ -14,7 +15,13 @@ sum the same terms in another order), bf16 queries 2e-2 (one bf16 step
 of outputs of magnitude ~1); appends are bit-exact, B9's pool too. B10 is bit-exact
 (exact s32 sums, the same epilogue); B11/B12 sum f32 in another order:
 f32 outputs within 1e-5 of max|output|, bf16 outputs within one bf16
-step or that (where cancellation leaves an output tiny).
+step or that (where cancellation leaves an output tiny). B14 against its
+plain version, relative to max|output|: 1e-4 with f32 activations (f32
+sums in another order, through two norms); 2e-2 with bf16 activations
+(h and the activation are rounded to bf16 between the ops, so a sum in
+another order can move one value by a bf16 step) and under w8a8 (an
+f32 norm sum in another order can move one re-quantized activation by
+an INT8 step). B15 as B10 under w8a8 (bit-exact) and as B11 otherwise.
 """
 
 import numpy as np
@@ -28,6 +35,7 @@ from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.engi
 )
 from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.kvcache import pool as tpool
 from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops import (
+    chain_linear as cl,
     int4_matmul as i4,
     int8_matmul as i8,
     kv_append as ka,
@@ -476,3 +484,127 @@ def test_cuda_split_k_on_two_streams(cuda):
     torch.cuda.synchronize()
     for o, ref in zip(outs, refs):
         assert all(within(y, ref, torch.bfloat16) for y in o)
+
+
+# B14/B15: (D, I, N3, act, norm, bk, bn): Llama-shaped with bk != bn, an
+# intermediate size that is no multiple of bn, GPT-2-shaped GELU and
+# LayerNorm with biases, and a hidden size no multiple of bk
+CHAIN_SHAPES = {"swiglu": (256, 512, 384, "swiglu", "rmsnorm", 128, 256),
+                "ragged-I": (256, 320, 192, "swiglu", "rmsnorm", 128, 128),
+                "gelu-ln": (192, 768, 576, "gelu", "layernorm", 128, 128),
+                "relu-ln": (384, 512, 128, "relu", "layernorm", 256, 128)}
+#: (weights, activation dtype) of each variant
+CHAIN_KINDS = {"bf16": ("dense", torch.bfloat16),
+               "f32": ("dense", torch.float32),
+               "int8-weight": ("int8", torch.bfloat16),
+               "int8-weight-f32": ("int8", torch.float32),
+               "w8a8": ("w8a8", torch.bfloat16),
+               "w8a8-f32": ("w8a8", torch.float32)}
+
+
+def chain_inputs(shape, kind, device, tail=True, seed=0):
+    """A random packed chain of ``shape`` and ``kind`` on ``device``."""
+    D, I, N3, act, norm, bk, bn = CHAIN_SHAPES[shape]
+    weights, dt = CHAIN_KINDS[kind]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+
+    def r(*s, scale=0.05):
+        return (torch.randn(s, generator=g) * scale).to(device)
+
+    def weight(K, N):
+        w = r(K, N)
+        return w.to(dt) if weights == "dense" else qt.quantize_per_channel(w)
+
+    biased = norm == "layernorm"
+    ops = [(cl.OP_O, weight(D, D), r(D) if biased else None)]
+    if act == "swiglu":
+        ops += [(cl.OP_G, weight(D, I), None), (cl.OP_U, weight(D, I), None)]
+    else:
+        ops += [(cl.OP_U, weight(D, I), r(I) if biased else None)]
+    ops += [(cl.OP_D, weight(I, D), r(D) if biased else None)]
+    if tail:
+        ops += [(cl.OP_T, weight(D, N3), r(N3) if biased else None)]
+
+    def ln():
+        return (1.0 + r(D, scale=0.1), r(D) if biased else None)
+
+    pc = cl.pack_chain(ops, D=D, I=I, ln_after_o=ln(),
+                       ln_after_down=ln() if tail else None, act_kind=act,
+                       norm_kind=norm, eps=1e-5, bk=bk, bn=bn,
+                       w_dtype=dt if weights == "dense" else None,
+                       w8a8=weights == "w8a8")
+    return pc, dt
+
+
+def chain_tol(kind):
+    return 1e-4 if kind in ("f32", "int8-weight-f32") else 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tail", [True, False])
+@pytest.mark.parametrize("B", [1, 4, 6])
+@pytest.mark.parametrize("kind", sorted(CHAIN_KINDS))
+@pytest.mark.parametrize("shape", sorted(CHAIN_SHAPES))
+def test_cuda_chain_decode_matches_plain(cuda, shape, kind, B, tail):
+    pc, dt = chain_inputs(shape, kind, cuda, tail)
+    g = torch.Generator(device="cpu").manual_seed(B)
+    ain = torch.randn((B, pc.K0), generator=g).to(cuda, dt)
+    x = torch.randn((B, pc.D), generator=g).to(cuda, dt)
+    cl.CHAIN_DECODE.launches = 0
+    out, t = cl.chain_decode(pc, ain, x)
+    ref, rt = cl.chain_decode_plain(pc, ain, x)
+    torch.cuda.synchronize()
+    assert cl.CHAIN_DECODE.launches == 1
+    assert out.dtype == dt and out.shape == (B, pc.D)
+    pairs = [(out, ref)] + ([(t, rt)] if tail else [])
+    assert (t is None) == (not tail)
+    for o, r in pairs:
+        scale = r.float().abs().max()
+        assert (o.float() - r.float()).abs().max() <= chain_tol(kind) * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [4, 36, 70])
+@pytest.mark.parametrize("kind", sorted(CHAIN_KINDS))
+@pytest.mark.parametrize("shape", sorted(CHAIN_SHAPES))
+def test_cuda_packed_linear_matches_plain(cuda, shape, kind, M):
+    pc, dt = chain_inputs(shape, kind, cuda)
+    g = torch.Generator(device="cpu").manual_seed(M)
+    act = None if pc.act_kind == "swiglu" else pc.act_kind
+    runs = [((cl.OP_O,), None), ((cl.OP_U,), act), ((cl.OP_D,), None),
+            ((cl.OP_T,), None)]
+    if pc.act_kind == "swiglu" and pc.I % pc.bn == 0:
+        runs.append(((cl.OP_G, cl.OP_U), None))
+    for ops, a in runs:
+        K = pc.I if ops == (cl.OP_D,) else pc.D
+        x = torch.randn((M, K), generator=g).to(cuda, dt)
+        out = cl.packed_linear(pc, ops, x, act=a)
+        ref = cl.packed_linear_plain(pc, ops, x, act=a)
+        if pc.w8a8:
+            assert torch.equal(out, ref), ops
+        else:
+            assert within(out, ref, dt), ops
+
+
+@pytest.mark.cuda
+def test_cuda_chain_in_the_engine(cuda):
+    """A megakernel engine with the per-op copies dropped runs every decode
+    layer through B14 and every prefill matmul but layer 0's qkv through
+    B15 (3 + 4 per later layer), and matches the plain path's tokens."""
+    cfg = tconfig.FrameworkConfig(
+        model=tconfig.preset("llama-tiny"),
+        cache=tconfig.CacheConfig(page_size=8, num_pages=64,
+                                  max_pages_per_seq=8, kv_dtype="int8"),
+        runtime=tconfig.RuntimeConfig(max_new_tokens=6, megakernel=True,
+                                      megakernel_drop_weights=True))
+    cfg.model.dtype, cfg.model.quant = "float32", "int8"
+    eng = Engine(cfg, device=cuda, seed=0)
+    assert "chains" in eng.params and "wo" not in eng.params["layers"][1]
+    prompts = [[5, 9, 3, 14, 2], [1, 2, 3]]
+    greedy = SamplingParams(temperature=0.0, eos_token_id=-1)
+    cl.CHAIN_DECODE.launches = cl.PACKED_LINEAR.launches = 0
+    out = eng.generate_batch_fused(prompts, 6, greedy)
+    L = cfg.model.num_layers
+    assert cl.CHAIN_DECODE.launches == L * 5
+    assert cl.PACKED_LINEAR.launches == 3 + 4 * (L - 1)
+    assert [len(r) for r in out] == [6, 6]
