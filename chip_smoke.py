@@ -49,7 +49,17 @@ and nothing of JAX. Phases:
    counted). B15 (``packed_linear``) on the same chains at M=4, 36 and
    256 for o, gate|up, down and the tail (w8a8 bit-exact), a layer's
    four calls at M=256 timed beside ``torch._int_mm`` over the same
-   values.
+   values. The MoE grouped matmul (slice 6): B13 (``grouped_matmul``)
+   at Mixtral-8x7B's two expert products at a 4 x 256-token prefill
+   chunk (we_gu K 4096 N 28672, we_down K 14336 N 4096; Npad 4096 rows
+   laid out by the model's ``dispatch_layout`` from a routing of random
+   router logits), INT8 and dense bf16 experts under bf16 activations,
+   within one bf16 step or 1e-5 of max|out| of its plain version, whose
+   output two swapped blocks' group ids must move past that; timed
+   beside ``torch._grouped_mm`` over bf16 copies of the weights (widened
+   beforehand); and at edge shapes (an expert with no rows, one expert
+   for every block, K and N that fit no tile, row blocks of 64 and 128,
+   f32 activations).
 3. The paths, each ``Engine`` on llama3-8b at full width and full depth
    (32 layers; (a), (c) and (d) cut to 8; weights from a seed, INT8
    paged KV, page 64, prefill chunk 256, the pool ``bench.py`` sizes, for (b),
@@ -105,7 +115,19 @@ and nothing of JAX. Phases:
       run also serves the fork rule), and a profile of
       ``generate_batch_fused`` of 16 tokens resumed from that copy gives
       the busy share and B6's time per layer.
-   On paths (a)-(d), (g) and (h) the same prompts are then
+   and last, once every earlier engine is freed, slice 6's MoE path:
+   k. moe: ``mixtral-8x7b`` (``bench.py --model mixtral-8x7b --quant
+      int8-weight --batch 4 --prompt-len 256``) at full width and depth,
+      INT8 experts: the 256-token prefill chunk routes 4 x 256 x 2 = 2048
+      = 8 x 256 slots, so it takes the sorted dispatch (B13 twice a
+      layer, on the fused ``we_gu`` and on ``we_down``) and each decode
+      step the masked expert loop (B11 sixteen times a layer); exact
+      launch counts for the run and for a prefill chunk alone, the
+      build's memory and peak, the dispatch held against the masked loop
+      on one layer's activations from the real prefill, the (layer,
+      token) routing decisions that differ between the kernels' and the
+      plain run, and the checks of (b) (score_nll included).
+   On paths (a)-(d), (g), (h) and (k) the same prompts are then
    teacher-forced through the
    kernels, the plain versions, an SDPA reference (SDPA attention and,
    for quantized weights, products computed another way: B10's and
@@ -113,7 +135,8 @@ and nothing of JAX. Phases:
    lower-precision control (the last three are references this script
    defines; the port has no such option): the kernels and the reference
    must stay within the path's logit limit, the control must not; (a)
-   also with f32 weights and activations. For (a), (b), (g) and (h) the
+   also with f32 weights and activations. For (a), (b), (g), (h) and
+   (k) the
    fused loop is held against the step path's tokens and against the
    plain fused loop, and ``generate_stream`` against the fused loop on a
    lone prompt, and one fused run is profiled; (b) also holds
@@ -158,7 +181,9 @@ TOL = {("none", "bf16"): 0.06, ("none", "f32"): 0.005,
        ("int4", "bf16"): 0.06,
        # slice 4's paths, by name
        ("packed", "bf16"): 0.05, ("grouped-96", "bf16"): 0.10,
-       ("long-context", "bf16"): 0.25}
+       ("long-context", "bf16"): 0.25,
+       # slice 6's MoE path (its references follow the kernels' routing)
+       ("moe", "bf16"): 0.25}
 LOWP_NAME = {"bf16": "fp8-q", "f32": "bf16-attention"}
 #: ``score_nll`` of the kernels against the plain path, relative
 TOL_SCORE = 1e-2
@@ -274,7 +299,8 @@ KERNEL_NAMES = {
     "w8_matmul": ("qmm::gemv_kernel<1,", "qmm::tiled_kernel<1,"),
     "w4_matmul": ("qmm::gemv_kernel<2,", "qmm::tiled_kernel<2,"),
     "chain_decode": ("chain::chain_kernel<",),
-    "packed_linear": ("chain::packed_kernel<",)}
+    "packed_linear": ("chain::packed_kernel<",),
+    "grouped_matmul": ("gmm::tc_kernel<", "gmm::f32_kernel<")}
 
 
 def make_pool(torch, gen, dtype, dev, batch=B, kv_heads=KH, dh=DH, mp=MP,
@@ -1388,6 +1414,205 @@ def chain_checks(torch, dev, results):
                  else "0 (w8a8), one bf16 step or 1e-5 of max|out|"))
 
 
+#: B13 at Mixtral-8x7B's prefill: bench.py's 4 x 256-token chunk routes
+#: 1024 tokens to their top 2 of 8 experts (2048 slots, Npad 4096 rows)
+MOE_TOKENS, MOE_E, MOE_TOPK = 1024, 8, 2
+GMM_SHAPES = [("we_gu", 4096, 28672), ("we_down", 14336, 4096)]
+#: B13's edge cases: (label, E, K, N, bm, group ids, x dtype, weights)
+GMM_EDGES = [
+    ("empty expert", 4, 512, 384, 256, [0, 2, 2, 3], "bf16", "int8"),
+    ("one expert", 3, 256, 256, 128, [1, 1, 1, 1], "bf16", "bf16"),
+    ("ragged K N", 3, 200, 300, 64, [0, 1, 1, 2, 2], "bf16", "int8"),
+    ("bm 64 f32 w", 4, 128, 136, 64, [3, 0, 2, 1], "bf16", "f32"),
+    ("f32 x", 4, 384, 200, 64, [3, 0, 2, 1], "f32", "int8"),
+    ("f32 x f32 w", 2, 256, 130, 128, [0, 1], "f32", "f32")]
+
+
+def moe_routing(torch, gen, dev, tokens=MOE_TOKENS, experts=MOE_E,
+                k=MOE_TOPK):
+    """The dispatch layout (``order``, ``dest``, ``group_of_block``, by
+    the model's own ``dispatch_layout``) of ``tokens`` routed to their
+    top ``k`` of ``experts`` by random router logits rounded to bf16, as
+    the model rounds them."""
+    from importlib import import_module
+
+    model = import_module(f"{PKG}.models.model")
+    logits = torch.randn((tokens, experts), generator=gen,
+                         device=dev).to(torch.bfloat16).float()
+    topi = torch.sort(logits, dim=-1, descending=True, stable=True)[1]
+    return model.dispatch_layout(topi[:, :k], experts)
+
+
+def grouped_matmul_library(x, w, group_of_block, *, bm=256):
+    """B13's function computed another way: for each run of row blocks on
+    one expert, one cuBLAS product over the expert's weight cast to x's
+    dtype (bf16 x: a bf16 GEMM with an f32 output), then its scales and
+    one rounding. A reference for this script only, never called by the
+    port."""
+    from importlib import import_module
+
+    import torch
+
+    qt = import_module(f"{PKG}.quant.tensor")
+    quantized = isinstance(w, qt.QTensor)
+    wv = w.values if quantized else w
+    gb = group_of_block.tolist()
+    out = torch.empty((x.shape[0], wv.shape[-1]), dtype=x.dtype,
+                      device=x.device)
+    r = 0
+    while r < len(gb):
+        e, r1 = gb[r], r
+        while r1 < len(gb) and gb[r1] == e:
+            r1 += 1
+        rows = slice(r * bm, r1 * bm)
+        we = wv[e].to(x.dtype)
+        y = (torch.mm(x[rows], we, out_dtype=torch.float32)
+             if x.dtype == torch.bfloat16 else torch.mm(x[rows], we))
+        if quantized:
+            y = y * w.scales[e].reshape(1, -1)
+        out[rows] = y.to(x.dtype)
+        r = r1
+    return out
+
+
+def gmm_checks(torch, dev, results):
+    """B13 against its plain version at Mixtral-8x7B's two expert products
+    (INT8 and dense bf16 experts, bf16 activations, rows laid out from a
+    real routing) and at edge shapes; each Mixtral call's plain output
+    must move past the tolerance when two blocks' group ids are swapped.
+    Device times beside the plain version's, the bound over the routed
+    rows this routing needs, and ``torch._grouped_mm`` over bf16 copies of
+    the weights (widened beforehand, not timed) as the library
+    yardstick."""
+    from importlib import import_module
+
+    gm = import_module(f"{PKG}.ops.gmm")
+    qt = import_module(f"{PKG}.quant.tensor")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    bf16 = torch.bfloat16
+    worst = 0.0
+
+    def verify(label, out, ref):
+        nonlocal worst
+        ok = matmul_close(out, ref) and bool(torch.isfinite(out).all())
+        err = (out.float() - ref.float()).abs().max().item()
+        print(f"  [grouped_matmul] {label}: max|kernel-plain| = {err:.3e} "
+              f"(tol one bf16 step or 1e-5 of max|out|) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"grouped_matmul {label}: kernel differs from plain ({err})")
+        worst = max(worst, err)
+
+    _, dest, gb = moe_routing(torch, gen, dev)
+    bm, E = 256, MOE_E
+    npad, routed = gb.numel() * bm, dest.numel()
+    blocks = torch.bincount(gb.long(), minlength=E)
+    offs = (blocks.cumsum(0) * bm).to(torch.int32)
+    # the experts whose weights the routed rows need (the last one also
+    # holds the trailing padding blocks)
+    used = int((blocks > 0).sum())
+    print(f"  B13 layout: {routed} routed rows of {MOE_TOKENS} tokens "
+          f"(top {MOE_TOPK} of {E}) in Npad {npad} rows, blocks per expert "
+          f"{blocks.tolist()}", flush=True)
+    row = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
+           "by": set()}
+    for name, K, N in GMM_SHAPES:
+        x = torch.zeros((npad, K), dtype=bf16, device=dev)
+        x[dest] = torch.randn((routed, K), generator=gen, device=dev).to(bf16)
+        vals = torch.empty((E, K, N), dtype=torch.int8, device=dev)
+        scales = torch.empty((E, 1, N), dtype=torch.float32, device=dev)
+        for e in range(E):                  # one expert's f32 at a time
+            q = qt.quantize_per_channel(
+                torch.randn((K, N), generator=gen, device=dev) * 0.02)
+            vals[e].copy_(q.values)
+            scales[e].copy_(q.scales)
+            del q
+        wq = qt.QTensor(vals, scales)
+        widened = vals.to(bf16)             # the yardstick's operand
+        dense = torch.empty((E, K, N), dtype=bf16, device=dev)
+        for e in range(E):
+            dense[e].copy_(vals[e].float() * scales[e])
+        for kind, w, wb in (("INT8", wq, widened), ("bf16", dense, dense)):
+            label = f"{name} {kind} experts (Npad={npad}, K={K}, N={N})"
+            call = lambda w=w: gm.grouped_matmul(x, w, gb, bm=bm)
+            plain = lambda w=w, g=gb: gm.grouped_matmul_plain(x, w, g, bm=bm)
+            out = call()
+            torch.cuda.synchronize()
+            ref = plain()
+            verify(label, out, ref)
+            # two blocks of different experts swapped
+            j = int((gb != gb[0]).nonzero()[0])
+            swapped = gb.clone()
+            swapped[[0, j]] = gb[[j, 0]]
+            moved = plain(g=swapped)
+            check(not within_bf16_step(moved, ref),
+                  f"grouped_matmul {label}: swapping blocks 0 and {j} "
+                  "stays within the tolerance")
+            print(f"  [grouped_matmul] {label}: blocks 0 and {j} swapped "
+                  f"move the plain output by "
+                  f"{(moved.float() - ref.float()).abs().max().item():.3e} "
+                  f"(beyond the tolerance: ok)", flush=True)
+            del moved
+            ms = device_ms(call, iters=10, match=KERNEL_NAMES["grouped_matmul"])
+            plain_ms = device_ms(plain, iters=3)
+            w_bytes = (E * K * N + 4 * E * N if kind == "INT8"
+                       else 2 * E * K * N) * used / E
+            b_ms, b_by = bound(2 * routed * (K + N) + w_bytes,
+                               2 * routed * K * N, "bf16")
+            all_ms, _ = bound(2 * npad * (K + N) + w_bytes,
+                              2 * npad * K * N, "bf16")
+            lib = lambda wb=wb: torch._grouped_mm(x, wb, offs=offs)
+            try:
+                y = lib().float()
+                if kind == "INT8":
+                    y = y * scales[gb.long()].repeat_interleave(
+                        bm, dim=0).reshape(npad, N)
+                lib_err = (y - ref.float()).abs().max().item()
+                lib_tol = 1e-2 * ref.float().abs().max().item()
+                check(lib_err <= lib_tol, f"grouped_matmul {label}: the "
+                      f"library yardstick differs from plain by {lib_err}")
+                del y
+                lib_ms = device_ms(lib, iters=10)
+                lib_note = (f"library {lib_ms:.4f} ms (its max|library-plain|"
+                            f" {lib_err:.3e}, tol {lib_tol:.3e})")
+            except RuntimeError as exc:         # not on this build
+                lib_ms = None
+                lib_note = f"library not run ({str(exc).splitlines()[0]})"
+            print(f"  [grouped_matmul] {label} device time: kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+                  f"({b_by}, {routed} routed rows; {b_ms / ms:.3f} of it "
+                  f"reached; {all_ms:.5f} ms over all {npad} rows), "
+                  f"{lib_note}", flush=True)
+            if kind == "INT8":                  # the main path's experts
+                row["ms"] += ms
+                row["plain_ms"] += plain_ms
+                row["bound_ms"] += b_ms
+                row["by"].add(b_by)
+                row["library_ms"] = (None if lib_ms is None
+                                     or row["library_ms"] is None
+                                     else row["library_ms"] + lib_ms)
+            del out, ref
+        del x, wq, vals, scales, widened, dense
+        torch.cuda.empty_cache()
+    results["grouped_matmul"].update(
+        ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+        bound_by="/".join(sorted(row["by"])), library_ms=row["library_ms"])
+    print(f"  [grouped_matmul] a layer's two INT8 calls: kernel "
+          f"{row['ms']:.4f} ms, bound {row['bound_ms']:.5f} ms", flush=True)
+
+    for label, E_, K, N, bm_, ids, xdt, wkind in GMM_EDGES:
+        dt = bf16 if xdt == "bf16" else torch.float32
+        x = torch.randn((len(ids) * bm_, K), generator=gen, device=dev).to(dt)
+        w = torch.randn((E_, K, N), generator=gen, device=dev) * 0.02
+        w = qt.quantize_per_channel(w) if wkind == "int8" else (
+            w.to(bf16) if wkind == "bf16" else w)
+        ids_t = torch.tensor(ids, dtype=torch.int32, device=dev)
+        verify(f"edge {label} (E={E_}, K={K}, N={N}, bm={bm_}, x {xdt}, "
+               f"w {wkind})", gm.grouped_matmul(x, w, ids_t, bm=bm_),
+               gm.grouped_matmul_plain(x, w, ids_t, bm=bm_))
+    results["grouped_matmul"].update(
+        max_abs_err=worst, tol="one bf16 step or 1e-5 of max|out|")
+
+
 # -- phase 3: the paths ------------------------------------------------------
 
 #: phase 3's paths: (name, quant, layers), each Llama-3-8B at full width
@@ -1405,15 +1630,20 @@ DECODE_PATHS = [
 #: path (i): bench.py --mode longctx --prompt-len 32768 --steps 64
 #: --batch 1 on Llama-3.1-8B, w8a8
 LONG_MODEL, LONG_PROMPT = "llama3.1-8b", 32768
+#: path (k): bench.py --model mixtral-8x7b --quant int8-weight --batch 4
+#: --prompt-len 256, whose one 256-token prefill chunk routes 4 * 256 * 2
+#: = 2048 = 8 * 256 slots: the dispatch's threshold, met exactly
+MOE_MODEL, MOE_BATCH, MOE_PROMPT = "mixtral-8x7b", 4, 256
 #: the path each kernel's launch count in the kernels line comes from:
 #: slice 2's main path (w8a8); B12 the INT4 path, B5 the spec path, B9
 #: the fused-append path, B8 the packed path, B6 the long-context path,
-#: B14 and B15 the megakernel path
+#: B14 and B15 the megakernel path, B13 the MoE path
 LAUNCHES_FROM = {"w4_matmul": "int4", "kv_append_tokens": "spec",
                  "paged_attention_decode_append": "fused-append",
                  "paged_attention_decode_packed": "packed",
                  "paged_attention_decode_grouped": "long-context",
-                 "chain_decode": "megakernel", "packed_linear": "megakernel"}
+                 "chain_decode": "megakernel", "packed_linear": "megakernel",
+                 "grouped_matmul": "moe"}
 #: kernels no path runs (B7: neither engine calls it); each path checks
 #: that they were launched 0 times
 OFF_PATH = ("paged_attention_decode_batched",)
@@ -1454,7 +1684,8 @@ def path_config(quant="none", dtype="bfloat16", layers=None, spec_k=0,
 
 
 def expected_launches(quant, n_layers, steps, fused_append=False, chunks=1,
-                      decode="paged_attention_decode", chained=False):
+                      decode="paged_attention_decode", chained=False,
+                      experts=0, dispatch_chunks=0):
     """Exact launch counts of one ``generate_batch_fused`` run: ``chunks``
     page-aligned prefill chunks (B1 and B4 in each layer) and ``steps -
     1`` decode steps (B3 and the ``decode`` kernel in each layer), each
@@ -1465,7 +1696,12 @@ def expected_launches(quant, n_layers, steps, fused_append=False, chunks=1,
     per-op copies dropped): layer 0's qkv (B10) and the LM head (B11) stay
     per-op in every forward; a decode step runs one B14 a layer, a
     prefill chunk its other projections through B15 (o, gate|up and down
-    of layer 0, then qkv, o, gate|up and down of each later layer)."""
+    of layer 0, then qkv, o, gate|up and down of each later layer).
+    ``experts`` (MoE, INT8 experts weight-only, fused gate|up): every
+    forward's qkv, o and the head through B11; the ``dispatch_chunks``
+    prefill chunks that reach the dispatch run B13 on we_gu and we_down
+    in each layer, every other forward (the decode steps, other chunks)
+    the masked loop's two B11 per expert and layer."""
     from importlib import import_module
 
     plat = import_module(f"{PKG}.utils.platform")
@@ -1477,7 +1713,13 @@ def expected_launches(quant, n_layers, steps, fused_append=False, chunks=1,
         out["paged_attention_decode_append"] = per_step
     else:
         out.update({"kv_append_decode": per_step, decode: per_step})
-    if chained:
+    if experts:
+        check(quant == "int8-weight", "the MoE path is int8-weight")
+        forwards = chunks + steps - 1
+        out.update(w8_matmul=(2 * n_layers + 1) * forwards
+                   + 2 * experts * n_layers * (forwards - dispatch_chunks),
+                   grouped_matmul=2 * n_layers * dispatch_chunks)
+    elif chained:
         check(quant == "int8", "the megakernel path is w8a8")
         out.update(int8_matmul=chunks + steps - 1,
                    w8_matmul=chunks + steps - 1, chain_decode=per_step,
@@ -1547,7 +1789,9 @@ def drive(torch, eng, prompts, greedy, steps, name, fused_append=False,
     print(f"  launches in that run: {json.dumps(counts)}", flush=True)
     expect = expected_launches(eng.cfg.quant, eng.cfg.num_layers, steps,
                                fused_append, prefill_chunks(eng, prompts),
-                               decode, chained="chains" in eng.params)
+                               decode, chained="chains" in eng.params,
+                               experts=eng.cfg.num_experts,
+                               dispatch_chunks=dispatch_chunks(eng, prompts))
     check(counts == expect,
           f"{name}: launches {counts}, expected exactly {expect}")
     arr = np.asarray(toks)
@@ -1580,6 +1824,23 @@ def prefill_chunks(eng, prompts):
     page = eng.cache.page_size
     max_len = -(-max(len(p) for p in prompts) // page) * page
     return -(-max_len // eng._chunk(max_len))
+
+
+def dispatch_chunks(eng, prompts):
+    """The prefill chunks of ``prompts`` whose routed slots reach the MoE
+    dispatch (``S = B * T * k >= E * 256``, not under w8a8)."""
+    from importlib import import_module
+
+    model = import_module(f"{PKG}.models.model")
+    cfg = eng.cfg
+    if not cfg.num_experts or cfg.quant == "int8":
+        return 0
+    page = eng.cache.page_size
+    max_len = -(-max(len(p) for p in prompts) // page) * page
+    chunk = eng._chunk(max_len)
+    return sum(len(prompts) * min(chunk, max_len - c0) * cfg.experts_per_tok
+               >= cfg.num_experts * model._GMM_BM
+               for c0 in range(0, max_len, chunk))
 
 
 def build_engine(torch, cfg):
@@ -1682,6 +1943,11 @@ def run_paths(torch, dev, results, card):
           f"{LONG_PROMPT}-token prompt, bench.py --mode longctx's table)")
     out["long-context"] = long_context_path(torch, refs, greedy, card)
     launches_from("long-context", out["long-context"])
+    phase(f"3k: moe ({MOE_MODEL}, int8-weight, INT8 KV, B={MOE_BATCH}, "
+          f"{MOE_PROMPT}-token prompts: B13 in the prefill chunk, the masked "
+          "expert loop at decode)")
+    out["moe"] = moe_path(torch, refs, greedy, card)
+    launches_from("moe", out["moe"])
     check(not LIMIT_FAILURES, "; ".join(LIMIT_FAILURES))
     return out
 
@@ -1930,16 +2196,19 @@ def limit_readings(tf, tag):
     return info
 
 
-def full_checks(torch, eng, refs, prompts, greedy, steps, tf16):
+def full_checks(torch, eng, refs, prompts, greedy, steps, tf16,
+                around=None):
     """Given the teacher-forced readings ``tf16``: the fused loop at B=4
     against the step path and the plain fused loop, ``generate_stream``
-    against the fused loop on a lone prompt, and a profile; for w8a8
-    also ``score_nll`` against the plain path. Returns the readings and
-    the fused loop's kernel run (tokens and logits, as :func:`recording`
-    takes them)."""
+    against the fused loop on a lone prompt, and a profile; for w8a8 and
+    MoE also ``score_nll`` against the plain path. ``around(ref)`` (a
+    context manager for the kernels' run, ``ref`` None, or a reference's)
+    wraps each compared run: path (k)'s :class:`ForcedRouting`. Returns
+    the readings and the fused loop's kernel run (tokens and logits, as
+    :func:`recording` takes them)."""
     check(all(len(p) == len(prompts[0]) for p in prompts), "ragged prompts")
     info, base = fused_checks(torch, eng, refs, prompts, greedy, steps,
-                              tf16["tokens"], tf16["tol"])
+                              tf16["tokens"], tf16["tol"], around)
     # the streaming path (prefill + per-token decode, pages allocated as
     # it goes) against the fused loop on the same lone prompt: the same
     # shapes run the same GEMMs and kernels, so the tokens are identical.
@@ -1951,18 +2220,21 @@ def full_checks(torch, eng, refs, prompts, greedy, steps, tf16):
           f"on the same prompt alone: "
           f"{'identical' if stream == alone else 'DIFFERENT'}", flush=True)
     check(stream == alone, f"generate_stream {stream} != fused {alone}")
-    if eng.cfg.quant == "int8":
-        info.update(score_checks(eng, refs, prompts))
+    if eng.cfg.quant == "int8" or eng.cfg.num_experts:
+        info.update(score_checks(eng, refs, prompts, around))
     info.update(profile_run(torch, "fused", lambda n: eng.generate_batch_fused(
         prompts, n, greedy)))
     return info, base
 
 
-def score_checks(eng, refs, prompts):
+def score_checks(eng, refs, prompts, around=None):
     """``Engine.score_nll`` (B1/B4 and the matmul kernels at prefill
-    shapes) against the plain path on the same sequences."""
-    kern = eng.score_nll(prompts)
-    with recording(eng, refs["plain"]):
+    shapes) against the plain path on the same sequences (each run inside
+    ``around``, as :func:`full_checks` says)."""
+    around = around or (lambda ref: contextlib.nullcontext())
+    with around(None):
+        kern = eng.score_nll(prompts)
+    with around(refs["plain"]), recording(eng, refs["plain"]):
         plain = eng.score_nll(prompts)
     rel = float(np.abs(kern - plain).max() / np.abs(plain).max())
     print(f"  score_nll: kernels {np.round(kern, 5).tolist()}, plain "
@@ -1997,14 +2269,15 @@ def _leaves(params, key=""):
 def swapped_matmuls(fns):
     """Inside: ``linear`` and the model reach ``fns[name]`` in place of the
     port's ``int8_matmul`` / ``w8_matmul`` / ``w4_matmul`` /
-    ``chain_decode`` / ``packed_linear`` wrappers."""
+    ``chain_decode`` / ``packed_linear`` / ``grouped_matmul`` wrappers."""
     from importlib import import_module
 
     chain = import_module(f"{PKG}.ops.chain_linear")
     mods = {"int8_matmul": import_module(f"{PKG}.ops.int8_matmul"),
             "w8_matmul": import_module(f"{PKG}.ops.int8_matmul"),
             "w4_matmul": import_module(f"{PKG}.ops.int4_matmul"),
-            "chain_decode": chain, "packed_linear": chain}
+            "chain_decode": chain, "packed_linear": chain,
+            "grouped_matmul": import_module(f"{PKG}.ops.gmm")}
     saved = {n: getattr(mods[n], n) for n in fns}
     for n, f in fns.items():
         setattr(mods[n], n, f)
@@ -2134,19 +2407,22 @@ def logit_checks(torch, eng, refs, run, frac, tag):
     return res
 
 
-def fused_checks(torch, eng, refs, prompts, greedy, steps, forced, tol):
+def fused_checks(torch, eng, refs, prompts, greedy, steps, forced, tol,
+                 around=None):
     """``generate_batch_fused`` at B=4, through the kernels and through
     the plain versions. Its kernel tokens must equal the teacher-forced
     kernel path's greedy tokens ``forced [B, steps]`` (the fused loop's
     own bookkeeping: pages allocated up front, device-side seq_lens). The
     plain loop's tokens must equal them until a row's first fork, which
     must fall on a step whose plain top-1 margin is at most twice that
-    step's max|dlogit|; until then the logits stay within ``tol``.
-    Returns the readings and the kernel run's tokens and logits."""
-    with recording(eng) as rk:
+    step's max|dlogit|; until then the logits stay within ``tol``. Each
+    run inside ``around`` (:func:`full_checks`). Returns the readings and
+    the kernel run's tokens and logits."""
+    around = around or (lambda ref: contextlib.nullcontext())
+    with around(None), recording(eng) as rk:
         tk = np.asarray(eng.generate_batch_fused(prompts, steps, greedy))
         lk = torch.stack(rk).cpu().numpy()
-    with recording(eng, refs["plain"]) as rp:
+    with around(refs["plain"]), recording(eng, refs["plain"]) as rp:
         tp = np.asarray(eng.generate_batch_fused(prompts, steps, greedy))
         lp = torch.stack(rp).cpu().numpy()
     n_same = int((tk == forced).sum())
@@ -2424,6 +2700,218 @@ def megakernel_path(torch, holder, held_b, refs, prompts, greedy, steps,
     return info
 
 
+class Routes:
+    """One run's router calls, in order: each call's router logits (f32,
+    host, ``[tokens, E]``) and top-k experts (``[tokens, k]``)."""
+
+    def __init__(self):
+        self.logits, self.picks = [], []
+
+
+@contextlib.contextmanager
+def routing(eng, record, force=None):
+    """Inside: each router call of ``eng``'s model is appended to the
+    :class:`Routes` ``record``. With ``force`` (the kernels' run's
+    Routes), call ``i`` routes each token to the experts of ``force``'s
+    call ``i``, its gates the softmax of its own logits there: a
+    reference then follows the kernels' routing, so that a router
+    near-tie that rounding decides the other way (which random weights
+    amplify into a cascade of other decisions over 32 layers) does not
+    fork it; :func:`routing_flips` holds its own decisions to the fork
+    rule."""
+    from importlib import import_module
+
+    import torch
+
+    linear = import_module(f"{PKG}.ops.linear").linear
+    route = eng.model._route
+
+    def routed(lp, h2):
+        topi, gates = route(lp, h2)
+        r = linear(h2, lp["router"]).float().reshape(
+            -1, lp["router"].shape[-1])
+        record.logits.append(r.cpu())
+        record.picks.append(topi.reshape(r.shape[0], -1).cpu())
+        if force is None:
+            return topi, gates
+        picks = force.picks[len(record.picks) - 1].to(h2.device)
+        check(picks.shape == record.picks[-1].shape,
+              "forced routing: the runs' router calls differ")
+        gates = torch.softmax(r.gather(-1, picks), dim=-1)
+        return picks.reshape(topi.shape), gates.reshape(topi.shape)
+
+    eng.model._route = routed
+    try:
+        yield record
+    finally:
+        del eng.model._route
+
+
+class ForcedRouting:
+    """``around`` for :func:`full_checks`: the kernels' run records its
+    routes, each reference's run follows them."""
+
+    def __init__(self, eng):
+        self.eng, self.kernels = eng, None
+
+    def __call__(self, ref):
+        if ref is None:
+            self.kernels = Routes()
+            return routing(self.eng, self.kernels)
+        return routing(self.eng, Routes(), force=self.kernels)
+
+
+def routing_flips(kern, ref, what):
+    """The (layer, token) decisions where a reference run forced to the
+    kernels' routing (:func:`routing`) would have picked other experts
+    itself, held to the fork rule: at each, the reference's margin (its
+    own k-th logit over its logit of the kernels' pick) must be at most
+    twice that token's max|router logit difference| from the kernels'.
+    Returns (decisions that differ, decisions)."""
+    differ = total = 0
+    worst = []
+    for rk, pk, rr, pr in zip(kern.logits, kern.picks, ref.logits,
+                              ref.picks):
+        total += pk.shape[0]
+        flip = (pr.sort(dim=-1)[0] != pk.sort(dim=-1)[0]).any(-1)
+        if not flip.any():
+            continue
+        differ += int(flip.sum())
+        k = pk.shape[-1]
+        kth = rr.topk(k, dim=-1)[0][:, -1]
+        margin = kth - rr.gather(-1, pk).min(-1)[0]
+        dr = (rr - rk).abs().max(-1)[0]
+        bad = flip & (margin > 2 * dr)
+        worst.extend((float(m), float(d)) for m, d in zip(margin[bad],
+                                                          dr[bad]))
+    print(f"  routing, {what}: {differ} of {total} (layer, token) decisions "
+          f"would differ from the kernels' (each at a margin <= 2x the "
+          f"token's max|router dlogit|: "
+          f"{'ok' if not worst else f'FAIL, {worst[:5]}'})", flush=True)
+    check(not worst, f"{what}: a routing decision differs past its margin")
+    return differ, total
+
+
+def moe_path(torch, refs, greedy, card):
+    """Path (k): Mixtral-8x7B with INT8 experts (``int8-weight``) at full
+    width and depth, built after every earlier engine is freed (the
+    memory in use printed first, then the build's and its peak). The
+    timed run with exact launch counts, and a prefill chunk alone (B13
+    twice a layer, no expert B11); the dispatch held against the masked
+    loop on layer 0's activations from the real prefill; the
+    teacher-forced logit checks, :func:`full_checks` and ``score_nll``,
+    each reference following the kernels' routing (:func:`routing`), with
+    the (layer, token) decisions where it would have routed otherwise
+    held to the fork rule (:func:`routing_flips`)."""
+    import gc
+    from importlib import import_module
+
+    plat = import_module(f"{PKG}.utils.platform")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  before the build: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB reserved",
+          flush=True)
+    cfg, batch, steps, prompt_len = path_config(
+        "int8-weight", model=MOE_MODEL, batch=MOE_BATCH,
+        prompt_len=MOE_PROMPT)
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.model.vocab_size, size=(batch, prompt_len)).tolist()
+    eng, held = build_engine(torch, cfg)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    L, E = cfg.model.num_layers, cfg.model.num_experts
+    layers = eng.params["layers"]
+    check(all("we_gate" not in lp and lp["we_gu"].values.dtype == torch.int8
+              for lp in layers), "moe: the experts are not fused INT8")
+    n_dispatch = dispatch_chunks(eng, prompts)
+    check(n_dispatch == 1, f"moe: {n_dispatch} prefill chunks dispatch, "
+          "expected the one")
+    info = drive(torch, eng, prompts, greedy, steps, "moe")
+    info.update(engine_gb=held, build_peak_gb=peak)
+
+    # a prefill chunk alone (the fused loop's first token is the prefill's)
+    plat.reset_launch_counts()
+    eng.generate_batch_fused(prompts, 1, greedy)
+    torch.cuda.synchronize()
+    counts = {n: k.launches for n, k in plat.KERNELS.items()}
+    expect = expected_launches(cfg.model.quant, L, 1, experts=E,
+                               dispatch_chunks=1)
+    print(f"  a prefill chunk alone: B13 {counts['grouped_matmul']}, B11 "
+          f"{counts['w8_matmul']} (qkv, o and the head only), B1 "
+          f"{counts['paged_attention']}, B4 {counts['kv_append_prefill']}",
+          flush=True)
+    check(counts == expect,
+          f"moe prefill chunk: launches {counts}, expected exactly {expect}")
+
+    # the dispatch against the masked loop on layer 0's activations
+    captured = {}
+    moe = eng.model._moe
+
+    def capture(lp, h2, w8a8):
+        if not captured:
+            captured.update(lp=lp, h2=h2.clone())
+        return moe(lp, h2, w8a8)
+
+    eng.model._moe = capture
+    try:
+        eng.free(eng.prefill(prompts, sampling=greedy))
+    finally:
+        del eng.model._moe
+    lp, h2 = captured["lp"], captured["h2"]
+    topi, gates = eng.model._route(lp, h2)
+    got = eng.model._moe_dispatch(lp, h2, topi, gates).float()
+    want = eng.model._moe_masked(lp, h2, topi, gates, False).float()
+    err = (got - want).abs().max().item()
+    # gate and up, each expert's output and the gated sum are rounded to
+    # bf16 in both, after f32 sums in another order: a value may move by
+    # a bf16 step at each rounding; a misrouted row moves by O(max|out|)
+    tol = 2e-2 * want.abs().max().item()
+    print(f"  dispatch (B13) vs masked loop (B11) on layer 0's "
+          f"{tuple(h2.shape)} activations from the prefill: max|d| "
+          f"{err:.4e} (tol {tol:.4e} = 2e-2 of max|out| "
+          f"{want.abs().max().item():.4f}) {'ok' if err <= tol else 'FAIL'}",
+          flush=True)
+    check(err <= tol and bool(torch.isfinite(got).all()),
+          "moe: the dispatch differs from the masked loop")
+    info.update(dispatch_vs_masked=err, dispatch_vs_masked_tol=tol)
+    del captured, lp, h2, got, want
+
+    # teacher-forced logits, each reference following the kernels' routing
+    forcing, routes = ForcedRouting(eng), {}
+    forced = forced_run(torch, eng, prompts, greedy, steps)
+
+    def run(ref, feed):
+        with forcing(ref) as r:
+            out = forced(ref, feed)
+        routes[next(n for n, v in refs.items() if v is ref)
+               if ref is not None else "kernels"] = r
+        return out
+
+    tf16 = logit_checks(torch, eng, refs, run, TOL[("moe", "bf16")], "bf16")
+    info.update(limit_readings(tf16, "bf16"))
+    for name in ("plain", "sdpa"):
+        differ, total = routing_flips(
+            routes["kernels"], routes[name],
+            f"the {name} teacher-forced run ({L} layers, "
+            f"{len(routes[name].picks) // L} forwards)")
+        info.update({f"routing_differ_{name}": differ,
+                     "routing_decisions": total})
+
+    checks, _ = full_checks(torch, eng, refs, prompts, greedy, steps, tf16,
+                            around=forcing)
+    info.update(checks)
+    b13 = info["profile_kernel_ms"].get("grouped_matmul", 0.0) / L
+    print(f"  moe decode {info['decode_tok_s']:.1f} tok/s, prefill "
+          f"{info['prefill_ms']:.1f} ms; B13 {b13:.4f} ms a layer in the "
+          f"profiled run's prefill chunk; engine {held:.2f} GB, build peak "
+          f"{peak:.2f} GB ({card})", flush=True)
+    info["grouped_matmul_ms_per_layer"] = b13
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return info
+
+
 def sdpa_paged(q, kv_pages, block_tables, seq_lens, q_offsets,
                kv_scales=None, layer=None, *, page_size, num_q_heads,
                window=0, softcap=0.0, scale=None):
@@ -2464,7 +2952,8 @@ def reference_backends():
     them): ``plain``, the kernels' plain PyTorch versions; ``sdpa``, plain
     appends, :func:`sdpa_paged` attention and products computed another way (``torch._int_mm`` for
     B10, a bf16 cuBLAS product over a widened weight for B11,
-    :func:`w4_matmul_grouped` for B12; B14/B15's plain versions, since no
+    :func:`w4_matmul_grouped` for B12, :func:`grouped_matmul_library` for
+    B13; B14/B15's plain versions, since no
     library call computes a chain); ``lowp``, the plain versions with attention at
     a lower precision (``LOWP_NAME``): for f32 queries, q and the output
     rounded to bf16 (attention done in bf16); for bf16 queries, q rounded
@@ -2479,17 +2968,20 @@ def reference_backends():
     i8 = import_module(f"{PKG}.ops.int8_matmul")
     i4 = import_module(f"{PKG}.ops.int4_matmul")
     cl = import_module(f"{PKG}.ops.chain_linear")
+    gm = import_module(f"{PKG}.ops.gmm")
     plain_mm = {"int8_matmul": i8.int8_matmul_plain,
                 "w8_matmul": i8.w8_matmul_plain,
                 "w4_matmul": i4.w4_matmul_plain,
                 "chain_decode": cl.chain_decode_plain,
-                "packed_linear": cl.packed_linear_plain}
+                "packed_linear": cl.packed_linear_plain,
+                "grouped_matmul": gm.grouped_matmul_plain}
     # no library call computes a chain: the chains' plain versions
     library_mm = {"int8_matmul": int8_matmul_library,
                   "w8_matmul": w8_matmul_library,
                   "w4_matmul": w4_matmul_grouped,
                   "chain_decode": cl.chain_decode_plain,
-                  "packed_linear": cl.packed_linear_plain}
+                  "packed_linear": cl.packed_linear_plain,
+                  "grouped_matmul": grouped_matmul_library}
 
     def append_plain(kv, k, v, layer, positions, block_tables, *,
                      page_size):
@@ -2613,7 +3105,7 @@ def main() -> int:
 
         plat = import_module(f"{PKG}.utils.platform")
         for mod in ("paged_attention", "kv_append", "int8_matmul",
-                    "int4_matmul", "chain_linear"):
+                    "int4_matmul", "chain_linear", "gmm"):
             import_module(f"{PKG}.ops.{mod}")
         check("jax" not in sys.modules, "jax was imported")
 
@@ -2642,6 +3134,7 @@ def main() -> int:
             decode_variant_checks(torch, F_, dev, results)
             matmul_checks(torch, dev, results)
             chain_checks(torch, dev, results)
+            gmm_checks(torch, dev, results)
         e2e = run_paths(torch, dev, results, card)
         for name, r in results.items():
             if name in OFF_PATH:

@@ -62,8 +62,8 @@ class Engine:
     ``seed``. Under ``cfg.quant`` (``int8`` w8a8, ``int8-weight``,
     ``int4``) the matmul weights are INT8-quantized (a random init
     straight into INT8, one layer at a time), unstacked and fused, and
-    for ``int4`` then repacked to group-wise INT4, as the JAX engine
-    builds them on one device. ``runtime.megakernel`` packs each layer's
+    for ``int4`` then repacked to group-wise INT4 (MoE experts stay
+    INT8), as the JAX engine builds them on one device. ``runtime.megakernel`` packs each layer's
     decode chain (``models/chained.py``; B14 at decode) and
     ``runtime.megakernel_drop_weights`` drops the per-op copies (B15 for
     every multi-token forward); INT4 has no chain variant and raises."""
@@ -92,6 +92,11 @@ class Engine:
             params = init(self.cfg, gen, self.device,
                           unrolled=not self.runtime.scan_layers)
         self.params = _to_device(params, self.device)
+        # the engine's tree holds its own dicts (``_to_device`` builds
+        # them, and fusing rewrites them in place): with the caller's
+        # tree dropped here, each layer's unfused weights are freed as
+        # its fused ones are built
+        del params
         if quant != "none":
             self.params = quantize_params(self.params)  # no-op if already
         if not self.runtime.scan_layers:

@@ -63,12 +63,12 @@ class PagedKVBackend:
         position of the first q token."""
         if score_sink is not None:
             raise NotImplementedError(
-                "score_sink (per-page score export): the beam slice, "
-                "ROADMAP queue A item 6")
+                "score_sink (per-page score export): ROADMAP queue A, "
+                "beam search")
         if gather_axis is not None:
             raise NotImplementedError(
-                "gather_axis (sequence-parallel prefill): ROADMAP queue A "
-                "item 10")
+                "gather_axis (sequence-parallel prefill): ROADMAP queue A, "
+                "parallelism")
         page = self.cache.page_size
         mp = block_tables.shape[1]
         block_tables = block_tables.to(torch.int32)

@@ -28,8 +28,8 @@ def tag64(tag: object) -> int:
     """Canonical tag domain: a signed 64-bit digest. The JAX package's
     two allocators (its Python twin of this one and its C++
     ``csrc/page_allocator.cpp``) compare prefix-cache tags in this
-    space; the port has the Python one only (the C++ one is ROADMAP
-    queue A item 3). Callers must treat tags as content digests (hash
+    space; the port has the Python one only (the C++ one waits for ROADMAP
+    queue A, scheduler). Callers must treat tags as content digests (hash
     equality), not identity objects."""
     h = tag if isinstance(tag, int) else hash(tag)
     return ctypes.c_int64(h).value

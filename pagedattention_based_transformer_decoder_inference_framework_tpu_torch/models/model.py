@@ -19,9 +19,19 @@ them: :func:`init_params_quantized`, :func:`quantize_params` and
 (:func:`~.chained.build_decode_chains`) a decode step runs one B14
 ``chain_decode`` per layer, and with the per-op copies dropped every
 multi-token forward serves its matmuls from the packed blocks (B15
-``packed_linear``). Mixture-of-Experts and Gemma-3's dual-theta RoPE
-(ROADMAP queue A item 8) and tensor parallelism (item 10) are later
-slices.
+``packed_linear``).
+
+Mixture-of-Experts (Mixtral: ``router [D, E]`` and SwiGLU experts
+``we_gate``/``we_up [E, D, I]``, ``we_down [E, I, D]``, fused to ``we_gu``
+in the engine's layout, INT8 in every quantized mode, INT4 included)
+routes each token to its top-k experts. Decode, w8a8 and small chunks
+take a masked loop over the experts (every expert sees every token,
+gated); a prefill chunk whose routed slots reach ``S = B*T*k >= E*256``
+(and is not w8a8) takes the exact sorted dispatch through the grouped
+matmul (B13 ``grouped_matmul``), as the JAX package's ``_moe`` does, on
+one device. Gemma-3's dual-theta RoPE (ROADMAP queue A, other model
+families) and tensor and expert parallelism (ROADMAP queue A,
+parallelism) are later slices.
 """
 
 from __future__ import annotations
@@ -34,12 +44,13 @@ import torch
 
 from ..config import ModelConfig
 from ..ops import chain_linear as cl
+from ..ops import gmm
 from ..ops.common import activation_fn, layernorm, rmsnorm
 from ..ops.linear import linear
 from ..ops.rope import apply_rope, rope_table
 from ..quant.tensor import (Q4Tensor, QTensor, dequantize,
                             quantize_int4_groupwise, quantize_per_channel)
-from ..utils.common import torch_dtype
+from ..utils.common import round_up, torch_dtype
 
 Params = Dict[str, Any]
 
@@ -53,15 +64,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                 unrolled: bool = False) -> Params:
     """Random-init parameters (stacked layers) on ``device`` from
     ``generator`` (which must live on that device). Weights are
-    ``0.02 * N(0, 1)`` drawn in f32 one layer at a time and cast to
-    ``cfg.dtype``, so the f32 transient is one layer's tensor; with
-    ``quantize`` the matmul weights and the LM head are quantized to INT8
-    per output channel instead of cast (:func:`init_params_quantized`).
-    ``unrolled`` gives the same values as a tuple of per-layer dicts whose
-    weights own their storage (:func:`unstack_layers` gives views of the
-    stacked tensors), so a per-layer weight that is dropped is freed."""
-    if cfg.num_experts > 0:
-        raise NotImplementedError("MoE: ROADMAP queue A item 8")
+    ``0.02 * N(0, 1)`` drawn in f32 one matrix at a time (a layer's, or
+    one expert's of a layer) and cast to ``cfg.dtype``, so the f32
+    transient is one matrix; with ``quantize`` the matmul weights, the
+    experts and the LM head are quantized to INT8 per output channel
+    instead of cast (:func:`init_params_quantized`); the MoE router stays
+    in ``cfg.dtype``. ``unrolled`` gives the same values as a tuple of
+    per-layer dicts whose weights own their storage
+    (:func:`unstack_layers` gives views of the stacked tensors), so a
+    per-layer weight that is dropped is freed."""
     device = torch.device(device or generator.device)
     dt = torch_dtype(cfg.dtype)
     D, H, KH, dh, I_ = (cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads,
@@ -72,14 +83,15 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         if stacked and unrolled:            # the same draws, layer by layer
             return [w(*shape[1:], scale=scale, stacked=False, quant=quant)
                     for _ in range(shape[0])]
+        K, N = shape[-2:]
         if quant and quantize:
             vals = torch.empty(shape, dtype=torch.int8, device=device)
-            scales = torch.empty(shape[:-2] + (1, shape[-1]),
-                                 dtype=torch.float32, device=device)
-            parts = zip(vals, scales) if stacked else ((vals, scales),)
+            scales = torch.empty(shape[:-2] + (1, N), dtype=torch.float32,
+                                 device=device)
+            parts = zip(vals.view(-1, K, N), scales.view(-1, 1, N))
         else:
             out = torch.empty(shape, dtype=dt, device=device)
-            parts = ((p, None) for p in (out if stacked else (out,)))
+            parts = ((p, None) for p in out.view(-1, K, N))
         for part, part_scales in parts:
             tmp = torch.empty(part.shape, dtype=torch.float32, device=device)
             tmp.normal_(generator=generator).mul_(scale)
@@ -116,7 +128,13 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     if cfg.qk_norm:
         layers["q_norm_scale"] = const(1.0 - cfg.rms_offset, L, dh)
         layers["k_norm_scale"] = const(1.0 - cfg.rms_offset, L, dh)
-    if cfg.is_glu:
+    if cfg.num_experts > 0:
+        E = cfg.num_experts
+        layers["router"] = w(L, D, E)
+        layers["we_gate"] = w(L, E, D, I_, quant=True)
+        layers["we_up"] = w(L, E, D, I_, quant=True)
+        layers["we_down"] = w(L, E, I_, D, quant=True)
+    elif cfg.is_glu:
         layers["w_gate"] = w(L, D, I_, quant=True)
         layers["w_up"] = w(L, D, I_, quant=True)
         layers["w_down"] = w(L, I_, D, quant=True)
@@ -176,9 +194,8 @@ def params_from_jax(np_params: Params, cfg: ModelConfig,
     :class:`Q4Tensor`, ``values``/``scales`` a :class:`QTensor`, and
     ``w``/``sb``/``meta``/``ln``/``ops_geom`` a
     :class:`~..ops.chain_linear.PackedChain` (a JAX megakernel engine's
-    ``"chains"``)."""
-    if cfg.num_experts > 0:
-        raise NotImplementedError("MoE: ROADMAP queue A item 8")
+    ``"chains"``). MoE experts are such leaves too (``[E, K, N]``, or
+    ``[L, E, K, N]`` stacked)."""
 
     def conv(x):
         if isinstance(x, dict):
@@ -208,8 +225,9 @@ def params_from_jax(np_params: Params, cfg: ModelConfig,
 
 
 def unstack_layers(params: Params) -> Params:
-    """Stacked ``[L, ...]`` layer weights (dense or :class:`QTensor`) ->
-    a tuple of per-layer dicts (views; no copy)."""
+    """Stacked ``[L, ...]`` layer weights (dense or :class:`QTensor`, MoE
+    experts' ``[L, E, K, N]`` too) -> a tuple of per-layer dicts (views;
+    no copy)."""
     if isinstance(params["layers"], (tuple, list)):
         return params
 
@@ -236,14 +254,18 @@ def _cat_cols(ws):
 
 
 def fuse_projections(params: Params) -> Params:
-    """Fuse q/k/v into one ``w_qkv`` and the GLU gate/up into one
-    ``w_gu`` (output-dim concatenation); unrolled layers only. The model
-    splits the fused outputs by the H : KH : KH head ratio."""
+    """Fuse q/k/v into one ``w_qkv``, the GLU gate/up into one ``w_gu``
+    and each expert's gate/up into ``we_gu [E, D, 2I]`` (output-dim
+    concatenation); unrolled layers only. The model splits the fused
+    outputs by the H : KH : KH head ratio. The layer dicts are rewritten
+    in place, as :func:`quantize_params_int4` does, so each layer's
+    unfused weights are freed as soon as its fused ones exist unless the
+    caller holds them elsewhere (Mixtral-8x7B's fused INT8 experts are 30
+    GB, which would otherwise sit on top of the unfused ones)."""
     if not isinstance(params["layers"], (tuple, list)):
         raise ValueError("fuse_projections requires unstacked layers")
     out_layers = []
     for lp in params["layers"]:
-        lp = dict(lp)
         if "wq" in lp:
             lp["w_qkv"] = _cat_cols([lp.pop("wq"), lp.pop("wk"),
                                      lp.pop("wv")])
@@ -252,26 +274,34 @@ def fuse_projections(params: Params) -> Params:
                                      lp.pop("bv")])
         if "w_gate" in lp:
             lp["w_gu"] = _cat_cols([lp.pop("w_gate"), lp.pop("w_up")])
+        if "we_gate" in lp:
+            lp["we_gu"] = _cat_cols([lp.pop("we_gate"), lp.pop("we_up")])
         out_layers.append(lp)
     out = dict(params)
     out["layers"] = tuple(out_layers)
     return out
 
 
-#: the matmul weights the quantizers convert (norms, biases and the
-#: embedding stay in float)
+#: the matmul weights both quantizers convert (norms, biases, the
+#: embedding and the MoE router stay in float)
 _QUANT_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
                "w_qkv", "w_gu")
+#: the MoE experts, which only the INT8 quantizer converts: under INT4
+#: they stay INT8, as in the JAX package
+_EXPERT_KEYS = ("we_gate", "we_up", "we_down", "we_gu")
+#: grouped-matmul row block (``ops/gmm.py``): the MoE dispatch path is
+#: taken when the routed slots average at least one block per expert
+_GMM_BM = 256
 
 
 def quantize_params(params: Params) -> Params:
-    """INT8 per-output-channel conversion of every matmul weight (and the
-    LM head) that is not quantized yet, in the stacked or the unstacked /
-    fused layout."""
+    """INT8 per-output-channel conversion of every matmul weight, expert
+    (per expert and output channel) and the LM head that is not quantized
+    yet, in the stacked or the unstacked / fused layout."""
 
     def quant_dict(layers: Params) -> Params:
         layers = dict(layers)
-        for k in _QUANT_KEYS:
+        for k in _QUANT_KEYS + _EXPERT_KEYS:
             if isinstance(layers.get(k), torch.Tensor):
                 layers[k] = quantize_per_channel(layers[k])
         return layers
@@ -288,12 +318,13 @@ def quantize_params(params: Params) -> Params:
 
 def quantize_params_int4(params: Params) -> Params:
     """Nibble-packed INT4 with the quantizer's group-wise scales (groups of
-    128 rows) for every matmul weight (and the LM head), on the unstacked / fused layout, one weight at a
-    time and in place, so each original frees as soon as its INT4
-    replacement exists. INT8 weights are dequantized first (the double
-    rounding costs little against INT4's step). One device only: the
-    tensor-parallel splits of the JAX package are ROADMAP queue A item
-    10."""
+    128 rows) for every matmul weight (and the LM head), on the unstacked
+    / fused layout, one weight at a time and in place, so each original
+    frees as soon as its INT4 replacement exists. INT8 weights are
+    dequantized first (the double rounding costs little against INT4's
+    step). MoE experts keep INT8, as in the JAX package. One device only:
+    the tensor-parallel splits of the JAX package wait for ROADMAP queue
+    A, parallelism."""
     if not isinstance(params["layers"], (tuple, list)):
         raise ValueError("INT4 conversion runs after unstack_layers")
 
@@ -313,6 +344,45 @@ def quantize_params_int4(params: Params) -> Params:
     return params
 
 
+def dispatch_layout(topi: torch.Tensor, num_experts: int,
+                    bm: int = _GMM_BM):
+    """The sorted MoE dispatch's layout of the routed slots ``topi [...,
+    k]`` (flattened, slot ``i`` of token ``i // k``), the JAX package's
+    exactly: ``order``, the slots stable-sorted by expert; ``dest``, the
+    row of each sorted slot, each expert's range padded to a multiple of
+    ``bm`` rows; ``group_of_block [Npad // bm]`` int32, with the static
+    ``Npad = round_up(S, bm) + E*bm``. An expert with no slot has an
+    empty range whose start it shares with the next, and
+    ``searchsorted(..., right=True)`` gives the block there to the expert
+    that has rows; the blocks past the last range go to the last expert
+    and multiply zeros. Built on the device, without a host sync."""
+    te = topi.reshape(-1)
+    S, dev = te.numel(), te.device
+    order = torch.argsort(te, stable=True)
+    se = te[order]
+    counts = (te[:, None] == torch.arange(num_experts, device=dev)).sum(0)
+    padded = (counts + bm - 1) // bm * bm
+    starts = torch.cumsum(padded, 0) - padded
+    cum = torch.cumsum(counts, 0) - counts
+    dest = starts[se] + torch.arange(S, device=dev) - cum[se]
+    npad = round_up(S, bm) + num_experts * bm
+    gb = torch.searchsorted(starts, torch.arange(npad // bm, device=dev) * bm,
+                            right=True) - 1
+    return order, dest, gb.to(torch.int32)
+
+
+def _leaf(w) -> torch.Tensor:
+    """The values of a weight, dense or :class:`QTensor`."""
+    return w.values if isinstance(w, QTensor) else w
+
+
+def _expert(w, e: int):
+    """Expert ``e`` of ``[E, K, N]`` experts (a view)."""
+    if isinstance(w, QTensor):
+        return QTensor(w.values[e], w.scales[e])
+    return w[e]
+
+
 class DecoderModel:
     """Stateless model: ``forward(params, tokens, positions, kv, attn_fn)``.
 
@@ -320,11 +390,10 @@ class DecoderModel:
     length, pages x page size). The table is built once per device."""
 
     def __init__(self, cfg: ModelConfig, rope_len: Optional[int] = None):
-        if cfg.num_experts > 0:
-            raise NotImplementedError("MoE: ROADMAP queue A item 8")
         if cfg.rope_local_theta > 0:
             raise NotImplementedError(
-                "dual-theta RoPE (Gemma-3): ROADMAP queue A item 8")
+                "dual-theta RoPE (Gemma-3): ROADMAP queue A, other model "
+                "families")
         self.cfg = cfg
         self.rope_len = rope_len
         self._rope: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
@@ -419,6 +488,8 @@ class DecoderModel:
         x = x + attn_proj
 
         h2 = self._norm(x, lp["ln2_scale"], lp.get("ln2_bias"))
+        if cfg.num_experts > 0:
+            return x + self._moe(lp, h2, w8a8), kv
         if cfg.is_glu:
             gact = cfg.glu_gate_act
             if "w_gu" in lp:
@@ -438,6 +509,84 @@ class DecoderModel:
         if cfg.post_norms:
             mlp = self._norm(mlp, lp["post_mlp_scale"], None)
         return x + mlp, kv
+
+    def _route(self, lp: Params, h2: torch.Tensor):
+        """The router: logits from a dense ``linear`` in the activation
+        dtype, then f32; each token's top-k experts ``[B, T, k]`` and the
+        softmax of their logits. ``jax.lax.top_k`` puts the lower index
+        first among equal logits and ``torch.topk`` promises no order for
+        ties (which logits rounded to bf16 make common), so the top k are
+        the head of a stable descending sort."""
+        r = linear(h2, lp["router"]).float()                   # [B, T, E]
+        topv, topi = torch.sort(r, dim=-1, descending=True, stable=True)
+        k = self.cfg.experts_per_tok
+        return topi[..., :k], torch.softmax(topv[..., :k], dim=-1)
+
+    def _moe(self, lp: Params, h2: torch.Tensor, w8a8: bool) -> torch.Tensor:
+        """Mixture-of-Experts MLP (Mixtral): top-k routing, SwiGLU experts.
+        A chunk whose routed slots reach one grouped-matmul row block per
+        expert (``S >= E * _GMM_BM``), unless under w8a8, takes the sorted
+        dispatch (:meth:`_moe_dispatch`, B13); everything else, decode
+        included, the masked loop (:meth:`_moe_masked`)."""
+        topi, gates = self._route(lp, h2)
+        E = _leaf(lp["we_down"]).shape[0]
+        S = h2.shape[0] * h2.shape[1] * self.cfg.experts_per_tok
+        if self.cfg.quant != "int8" and S >= E * _GMM_BM:
+            return self._moe_dispatch(lp, h2, topi, gates)
+        return self._moe_masked(lp, h2, topi, gates, w8a8)
+
+    def _moe_masked(self, lp: Params, h2: torch.Tensor, topi: torch.Tensor,
+                    gates: torch.Tensor, w8a8: bool) -> torch.Tensor:
+        """Every expert over every token, its output scaled by the token's
+        gate for it (0 where not routed) and added in expert order: each
+        step of the decode loop streams each expert's weights once."""
+        E, _, D = _leaf(lp["we_down"]).shape
+        mlp = torch.zeros(h2.shape[:-1] + (D,), dtype=h2.dtype,
+                          device=h2.device)
+        for e in range(E):
+            ge = torch.where(topi == e, gates, 0.0).sum(-1)       # [B, T]
+            if "we_gu" in lp:
+                gate, up = linear(h2, _expert(lp["we_gu"], e),
+                                  w8a8=w8a8).chunk(2, dim=-1)
+                gate = activation_fn("silu")(gate.float()).to(up.dtype)
+            else:
+                gate = linear(h2, _expert(lp["we_gate"], e), act="silu",
+                              w8a8=w8a8)
+                up = linear(h2, _expert(lp["we_up"], e), w8a8=w8a8)
+            ye = linear(gate * up, _expert(lp["we_down"], e), w8a8=w8a8)
+            mlp = mlp + ge[..., None].to(ye.dtype) * ye
+        return mlp
+
+    def _moe_dispatch(self, lp: Params, h2: torch.Tensor, topi: torch.Tensor,
+                      gates: torch.Tensor) -> torch.Tensor:
+        """The exact sorted dispatch: the ``B*T*k`` (token, expert) slots
+        laid out by expert (:func:`dispatch_layout`), the expert products
+        as grouped matmuls (B13), and each slot's row, times its gate,
+        added back to its token."""
+        B, T, D = h2.shape
+        k, bm = self.cfg.experts_per_tok, _GMM_BM
+        order, dest, gb = dispatch_layout(topi, _leaf(lp["we_down"]).shape[0],
+                                          bm)
+        st, sg = order // k, gates.reshape(-1)[order]
+        xp = h2.new_zeros((gb.numel() * bm, D))
+        xp[dest] = h2.reshape(B * T, D)[st]
+        if "we_gu" in lp:
+            gate, up = gmm.grouped_matmul(xp, lp["we_gu"], gb,
+                                          bm=bm).chunk(2, dim=-1)
+        else:
+            gate = gmm.grouped_matmul(xp, lp["we_gate"], gb, bm=bm)
+            up = gmm.grouped_matmul(xp, lp["we_up"], gb, bm=bm)
+        gate = activation_fn("silu")(gate.float()).to(up.dtype)
+        y = gmm.grouped_matmul(gate * up, lp["we_down"], gb, bm=bm)
+        rows = y[dest] * sg[:, None].to(y.dtype)
+        # k = 2 rows a token, added into zeros: 0 + a is exact and a + b
+        # equals b + a, so the CUDA index_add_'s atomic order (any order)
+        # gives the JAX scatter-add's sum; from k = 3 on the order could
+        # round differently
+        out = torch.zeros((B * T, y.shape[-1]), dtype=h2.dtype,
+                          device=h2.device)
+        out.index_add_(0, st, rows.to(h2.dtype))
+        return out.reshape(B, T, -1)
 
     def _packed_rest(self, lp: Params, chain: cl.PackedChain,
                      x: torch.Tensor, ao: torch.Tensor) -> torch.Tensor:

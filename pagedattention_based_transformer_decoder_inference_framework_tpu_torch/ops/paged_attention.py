@@ -195,8 +195,8 @@ def paged_attention_plain(q, kv_pages, block_tables, seq_lens, q_offsets,
     """Plain version of :func:`paged_attention` (same signature)."""
     if return_scores:
         raise NotImplementedError(
-            "return_scores (per-page score export): the beam slice, "
-            "ROADMAP queue A item 6")
+            "return_scores (per-page score export): ROADMAP queue A, "
+            "beam search")
     pool, scales, layer = _pooled(kv_pages, kv_scales, layer)
     _check(q, pool, block_tables, seq_lens, num_q_heads, page_size)
     B, T = q.shape[:2]

@@ -21,8 +21,8 @@ def rope_table(max_seq_len: int, head_dim: int, theta: float = 10000.0,
     ``"llama3"`` (Llama-3.1+ wavelength bands: long wavelengths divided
     by ``factor``, short kept, smooth interpolation between the
     ``low_freq_factor``/``high_freq_factor`` bands of
-    ``original_max_position_embeddings``). ``"longrope"`` waits for the
-    Phi-3 slice (ROADMAP queue A item 8).
+    ``original_max_position_embeddings``). ``"longrope"`` waits for
+    ROADMAP queue A, other model families (Phi-3).
     """
     half = head_dim // 2
     inv_freq = 1.0 / (theta ** (
@@ -45,7 +45,8 @@ def rope_table(max_seq_len: int, head_dim: int, theta: float = 10000.0,
             inv_freq = torch.where(in_band, mid, scaled)
         elif kind == "longrope":
             raise NotImplementedError(
-                "longrope scaling: ROADMAP queue A item 8 (Phi-3)")
+                "longrope scaling (Phi-3): ROADMAP queue A, other model "
+                "families")
         elif kind != "default":
             raise ValueError(f"unsupported rope_scaling type: {kind!r}")
     t = torch.arange(max_seq_len, dtype=torch.float32, device=device)

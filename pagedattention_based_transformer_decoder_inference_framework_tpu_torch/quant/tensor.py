@@ -135,7 +135,7 @@ def quantize_int4_groupwise(w: torch.Tensor, group: int = 128,
     """Symmetric absmax INT4, one scale per (``group`` K-rows, output
     column), packed for the block width :func:`int4_block_width` picks
     under the cap ``bn`` (one device: the JAX package's ``col_shards``
-    for tensor parallelism is ROADMAP queue A item 10)."""
+    for tensor parallelism waits for ROADMAP queue A, parallelism)."""
     K, N = w.shape
     group = min(group, K)
     if K % group:

@@ -1,8 +1,8 @@
 """On the card: each hand-written CUDA kernel of the PyTorch port against
 its plain PyTorch version (B1/B2 paged attention, B6/B7/B8 decode
 attention, B9 fused decode append, B3/B4/B5 KV appends, B10/B11/B12
-quantized-weight products, B14/B15 the chained decode megakernel and the
-product over its packed blocks).
+quantized-weight products, B13 the MoE grouped matmul, B14/B15 the
+chained decode megakernel and the product over its packed blocks).
 
 These tests import no JAX, so they run where the card is (the suite's
 ``conftest.py`` sets JAX up, hence ``--noconftest``):
@@ -22,6 +22,8 @@ sums in another order, through two norms); 2e-2 with bf16 activations
 another order can move one value by a bf16 step) and under w8a8 (an
 f32 norm sum in another order can move one re-quantized activation by
 an INT8 step). B15 as B10 under w8a8 (bit-exact) and as B11 otherwise.
+B13 as B11 (f32 sums in another order: bf16 outputs within one bf16
+step or 1e-5 of max|output|, f32 outputs 1e-5 of max|output|).
 """
 
 import numpy as np
@@ -36,6 +38,7 @@ from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.engi
 from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.kvcache import pool as tpool
 from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops import (
     chain_linear as cl,
+    gmm,
     int4_matmul as i4,
     int8_matmul as i8,
     kv_append as ka,
@@ -608,3 +611,98 @@ def test_cuda_chain_in_the_engine(cuda):
     assert cl.CHAIN_DECODE.launches == L * 5
     assert cl.PACKED_LINEAR.launches == 3 + 4 * (L - 1)
     assert [len(r) for r in out] == [6, 6]
+
+
+# B13: (label, E, K, N, bm, group_of_block): Mixtral-8x7B's two expert
+# products at a 4 x 256-token prefill chunk (Npad 4096: 16 blocks of 256,
+# the trailing padding blocks on the last expert), an expert with no
+# rows, every block on one expert, K and N no multiple of a tile, and
+# row blocks of 128 and 64 (the tensor-core kernel's 64-row tiles)
+GMM_MIXTRAL = [0, 0, 1, 2, 2, 3, 4, 4, 5, 6, 7, 7, 7, 7, 7, 7]
+GMM_SHAPES = [("we_gu", 8, 4096, 28672, 256, GMM_MIXTRAL),
+              ("we_down", 8, 14336, 4096, 256, GMM_MIXTRAL),
+              ("empty-expert", 4, 512, 384, 256, [0, 2, 2, 3]),
+              ("one-expert", 3, 256, 256, 128, [1, 1, 1, 1]),
+              ("ragged-K-N", 3, 200, 300, 64, [0, 1, 1, 2, 2]),
+              ("bm64", 4, 128, 136, 64, [3, 0, 2, 1])]
+#: (x dtype, weights): INT8 experts, dense bf16 and f32 weights
+GMM_KINDS = {"bf16-int8": (torch.bfloat16, "int8"),
+             "bf16-bf16": (torch.bfloat16, torch.bfloat16),
+             "bf16-f32": (torch.bfloat16, torch.float32),
+             "f32-int8": (torch.float32, "int8"),
+             "f32-bf16": (torch.float32, torch.bfloat16),
+             "f32-f32": (torch.float32, torch.float32)}
+#: the kinds Mixtral's shapes run with (the engine's bf16 activations)
+GMM_MIXTRAL_KINDS = ("bf16-int8", "bf16-bf16")
+GMM_CASES = [(c, k) for c in GMM_SHAPES for k in sorted(GMM_KINDS)
+             if not c[0].startswith("we_") or k in GMM_MIXTRAL_KINDS]
+
+
+def gmm_inputs(case, kind, device, seed=0):
+    _, E, K, N, bm, gb = case
+    xdt, wkind = GMM_KINDS[kind]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((len(gb) * bm, K), generator=g).to(device, xdt)
+    w = (torch.randn((E, K, N), generator=g) * 0.02).to(device)
+    w = qt.quantize_per_channel(w) if wkind == "int8" else w.to(wkind)
+    return x, w, torch.tensor(gb, dtype=torch.int32, device=device), bm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,kind", GMM_CASES,
+                         ids=[f"{c[0]}-{k}" for c, k in GMM_CASES])
+def test_cuda_grouped_matmul_matches_plain(cuda, case, kind):
+    x, w, gb, bm = gmm_inputs(case, kind, cuda)
+    gmm.GROUPED_MATMUL.launches = 0
+    out = gmm.grouped_matmul(x, w, gb, bm=bm)
+    ref = gmm.grouped_matmul_plain(x, w, gb, bm=bm)
+    torch.cuda.synchronize()
+    assert gmm.GROUPED_MATMUL.launches == 1
+    assert out.dtype == x.dtype and out.shape == ref.shape
+    assert bool(torch.isfinite(out).all())
+    assert within(out, ref, x.dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_grouped_matmul_follows_the_group_ids(cuda):
+    """Two blocks' group ids swapped (experts 0 and 2) move their rows
+    past the tolerance and leave the others; an id outside [0, E) gives
+    zeros."""
+    x, w, gb, bm = gmm_inputs(GMM_SHAPES[2], "bf16-int8", cuda)
+    out = gmm.grouped_matmul(x, w, gb, bm=bm)
+    moved = gmm.grouped_matmul(x, w, gb[[1, 0, 2, 3]], bm=bm)
+    assert torch.equal(moved[2 * bm:], out[2 * bm:])
+    for b in (0, 1):
+        rows = slice(b * bm, (b + 1) * bm)
+        assert not within(moved[rows], out[rows], torch.bfloat16)
+    bad = gb.clone()
+    bad[3] = 7
+    assert bool((gmm.grouped_matmul(x, w, bad, bm=bm)[3 * bm:] == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_moe_dispatch_in_the_engine(cuda):
+    """mixtral-tiny (f32 activations, INT8 experts) on the card: a
+    300-token prompt's first 256-token chunk takes the dispatch (B13
+    twice a layer), decode the masked loop (no B13); ``score_nll`` agrees
+    with the CPU engine's on the same weights within 1e-4 relative."""
+    m = tconfig.preset("mixtral-tiny")
+    m.dtype, m.quant, m.max_seq_len = "float32", "int8-weight", 512
+    cfg = tconfig.FrameworkConfig(
+        model=m,
+        cache=tconfig.CacheConfig(page_size=8, num_pages=128,
+                                  max_pages_per_seq=48, kv_dtype="int8"),
+        runtime=tconfig.RuntimeConfig(max_new_tokens=4, prefill_chunk=256))
+    cpu = Engine(cfg, device="cpu", seed=0)
+    eng = Engine(cfg, device=cuda, params=cpu.params)
+    prompts = [[(7 * i + 3) % 500 for i in range(300)], [5, 9, 3]]
+    L = m.num_layers
+    gmm.GROUPED_MATMUL.launches = 0
+    nll = eng.score_nll(prompts)
+    assert gmm.GROUPED_MATMUL.launches == 2 * L
+    np.testing.assert_allclose(nll, cpu.score_nll(prompts), rtol=1e-4)
+    greedy = SamplingParams(temperature=0.0, eos_token_id=-1)
+    gmm.GROUPED_MATMUL.launches = 0
+    state = eng.prefill(prompts, sampling=greedy)
+    eng.decode(state, greedy)
+    assert gmm.GROUPED_MATMUL.launches == 2 * L

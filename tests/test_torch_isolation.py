@@ -26,7 +26,7 @@ MODULES = [
     "engine.sampling", "engine.spec", "engine.engine", "models.model",
     "cli.cli_app",
     "quant", "quant.tensor", "quant.eval", "ops.int8_matmul",
-    "ops.int4_matmul", "ops.chain_linear", "models.chained",
+    "ops.int4_matmul", "ops.chain_linear", "models.chained", "ops.gmm",
 ]
 
 
@@ -66,13 +66,14 @@ def test_no_source_mentions_the_jax_package():
 
 def test_every_kernel_is_registered_with_its_source():
     import pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops.chain_linear  # noqa: F401
+    import pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops.gmm  # noqa: F401
     import pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops.int4_matmul  # noqa: F401
     import pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops.int8_matmul  # noqa: F401
     import pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops.kv_append  # noqa: F401
     import pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops.paged_attention  # noqa: F401
 
     assert sorted(platform.KERNELS) == [
-        "chain_decode", "int8_matmul", "kv_append_decode",
+        "chain_decode", "grouped_matmul", "int8_matmul", "kv_append_decode",
         "kv_append_prefill", "kv_append_tokens", "packed_linear",
         "paged_attention", "paged_attention_decode",
         "paged_attention_decode_append", "paged_attention_decode_batched",
