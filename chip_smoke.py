@@ -9,7 +9,11 @@ build there with ``nvcc`` for ``sm_90a``). It imports the port
 and nothing of JAX. Phases:
 
 1. Card and build: the card's name and power limit, then every kernel
-   built from ``csrc/`` (one ``nvcc`` per source, in parallel), timed.
+   built from ``csrc/`` (one ``nvcc`` per source, in parallel), timed;
+   for the tensor-core kernels (B13's ``wgmma_kernel``, B1's
+   ``attention_wgmma_kernel``) ptxas's registers, static shared memory
+   and spills, and, where ``cuobjdump`` is found, the HGMMA (wgmma),
+   UTMALDG (TMA) and UBLKCP (bulk copy) instructions in their SASS.
 2. Each kernel against its plain PyTorch version on the card.
    Attention (B1/B2) and appends (B3/B4) at slice 1's shapes (B=4, KH=8,
    G=4, dh=128, page 64, INT8 pool; prefill T=64, decode seq lens
@@ -59,7 +63,20 @@ and nothing of JAX. Phases:
    beside ``torch._grouped_mm`` over bf16 copies of the weights (widened
    beforehand); and at edge shapes (an expert with no rows, one expert
    for every block, K and N that fit no tile, row blocks of 64 and 128,
-   f32 activations).
+   f32 activations). Slice 7 (the two kernels redesigned for Hopper):
+   B1 routes by ``prefill_route`` (bf16 queries to the tensor-core kernel,
+   f32 to the SIMT one, each with its own launch count), and the
+   tensor-core kernel is also held at path (h)'s last chunk (phi3-mini:
+   dh 96, window 2047, 4 x 256 queries over 2,048 keys) and path (i)'s
+   chunks 0, 32, 64 and 127 (Llama-3.1-8B, 516-page table) at 2e-2 of
+   max|plain|, timed beside its bound and SDPA; the four give path (i)'s
+   B1 time by linear interpolation over 128 chunks x 32 layers, printed
+   beside its measured prefill; two page ids of one table swapped must
+   move the plain output past the tolerance. B13 runs with and without
+   the dispatch's ``block_rows`` (the 128-row tiles it lets the kernel
+   skip counted), and the edge shapes with and without ``block_rows``
+   (ragged K and N zero-padded by the wrapper, f32 experts rounded to
+   bf16 there, f32 activations on the CUDA-core kernel).
 3. The paths, each ``Engine`` on llama3-8b at full width and full depth
    (32 layers; (a), (c) and (d) cut to 8; weights from a seed, INT8
    paged KV, page 64, prefill chunk 256, the pool ``bench.py`` sizes, for (b),
@@ -135,7 +152,9 @@ and nothing of JAX. Phases:
    lower-precision control (the last three are references this script
    defines; the port has no such option): the kernels and the reference
    must stay within the path's logit limit, the control must not; (a)
-   also with f32 weights and activations. For (a), (b), (g), (h) and
+   also with f32 weights and activations, whose kernels' run has exact
+   launch counts too (its f32 chunks take B1's SIMT kernel: the count
+   in that kernel's row). For (a), (b), (g), (h) and
    (k) the
    fused loop is held against the step path's tokens and against the
    plain fused loop, and ``generate_stream`` against the fused loop on a
@@ -152,6 +171,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -276,6 +296,59 @@ def bound(bytes_moved: float, flops: float, rate: str = "f32"):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
+#: the tensor-core kernels' symbols (B13, B1) and their sources
+TENSOR_CORE_KERNELS = {"gmm.cu": "wgmma_kernel",
+                       "paged_prefill.cu": "attention_wgmma_kernel"}
+
+
+def tensor_core_report(log, built):
+    """Phase 1's report on the tensor-core kernels: ptxas's registers,
+    static shared memory and spills of each instance (from the build's
+    ``-Xptxas -v`` log; their shared memory is dynamic, set at launch),
+    and, where ``cuobjdump`` is found, the count of wgmma (HGMMA), TMA
+    (UTMALDG) and bulk-copy (UBLKCP) instructions in its SASS."""
+    import re
+    import shutil
+
+    for m in re.finditer(r"Compiling entry function '([^']+)'.*?"
+                         r"(\d+) bytes spill stores, (\d+) bytes spill "
+                         r"loads\s*\nptxas info\s*: Used (\d+) registers"
+                         r"([^\n]*)", log, re.S):
+        name = m.group(1)
+        if not any(k in name for k in TENSOR_CORE_KERNELS.values()):
+            continue
+        smem = re.search(r"(\d+) bytes smem", m.group(5))
+        name = name[min(name.find(k) for k in TENSOR_CORE_KERNELS.values()
+                        if k in name):]
+        print(f"  ptxas {name[:64]}: {m.group(4)} registers, "
+              f"{smem.group(1) if smem else 0} bytes static shared "
+              f"memory, spills {m.group(2)} / {m.group(3)} bytes "
+              "(stores / loads)", flush=True)
+    tool = shutil.which("cuobjdump") or (
+        "/usr/local/cuda/bin/cuobjdump"
+        if os.path.exists("/usr/local/cuda/bin/cuobjdump") else None)
+    if tool is None:
+        print("  SASS instruction counts: not available (no cuobjdump)",
+              flush=True)
+        return
+    for source, symbol in TENSOR_CORE_KERNELS.items():
+        r = subprocess.run([tool, "-sass", str(built[source])],
+                           capture_output=True, text=True, timeout=300)
+        if r.returncode != 0:
+            print(f"  SASS of {source}: not available (cuobjdump "
+                  f"{r.returncode})", flush=True)
+            continue
+        for fn in r.stdout.split("Function : ")[1:]:
+            name = fn.split("\n", 1)[0].strip()
+            if symbol not in name:
+                continue
+            counts = {op: len(re.findall(rf"\b{op}\b", fn))
+                      for op in ("HGMMA", "UTMALDG", "UBLKCP")}
+            print(f"  SASS {name[name.find(symbol):][:64]}: {counts}",
+                  flush=True)
+            check(counts["HGMMA"] > 0, f"{name}: no HGMMA in its SASS")
+
+
 # -- phase 2: kernels against their plain versions -------------------------
 
 B, KH, G, DH, PAGE, L, NUM_PAGES, MP = 4, 8, 4, 128, 64, 2, 80, 5
@@ -285,6 +358,7 @@ SPEC_K, SPEC_NGRAM = 8, 2
 #: each wrapper's CUDA kernels, as the profiler names them
 KERNEL_NAMES = {
     "paged_attention": ("paged_attention_kernel<",),
+    "paged_attention_wgmma": ("attention_wgmma_kernel<",),
     "paged_attention_decode": ("paged_attention_decode_kernel<",),
     "kv_append_decode": ("append_decode_kernel",),
     "kv_append_prefill": ("append_prefill_kernel",),
@@ -300,7 +374,7 @@ KERNEL_NAMES = {
     "w4_matmul": ("qmm::gemv_kernel<2,", "qmm::tiled_kernel<2,"),
     "chain_decode": ("chain::chain_kernel<",),
     "packed_linear": ("chain::packed_kernel<",),
-    "grouped_matmul": ("gmm::tc_kernel<", "gmm::f32_kernel<")}
+    "grouped_matmul": ("gmm::wgmma_kernel<", "gmm::f32_kernel<")}
 
 
 def make_pool(torch, gen, dtype, dev, batch=B, kv_heads=KH, dh=DH, mp=MP,
@@ -340,7 +414,8 @@ def attention_checks(torch, F_, dev, results):
     pa = import_module(f"{PKG}.ops.paged_attention")
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
     rows = {}
-    worst = {"paged_attention": 0.0, "paged_attention_decode": 0.0}
+    worst = {"paged_attention": 0.0, "paged_attention_wgmma": 0.0,
+             "paged_attention_decode": 0.0}
     cases = [
         # name, kernel, q dtype, pool dtype, T, seq_lens, q_offsets, window,
         # softcap, tolerance
@@ -359,6 +434,10 @@ def attention_checks(torch, F_, dev, results):
          2e-2),
         ("prefill bf16 pool f32", "paged_attention", torch.float32,
          torch.bfloat16, 64, [64, 57, 1, 40], [0] * 4, 0, 0.0, 1e-4),
+        # f32 queries take B1's SIMT kernel (prefill_route): its row in the
+        # kernels line
+        ("prefill f32 slice", "paged_attention", torch.float32, torch.int8,
+         64, [64] * 4, [0] * 4, 0, 0.0, 1e-4),
         ("decode slice", "paged_attention_decode", torch.bfloat16,
          torch.int8, 1, [65, 90, 128, 101], None, 0, 0.0, 2e-2),
         ("decode f32", "paged_attention_decode", torch.float32, torch.int8,
@@ -381,6 +460,9 @@ def attention_checks(torch, F_, dev, results):
             qoff = torch.tensor(qo, dtype=torch.int32, device=dev)
             args = (q, kv[0], bt, sl, qoff, scales, layer)
             kern, plain = pa.paged_attention, pa.paged_attention_plain
+            # B1's two kernels, by the wrapper's own route
+            kname = {"wgmma": "paged_attention_wgmma", "simt":
+                     "paged_attention"}[pa.prefill_route(qdt, pdt, DH, PAGE)]
         else:
             args = (q, kv[0], bt, sl, scales, layer)
             kern = pa.paged_attention_decode
@@ -393,7 +475,7 @@ def attention_checks(torch, F_, dev, results):
         print(f"  [{kname}] {name}: max|kernel-plain| = {err:.3e} "
               f"(tol {tol:g}) {'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"{kname} {name}: error {err} > {tol}")
-        if qdt == torch.bfloat16:
+        if qdt == torch.bfloat16 or kname == "paged_attention":
             worst[kname] = max(worst[kname], err)
         if name.endswith("slice") or name == "verify chunk":
             rows[name] = (kname, args, common, kern, plain, kv, bt, q, lens,
@@ -444,11 +526,208 @@ def attention_checks(torch, F_, dev, results):
         if name.endswith("slice"):
             results[kname].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                   bound_by=b_by, library_ms=lib_ms,
-                                  max_abs_err=worst[kname], tol=2e-2)
+                                  max_abs_err=worst[kname],
+                                  tol=1e-4 if q.dtype == torch.float32
+                                  else 2e-2)
         print(f"  [{kname}] {name}, device time: kernel {ms:.4f} ms "
               f"(one wrapper call {call_ms:.4f} ms wall), plain "
               f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), sdpa "
               f"{lib_ms:.4f} ms", flush=True)
+
+
+#: B1 at path (h)'s last prefill chunk (phi3-mini-4k: 32 KV heads, G 1,
+#: dh 96, window 2047; 4 x 256 queries at offset 1792 over 2,048 keys,
+#: 34 pages a table) and path (i)'s chunks (llama3.1-8b: 8 KV heads, G 4,
+#: dh 128; one sequence of 256 queries at 256 c over 256 (c + 1) keys,
+#: 516 pages a table), INT8 pools, page 64
+B1_H = dict(batch=4, kv_heads=32, G=1, dh=96, mp=34, T=256, offset=1792,
+            window=2047)
+B1_I = dict(batch=1, kv_heads=8, G=4, dh=128, mp=516, T=256, window=0)
+B1_I_CHUNKS = (0, 32, 64, 127)
+#: path (i)'s B1 time, estimated from the four chunks (filled by
+#: :func:`b1_shape_checks`, printed beside the measured prefill)
+B1_LONG = {}
+
+
+def b1_case(torch, gen, dev, batch, kv_heads, G, dh, mp, T, offset, window):
+    """A one-layer INT8 pool [1, 2, KH, batch * mp + 1, 64, dh], its
+    tables (distinct random pages) and bf16 queries of a chunk of T at
+    ``offset``, every sequence ``offset + T`` long."""
+    n_pages = batch * mp + 1
+    vals = torch.randint(-127, 128, (1, 2, kv_heads, n_pages, PAGE, dh),
+                         generator=gen, device=dev, dtype=torch.int8)
+    R = -(-n_pages * PAGE // 128)
+    scales = (torch.rand((1, 2, kv_heads, R, 128), generator=gen,
+                         device=dev) * 0.02 + 0.005)
+    perm = torch.randperm(n_pages - 1, generator=gen, device=dev) + 1
+    bt = perm[:batch * mp].reshape(batch, mp).to(torch.int32)
+    q = torch.randn((batch, T, kv_heads * G, dh), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    sl = torch.full((batch,), offset + T, dtype=torch.int32, device=dev)
+    qo = torch.full((batch,), offset, dtype=torch.int32, device=dev)
+    kw = dict(page_size=PAGE, num_q_heads=kv_heads * G, window=window,
+              softcap=0.0, scale=dh ** -0.5)
+    return (q, vals, bt, sl, qo, scales, 0), kw
+
+
+def b1_bound(args, window):
+    """B1's least time on these inputs: every visible (query, key) pair's
+    two products at the bf16 rate, against q in, out, each key some query
+    sees (K and V rows with their scales) and the tables."""
+    q, vals, bt, sl, qo = args[:5]
+    B, T, H, D = q.shape
+    KH = vals.shape[2]
+    pairs = seen = 0
+    for b in range(B):
+        off, n = int(qo[b]), int(sl[b])
+        for t in range(T):
+            lo = max(0, off + t - window + 1) if window > 0 else 0
+            pairs += max(0, min(off + t + 1, n) - lo)
+        seen += min(off + T, n) - (max(0, off - window + 1) if window > 0
+                                   else 0)
+    bytes_moved = (2 * q.numel() * 2 + seen * KH * 2 * (D + 4)
+                   + 4 * (bt.numel() + 2 * B))
+    return bound(bytes_moved, 4 * D * pairs * H, "bf16")
+
+
+def sdpa_chunk(torch, F_, args, kw):
+    """The chunk as one scaled_dot_product_attention call over a dense,
+    dequantized copy of the keys it may see (bf16, heads repeated for
+    GQA): the library yardstick, never called by the port."""
+    q, vals, bt, sl, qo, scales, layer = args
+    B, T, H, D = q.shape
+    KH, page = vals.shape[2], vals.shape[4]
+    n = int(sl.max())
+    g = vals[layer][:, :, bt.long()].reshape(2, KH, B, -1, D)[:, :, :, :n]
+    slots = (bt.long()[:, :, None] * page + torch.arange(
+        page, device=q.device)).reshape(B, -1)[:, :n]
+    sc = scales[layer].reshape(2, KH, -1)[:, :, slots]
+    g = (g.float() * sc[..., None]).to(q.dtype)          # [2, KH, B, n, D]
+    k, v = (x.permute(1, 0, 2, 3).repeat_interleave(H // KH, dim=1)
+            for x in (g[0], g[1]))
+    qpos = qo.long()[:, None] + torch.arange(T, device=q.device)
+    key = torch.arange(n, device=q.device)
+    mask = (key <= qpos[:, :, None]) & (key < sl.long()[:, None, None])
+    if kw["window"] > 0:
+        mask &= key > qpos[:, :, None] - kw["window"]
+    qh = q.transpose(1, 2)
+    return lambda: F_.scaled_dot_product_attention(
+        qh, k, v, attn_mask=mask[:, None], scale=kw["scale"])
+
+
+def b1_simt(torch, pa, args, kw):
+    """B1's SIMT kernel (the only B1 kernel before the tensor-core one) on
+    the same bf16 inputs, launched as the wrapper launches it: the old
+    kernel's time beside the new one's in the same run (the wrapper's
+    route sends bf16 queries to the tensor-core kernel)."""
+    from importlib import import_module
+
+    plat = import_module(f"{PKG}.utils.platform")
+    q, pool, bt, sl, qo, scales, layer = args
+    B, T, H, D = q.shape
+    out = torch.empty_like(q)
+    pa.ATTENTION.launch(
+        plat.ptr(q), plat.ptr(out), plat.ptr(pool), plat.ptr(scales),
+        plat.ptr(bt), plat.ptr(sl), plat.ptr(qo), B, T, H, pool.shape[2], D,
+        pool.shape[3], pool.shape[4], bt.shape[1], layer,
+        scales.shape[3] * 128, kw["scale"], kw["softcap"], kw["window"],
+        plat.DTYPE_CODES[q.dtype], plat.DTYPE_CODES[pool.dtype],
+        plat.stream_handle(q))
+    return out
+
+
+def b1_shape_checks(torch, F_, dev, results):
+    """B1's tensor-core kernel at path (h)'s last chunk and path (i)'s
+    chunks 0, 32, 64 and 127, each against its plain version at 2e-2 of
+    max|plain|, with device time, bound and SDPA time; path (i)'s B1
+    time over its 128 chunks and 32 layers by linear interpolation
+    between the four; and the misread control: two page ids of one
+    sequence's table swapped must move the plain output past 2e-2 of
+    max|plain| (at chunk 0, where a page is a quarter of the keys)."""
+    from importlib import import_module
+
+    pa = import_module(f"{PKG}.ops.paged_attention")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    kname = "paged_attention_wgmma"
+    shapes = [("(h) last chunk", B1_H)] + [
+        (f"(i) chunk {c}", dict(B1_I, offset=256 * c)) for c in B1_I_CHUNKS]
+    times, old_times = {}, {}
+    for label, shape in shapes:
+        args, kw = b1_case(torch, gen, dev, **shape)
+        route = pa.prefill_route(args[0].dtype, args[1].dtype,
+                                 args[0].shape[3], PAGE)
+        check(route == "wgmma", f"B1 {label}: routed to {route}")
+        plat_k = pa.ATTENTION_WGMMA
+        before = plat_k.launches
+        out = pa.paged_attention(*args, **kw)
+        torch.cuda.synchronize()
+        check(plat_k.launches == before + 1,
+              f"B1 {label}: the tensor-core kernel was not launched")
+        ref = pa.paged_attention_plain(*args, **kw)
+        err = (out.float() - ref.float()).abs().max().item()
+        top = ref.float().abs().max().item()
+        tol = 2e-2 * top
+        ok = err <= tol and bool(torch.isfinite(out).all())
+        print(f"  [{kname}] {label} (B={shape['batch']}, T={shape['T']}, "
+              f"KH={shape['kv_heads']}, G={shape['G']}, dh={shape['dh']}, "
+              f"{int(args[3][0])} keys): max|kernel-plain| = {err:.3e} "
+              f"(tol {tol:.3e} = 2e-2 of max|plain| {top:.3f}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"{kname} {label}: error {err} > {tol}")
+        results[kname]["max_abs_err"] = max(
+            results[kname].get("max_abs_err") or 0.0, err)
+        if label == "(i) chunk 0":
+            moved_bt = args[2].clone()
+            moved_bt[0, [0, 3]] = args[2][0, [3, 0]]
+            moved = pa.paged_attention_plain(
+                *((args[0], args[1], moved_bt) + args[3:]), **kw)
+            d = (moved.float() - ref.float()).abs().max().item()
+            print(f"  [{kname}] {label}: pages 0 and 3 of the table "
+                  f"swapped move the plain output by {d:.3e} "
+                  f"({'beyond' if d > tol else 'WITHIN'} the tolerance)",
+                  flush=True)
+            check(d > tol, f"B1 {label}: a misread table stays within "
+                  "the tolerance")
+            del moved
+        del out, ref
+        ms = device_ms(lambda: pa.paged_attention(*args, **kw), iters=10,
+                       match=KERNEL_NAMES[kname])
+        b_ms, b_by = b1_bound(args, kw["window"])
+        lib = sdpa_chunk(torch, F_, args, kw)
+        lib_ms = device_ms(lib, iters=10)
+        del lib
+        old = b1_simt(torch, pa, args, kw)
+        old_err = (old.float() - pa.paged_attention_plain(
+            *args, **kw).float()).abs().max().item()
+        check(old_err <= tol, f"B1 {label}: the SIMT kernel differs from "
+              f"plain by {old_err}")
+        old_ms = device_ms(lambda: b1_simt(torch, pa, args, kw), iters=3,
+                           match=KERNEL_NAMES["paged_attention"])
+        times[label] = ms
+        old_times[label] = old_ms
+        print(f"  [{kname}] {label} device time: kernel {ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}; {b_ms / ms:.3f} of it reached), sdpa "
+              f"{lib_ms:.4f} ms; the SIMT kernel on the same inputs "
+              f"{old_ms:.4f} ms (max|SIMT-plain| {old_err:.3e})", flush=True)
+        del args
+        torch.cuda.empty_cache()
+    xs = list(B1_I_CHUNKS)
+
+    def over_prefill(t):
+        ys = [t[f"(i) chunk {c}"] for c in xs]
+        per_layer = 0.0
+        for c in range(128):
+            j = min(max(i for i, x in enumerate(xs) if x <= c), len(xs) - 2)
+            per_layer += ys[j] + (ys[j + 1] - ys[j]) * (c - xs[j]) / (
+                xs[j + 1] - xs[j])
+        return per_layer * 32
+
+    B1_LONG["ms"] = over_prefill(times)
+    B1_LONG["simt_ms"] = over_prefill(old_times)
+    print(f"  [{kname}] path (i)'s prefill: 128 chunks x 32 layers of B1, "
+          f"by linear interpolation between chunks {xs}: "
+          f"{B1_LONG['ms'] / 1e3:.3f} s (the SIMT kernel: "
+          f"{B1_LONG['simt_ms'] / 1e3:.3f} s)", flush=True)
 
 
 def append_checks(torch, dev, results):
@@ -1431,24 +1710,27 @@ GMM_EDGES = [
 def moe_routing(torch, gen, dev, tokens=MOE_TOKENS, experts=MOE_E,
                 k=MOE_TOPK):
     """The dispatch layout (``order``, ``dest``, ``group_of_block``, by
-    the model's own ``dispatch_layout``) of ``tokens`` routed to their
-    top ``k`` of ``experts`` by random router logits rounded to bf16, as
-    the model rounds them."""
+    the model's own ``dispatch_layout``, and the routed rows of each block,
+    ``dispatch_block_rows``) of ``tokens`` routed to their top ``k`` of
+    ``experts`` by random router logits rounded to bf16, as the model
+    rounds them."""
     from importlib import import_module
 
     model = import_module(f"{PKG}.models.model")
     logits = torch.randn((tokens, experts), generator=gen,
                          device=dev).to(torch.bfloat16).float()
     topi = torch.sort(logits, dim=-1, descending=True, stable=True)[1]
-    return model.dispatch_layout(topi[:, :k], experts)
+    return model.dispatch_layout(topi[:, :k], experts) + (
+        model.dispatch_block_rows(topi[:, :k], experts),)
 
 
-def grouped_matmul_library(x, w, group_of_block, *, bm=256):
+def grouped_matmul_library(x, w, group_of_block, *, bm=256,
+                           block_rows=None):
     """B13's function computed another way: for each run of row blocks on
     one expert, one cuBLAS product over the expert's weight cast to x's
     dtype (bf16 x: a bf16 GEMM with an f32 output), then its scales and
-    one rounding. A reference for this script only, never called by the
-    port."""
+    one rounding; rows at or past ``block_rows`` zeros. A reference for
+    this script only, never called by the port."""
     from importlib import import_module
 
     import torch
@@ -1472,18 +1754,24 @@ def grouped_matmul_library(x, w, group_of_block, *, bm=256):
             y = y * w.scales[e].reshape(1, -1)
         out[rows] = y.to(x.dtype)
         r = r1
+    if block_rows is not None:
+        live = (torch.arange(bm, device=x.device)[None, :]
+                < block_rows[:, None]).reshape(-1, 1)
+        out = torch.where(live, out, torch.zeros((), dtype=out.dtype,
+                                                  device=out.device))
     return out
 
 
 def gmm_checks(torch, dev, results):
     """B13 against its plain version at Mixtral-8x7B's two expert products
     (INT8 and dense bf16 experts, bf16 activations, rows laid out from a
-    real routing) and at edge shapes; each Mixtral call's plain output
-    must move past the tolerance when two blocks' group ids are swapped.
-    Device times beside the plain version's, the bound over the routed
-    rows this routing needs, and ``torch._grouped_mm`` over bf16 copies of
-    the weights (widened beforehand, not timed) as the library
-    yardstick."""
+    real routing), with and without the dispatch's ``block_rows`` (the
+    tiles it lets the kernel skip counted), and at edge shapes; each
+    Mixtral call's plain output must move past the tolerance when two
+    blocks' group ids are swapped. Device times beside the plain
+    version's, the bound over the routed rows this routing needs, and
+    ``torch._grouped_mm`` over bf16 copies of the weights (widened
+    beforehand, not timed) as the library yardstick."""
     from importlib import import_module
 
     gm = import_module(f"{PKG}.ops.gmm")
@@ -1499,12 +1787,17 @@ def gmm_checks(torch, dev, results):
         print(f"  [grouped_matmul] {label}: max|kernel-plain| = {err:.3e} "
               f"(tol one bf16 step or 1e-5 of max|out|) "
               f"{'ok' if ok else 'FAIL'}", flush=True)
-        check(ok, f"grouped_matmul {label}: kernel differs from plain ({err})")
+        check(ok, f"grouped_matmul {label}: kernel differs from plain "
+              f"({err})")
         worst = max(worst, err)
 
-    _, dest, gb = moe_routing(torch, gen, dev)
+    _, dest, gb, block_rows = moe_routing(torch, gen, dev)
     bm, E = 256, MOE_E
     npad, routed = gb.numel() * bm, dest.numel()
+    # the kernel's 128-row tiles: those with a routed row are computed
+    starts = torch.tensor([0, 128], device=dev)
+    live_tiles = int((block_rows.view(-1, 1) > starts).sum())
+    tiles = npad // 128
     blocks = torch.bincount(gb.long(), minlength=E)
     offs = (blocks.cumsum(0) * bm).to(torch.int32)
     # the experts whose weights the routed rows need (the last one also
@@ -1512,9 +1805,12 @@ def gmm_checks(torch, dev, results):
     used = int((blocks > 0).sum())
     print(f"  B13 layout: {routed} routed rows of {MOE_TOKENS} tokens "
           f"(top {MOE_TOPK} of {E}) in Npad {npad} rows, blocks per expert "
-          f"{blocks.tolist()}", flush=True)
+          f"{blocks.tolist()}, routed rows per block "
+          f"{block_rows.tolist()}: {live_tiles} of {tiles} 128-row tiles "
+          f"hold a routed row ({live_tiles * 128} rows computed with "
+          f"block_rows, {tiles - live_tiles} tiles skipped)", flush=True)
     row = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-           "by": set()}
+           "by": set(), "all_ms": 0.0}
     for name, K, N in GMM_SHAPES:
         x = torch.zeros((npad, K), dtype=bf16, device=dev)
         x[dest] = torch.randn((routed, K), generator=gen, device=dev).to(bf16)
@@ -1533,12 +1829,15 @@ def gmm_checks(torch, dev, results):
             dense[e].copy_(vals[e].float() * scales[e])
         for kind, w, wb in (("INT8", wq, widened), ("bf16", dense, dense)):
             label = f"{name} {kind} experts (Npad={npad}, K={K}, N={N})"
-            call = lambda w=w: gm.grouped_matmul(x, w, gb, bm=bm)
+            call = lambda w=w: gm.grouped_matmul(x, w, gb, bm=bm,
+                                                 block_rows=block_rows)
+            call_all = lambda w=w: gm.grouped_matmul(x, w, gb, bm=bm)
             plain = lambda w=w, g=gb: gm.grouped_matmul_plain(x, w, g, bm=bm)
             out = call()
             torch.cuda.synchronize()
             ref = plain()
-            verify(label, out, ref)
+            verify(label + " with block_rows", out, ref)
+            verify(label + " without block_rows", call_all(), ref)
             # two blocks of different experts swapped
             j = int((gb != gb[0]).nonzero()[0])
             swapped = gb.clone()
@@ -1553,6 +1852,8 @@ def gmm_checks(torch, dev, results):
                   f"(beyond the tolerance: ok)", flush=True)
             del moved
             ms = device_ms(call, iters=10, match=KERNEL_NAMES["grouped_matmul"])
+            ms_all = device_ms(call_all, iters=10,
+                               match=KERNEL_NAMES["grouped_matmul"])
             plain_ms = device_ms(plain, iters=3)
             w_bytes = (E * K * N + 4 * E * N if kind == "INT8"
                        else 2 * E * K * N) * used / E
@@ -1578,12 +1879,15 @@ def gmm_checks(torch, dev, results):
                 lib_ms = None
                 lib_note = f"library not run ({str(exc).splitlines()[0]})"
             print(f"  [grouped_matmul] {label} device time: kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+                  f"{ms:.4f} ms with block_rows ({live_tiles} of {tiles} "
+                  f"row tiles), {ms_all:.4f} ms without, plain "
+                  f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms "
                   f"({b_by}, {routed} routed rows; {b_ms / ms:.3f} of it "
                   f"reached; {all_ms:.5f} ms over all {npad} rows), "
                   f"{lib_note}", flush=True)
             if kind == "INT8":                  # the main path's experts
                 row["ms"] += ms
+                row["all_ms"] += ms_all
                 row["plain_ms"] += plain_ms
                 row["bound_ms"] += b_ms
                 row["by"].add(b_by)
@@ -1597,8 +1901,8 @@ def gmm_checks(torch, dev, results):
         ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
         bound_by="/".join(sorted(row["by"])), library_ms=row["library_ms"])
     print(f"  [grouped_matmul] a layer's two INT8 calls: kernel "
-          f"{row['ms']:.4f} ms, bound {row['bound_ms']:.5f} ms", flush=True)
-
+          f"{row['ms']:.4f} ms with block_rows ({row['all_ms']:.4f} ms "
+          f"without), bound {row['bound_ms']:.5f} ms", flush=True)
     for label, E_, K, N, bm_, ids, xdt, wkind in GMM_EDGES:
         dt = bf16 if xdt == "bf16" else torch.float32
         x = torch.randn((len(ids) * bm_, K), generator=gen, device=dev).to(dt)
@@ -1606,9 +1910,18 @@ def gmm_checks(torch, dev, results):
         w = qt.quantize_per_channel(w) if wkind == "int8" else (
             w.to(bf16) if wkind == "bf16" else w)
         ids_t = torch.tensor(ids, dtype=torch.int32, device=dev)
-        verify(f"edge {label} (E={E_}, K={K}, N={N}, bm={bm_}, x {xdt}, "
-               f"w {wkind})", gm.grouped_matmul(x, w, ids_t, bm=bm_),
-               gm.grouped_matmul_plain(x, w, ids_t, bm=bm_))
+        # the routed rows: all of the first block, half of the others
+        rows_t = torch.tensor([bm_] + [bm_ // 2] * (len(ids) - 1),
+                              dtype=torch.int32, device=dev)
+        before = gm.GROUPED_MATMUL.launches
+        for rows in (None, rows_t):
+            verify(f"edge {label} (E={E_}, K={K}, N={N}, bm={bm_}, x {xdt}, "
+                   f"w {wkind}, {'no ' if rows is None else ''}block_rows)",
+                   gm.grouped_matmul(x, w, ids_t, bm=bm_, block_rows=rows),
+                   gm.grouped_matmul_plain(x, w, ids_t, bm=bm_,
+                                           block_rows=rows))
+        check(gm.GROUPED_MATMUL.launches == before + 2,
+              f"grouped_matmul edge {label}: the kernel not launched")
     results["grouped_matmul"].update(
         max_abs_err=worst, tol="one bf16 step or 1e-5 of max|out|")
 
@@ -1637,8 +1950,10 @@ MOE_MODEL, MOE_BATCH, MOE_PROMPT = "mixtral-8x7b", 4, 256
 #: the path each kernel's launch count in the kernels line comes from:
 #: slice 2's main path (w8a8); B12 the INT4 path, B5 the spec path, B9
 #: the fused-append path, B8 the packed path, B6 the long-context path,
-#: B14 and B15 the megakernel path, B13 the MoE path
-LAUNCHES_FROM = {"w4_matmul": "int4", "kv_append_tokens": "spec",
+#: B14 and B15 the megakernel path, B13 the MoE path, B1's SIMT kernel
+#: path (a)'s f32 run
+LAUNCHES_FROM = {"paged_attention": "f32",
+                 "w4_matmul": "int4", "kv_append_tokens": "spec",
                  "paged_attention_decode_append": "fused-append",
                  "paged_attention_decode_packed": "packed",
                  "paged_attention_decode_grouped": "long-context",
@@ -1683,9 +1998,29 @@ def path_config(quant="none", dtype="bfloat16", layers=None, spec_k=0,
     return cfg, batch, steps, prompt_len
 
 
+def b1_kernel(eng):
+    """The B1 kernel an engine's chunks take: ``prefill_route`` of
+    ``ops.paged_attention`` on its activation dtype, pool dtype, pool
+    head dim and page size."""
+    from importlib import import_module
+
+    import torch
+
+    pa = import_module(f"{PKG}.ops.paged_attention")
+    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    pool_dt = {"int8": torch.int8, "bfloat16": torch.bfloat16,
+               "float32": torch.float32}[eng.cache.kv_dtype]
+    route = pa.prefill_route(dt[eng.cfg.dtype], pool_dt,
+                             eng.backend.pool.pool_head_dim,
+                             eng.cache.page_size)
+    return {"wgmma": "paged_attention_wgmma",
+            "simt": "paged_attention"}[route]
+
+
 def expected_launches(quant, n_layers, steps, fused_append=False, chunks=1,
                       decode="paged_attention_decode", chained=False,
-                      experts=0, dispatch_chunks=0):
+                      experts=0, dispatch_chunks=0,
+                      attention="paged_attention_wgmma"):
     """Exact launch counts of one ``generate_batch_fused`` run: ``chunks``
     page-aligned prefill chunks (B1 and B4 in each layer) and ``steps -
     1`` decode steps (B3 and the ``decode`` kernel in each layer), each
@@ -1701,14 +2036,15 @@ def expected_launches(quant, n_layers, steps, fused_append=False, chunks=1,
     forward's qkv, o and the head through B11; the ``dispatch_chunks``
     prefill chunks that reach the dispatch run B13 on we_gu and we_down
     in each layer, every other forward (the decode steps, other chunks)
-    the masked loop's two B11 per expert and layer."""
+    the masked loop's two B11 per expert and layer. ``attention``: the B1
+    kernel of the chunks (:func:`b1_kernel`)."""
     from importlib import import_module
 
     plat = import_module(f"{PKG}.utils.platform")
     out = dict.fromkeys(plat.KERNELS, 0)
     per_step = n_layers * (steps - 1)
-    out.update(paged_attention=n_layers * chunks,
-               kv_append_prefill=n_layers * chunks)
+    out.update({attention: n_layers * chunks,
+                "kv_append_prefill": n_layers * chunks})
     if fused_append:
         out["paged_attention_decode_append"] = per_step
     else:
@@ -1743,18 +2079,19 @@ def matmul_launches(quant, n_layers, forwards):
     return out
 
 
-def expected_spec_launches(quant, n_layers, verifies):
+def expected_spec_launches(quant, n_layers, verifies,
+                           attention="paged_attention_wgmma"):
     """Exact launch counts of one ``generate_batch_spec`` run: the prefill
     chunk, then ``verifies`` verify forwards, each appending its
-    ``spec_k + 1``-token chunk with B5 and attending with B1; every other
-    kernel 0."""
+    ``spec_k + 1``-token chunk with B5 and attending with B1 (the kernel
+    ``attention``); every other kernel 0."""
     from importlib import import_module
 
     plat = import_module(f"{PKG}.utils.platform")
     out = dict.fromkeys(plat.KERNELS, 0)
-    out.update(paged_attention=n_layers * (1 + verifies),
-               kv_append_prefill=n_layers,
-               kv_append_tokens=n_layers * verifies)
+    out.update({attention: n_layers * (1 + verifies),
+                "kv_append_prefill": n_layers,
+                "kv_append_tokens": n_layers * verifies})
     out.update(matmul_launches(quant, n_layers, 1 + verifies))
     return out
 
@@ -1791,7 +2128,8 @@ def drive(torch, eng, prompts, greedy, steps, name, fused_append=False,
                                fused_append, prefill_chunks(eng, prompts),
                                decode, chained="chains" in eng.params,
                                experts=eng.cfg.num_experts,
-                               dispatch_chunks=dispatch_chunks(eng, prompts))
+                               dispatch_chunks=dispatch_chunks(eng, prompts),
+                               attention=b1_kernel(eng))
     check(counts == expect,
           f"{name}: launches {counts}, expected exactly {expect}")
     arr = np.asarray(toks)
@@ -1866,6 +2204,7 @@ def run_paths(torch, dev, results, card):
     from importlib import import_module
 
     eng_mod = import_module(f"{PKG}.engine")
+    plat = import_module(f"{PKG}.utils.platform")
     cfg, batch, steps, prompt_len = path_config()
     rng = np.random.default_rng(SEED)
     prompts = rng.integers(0, cfg.model.vocab_size,
@@ -1922,12 +2261,36 @@ def run_paths(torch, dev, results, card):
         torch.cuda.empty_cache()
         if quant == "none":
             # the same checks with f32 weights and activations (same
-            # seed, unrounded)
+            # seed, unrounded); the kernels' run, whose f32 chunks take
+            # B1's SIMT kernel, has its launch counts set to 0 just before
+            # and checked exactly just after
             eng32, _ = build_engine(torch, path_config(quant, "float32",
                                                        layers)[0])
-            tf32 = logit_checks(torch, eng32, refs, forced_run(
-                torch, eng32, prompts, greedy, steps), TOL[(quant, "f32")],
-                "f32")
+            counts32 = {}
+
+            def run32(ref, feed, eng32=eng32):
+                if ref is None:
+                    plat.reset_launch_counts()
+                got = forced_logits(torch, eng32, ref, prompts, greedy,
+                                    steps, feed)
+                if ref is None:
+                    counts32.update({n: k.launches
+                                     for n, k in plat.KERNELS.items()})
+                return got
+
+            tf32 = logit_checks(torch, eng32, refs, run32,
+                                TOL[(quant, "f32")], "f32")
+            expect = expected_launches(
+                quant, eng32.cfg.num_layers, steps,
+                chunks=prefill_chunks(eng32, prompts),
+                attention=b1_kernel(eng32))
+            print(f"  launches in the f32 kernels' run: "
+                  f"{json.dumps(counts32)}", flush=True)
+            check(counts32 == expect, f"f32: launches {counts32}, expected "
+                  f"exactly {expect}")
+            check(expect["paged_attention"] > 0,
+                  "f32 chunks do not take B1's SIMT kernel")
+            launches_from("f32", {"launches": counts32})
             del eng32
             torch.cuda.empty_cache()
             info.update(limit_readings(tf32, "f32"))
@@ -2108,10 +2471,15 @@ def long_context_path(torch, refs, greedy, card):
           f"first decode step, {copy_ms:.1f} ms, not counted); weight "
           f"stream floor {floor_ms:.3f} ms/step", flush=True)
     print(f"  launches in that run: {json.dumps(counts)}", flush=True)
+    if "ms" in B1_LONG:
+        print(f"  B1 in that prefill, estimated from phase 2's chunks: "
+              f"{B1_LONG['ms'] / 1e3:.3f} s of the measured "
+              f"{prefill_s:.3f} s ({B1_LONG['ms'] / 1e3 / prefill_s:.3f})",
+              flush=True)
     expect = expected_launches(
         cfg.model.quant, cfg.model.num_layers, steps,
         chunks=prefill_chunks(eng, prompts),
-        decode="paged_attention_decode_grouped")
+        decode="paged_attention_decode_grouped", attention=b1_kernel(eng))
     check(counts == expect,
           f"long-context: launches {counts}, expected exactly {expect}")
     check(toks.shape == (batch, steps), f"tokens shape {toks.shape}")
@@ -2141,7 +2509,8 @@ def long_context_path(torch, refs, greedy, card):
           f"{time.perf_counter() - t_refs:.1f} s", flush=True)
     info = {"decode_tok_s": decode_tps, "prefill_ms": prefill_s * 1e3,
             "weight_stream_gb": stream_gb, "weight_stream_floor_ms": floor_ms,
-            "engine_gb": held, "launches": counts}
+            "engine_gb": held, "launches": counts,
+            "b1_prefill_ms_estimate": B1_LONG.get("ms")}
     info.update(limit_readings(tf16, "bf16"))
     # the fork rule: the plain path greedy from the same pool emits, up to
     # each row's first fork, what it emits teacher-forced with the
@@ -2569,7 +2938,7 @@ def spec_run(torch, eng, prompts, greedy, steps, card, label):
     print(f"  [{label}] launches in the timed spec run: "
           f"{json.dumps(counts)}", flush=True)
     expect = expected_spec_launches(eng.cfg.quant, eng.cfg.num_layers,
-                                    verifies)
+                                    verifies, attention=b1_kernel(eng))
     check(counts == expect,
           f"spec ({label}): launches {counts}, expected exactly {expect}")
     check(all(len(r) == steps for r in toks), "spec rows are not full")
@@ -2835,10 +3204,10 @@ def moe_path(torch, refs, greedy, card):
     torch.cuda.synchronize()
     counts = {n: k.launches for n, k in plat.KERNELS.items()}
     expect = expected_launches(cfg.model.quant, L, 1, experts=E,
-                               dispatch_chunks=1)
+                               dispatch_chunks=1, attention=b1_kernel(eng))
     print(f"  a prefill chunk alone: B13 {counts['grouped_matmul']}, B11 "
           f"{counts['w8_matmul']} (qkv, o and the head only), B1 "
-          f"{counts['paged_attention']}, B4 {counts['kv_append_prefill']}",
+          f"{counts[b1_kernel(eng)]}, B4 {counts['kv_append_prefill']}",
           flush=True)
     check(counts == expect,
           f"moe prefill chunk: launches {counts}, expected exactly {expect}")
@@ -2903,8 +3272,10 @@ def moe_path(torch, refs, greedy, card):
     b13 = info["profile_kernel_ms"].get("grouped_matmul", 0.0) / L
     print(f"  moe decode {info['decode_tok_s']:.1f} tok/s, prefill "
           f"{info['prefill_ms']:.1f} ms; B13 {b13:.4f} ms a layer in the "
-          f"profiled run's prefill chunk; engine {held:.2f} GB, build peak "
-          f"{peak:.2f} GB ({card})", flush=True)
+          f"profiled run's prefill chunk, {b13 * L:.1f} ms a chunk "
+          f"({b13 * L / info['prefill_ms']:.3f} of the timed prefill); "
+          f"engine {held:.2f} GB, build peak {peak:.2f} GB ({card})",
+          flush=True)
     info["grouped_matmul_ms_per_layer"] = b13
     del eng
     gc.collect()
@@ -3118,9 +3489,13 @@ def main() -> int:
         check(smi.returncode == 0 and card, "nvidia-smi failed")
         print(f"  card: {card}", flush=True)
         t0 = time.perf_counter()
-        plat.build_kernels(verbose=True)
+        log = io.StringIO()
+        with contextlib.redirect_stdout(log):
+            built = plat.build_kernels(verbose=True)
+        print(log.getvalue(), end="", flush=True)
         print(f"  kernels built in {time.perf_counter() - t0:.1f} s",
               flush=True)
+        tensor_core_report(log.getvalue(), built)
 
         results = {n: {"name": n, "route": "cuda",
                        "source": f"{PKG}/csrc/{k.source}",
@@ -3129,6 +3504,7 @@ def main() -> int:
         phase("2: kernels vs plain versions")
         with torch.inference_mode():
             attention_checks(torch, F_, dev, results)
+            b1_shape_checks(torch, F_, dev, results)
             append_checks(torch, dev, results)
             decode_append_checks(torch, dev, results)
             decode_variant_checks(torch, F_, dev, results)

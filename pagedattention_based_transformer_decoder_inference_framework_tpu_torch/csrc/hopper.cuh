@@ -1,0 +1,302 @@
+// Hopper building blocks of the tensor-core kernels (gmm.cu: B13's
+// wgmma_kernel; paged_prefill.cu: B1's attention_wgmma_kernel), as
+// inline PTX for sm_90a: shared-memory mbarriers, bulk and tensor (TMA)
+// copies into shared memory, the exact INT8 -> bf16 widening, the
+// 128-byte swizzled tile layout and its wgmma matrix descriptors, and the
+// warpgroup products (wgmma.mma_async) the kernels issue.
+//
+// The one tile layout both kernels use: a tile of R rows by 64 bf16
+// columns is R rows of 128 bytes, and the 16-byte chunk c of row r sits at
+// chunk c ^ (r % 8) (the 128-byte swizzle that TMA's SWIZZLE_128B writes
+// and wgmma reads; tiles start on a 1024-byte boundary). Wider tiles are
+// such 64-column blocks one after another. Read K-major (the 64 columns
+// are the reduction axis, e.g. x's K or the head dim of Q and K), a block
+// of R rows has SBO = 1024 bytes between 8-row groups and the k-step of 16
+// columns moves the start by 32 bytes. Read MN-major (the 64 columns are
+// the output axis, e.g. a weight tile's N or V's head dim, the rows the
+// reduction axis), SBO = 1024 bytes between 8-row groups along the
+// reduction, LBO = the bytes between two 64-column blocks, and the
+// k-step of 16 rows moves the start by 2048 bytes; the instruction's
+// transpose bit for B says which.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace hop {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// -- mbarriers ---------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// After every mbar_init of a block and before any thread uses them.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// One arrival that also adds `bytes` to the bytes the phase waits for.
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed (the j-th
+// completion of a barrier, counted from 0, has parity j & 1). The spin is
+// one asm statement (its label is local to the braces), so the compiler
+// sees no divergent loop around the warpgroup products that follow.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra LAB_WAIT;\n}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The warpgroup of this thread, as a value the compiler knows is the same
+// across the warp (a broadcast), so branches on it are not divergent.
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+}
+
+// -- copies into shared memory -------------------------------------------------
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// to shared memory, counted on `bar` when they land.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A TMA box at coordinates (c0 innermost, c1[, c2]) of the tensor map.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(map), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
+                                            int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(map), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Makes this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma's operand reads, TMA); each writing thread runs it before
+// it signals the readers.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// -- the swizzled layout and widening ------------------------------------------
+
+// Byte offset of 16-byte chunk `c` (0..7) of row `r` in a 64-column block.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return static_cast<uint32_t>(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+// Eight INT8 values (two words) -> eight bf16 (four words), exactly: each
+// byte, biased to 0..255, becomes the low byte of the f32 2^23 + u, from
+// which 2^23 + 128 is subtracted (exact); an integer of magnitude <= 128
+// has its bf16 in the upper half of its f32.
+__device__ __forceinline__ uint32_t i8pair_bf16(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+__device__ __forceinline__ uint4 widen8(uint2 v) {
+  const uint32_t u0 = v.x ^ 0x80808080u, u1 = v.y ^ 0x80808080u;
+  constexpr float kBias = 8388736.0f;  // 2^23 + 128
+  float f[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[i] = __uint_as_float(__byte_perm(u0, 0x4B000000u, 0x7650 + i)) - kBias;
+    f[4 + i] =
+        __uint_as_float(__byte_perm(u1, 0x4B000000u, 0x7650 + i)) - kBias;
+  }
+  return make_uint4(i8pair_bf16(f[0], f[1]), i8pair_bf16(f[2], f[3]),
+                    i8pair_bf16(f[4], f[5]), i8pair_bf16(f[6], f[7]));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// -- wgmma ---------------------------------------------------------------------
+
+// Matrix descriptor of a 128-byte-swizzled tile at `p` (see the header):
+// start address, LBO and SBO in 16-byte units, layout type 1 (B128).
+__device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo_bytes,
+                                         uint32_t sbo_bytes) {
+  return static_cast<uint64_t>((smem_addr(p) >> 4) & 0x3FFF) |
+         (static_cast<uint64_t>((lbo_bytes >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo_bytes >> 4) & 0x3FFF) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of accumulator registers
+// across the asynchronous products that own them.
+template <int K>
+__device__ __forceinline__ void fence_regs(float (&d)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Keeps the A-operand registers of a product live (unmoved, unreused)
+// until this point, after the wait for that product.
+__device__ __forceinline__ void keep_live(const uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" ::"r"(a[i][j]) : "memory");
+}
+
+// In the accumulator of m64nNk16 (f32), thread t of the warpgroup holds,
+// for each 8-column group i, d[4i + 0..1] at row 16 (t / 32) + (t % 32) / 4
+// and columns 8i + 2 (t % 4) + 0..1, and d[4i + 2..3] eight rows below.
+// TB: 1 when B is MN-major (transposed), 0 when K-major; A is K-major.
+
+// D[64 x 256] (+)= A[64 x 16] . B[16 x 256], A and B from shared memory
+template <int TB>
+__device__ __forceinline__ void mma_ss_n256(float (&d)[128], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B from shared memory
+template <int TB>
+__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
+// D[64 x 64] += A[64 x 16] . B[16 x 64], A from registers (as the
+// accumulator of m64nNk16 lays it out, in bf16 pairs), B from shared memory
+template <int TB>
+__device__ __forceinline__ void mma_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
+        "n"(TB));
+}
+
+
+}  // namespace hop

@@ -344,6 +344,25 @@ def quantize_params_int4(params: Params) -> Params:
     return params
 
 
+def _dispatch(topi: torch.Tensor, num_experts: int, bm: int):
+    """:func:`dispatch_layout`'s three outputs, then
+    :func:`dispatch_block_rows`'s."""
+    te = topi.reshape(-1)
+    S, dev = te.numel(), te.device
+    order = torch.argsort(te, stable=True)
+    se = te[order]
+    counts = (te[:, None] == torch.arange(num_experts, device=dev)).sum(0)
+    padded = (counts + bm - 1) // bm * bm
+    starts = torch.cumsum(padded, 0) - padded
+    cum = torch.cumsum(counts, 0) - counts
+    dest = starts[se] + torch.arange(S, device=dev) - cum[se]
+    npad = round_up(S, bm) + num_experts * bm
+    block0 = torch.arange(npad // bm, device=dev) * bm
+    gb = torch.searchsorted(starts, block0, right=True) - 1
+    rows = (starts[gb] + counts[gb] - block0).clamp(0, bm)
+    return order, dest, gb.to(torch.int32), rows.to(torch.int32)
+
+
 def dispatch_layout(topi: torch.Tensor, num_experts: int,
                     bm: int = _GMM_BM):
     """The sorted MoE dispatch's layout of the routed slots ``topi [...,
@@ -356,19 +375,18 @@ def dispatch_layout(topi: torch.Tensor, num_experts: int,
     ``searchsorted(..., right=True)`` gives the block there to the expert
     that has rows; the blocks past the last range go to the last expert
     and multiply zeros. Built on the device, without a host sync."""
-    te = topi.reshape(-1)
-    S, dev = te.numel(), te.device
-    order = torch.argsort(te, stable=True)
-    se = te[order]
-    counts = (te[:, None] == torch.arange(num_experts, device=dev)).sum(0)
-    padded = (counts + bm - 1) // bm * bm
-    starts = torch.cumsum(padded, 0) - padded
-    cum = torch.cumsum(counts, 0) - counts
-    dest = starts[se] + torch.arange(S, device=dev) - cum[se]
-    npad = round_up(S, bm) + num_experts * bm
-    gb = torch.searchsorted(starts, torch.arange(npad // bm, device=dev) * bm,
-                            right=True) - 1
-    return order, dest, gb.to(torch.int32)
+    return _dispatch(topi, num_experts, bm)[:3]
+
+
+def dispatch_block_rows(topi: torch.Tensor, num_experts: int,
+                        bm: int = _GMM_BM) -> torch.Tensor:
+    """The routed rows in each row block of :func:`dispatch_layout`'s
+    layout, ``[Npad // bm]`` int32: each expert's rows sit at the front of
+    its range, so a block holds ``clamp(start + count - block start, 0,
+    bm)`` of its expert's; 0 for the padding blocks inside a range and
+    for the blocks past every range. B13's ``block_rows``: on the device,
+    without a host sync."""
+    return _dispatch(topi, num_experts, bm)[3]
 
 
 def _leaf(w) -> torch.Tensor:
@@ -561,23 +579,29 @@ class DecoderModel:
                       gates: torch.Tensor) -> torch.Tensor:
         """The exact sorted dispatch: the ``B*T*k`` (token, expert) slots
         laid out by expert (:func:`dispatch_layout`), the expert products
-        as grouped matmuls (B13), and each slot's row, times its gate,
-        added back to its token."""
+        as grouped matmuls (B13, told each block's routed rows so that the
+        kernel skips the padding tiles; the padding rows are zeros either
+        way), and each slot's row, times its gate, added back to its
+        token."""
         B, T, D = h2.shape
         k, bm = self.cfg.experts_per_tok, _GMM_BM
-        order, dest, gb = dispatch_layout(topi, _leaf(lp["we_down"]).shape[0],
-                                          bm)
+        order, dest, gb, block_rows = _dispatch(
+            topi, _leaf(lp["we_down"]).shape[0], bm)
         st, sg = order // k, gates.reshape(-1)[order]
         xp = h2.new_zeros((gb.numel() * bm, D))
         xp[dest] = h2.reshape(B * T, D)[st]
         if "we_gu" in lp:
-            gate, up = gmm.grouped_matmul(xp, lp["we_gu"], gb,
-                                          bm=bm).chunk(2, dim=-1)
+            gate, up = gmm.grouped_matmul(
+                xp, lp["we_gu"], gb, bm=bm,
+                block_rows=block_rows).chunk(2, dim=-1)
         else:
-            gate = gmm.grouped_matmul(xp, lp["we_gate"], gb, bm=bm)
-            up = gmm.grouped_matmul(xp, lp["we_up"], gb, bm=bm)
+            gate = gmm.grouped_matmul(xp, lp["we_gate"], gb, bm=bm,
+                                      block_rows=block_rows)
+            up = gmm.grouped_matmul(xp, lp["we_up"], gb, bm=bm,
+                                    block_rows=block_rows)
         gate = activation_fn("silu")(gate.float()).to(up.dtype)
-        y = gmm.grouped_matmul(gate * up, lp["we_down"], gb, bm=bm)
+        y = gmm.grouped_matmul(gate * up, lp["we_down"], gb, bm=bm,
+                               block_rows=block_rows)
         rows = y[dest] * sg[:, None].to(y.dtype)
         # k = 2 rows a token, added into zeros: 0 + a is exact and a + b
         # equals b + a, so the CUDA index_add_'s atomic order (any order)

@@ -1,14 +1,19 @@
 """Paged attention over the page pool (prefill chunks and decode).
 
-Six hand-written CUDA kernels, one per Pallas kernel of the JAX
-package's ``ops/paged_attention.py``; ``csrc/paged_attention.cu`` holds
-B1, B2 and B9, ``csrc/paged_decode.cu`` B6, B7 and B8:
+Hand-written CUDA kernels for the Pallas kernels of the JAX package's
+``ops/paged_attention.py``; ``csrc/paged_prefill.cu`` holds B1's
+tensor-core kernel, ``csrc/paged_attention.cu`` B1's SIMT kernel, B2 and
+B9, ``csrc/paged_decode.cu`` B6, B7 and B8:
 
 * :func:`paged_attention` (B1) replaces ``paged_attention``
   (``_kernel`` / ``_attend``): a T>=1 chunk, GQA rows ``t*G+g``, causal
   by absolute position (``q_offsets``), ``key < seq_len``, optional
   sliding window and tanh softcap, INT8 scales folded into the scores
-  (K) and the probabilities (V).
+  (K) and the probabilities (V). Two kernels, by :func:`prefill_route`:
+  ``ATTENTION_WGMMA`` (wgmma, bulk copies; bf16 queries, the one new
+  rounding P to bf16) for every bf16 chunk of the card paths, and
+  ``ATTENTION`` (f32 on the CUDA cores) for f32 queries and other head
+  dims or pages.
 * :func:`paged_attention_decode` (B2) replaces ``paged_attention_decode``
   (``_decode_kernel``): T=1, mask ``key < seq_len`` (+ window),
   ``dh % 128 == 0``.
@@ -49,14 +54,18 @@ from typing import Optional
 import torch
 
 from ..kvcache.pool import stack_new_kv
-from ..utils.platform import (DTYPE_CODES, CudaKernel, F, I, LL, P, ptr,
-                              stream_handle)
+from ..utils.platform import (DTYPE_CODES, CudaKernel, F, I, LL, P,
+                              aligned16, ptr, stream_handle)
 from .kv_append import append_plain
 from .kv_append import _check as _check_append
 
 _ATTN_ARGS = [P, P, P, P, P, P]        # q, out, pool, scales, bt, seq_lens
 ATTENTION = CudaKernel(
     "paged_attention", "paged_attention.cu", "pbt_paged_attention",
+    _ATTN_ARGS + [P] + [I] * 9 + [LL, F, F, I, I, I, P],
+    "ops/paged_attention.py:219")
+ATTENTION_WGMMA = CudaKernel(
+    "paged_attention_wgmma", "paged_prefill.cu", "pbt_paged_attention_wgmma",
     _ATTN_ARGS + [P] + [I] * 9 + [LL, F, F, I, I, I, P],
     "ops/paged_attention.py:219")
 ATTENTION_DECODE = CudaKernel(
@@ -186,6 +195,27 @@ def _launch_args(q, pool, scales, row_multiple: int = 4):
             0 if scales is None else scales.shape[3] * 128)
 
 
+def prefill_route(q_dtype: torch.dtype, pool_dtype: torch.dtype,
+                  head_dim: int, page_size: int) -> str:
+    """B1's kernel for a chunk, by dtype and shape alone: ``"wgmma"``
+    (``ATTENTION_WGMMA``, the tensor cores) for bf16 queries over an INT8
+    or bf16 pool at a head dim that is a multiple of 16 up to 256, with
+    pages of 64 keys or a multiple of 64, or a divisor of 64 that is a
+    multiple of 4 (whole pages or whole 64-key tiles per bulk copy,
+    scales in 16-byte runs); ``"simt"`` (``ATTENTION``, f32 on the CUDA
+    cores) otherwise: f32 queries, an f32 pool, head dims such as 24.
+    The bulk copies read 16-byte units, so :func:`paged_attention` hands
+    the tensor-core kernel a 16-byte-aligned copy of an operand that is
+    a view at an odd offset."""
+    page_ok = page_size > 0 and (
+        page_size % 64 == 0 or (64 % page_size == 0 and page_size % 4 == 0))
+    if (q_dtype == torch.bfloat16
+            and pool_dtype in (torch.int8, torch.bfloat16)
+            and head_dim % 16 == 0 and head_dim <= 256 and page_ok):
+        return "wgmma"
+    return "simt"
+
+
 def paged_attention_plain(q, kv_pages, block_tables, seq_lens, q_offsets,
                           kv_scales=None, layer=None, *, page_size: int,
                           num_q_heads: int, window: int = 0,
@@ -221,7 +251,11 @@ def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     bf16 / f32; block_tables ``[B, max_pages]`` int32; seq_lens ``[B]``
     valid tokens including this chunk; q_offsets ``[B]`` absolute
     position of q token 0; kv_scales the flat INT8 scales leaf. Returns
-    ``[B, T, H, dh]`` in q's dtype."""
+    ``[B, T, H, dh]`` in q's dtype. On CUDA tensors :func:`prefill_route`
+    picks the kernel: the tensor-core one for bf16 queries over an INT8
+    or bf16 pool at a head dim that is a multiple of 16 (it rounds the
+    probabilities to bf16 for the P.V product), the f32 one otherwise;
+    each counts its own launches."""
     if return_scores or not q.is_cuda:
         return paged_attention_plain(
             q, kv_pages, block_tables, seq_lens, q_offsets, kv_scales, layer,
@@ -238,8 +272,12 @@ def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     bt = block_tables.to(torch.int32).contiguous()
     sl = seq_lens.to(torch.int32).contiguous()
     qo = q_offsets.to(torch.int32).contiguous()
+    kernel = ATTENTION
+    if prefill_route(q.dtype, pool.dtype, D, page_size) == "wgmma":
+        kernel = ATTENTION_WGMMA
+        q, pool, scales = aligned16(q), aligned16(pool), aligned16(scales)
     out = torch.empty_like(q)
-    ATTENTION.launch(
+    kernel.launch(
         ptr(q), ptr(out), ptr(pool), ptr(scales), ptr(bt), ptr(sl), ptr(qo),
         B, T, H, pool.shape[2], D, pool.shape[3], page_size, bt.shape[1],
         layer, sstride, float(scale), float(softcap), int(window), qd, kd,

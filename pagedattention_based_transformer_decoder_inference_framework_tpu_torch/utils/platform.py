@@ -161,6 +161,16 @@ def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def aligned16(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t`` if its data starts on a 16-byte boundary (as every fresh
+    allocation does), else a copy that does: the tensor-core kernels'
+    bulk and tensor-map copies read whole 16-byte units, and a view at an
+    odd offset must not send a call to another kernel."""
+    if t is None or t.data_ptr() % 16 == 0:
+        return t
+    return t.clone()
+
+
 #: ctypes argument types, by role
 P = ctypes.c_void_p
 I = ctypes.c_int

@@ -697,6 +697,7 @@ def test_cuda_moe_dispatch_in_the_engine(cuda):
     eng = Engine(cfg, device=cuda, params=cpu.params)
     prompts = [[(7 * i + 3) % 500 for i in range(300)], [5, 9, 3]]
     L = m.num_layers
+    # f32 activations take B13's CUDA-core kernel
     gmm.GROUPED_MATMUL.launches = 0
     nll = eng.score_nll(prompts)
     assert gmm.GROUPED_MATMUL.launches == 2 * L
@@ -706,3 +707,145 @@ def test_cuda_moe_dispatch_in_the_engine(cuda):
     state = eng.prefill(prompts, sampling=greedy)
     eng.decode(state, greedy)
     assert gmm.GROUPED_MATMUL.launches == 2 * L
+
+
+# B13 with block_rows: (E, K, N, bm, group ids, routed rows a block); an
+# expert with no rows (id 1 never appears), blocks whose routed rows end
+# inside a 64-row consumer's or a 128-row tile's rows, padding blocks
+# with none, and the trailing blocks past every range
+GMM_BLOCK_ROWS = [(4, 512, 384, 128, [0, 0, 2, 3, 3, 3], [128, 70, 1, 128,
+                                                          0, 0]),
+                  (4, 1024, 512, 256, [0, 2, 2, 3, 3], [200, 256, 64, 0, 0])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", GMM_BLOCK_ROWS, ids=["bm128", "bm256"])
+@pytest.mark.parametrize("wkind", ["int8", "bf16"])
+def test_cuda_grouped_matmul_block_rows(cuda, case, wkind):
+    """The tensor-core kernel with ``block_rows`` against the plain
+    version with it, on arbitrary x (rows past a block's count must come
+    out as zeros, not as products), and without it on x whose rows past
+    the counts are zeros (the dispatch's layout): the same output."""
+    E, K, N, bm, ids, rows = case
+    g = torch.Generator(device="cpu").manual_seed(3)
+    x = torch.randn((len(ids) * bm, K), generator=g).to(cuda, torch.bfloat16)
+    w = (torch.randn((E, K, N), generator=g) * 0.02).to(cuda)
+    w = qt.quantize_per_channel(w) if wkind == "int8" else w.to(torch.bfloat16)
+    gb = torch.tensor(ids, dtype=torch.int32, device=cuda)
+    br = torch.tensor(rows, dtype=torch.int32, device=cuda)
+    live = (torch.arange(bm, device=cuda)[None, :] < br[:, None]).reshape(-1)
+    gmm.GROUPED_MATMUL.launches = 0
+    out = gmm.grouped_matmul(x, w, gb, bm=bm, block_rows=br)
+    ref = gmm.grouped_matmul_plain(x, w, gb, bm=bm, block_rows=br)
+    torch.cuda.synchronize()
+    assert gmm.GROUPED_MATMUL.launches == 1
+    assert bool((out[~live] == 0).all()) and bool(torch.isfinite(out).all())
+    assert within(out, ref, torch.bfloat16)
+    xz = x * live[:, None].to(x.dtype)
+    full = gmm.grouped_matmul(xz, w, gb, bm=bm)
+    assert within(gmm.grouped_matmul(xz, w, gb, bm=bm, block_rows=br), full,
+                  torch.bfloat16)
+    assert within(full, gmm.grouped_matmul_plain(xz, w, gb, bm=bm),
+                  torch.bfloat16)
+
+
+def wgmma_pool(rng, KH, dh, page, n_pages, pool_dtype, device):
+    """Random pool ``[L, 2, KH, n_pages, page, dh]`` (+ flat INT8
+    scales)."""
+    shape = (L, 2, KH, n_pages, page, dh)
+    if pool_dtype == "int8":
+        vals = torch.from_numpy(rng.integers(-127, 128, size=shape).astype(
+            np.int8))
+        R = -(-n_pages * page // 128)
+        scales = torch.from_numpy((rng.random((L, 2, KH, R, 128)) * 0.02
+                                   + 0.005).astype(np.float32))
+        return vals.to(device), scales.to(device)
+    vals = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    return vals.to(device, torch.bfloat16), None
+
+
+# B1 on the tensor cores: (T, seq_lens, q_offsets, window, softcap) for
+# B = 3 over 160-key tables: a ragged first chunk, a second chunk, a
+# window with a softcap, and a verify chunk off the page grid
+WGMMA_CASES = [(40, [40, 23, 1], [0, 0, 0], 0, 0.0),
+               (40, [120, 75, 41], [80, 35, 1], 0, 0.0),
+               (40, [150, 100, 60], [110, 60, 20], 37, 20.0),
+               (9, [79, 102, 136], [70, 93, 127], 0, 0.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [16, 64])
+@pytest.mark.parametrize("pool_dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("dh", [64, 96, 128, 256])
+def test_cuda_attention_wgmma_matches_plain(cuda, dh, pool_dtype, page):
+    """B1's tensor-core kernel (bf16 queries) at every preset head dim,
+    INT8 and bf16 pools, pages of 16 (four a 64-key tile) and 64, against
+    its plain version at 2e-2 of max|plain|; GQA 4 per KV head."""
+    rng = np.random.default_rng(dh + page)
+    B, KH, G, MPg = 3, 2, 4, 160 // page
+    H = KH * G
+    n_pages = B * MPg + 1
+    vals, sc = wgmma_pool(rng, KH, dh, page, n_pages, pool_dtype, cuda)
+    bt = torch.from_numpy((rng.permutation(n_pages - 1)[:B * MPg] + 1)
+                          .reshape(B, MPg).astype(np.int32)).to(cuda)
+    assert pa.prefill_route(torch.bfloat16, vals.dtype, dh, page) == "wgmma"
+    for T, lens, offs, window, softcap in WGMMA_CASES:
+        q = torch.from_numpy(rng.normal(size=(B, T, H, dh)).astype(
+            np.float32)).to(cuda, torch.bfloat16)
+        args = (q, vals, bt, torch.tensor(lens, device=cuda),
+                torch.tensor(offs, device=cuda), sc, LAYER)
+        kw = dict(page_size=page, num_q_heads=H, window=window,
+                  softcap=softcap)
+        pa.ATTENTION_WGMMA.launches = pa.ATTENTION.launches = 0
+        out = pa.paged_attention(*args, **kw)
+        ref = pa.paged_attention_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert pa.ATTENTION_WGMMA.launches == 1 and pa.ATTENTION.launches == 0
+        tol = 2e-2 * ref.float().abs().max().item()
+        err = (out.float() - ref.float()).abs().max().item()
+        assert bool(torch.isfinite(out).all()) and err <= tol, (T, err, tol)
+
+
+def misaligned(t):
+    """``t``'s values in a view whose data starts 2 bytes past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() * t.element_size() + 2, dtype=torch.uint8,
+                       device=t.device)
+    view = flat[2:].view(t.dtype).view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 == 2
+    return view
+
+
+@pytest.mark.cuda
+def test_cuda_misaligned_views_take_the_tensor_core_kernels(cuda):
+    """Operands that are views at odd offsets go to the same tensor-core
+    kernels as fresh ones (the wrappers copy them to aligned buffers):
+    B1's queries and B13's activations and experts, each against its
+    plain version."""
+    rng = np.random.default_rng(11)
+    B, KH, G, dh, page, MPg = 2, 2, 4, 128, 64, 3
+    H, n_pages = KH * G, B * MPg + 1
+    vals, sc = wgmma_pool(rng, KH, dh, page, n_pages, "int8", cuda)
+    bt = torch.arange(1, n_pages, dtype=torch.int32, device=cuda).view(B, MPg)
+    q = misaligned(torch.from_numpy(rng.normal(size=(B, 40, H, dh)).astype(
+        np.float32)).to(cuda, torch.bfloat16))
+    args = (q, vals, bt, torch.tensor([150, 40], device=cuda),
+            torch.tensor([110, 0], device=cuda), sc, LAYER)
+    kw = dict(page_size=page, num_q_heads=H)
+    pa.ATTENTION_WGMMA.launches = pa.ATTENTION.launches = 0
+    out = pa.paged_attention(*args, **kw)
+    ref = pa.paged_attention_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert pa.ATTENTION_WGMMA.launches == 1 and pa.ATTENTION.launches == 0
+    err = (out.float() - ref.float()).abs().max().item()
+    assert err <= 2e-2 * ref.float().abs().max().item()
+
+    x, w, gb, bm = gmm_inputs(GMM_SHAPES[3], "bf16-bf16", cuda)
+    x, w = misaligned(x), misaligned(w)
+    gmm.GROUPED_MATMUL.launches = 0
+    out = gmm.grouped_matmul(x, w, gb, bm=bm)
+    ref = gmm.grouped_matmul_plain(x, w, gb, bm=bm)
+    torch.cuda.synchronize()
+    assert gmm.GROUPED_MATMUL.launches == 1
+    assert within(out, ref, torch.bfloat16)

@@ -78,7 +78,7 @@ def test_every_kernel_is_registered_with_its_source():
         "paged_attention", "paged_attention_decode",
         "paged_attention_decode_append", "paged_attention_decode_batched",
         "paged_attention_decode_grouped", "paged_attention_decode_packed",
-        "w4_matmul", "w8_matmul"]
+        "paged_attention_wgmma", "w4_matmul", "w8_matmul"]
     headers = "".join(p.read_text() for p in platform.CSRC.glob("*.cuh"))
     for k in platform.KERNELS.values():
         src = (platform.CSRC / k.source).read_text()

@@ -28,6 +28,7 @@ from pagedattention_based_transformer_decoder_inference_framework_tpu.ops.paged_
 from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops import (
     paged_attention as pa,
 )
+from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.utils import platform
 
 PAGE, P, MP, L, LAYER, DH = 8, 32, 6, 2, 1, 128
 
@@ -224,3 +225,47 @@ def test_attention_rejects_inputs_the_kernels_cannot_read(fault):
     with pytest.raises(ValueError):
         pa.paged_attention_decode(q, vals, bt, sl, sc, LAYER, page_size=PAGE,
                                   num_q_heads=H)
+
+
+# (q dtype, pool dtype, head dim, page) -> B1's kernel
+B1_ROUTES = [
+    ((torch.bfloat16, torch.int8, 128, 64), "wgmma"),
+    ((torch.bfloat16, torch.int8, 96, 64), "wgmma"),
+    ((torch.bfloat16, torch.bfloat16, 64, 16), "wgmma"),
+    ((torch.bfloat16, torch.int8, 256, 128), "wgmma"),
+    ((torch.bfloat16, torch.int8, 128, 8), "wgmma"),
+    ((torch.bfloat16, torch.int8, 24, 64), "simt"),
+    ((torch.bfloat16, torch.int8, 272, 64), "simt"),
+    ((torch.bfloat16, torch.int8, 128, 48), "simt"),
+    ((torch.bfloat16, torch.int8, 128, 2), "simt"),
+    ((torch.bfloat16, torch.float32, 128, 64), "simt"),
+    ((torch.float32, torch.int8, 128, 64), "simt"),
+    ((torch.bfloat16, torch.bfloat16, 256, 64), "wgmma"),
+]
+
+
+@pytest.mark.parametrize("args,want", B1_ROUTES)
+def test_prefill_route(args, want):
+    """B1's tensor-core kernel takes bf16 queries over an INT8 or bf16
+    pool at a head dim that is a multiple of 16 up to 256, with pages of
+    a multiple of 64 keys or a divisor of 64 that is a multiple of 4;
+    everything else (f32 queries, dh 24) the SIMT kernel, whose launches
+    count apart. Dtypes and shapes alone decide it."""
+    assert pa.prefill_route(*args) == want
+    assert pa.ATTENTION_WGMMA is not pa.ATTENTION
+    assert pa.ATTENTION_WGMMA.replaces == pa.ATTENTION.replaces
+
+
+@pytest.mark.parametrize("offset", [0, 2, 8])
+def test_aligned16_copies_only_misaligned_views(offset):
+    """The tensor-core wrappers' alignment: a tensor whose data starts on
+    a 16-byte boundary is passed as it is, a view at another offset as an
+    aligned copy of the same values."""
+    flat = torch.arange(64, dtype=torch.uint8)
+    base = flat.view(torch.bfloat16)
+    assert base.data_ptr() % 16 == 0
+    t = base[offset // 2:offset // 2 + 16].view(4, 4)
+    got = platform.aligned16(t)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, t)
+    assert (got.data_ptr() == t.data_ptr()) == (offset % 16 == 0)
+    assert platform.aligned16(None) is None

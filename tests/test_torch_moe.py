@@ -107,9 +107,9 @@ def gmm_calls(monkeypatch):
     calls = []
     real = gmm.grouped_matmul
 
-    def counted(x, w, gb, *, bm=256):
+    def counted(x, w, gb, *, bm=256, block_rows=None):
         calls.append(gb.clone())
-        return real(x, w, gb, bm=bm)
+        return real(x, w, gb, bm=bm, block_rows=block_rows)
     monkeypatch.setattr(gmm, "grouped_matmul", counted)
     return calls
 
@@ -225,6 +225,65 @@ def test_dispatch_with_empty_experts(stacked, gmm_calls):
     topi, gates = model._route(tlp, torch.from_numpy(h2))
     assert np.allclose(got, model._moe_masked(
         tlp, torch.from_numpy(h2), topi, gates, False).numpy(), atol=2e-4)
+
+
+@pytest.mark.parametrize("routing", ["random", "empty-experts"])
+def test_block_rows_match_the_jax_layout(stacked, gmm_calls, monkeypatch,
+                                         routing):
+    """``dispatch_block_rows`` (B13's ``block_rows``) equals the routed
+    rows of each block of the JAX package's own dispatch layout on the
+    same routing: the nonzero rows of the padded activations its
+    ``_moe_dispatch`` hands to its grouped matmul, block by block (the
+    JAX grouped matmul is replaced by a spy that records them). The
+    random routing leaves padding blocks inside ranges; the other gives
+    experts 0 and 2 no slot; both end in blocks past every range. The
+    port's dispatch passes the same counts to its grouped matmul."""
+    jp, tp = stacked
+    jc, tc = cfgs()
+    jlp, tlp = layer0(jp), layer0(tp)
+    h2 = h2_of((2, 256), seed=7)
+    if routing == "empty-experts":
+        router = np.zeros((D, 4), np.float32)
+        router[0, [1, 3]] = [2.0, 1.0]
+        jlp["router"] = jnp.asarray(router)
+        tlp = dict(tlp, router=torch.from_numpy(router))
+        h2[..., 0] = np.abs(h2[..., 0]) + 1.0
+    from pagedattention_based_transformer_decoder_inference_framework_tpu.ops import gmm as jgmm
+
+    seen = []
+
+    def spy(xp, w, gb, *, bm, interpret=None):
+        seen.append((np.asarray(xp), np.asarray(gb), bm))
+        n = (w.values if hasattr(w, "values") else w).shape[-1]
+        return jnp.zeros((xp.shape[0], n), xp.dtype)
+
+    monkeypatch.setattr(jgmm, "grouped_matmul", spy)
+    jmodel.DecoderModel(jc)._moe(jlp, jnp.asarray(h2), w8a8=False)
+    xp, jgb, bm = seen[0]
+    jrows = (np.abs(xp) > 0).any(-1).reshape(-1, bm).sum(-1)
+    model = tmodel.DecoderModel(tc)
+    topi, _ = model._route(tlp, torch.from_numpy(h2))
+    rows = tmodel.dispatch_block_rows(topi, 4, bm)
+    assert rows.dtype == torch.int32
+    assert rows.tolist() == jrows.tolist()
+    assert tmodel.dispatch_layout(topi, 4, bm)[2].tolist() == jgb.tolist()
+    assert int(rows.sum()) == 2 * 256 * 2           # every routed slot
+    if routing == "empty-experts":
+        assert rows.tolist() == [256, 256, 256, 256, 0, 0, 0, 0]
+    else:
+        assert ((rows > 0) & (rows < bm)).any() and (rows == 0).any()
+
+    captured = []
+    real = gmm.grouped_matmul
+
+    def spy_rows(x, w, gb, *, bm=256, block_rows=None):
+        captured.append(block_rows.clone())
+        return real(x, w, gb, bm=bm, block_rows=block_rows)
+
+    monkeypatch.setattr(gmm, "grouped_matmul", spy_rows)
+    model._moe(tlp, torch.from_numpy(h2), False)
+    assert len(captured) == 3
+    assert all(c.tolist() == rows.tolist() for c in captured)
 
 
 def leaves(tree):
