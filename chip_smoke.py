@@ -11,9 +11,11 @@ and nothing of JAX. Phases:
 1. Card and build: the card's name and power limit, then every kernel
    built from ``csrc/`` (one ``nvcc`` per source, in parallel), timed;
    for the tensor-core kernels (B13's ``wgmma_kernel``, B1's
-   ``attention_wgmma_kernel``) ptxas's registers, static shared memory
-   and spills, and, where ``cuobjdump`` is found, the HGMMA (wgmma),
-   UTMALDG (TMA) and UBLKCP (bulk copy) instructions in their SASS.
+   ``attention_wgmma_kernel``, B10's and B15's ``wgmma_s8_kernel``)
+   ptxas's registers, static shared memory and spills, and, where
+   ``cuobjdump`` is found, the HGMMA / IGMMA (bf16 / INT8 wgmma),
+   UTMALDG (TMA) and UBLKCP (bulk copy) instructions in their SASS; a
+   wgmma serialization warning (C7510-C7520) in the build log fails.
 2. Each kernel against its plain PyTorch version on the card.
    Attention (B1/B2) and appends (B3/B4) at slice 1's shapes (B=4, KH=8,
    G=4, dh=128, page 64, INT8 pool; prefill T=64, decode seq lens
@@ -25,10 +27,12 @@ and nothing of JAX. Phases:
    shapes: output within B2's tolerance, pool bit-exact. The
    quantized-weight products (B10
    ``int8_matmul``, B11 ``w8_matmul``, B12 ``w4_matmul``) at every
-   Llama-3-8B projection's shape (qkv, wo, gate-up, down) at decode M=4
-   and prefill M=256, at the LM head (N=128256, INT4 block width 768),
-   and at edge shapes (M 1 and 17, K and N that fit no tile, bias and
-   activation, f32 output). Prints the max difference and its tolerance,
+   Llama-3-8B projection's shape (qkv, wo, gate-up, down) at decode M=4,
+   a verify chunk M=36 (B10) and prefill M=256, each kernel's layer of
+   four summed at each M, at the LM head (N=128256, INT4 block width
+   768), and at edge shapes (M 1 and 17, K and N that fit no tile, bias
+   and activation, f32 output); two 128-row k-tiles of the qkv weight
+   swapped must move B10's plain output. Prints the max difference and its tolerance,
    the kernel's and the plain version's device time, the bound, and a
    library yardstick the port never calls (``scaled_dot_product_attention``
    over a dense gathered copy; ``torch._int_mm``; a bf16 cuBLAS product
@@ -76,7 +80,12 @@ and nothing of JAX. Phases:
    the dispatch's ``block_rows`` (the 128-row tiles it lets the kernel
    skip counted), and the edge shapes with and without ``block_rows``
    (ragged K and N zero-padded by the wrapper, f32 experts rounded to
-   bf16 there, f32 activations on the CUDA-core kernel).
+   bf16 there, f32 activations on the CUDA-core kernel). Slice 8: B10
+   past 16 rows and B15 under w8a8 run one INT8 tensor-core kernel
+   (``csrc/imma.cuh``'s ``wgmma_s8_kernel``: weight tiles transposed on
+   chip, s8 x s8 -> s32 wgmma), bit-exact at every shape above; B15's
+   plain output must move when the o-projection's first two blocks are
+   swapped.
 3. The paths, each ``Engine`` on llama3-8b at full width and full depth
    (32 layers; (a), (c) and (d) cut to 8; weights from a seed, INT8
    paged KV, page 64, prefill chunk 256, the pool ``bench.py`` sizes, for (b),
@@ -296,30 +305,37 @@ def bound(bytes_moved: float, flops: float, rate: str = "f32"):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-#: the tensor-core kernels' symbols (B13, B1) and their sources
-TENSOR_CORE_KERNELS = {"gmm.cu": "wgmma_kernel",
-                       "paged_prefill.cu": "attention_wgmma_kernel"}
+#: the tensor-core kernels' sources and symbols: B13, B1, and the INT8
+#: kernel of B10 (M > 16) and B15 (w8a8), one header built into two sources
+TENSOR_CORE_KERNELS = [("gmm.cu", "wgmma_kernel"),
+                       ("paged_prefill.cu", "attention_wgmma_kernel"),
+                       ("int8_matmul.cu", "wgmma_s8_kernel"),
+                       ("chain_linear.cu", "wgmma_s8_kernel")]
 
 
 def tensor_core_report(log, built):
     """Phase 1's report on the tensor-core kernels: ptxas's registers,
     static shared memory and spills of each instance (from the build's
     ``-Xptxas -v`` log; their shared memory is dynamic, set at launch),
-    and, where ``cuobjdump`` is found, the count of wgmma (HGMMA), TMA
-    (UTMALDG) and bulk-copy (UBLKCP) instructions in its SASS."""
+    and, where ``cuobjdump`` is found, the count of wgmma (HGMMA for
+    bf16, IGMMA for INT8), TMA (UTMALDG) and bulk-copy (UBLKCP)
+    instructions in its SASS. Fails on a wgmma serialization warning
+    (C7510-C7520) in the build log."""
     import re
     import shutil
 
+    symbols = {sym for _, sym in TENSOR_CORE_KERNELS}
+    serialized = re.findall(r"[^\n]*C75(?:0\d|1\d|20)[^\n]*", log)
+    check(not serialized, "ptxas serialized wgmma: " + "; ".join(serialized))
     for m in re.finditer(r"Compiling entry function '([^']+)'.*?"
                          r"(\d+) bytes spill stores, (\d+) bytes spill "
                          r"loads\s*\nptxas info\s*: Used (\d+) registers"
                          r"([^\n]*)", log, re.S):
         name = m.group(1)
-        if not any(k in name for k in TENSOR_CORE_KERNELS.values()):
+        if not any(k in name for k in symbols):
             continue
         smem = re.search(r"(\d+) bytes smem", m.group(5))
-        name = name[min(name.find(k) for k in TENSOR_CORE_KERNELS.values()
-                        if k in name):]
+        name = name[min(name.find(k) for k in symbols if k in name):]
         print(f"  ptxas {name[:64]}: {m.group(4)} registers, "
               f"{smem.group(1) if smem else 0} bytes static shared "
               f"memory, spills {m.group(2)} / {m.group(3)} bytes "
@@ -331,7 +347,7 @@ def tensor_core_report(log, built):
         print("  SASS instruction counts: not available (no cuobjdump)",
               flush=True)
         return
-    for source, symbol in TENSOR_CORE_KERNELS.items():
+    for source, symbol in TENSOR_CORE_KERNELS:
         r = subprocess.run([tool, "-sass", str(built[source])],
                            capture_output=True, text=True, timeout=300)
         if r.returncode != 0:
@@ -343,10 +359,11 @@ def tensor_core_report(log, built):
             if symbol not in name:
                 continue
             counts = {op: len(re.findall(rf"\b{op}\b", fn))
-                      for op in ("HGMMA", "UTMALDG", "UBLKCP")}
-            print(f"  SASS {name[name.find(symbol):][:64]}: {counts}",
-                  flush=True)
-            check(counts["HGMMA"] > 0, f"{name}: no HGMMA in its SASS")
+                      for op in ("HGMMA", "IGMMA", "UTMALDG", "UBLKCP")}
+            print(f"  SASS {source} {name[name.find(symbol):][:64]}: "
+                  f"{counts}", flush=True)
+            check(counts["HGMMA"] + counts["IGMMA"] > 0,
+                  f"{name}: no warpgroup MMA in its SASS")
 
 
 # -- phase 2: kernels against their plain versions -------------------------
@@ -369,12 +386,15 @@ KERNEL_NAMES = {
                                        "decode_combine_kernel<"),
     "paged_attention_decode_packed": ("decode_packed_kernel<",),
     "paged_attention_decode_batched": ("decode_batched_kernel<",),
-    "int8_matmul": ("qmm::gemv_kernel<0,", "qmm::tiled_kernel<0,"),
+    "int8_matmul": ("qmm::gemv_kernel<0,", "imma::wgmma_s8_kernel<0,"),
     "w8_matmul": ("qmm::gemv_kernel<1,", "qmm::tiled_kernel<1,"),
     "w4_matmul": ("qmm::gemv_kernel<2,", "qmm::tiled_kernel<2,"),
     "chain_decode": ("chain::chain_kernel<",),
-    "packed_linear": ("chain::packed_kernel<",),
+    "packed_linear": ("chain::packed_kernel<", "imma::wgmma_s8_kernel<1,"),
     "grouped_matmul": ("gmm::wgmma_kernel<", "gmm::f32_kernel<")}
+#: the quantized products among them (B10, B11, B12, B15), whose device
+#: time a profile sums as "its quantized products"
+QUANT_PRODUCTS = ("int8_matmul", "w8_matmul", "w4_matmul", "packed_linear")
 
 
 def make_pool(torch, gen, dtype, dev, batch=B, kv_heads=KH, dh=DH, mp=MP,
@@ -1214,8 +1234,11 @@ def cold_calls(fn_of, weights):
 
 def matmul_checks(torch, dev, results):
     """B10/B11/B12 against their plain versions at Llama-3-8B's shapes and
-    at edge shapes; device times at decode (M=4) and at prefill (M=256),
-    each call (the library yardsticks' too) on a weight outside L2."""
+    at edge shapes; device times at decode (M=4), at a verify chunk (M=36,
+    B10 alone) and at prefill (M=256), each call (the library yardsticks'
+    too) on a weight outside L2, and each kernel's layer (the four
+    projections) summed at each M. A control: two k-tiles of a weight
+    swapped move B10's plain output, so its exact check can fail."""
     from importlib import import_module
 
     i8 = import_module(f"{PKG}.ops.int8_matmul")
@@ -1243,9 +1266,8 @@ def matmul_checks(torch, dev, results):
         check(ok, f"{kname} {label}: kernel differs from plain ({err})")
         worst[kname] = max(worst[kname], err)
 
-    rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                "library_ms": 0.0, "by": set()}
-            for k in ("int8_matmul", "w4_matmul")}
+    # a layer's four projections, summed by (kernel, M)
+    layers = {}
     for name, K, N in PROJECTIONS + [LM_HEAD]:
         head = name == "lm-head"
         w = randn(K, N, scale=0.02)
@@ -1266,7 +1288,7 @@ def matmul_checks(torch, dev, results):
                     [q.values.to(bf16) for q in wqs]),
                 "w4_matmul": (lambda p: w4_matmul_library(x, p),
                               [int4pack(q) for q in w4s])}
-        for M in (4, 256):
+        for M in (4, 36, 256):
             x = randn(M, K).to(bf16)
             xq = qt.quantize_per_row(x)
             b10 = lambda q, f=i8.int8_matmul: f(
@@ -1279,6 +1301,8 @@ def matmul_checks(torch, dev, results):
             if not head:          # the w8a8 LM head is B11 (weight-only)
                 cases.insert(0, ("int8_matmul", b10, wqs,
                                  i8.int8_matmul_plain))
+            if M == 36:           # a verify chunk: B10's tensor-core route
+                cases = cases[:1] if not head else []
             for kname, fn_of, ws, plain in cases:
                 label = f"{name} M={M} (K={K}, N={N}" + (
                     f", bn={w4.bn})" if kname == "w4_matmul" else ")")
@@ -1314,31 +1338,61 @@ def matmul_checks(torch, dev, results):
                 check(lib_err <= lib_tol, f"{kname} {label}: the library "
                       f"yardstick differs from plain by {lib_err}")
                 lib_ms = device_ms(cold_calls(lib_of, lib_ws), iters=5)
+                if kname == "int8_matmul" and name == "qkv" and M > 4:
+                    # the host's cost a call where a step is host-bound
+                    wall = cuda_ms(lambda: fn_of(ws[0]))
+                    print(f"  [int8_matmul] qkv M={M}: one wrapper call "
+                          f"{wall:.4f} ms wall (CUDA events over back-to-"
+                          "back calls, quantized x given)", flush=True)
                 print(f"  [{kname}] {label} device time: kernel {ms:.4f} ms"
                       f", plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
                       f"({b_by}, {b_ms / ms:.2f} of it reached), library "
                       f"{lib_ms:.4f} ms (its max|library-plain| "
                       f"{lib_err:.3e}, tol {lib_tol:.3e})", flush=True)
-                if M != 4:
-                    continue
-                if kname == "w8_matmul" and head:
+                if kname == "w8_matmul" and head and M == 4:
                     results[kname].update(ms=ms, plain_ms=plain_ms,
                                           bound_ms=b_ms, bound_by=b_by,
                                           library_ms=lib_ms)
-                elif kname != "w8_matmul" and not head:
-                    r = rows[kname]
+                elif not head:
+                    r = layers.setdefault((kname, M), {
+                        "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                        "library_ms": 0.0, "by": set()})
                     r["ms"] += ms
                     r["plain_ms"] += plain_ms
                     r["bound_ms"] += b_ms
                     r["library_ms"] += lib_ms
                     r["by"].add(b_by)
+            if name == "qkv" and M == 256:
+                # the control: tiles 0 and 1 of K swapped in the weight
+                sw = torch.cat([wq.values[128:256], wq.values[:128],
+                                wq.values[256:]])
+                moved = (i8.int8_matmul_plain(xq.values, xq.scales, sw,
+                                              wq.scales)
+                         != i8.int8_matmul_plain(xq.values, xq.scales,
+                                                 wq.values, wq.scales)
+                         ).float().mean().item()
+                print(f"  [int8_matmul] control, k-tiles 0 and 1 of the "
+                      f"qkv weight swapped: {moved:.3f} of the plain "
+                      "outputs move (the exact check needs > 0)",
+                      flush=True)
+                check(moved > 0, "a misread k-tile leaves B10's plain "
+                      "output unchanged")
         del wqs, w4s, libs
         torch.cuda.empty_cache()
-    for kname, r in rows.items():
-        results[kname].update(ms=r["ms"], plain_ms=r["plain_ms"],
-                              bound_ms=r["bound_ms"],
-                              bound_by="/".join(sorted(r["by"])),
-                              library_ms=r["library_ms"])
+    for (kname, M), r in sorted(layers.items()):
+        by = "/".join(sorted(r["by"]))
+        print(f"  [{kname}] a layer's four projections at M={M}: kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms ({by}, {r['bound_ms'] / r['ms']:.2f} "
+              f"of it reached), library {r['library_ms']:.4f} ms", flush=True)
+        if M == 4 and kname != "w8_matmul":    # B11's row is the head's
+            results[kname].update(ms=r["ms"], plain_ms=r["plain_ms"],
+                                  bound_ms=r["bound_ms"], bound_by=by,
+                                  library_ms=r["library_ms"])
+        elif M != 4:
+            results[kname].update({
+                f"m{M}_ms": r["ms"], f"m{M}_bound_ms": r["bound_ms"],
+                f"m{M}_library_ms": r["library_ms"]})
 
     # edge shapes: M 1 and 17, K and N that fit no tile, bias and an
     # activation, f32 activations and outputs
@@ -1631,6 +1685,15 @@ def chain_checks(torch, dev, results):
                   for K in (pc.D, pc.I)}
             runs = [((cl.OP_O,), pc.D), ((cl.OP_G, cl.OP_U), pc.D),
                     ((cl.OP_D,), pc.I), ((cl.OP_T,), pc.D)]
+            o_run = lambda p_: cl.packed_linear_plain(p_, (cl.OP_O,),
+                                                      xs[pc.D])
+            moved = (o_run(misread(torch, pc)) != o_run(pc)).float().mean(
+                ).item()
+            print(f"  [packed_linear] {label} control, the o-projection's "
+                  f"first two blocks swapped: {moved:.3f} of the plain "
+                  "outputs move (the exact check needs > 0)", flush=True)
+            check(moved > 0, "a misread block leaves B15's plain output "
+                  "unchanged")
             w = {op: wt for op, wt, _ in conv}
             gu = qt.QTensor(torch.cat([w[1].values, w[2].values], 1),
                             torch.cat([w[1].scales, w[2].scales], 1))
@@ -1656,6 +1719,11 @@ def chain_checks(torch, dev, results):
                                    "int8")
                 tot["ms"] += device_ms(kern,
                                        match=KERNEL_NAMES["packed_linear"])
+                if run == (cl.OP_O,):
+                    print(f"  [packed_linear] o M={M}: one wrapper call "
+                          f"{cuda_ms(kern):.4f} ms wall (CUDA events over "
+                          "back-to-back calls, the rows' quantization "
+                          "included)", flush=True)
                 tot["plain_ms"] += device_ms(
                     lambda r=run, a=x_: cl.packed_linear_plain(pc, r, a),
                     iters=3)
@@ -2593,6 +2661,11 @@ def full_checks(torch, eng, refs, prompts, greedy, steps, tf16,
         info.update(score_checks(eng, refs, prompts, around))
     info.update(profile_run(torch, "fused", lambda n: eng.generate_batch_fused(
         prompts, n, greedy)))
+    if eng.cfg.quant == "int8":
+        # where a prefill chunk's time goes (B10 or B15, the head's B11)
+        prof = profile_run(torch, "prefill", lambda n: (
+            eng.generate_batch_fused(prompts, n, greedy)), steps=1)
+        info.update({f"prefill_{k}": v for k, v in prof.items()})
     return info, base
 
 
@@ -3430,9 +3503,9 @@ def profile_run(torch, label, run, steps=16):
     # weights) or the port's quantized-weight kernels
     gemm_us = sum(r[0] for r in rows
                   if any(s in r[2].lower() for s in ("gemm", "nvjet")))
-    qmm_us = sum(r[0] for r in rows if "qmm::" in r[2])
     by_kernel = {k: sum(r[0] for r in rows if any(m in r[2] for m in names))
                  for k, names in KERNEL_NAMES.items()}
+    qmm_us = sum(by_kernel[k] for k in QUANT_PRODUCTS)
     kernels_us = sum(by_kernel.values())
     print(f"  profile of one {label} run ({steps} tokens): wall "
           f"{wall_us / 1e3:.1f} ms, device busy {busy_us / 1e3:.1f} ms "
@@ -3531,10 +3604,13 @@ def main() -> int:
 
     # unfused_ms: the device time of the port's own launches a kernel
     # fuses (B9: B3 then B2), null for a kernel that fuses none; b2_ms: B2
-    # on the same inputs (B6 at path (i)'s 516 pages, B7 at B2's shape)
+    # on the same inputs (B6 at path (i)'s 516 pages, B7 at B2's shape);
+    # m36_* / m256_*: B10-B12 over a layer's four projections at a verify
+    # chunk (B10) and a prefill chunk, beside their bound and library call
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "unfused_ms", "b2_ms", "tol")
+            "unfused_ms", "b2_ms", "tol", "m36_ms", "m36_bound_ms",
+            "m36_library_ms", "m256_ms", "m256_bound_ms", "m256_library_ms")
     phase("4: summary")
     print(json.dumps({"paths": e2e}), flush=True)
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys}

@@ -66,14 +66,21 @@
 // carries; the TPU kernel's point (no drain of the weight stream between
 // ops) is kept within each phase only.
 //
-// B15 is a plain shared-memory tiled product (qmatmul.cuh's tiled_kernel)
-// whose weight tiles are addressed through the packed blocks: 64 x 64
-// outputs a block, k-tiles of 32 rows (a tile never straddles a block,
-// since bk and bn are multiples of 128). Bound by operations at prefill
-// (M = 256); CUDA cores, not the tensor cores, in this first version.
+// B15 under w8a8 (every chain a card path packs) is imma.cuh's INT8
+// tensor-core kernel reading the packed blocks through a 3-D tensor map
+// over [G, bk, bn] (a 128 x 128 weight tile never straddles a block,
+// since bk and bn are multiples of 128): each raw tile is transposed on
+// chip to the K-major layout wgmma's s8 product reads, with K split where
+// the output tiles fall short of the SMs. At prefill (M = 256) a
+// Llama-3-8B layer's four calls are bound by the weight stream and the
+// tensor cores alike (218 MB, 112 G integer operations). Chains of
+// int8-weight, bf16 or f32 blocks (no card path runs them) take
+// packed_kernel, a plain shared-memory tiled product (64 x 64 outputs a
+// block, k-tiles of 32 rows, f32 FMA on CUDA cores).
 //
 // Each entry point returns cudaGetLastError() after its launch.
 
+#include "imma.cuh"
 #include "qmatmul.cuh"
 
 namespace chain {
@@ -699,13 +706,12 @@ int launch_chain(Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// -- B15: the tiled product over the packed blocks ---------------------------
+// -- B15: the tiled product over the packed blocks (blocks not w8a8) --------
 
 constexpr int kTM = 64, kTN = 64, kTK = 32, kPad = 4;
 
 struct PArgs {
-  const void* x;       // [M, K]: int8 (w8a8), f32 or bf16
-  const float* xs;     // [M] row scales (w8a8)
+  const void* x;       // [M, K] f32 or bf16
   const void* w;       // the packed blocks
   const float* scale;  // the run's column scales (sb row 0 from sb0 * bn)
   const float* bias;   // its biases (sb row 1)
@@ -713,20 +719,19 @@ struct PArgs {
   int M, K, N, g0, KB, bk, bn, act;
 };
 
-template <typename WT, typename XT, bool A8, typename OT>
+template <typename WT, typename XT, typename OT>
 __global__ void __launch_bounds__(kThreads) packed_kernel(PArgs a) {
-  using AccT = Acc<A8>;
-  __shared__ __align__(16) AccT xs[kTK][kTM + kPad];
-  __shared__ __align__(16) AccT ws[kTK][kTN + kPad];
+  __shared__ __align__(16) float xs[kTK][kTM + kPad];
+  __shared__ __align__(16) float ws[kTK][kTN + kPad];
   const int m0 = blockIdx.y * kTM, n0 = blockIdx.x * kTN;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   // the 64 columns lie in one block column (bn % 64 == 0)
   const int nb = n0 / a.bn, c0 = n0 - nb * a.bn;
-  AccT acc[4][4];
+  float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = AccT(0);
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
   for (int k0 = 0; k0 < a.K; k0 += kTK) {
     const int kb = k0 / a.bk;
@@ -739,26 +744,20 @@ __global__ void __launch_bounds__(kThreads) packed_kernel(PArgs a) {
       const int idx = threadIdx.x + r * kThreads;
       const int mm = idx / kTK, kk = idx % kTK;
       const int m = m0 + mm, k = k0 + kk;
-      AccT v = AccT(0);
-      if (m < a.M && k < a.K) {
-        const long long i = static_cast<long long>(m) * a.K + k;
-        if constexpr (A8) {
-          v = static_cast<const int8_t*>(a.x)[i];
-        } else {
-          v = to_f32(static_cast<const XT*>(a.x)[i]);
-        }
-      }
-      xs[kk][mm] = v;
+      xs[kk][mm] = m < a.M && k < a.K
+                       ? to_f32(static_cast<const XT*>(
+                             a.x)[static_cast<long long>(m) * a.K + k])
+                       : 0.0f;
     }
 #pragma unroll
     for (int r = 0; r < kTK * kTN / kThreads; ++r) {
       const int idx = threadIdx.x + r * kThreads;
       const int kk = idx / kTN, nn = idx % kTN;
-      AccT v = AccT(0);
+      float v = 0.0f;
       if (k0 + kk < a.K && n0 + nn < a.N) {
         const WT q = wt[static_cast<long long>(kk) * a.bn + nn];
-        if constexpr (A8 || std::is_same<WT, int8_t>::value) {
-          v = static_cast<AccT>(q);
+        if constexpr (std::is_same<WT, int8_t>::value) {
+          v = static_cast<float>(q);
         } else {
           v = to_f32(q);
         }
@@ -768,7 +767,7 @@ __global__ void __launch_bounds__(kThreads) packed_kernel(PArgs a) {
     __syncthreads();
 #pragma unroll 8
     for (int kk = 0; kk < kTK; ++kk) {
-      AccT xa[4], wb[4];
+      float xa[4], wb[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         xa[i] = xs[kk][ty * 4 + i];
@@ -777,13 +776,7 @@ __global__ void __launch_bounds__(kThreads) packed_kernel(PArgs a) {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if constexpr (A8) {
-            acc[i][j] += xa[i] * wb[j];
-          } else {
-            acc[i][j] = fmaf(xa[i], wb[j], acc[i][j]);
-          }
-        }
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(xa[i], wb[j], acc[i][j]);
     }
     __syncthreads();
   }
@@ -793,22 +786,16 @@ __global__ void __launch_bounds__(kThreads) packed_kernel(PArgs a) {
     for (int j = 0; j < 4; ++j) {
       const int m = m0 + ty * 4 + i, n = n0 + tx * 4 + j;
       if (m >= a.M || n >= a.N) continue;
-      float y;
-      if constexpr (A8) {
-        y = __fmaf_rn(__fmul_rn(__int2float_rn(acc[i][j]), a.xs[m]),
-                      a.scale[n], a.bias[n]);
-      } else {
-        y = __fmaf_rn(acc[i][j], a.scale[n], a.bias[n]);
-      }
       store<OT>(a.out, static_cast<long long>(m) * a.N + n,
-                     qmm::activate(y, a.act));
+                qmm::activate(__fmaf_rn(acc[i][j], a.scale[n], a.bias[n]),
+                              a.act));
     }
 }
 
-template <typename WT, typename XT, bool A8, typename OT>
+template <typename WT, typename XT, typename OT>
 int launch_packed(const PArgs& a, cudaStream_t stream) {
   const dim3 grid((a.N + kTN - 1) / kTN, (a.M + kTM - 1) / kTM);
-  packed_kernel<WT, XT, A8, OT><<<grid, kThreads, 0, stream>>>(a);
+  packed_kernel<WT, XT, OT><<<grid, kThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -917,27 +904,59 @@ extern "C" int pbt_chain_decode(const void* ain, const void* x, const void* w,
   return launch_chain<float, float, false>(a, st);
 }
 
+// B15. Under w8a8: x int8 [M, K] (K % 16 == 0, 16-byte aligned) with
+// row scales, the blocks [G, bk, bn] (16-byte aligned), K split into
+// `splits` ranges of k_per_split rows (a multiple of 128) with s32
+// partials (imma.cuh's workspace) and one zeroed counter per output tile;
+// x_code names the output type. Otherwise x f32 or bf16 (x_code), the
+// output in x's type, no split.
 extern "C" int pbt_packed_linear(const void* x, const float* x_scale,
                                  const void* w, const float* scale,
-                                 const float* bias, void* out, int M, int K,
-                                 int N, int g0, int KB, int bk, int bn,
-                                 int w_code, int w8a8, int act, int x_code,
-                                 void* stream) {
+                                 const float* bias, void* out, void* partials,
+                                 int* counters, int M, int K, int N, int g0,
+                                 int KB, int G, int bk, int bn, int splits,
+                                 int k_per_split, int w_code, int w8a8,
+                                 int act, int x_code, void* stream) {
   using namespace chain;
-  if (bk % kTK || bn % kTN) return static_cast<int>(cudaErrorInvalidValue);
-  const PArgs a{x, x_scale, w, scale, bias, out, M, K, N, g0, KB, bk, bn, act};
+  if (bk % imma::kBK || bn % imma::kBN)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bf = x_code == qmm::kBF16;
-  if (w8a8)
-    return bf ? launch_packed<int8_t, int8_t, true, __nv_bfloat16>(a, st)
-              : launch_packed<int8_t, int8_t, true, float>(a, st);
+  if (w8a8) {
+    if (k_per_split % imma::kBK)
+      return static_cast<int>(cudaErrorInvalidValue);
+    imma::Args a{};
+    a.x_scale = x_scale;
+    a.w_scale = scale;
+    a.bias = bias;
+    a.out = out;
+    a.partials = static_cast<int*>(partials);
+    a.counters = counters;
+    a.M = M;
+    a.K = K;
+    a.N = N;
+    a.splits = splits;
+    a.kt_per_split = k_per_split / imma::kBK;
+    a.act = act;
+    a.g0 = g0;
+    a.KB = KB;
+    a.bk = bk;
+    a.bn = bn;
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(bn),
+                                static_cast<cuuint64_t>(bk),
+                                static_cast<cuuint64_t>(G)};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(bn),
+                                   static_cast<cuuint64_t>(bk) * bn};
+    return imma::run<imma::kPacked>(x, w, 3, dims, strides, a, x_code, st);
+  }
+  const PArgs a{x, w, scale, bias, out, M, K, N, g0, KB, bk, bn, act};
   if (w_code == kWI8)
-    return bf ? launch_packed<int8_t, __nv_bfloat16, false, __nv_bfloat16>(a, st)
-              : launch_packed<int8_t, float, false, float>(a, st);
+    return bf ? launch_packed<int8_t, __nv_bfloat16, __nv_bfloat16>(a, st)
+              : launch_packed<int8_t, float, float>(a, st);
   if (w_code == kWBF16)
-    return bf ? launch_packed<__nv_bfloat16, __nv_bfloat16, false,
-                              __nv_bfloat16>(a, st)
-              : launch_packed<__nv_bfloat16, float, false, float>(a, st);
+    return bf ? launch_packed<__nv_bfloat16, __nv_bfloat16, __nv_bfloat16>(
+                    a, st)
+              : launch_packed<__nv_bfloat16, float, float>(a, st);
   if (bf) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_packed<float, float, false, float>(a, st);
+  return launch_packed<float, float, float>(a, st);
 }

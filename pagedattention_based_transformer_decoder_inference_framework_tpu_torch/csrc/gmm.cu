@@ -181,10 +181,6 @@ void launch_f32(const Args& a, cudaStream_t st) {
                    st>>>(a);
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 // -- wgmma_kernel ---------------------------------------------------------
 
 constexpr int kWK = 64;   // k-tile: one 128-byte swizzled row
@@ -392,38 +388,11 @@ __global__ void __launch_bounds__(WLayout<NC, WT>::THREADS, 1)
   }
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, a driver-API call, from the driver the runtime
-// loaded (no link against libcuda).
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    return q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
 template <int NC, typename WT>
 cudaError_t launch_wgmma(const void* x, const void* w, const WArgs& a,
                          cudaStream_t st) {
   using Lay = WLayout<NC, WT>;
-  const EncodeTiled encode = encode_tiled();
+  const hop::EncodeTiled encode = hop::encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   constexpr cuuint64_t es = sizeof(WT);
   CUtensorMap xmap, wmap;
@@ -486,7 +455,8 @@ extern "C" int pbt_grouped_matmul(const void* x, const void* w,
     return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (x_dtype == kBF16) {
-    if (K % 8 != 0 || !aligned16(x) || !aligned16(w) || !aligned16(out))
+    if (K % 8 != 0 || !hop::aligned16(x) || !hop::aligned16(w) ||
+        !hop::aligned16(out))
       return cudaErrorInvalidValue;
     const WArgs a{scales, gob, block_rows, static_cast<__nv_bfloat16*>(out),
                   Npad, K, N, E, bm};

@@ -1,26 +1,30 @@
 // Hopper building blocks of the tensor-core kernels (gmm.cu: B13's
-// wgmma_kernel; paged_prefill.cu: B1's attention_wgmma_kernel), as
-// inline PTX for sm_90a: shared-memory mbarriers, bulk and tensor (TMA)
-// copies into shared memory, the exact INT8 -> bf16 widening, the
-// 128-byte swizzled tile layout and its wgmma matrix descriptors, and the
-// warpgroup products (wgmma.mma_async) the kernels issue.
+// wgmma_kernel; paged_prefill.cu: B1's attention_wgmma_kernel; imma.cuh:
+// B10's and B15's wgmma_s8_kernel), as inline PTX for sm_90a:
+// shared-memory mbarriers, bulk and tensor (TMA) copies into shared
+// memory, the exact INT8 -> bf16 widening, the 128-byte swizzled tile
+// layout and its wgmma matrix descriptors, the warpgroup products
+// (wgmma.mma_async) the kernels issue, and the host's tensor-map encoder.
 //
-// The one tile layout both kernels use: a tile of R rows by 64 bf16
-// columns is R rows of 128 bytes, and the 16-byte chunk c of row r sits at
-// chunk c ^ (r % 8) (the 128-byte swizzle that TMA's SWIZZLE_128B writes
-// and wgmma reads; tiles start on a 1024-byte boundary). Wider tiles are
-// such 64-column blocks one after another. Read K-major (the 64 columns
-// are the reduction axis, e.g. x's K or the head dim of Q and K), a block
-// of R rows has SBO = 1024 bytes between 8-row groups and the k-step of 16
-// columns moves the start by 32 bytes. Read MN-major (the 64 columns are
-// the output axis, e.g. a weight tile's N or V's head dim, the rows the
+// The one tile layout the kernels use: a tile of R rows by 64 bf16
+// columns (or 128 INT8 columns) is R rows of 128 bytes, and the 16-byte
+// chunk c of row r sits at chunk c ^ (r % 8) (the 128-byte swizzle that
+// TMA's SWIZZLE_128B writes and wgmma reads; tiles start on a 1024-byte
+// boundary). Wider tiles are such 128-byte blocks one after another.
+// Read K-major (the 128 bytes are the reduction axis, e.g. x's K or the
+// head dim of Q and K), a block of R rows has SBO = 1024 bytes between
+// 8-row groups and the k-step of 32 bytes (16 bf16 or 32 INT8 columns)
+// moves the start by 32 bytes. Read MN-major (the 64 columns are the
+// output axis, e.g. a weight tile's N or V's head dim, the rows the
 // reduction axis), SBO = 1024 bytes between 8-row groups along the
 // reduction, LBO = the bytes between two 64-column blocks, and the
 // k-step of 16 rows moves the start by 2048 bytes; the instruction's
-// transpose bit for B says which.
+// transpose bit for B says which. The INT8 product (s8 x s8 -> s32) has
+// no transpose bit: both of its operands are read K-major.
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -188,6 +192,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[K]) {
   for (int i = 0; i < K; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+template <int K>
+__device__ __forceinline__ void fence_regs(int (&d)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
 // Keeps the A-operand registers of a product live (unmoved, unreused)
 // until this point, after the wait for that product.
 __device__ __forceinline__ void keep_live(const uint32_t (&a)[4][4]) {
@@ -298,5 +308,72 @@ __device__ __forceinline__ void mma_rs_n64(float (&d)[32],
         "n"(TB));
 }
 
+// In the accumulator of m64nNk32 (s32), thread t holds the same rows and
+// columns as in that of m64nNk16 (f32) above.
+
+// D[64 x 128] (+)= A[64 x 32] . B[32 x 128], s8 x s8 summed in s32, A and
+// B K-major from shared memory (B's rows are the 128 output columns)
+__device__ __forceinline__ void mma_s8_n128(int (&d)[64], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// -- host: tensor maps -------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// Whether a pointer a TMA or bulk copy reads from starts on 16 bytes.
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+// cuTensorMapEncodeTiled, a driver-API call, from the driver the runtime
+// loaded (no link against libcuda); null where it cannot be had.
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &q);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &q);
+#endif
+    return q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
 
 }  // namespace hop

@@ -1,5 +1,7 @@
 // Quantized-weight matrix products for Hopper, shared by int8_matmul.cu
-// (B10 int8_matmul, B11 w8_matmul) and int4_matmul.cu (B12 w4_matmul).
+// (B10 int8_matmul, B11 w8_matmul) and int4_matmul.cu (B12 w4_matmul);
+// B10's multi-row product (M > 16) is the INT8 tensor-core kernel of
+// imma.cuh, which shares this file's epilogue.
 //
 //   out[M, N] = act(epilogue(x[M, K] @ W[K, N]) + bias[N])
 //
@@ -27,10 +29,12 @@
 // What bounds them on the H100: decode (M <= 16) is a matrix-vector
 // product that reads every weight byte once per call, so bytes bound it
 // (qkv of Llama-3-8B: 25 MB of INT8, 7.5 us at 3.35 TB/s). Prefill
-// (M = 256 and up) is bound by operations at the tensor cores' rates,
-// which this first version does not use (see below).
+// (M = 256 and up) is bound by operations at the tensor cores' rates and
+// by the weight stream: kI8A8 takes imma.cuh's wgmma kernel there; the
+// float kinds still take the CUDA-core tiled_kernel below.
 //
-// Two kernels per kind:
+// Two kernels here: gemv_kernel for every kind, tiled_kernel for kW8 and
+// kW4.
 //
 // gemv_kernel (M <= 16, aligned shapes): each block owns 128 output
 // columns and 4 rows of x; its 256 threads are 8 column chunks of 16
@@ -48,10 +52,10 @@
 // splits in order and runs the epilogue: deterministic, and exact for
 // kI8A8.
 //
-// tiled_kernel (any M, K, N): a plain shared-memory tiled product, 64x64
-// outputs per block, k-tiles of 32, 4x4 outputs per thread, s32 IMAD for
-// kI8A8 and f32 FMA otherwise, with every edge masked. Right and simple;
-// the IMMA / wgmma tensor-core version is later work.
+// tiled_kernel (kW8 and kW4, any M, K, N): a plain shared-memory tiled
+// product, 64x64 outputs per block, k-tiles of 32, 4x4 outputs per
+// thread, f32 FMA, with every edge masked. Right and simple; B11's and
+// B12's tensor-core versions are later work.
 
 #pragma once
 
@@ -184,14 +188,9 @@ __device__ __forceinline__ int int4_at(const Args& a, int k, int n) {
 }
 
 template <int KIND, typename XT>
-__device__ __forceinline__ typename AccT<KIND>::type load_x(const Args& a,
-                                                            int m, int k) {
-  const long long i = static_cast<long long>(m) * a.K + k;
-  if constexpr (KIND == kI8A8) {
-    return static_cast<const int8_t*>(a.x)[i];
-  } else {
-    return to_f32(static_cast<const XT*>(a.x)[i]);
-  }
+__device__ __forceinline__ float load_x(const Args& a, int m, int k) {
+  return to_f32(static_cast<const XT*>(a.x)[static_cast<long long>(m) * a.K +
+                                            k]);
 }
 
 template <int KIND>
@@ -442,6 +441,7 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(Args a) {
 // tiled_kernel: grid (ceil(N / 64), ceil(M / 64)); any M, K, N.
 template <int KIND, typename XT, typename OT>
 __global__ void __launch_bounds__(kThreads) tiled_kernel(Args a) {
+  static_assert(KIND != kI8A8, "kI8A8 takes imma.cuh's kernel");
   using Acc = typename AccT<KIND>::type;
   __shared__ __align__(16) Acc xs[kTileK][kTileM + kPad];  // x tile, k-major
   __shared__ __align__(16) Acc ws[kTileK][kTileN + kPad];
@@ -496,10 +496,16 @@ __global__ void __launch_bounds__(kThreads) tiled_kernel(Args a) {
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 template <int KIND, typename XT, typename OT>
+int launch_gemv(const Args& a, cudaStream_t stream) {
+  const dim3 grid(cdiv(a.N, kBlockCols), a.splits, cdiv(a.M, kRows));
+  gemv_kernel<KIND, XT, OT><<<grid, kThreads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int KIND, typename XT, typename OT>
 int launch(const Args& a, int gemv, cudaStream_t stream) {
   if (gemv) {
-    const dim3 grid(cdiv(a.N, kBlockCols), a.splits, cdiv(a.M, kRows));
-    gemv_kernel<KIND, XT, OT><<<grid, kThreads, 0, stream>>>(a);
+    return launch_gemv<KIND, XT, OT>(a, stream);
   } else {
     const dim3 grid(cdiv(a.N, kTileN), cdiv(a.M, kTileM));
     tiled_kernel<KIND, XT, OT><<<grid, kThreads, 0, stream>>>(a);
@@ -507,8 +513,8 @@ int launch(const Args& a, int gemv, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Instantiates the kernels of KIND for the x and output types the wrapper
-// names (DType codes; kI8A8's x is int8 whatever x_dtype says).
+// Instantiates the kernels of KIND (kW8 or kW4) for the x and output
+// types the wrapper names (DType codes).
 template <int KIND>
 int dispatch(const Args& a, int gemv, int x_dtype, int out_dtype,
              cudaStream_t stream) {

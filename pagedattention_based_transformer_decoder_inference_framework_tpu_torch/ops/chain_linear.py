@@ -26,7 +26,10 @@ read it as it is:
   ``act(x @ W_op + b)`` for one op, or the column concat of a contiguous
   ``(OP_G, OP_U)`` run, served from the packed blocks, so the engine can
   drop the per-op weight copies (``RuntimeConfig.megakernel_drop_weights``)
-  and still prefill and verify.
+  and still prefill and verify. Under w8a8 it is B10's INT8 tensor-core
+  kernel (``csrc/imma.cuh``) reading the blocks through a 3-D tensor map,
+  with K split as :func:`int8_matmul.wgmma_plan` says; other chains take
+  a CUDA-core tiled product.
 
 Numerics follow the JAX kernels: blocks in the activation dtype (INT8
 widened) with f32 sums, or under w8a8 (``pc.w8a8``) s8 x s8 sums in s32
@@ -50,10 +53,11 @@ import torch
 
 from ..quant.tensor import QTensor, quantize_per_row
 from ..utils.common import cdiv, round_up
-from ..utils.platform import (DTYPE_CODES, LL, CudaKernel, F, I, P, ptr,
-                              stream_handle)
+from ..utils.platform import (DTYPE_CODES, LL, CudaKernel, F, I, P,
+                              aligned16, ptr, stream_handle)
 from .common import activation_fn
-from .int8_matmul import SMS, act_code, epilogue, exact_int_matmul
+from .int8_matmul import (SMS, act_code, epilogue, exact_int_matmul,
+                          wgmma_plan, wgmma_scratch)
 
 # op ids of the metadata table (the JAX package's)
 OP_O = 0        # o-projection: attn_in @ Wo -> residual add, then norm
@@ -68,7 +72,7 @@ CHAIN_DECODE = CudaKernel(
     "ops/chain_linear.py:403")
 PACKED_LINEAR = CudaKernel(
     "packed_linear", "chain_linear.cu", "pbt_packed_linear",
-    [P] * 6 + [I] * 11 + [P], "ops/chain_linear.py:636")
+    [P] * 8 + [I] * 14 + [P], "ops/chain_linear.py:636")
 
 #: act / norm codes of csrc/chain_linear.cu
 _ACT_KINDS = {"swiglu": 0, "gelu": 1, "relu": 2}
@@ -445,6 +449,17 @@ def chain_decode(pc: PackedChain, attn_in: torch.Tensor, x: torch.Tensor
     return x_out, tail
 
 
+def _wgmma_rows(xq: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """Quantized rows ``[M, K]`` as the tensor-core kernel reads them: K
+    zero-padded to a multiple of 16 (the packed blocks hold at least
+    that many rows, bk being a multiple of 128), 16-byte aligned.
+    Returns ``(rows, padded K)``."""
+    dk = -xq.shape[1] % 16
+    if dk:
+        xq = torch.nn.functional.pad(xq, (0, dk))
+    return aligned16(xq), xq.shape[1]
+
+
 def packed_linear(pc: PackedChain, op_ids: Tuple[int, ...],
                   x: torch.Tensor, *,
                   act: Optional[str] = None) -> torch.Tensor:
@@ -465,15 +480,20 @@ def packed_linear(pc: PackedChain, op_ids: Tuple[int, ...],
     lead = x.shape[:-1]
     x2 = x.reshape(-1, K).contiguous()
     M = x2.shape[0]
-    xs = None
+    xs = part = counters = None
+    splits, kps = 1, K
     if pc.w8a8:
         x2, xs = _quant_rows(x2)
         xs = xs.reshape(M).contiguous()
+        x2, K = _wgmma_rows(x2)
+        splits, kps = wgmma_plan(M, K, N)
+        part, counters = wgmma_scratch(x.device, M, N, splits)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     c0 = sb0 * pc.bn
     PACKED_LINEAR.launch(
         ptr(x2), ptr(xs), ptr(pc.w), ptr(pc.sb[0, c0:]),
-        ptr(pc.sb[1, c0:]), ptr(out), M, K, N, g0, KB, pc.bk, pc.bn,
+        ptr(pc.sb[1, c0:]), ptr(out), ptr(part), ptr(counters), M, K, N,
+        g0, KB, pc.w.shape[0], pc.bk, pc.bn, splits, kps,
         _W_CODES[pc.w.dtype], int(pc.w8a8), act_code(act),
         DTYPE_CODES[x.dtype], stream_handle(x))
     return out.reshape(*lead, N)

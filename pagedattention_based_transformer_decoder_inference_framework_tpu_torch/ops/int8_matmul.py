@@ -13,9 +13,15 @@ kernel of the JAX package's ``ops/int8_matmul.py``:
 Both take any ``M >= 1``, ``K`` and ``N``: no padding to the TPU's
 blocks, so the block-size arguments of the JAX wrappers are gone. The
 wrapper runs the plain version for CPU tensors only; for CUDA tensors it
-launches the kernel or raises. The kernel's launch shape (a matrix-vector
-kernel with K split across blocks for decode, a tiled one otherwise) is
-chosen here by :func:`plan`.
+launches the kernel or raises. The kernel and its launch shape are
+chosen here, by ``M`` alone: decode (``M <= 16``) takes a matrix-vector
+kernel with K split across blocks (:func:`plan`); larger ``M`` takes,
+for B10, the INT8 tensor-core kernel (``csrc/imma.cuh``: ``wgmma`` s8 x
+s8 -> s32 on weight tiles transposed on chip), with K split only where
+its output tiles fall short of the SMs (:func:`wgmma_plan`), and for B11
+a CUDA-core tiled kernel. B10's kernels read whole 16-byte rows, so
+:func:`int8_operands` zero-pads a ragged K and N (the padding adds zeros)
+and copies a view at an odd offset: the shapes never pick the kernel.
 """
 
 from __future__ import annotations
@@ -23,9 +29,10 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..utils.common import cdiv, round_up
-from ..utils.platform import (DTYPE_CODES, CudaKernel, I, P, ptr,
+from ..utils.platform import (DTYPE_CODES, CudaKernel, I, P, aligned16, ptr,
                               stream_handle)
 from .common import activation_fn
 
@@ -37,6 +44,11 @@ SMS = 132
 GEMV_MAX_M = 16
 #: columns of one matrix-vector block
 GEMV_COLS = 128
+#: the tensor-core kernel's output columns a block and k-tile rows
+#: (csrc/imma.cuh); its row tiles are 64 rows where M <= 64, else 128
+WGMMA_COLS, WGMMA_K = 128, 128
+#: K splits the tensor-core planner weighs at most
+_MAX_SPLITS = 16
 #: K rows per exact f32 partial product in :func:`exact_int_matmul`:
 #: 128 * 128 * 1024 = 2^24, so every partial sum is an exact f32 integer
 _EXACT_K = 1024
@@ -64,6 +76,37 @@ def plan(M: int, K: int, N: int, gemv_ok: bool) -> Tuple[bool, int, int]:
     splits = max(1, min(cdiv(2 * SMS, base), cdiv(K, 128)))
     kps = round_up(cdiv(K, splits), 4)
     return True, cdiv(K, kps), kps
+
+
+def wgmma_rows(M: int) -> int:
+    """Rows of the tensor-core kernel's output tile for ``M`` rows."""
+    return 64 if M <= 64 else 128
+
+
+def wgmma_tiles(M: int, N: int) -> int:
+    return cdiv(M, wgmma_rows(M)) * cdiv(N, WGMMA_COLS)
+
+
+def wgmma_plan(M: int, K: int, N: int) -> Tuple[int, int]:
+    """``(splits, k_per_split)`` of the tensor-core kernel (B10 at M >
+    16, B15 under w8a8): one block per output tile over the whole of K
+    where the tiles fill the SMs; else K split into ranges of whole
+    k-tiles, as many as still fit the blocks in one wave (at most
+    ``_MAX_SPLITS``): past one wave a split adds a round of blocks and
+    its partial sums' traffic for no more parallel work."""
+    nk = cdiv(K, WGMMA_K)
+    want = max(1, min(SMS // wgmma_tiles(M, N), nk, _MAX_SPLITS))
+    per = cdiv(nk, want)
+    return cdiv(nk, per), per * WGMMA_K
+
+
+def int8_plan(M: int, K: int, N: int) -> Tuple[bool, int, int]:
+    """B10's ``(gemv, splits, k_per_split)`` for operands as
+    :func:`int8_operands` leaves them: the matrix-vector kernel for ``M <=
+    16`` (:func:`plan`), the tensor-core kernel past it."""
+    if M <= GEMV_MAX_M:
+        return plan(M, K, N, True)
+    return (False,) + wgmma_plan(M, K, N)
 
 
 def act_code(act: Optional[str]) -> int:
@@ -100,20 +143,37 @@ def bias_f32(bias: Optional[torch.Tensor], N: int):
     return bias.reshape(N).float().contiguous()
 
 
-def scratch(device, M: int, N: int, splits: int, dtype):
-    """The split-K workspace ``[splits, M, N]`` (None for one split) and
-    the per-tile counters of the current stream (zeroed once per device
-    and stream; the kernel's last block of each tile resets its
-    counter)."""
-    if splits == 1:
-        return None, None
-    need = cdiv(N, GEMV_COLS) * cdiv(M, 4)
+def _counters(device, need: int) -> torch.Tensor:
+    """At least ``need`` split-K tile counters of the current stream
+    (zeroed once per device and stream; the kernels' last block of each
+    tile resets its counter)."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)
     counters = _COUNTERS.get(key)
     if counters is None or counters.numel() < need:
         counters = _COUNTERS[key] = torch.zeros(
             max(need, 4096), dtype=torch.int32, device=device)
-    return torch.empty((splits, M, N), dtype=dtype, device=device), counters
+    return counters
+
+
+def scratch(device, M: int, N: int, splits: int, dtype):
+    """The matrix-vector kernel's split-K workspace ``[splits, M, N]``
+    (None for one split) and its tile counters."""
+    if splits == 1:
+        return None, None
+    return (torch.empty((splits, M, N), dtype=dtype, device=device),
+            _counters(device, cdiv(N, GEMV_COLS) * cdiv(M, 4)))
+
+
+def wgmma_scratch(device, M: int, N: int, splits: int):
+    """The tensor-core kernel's split-K workspace (None for one split):
+    an s32 slot of ``rows x 128`` per split and output tile, and the
+    tiles' counters."""
+    if splits == 1:
+        return None, None
+    tiles = wgmma_tiles(M, N)
+    return (torch.empty((splits, tiles, wgmma_rows(M) * WGMMA_COLS),
+                        dtype=torch.int32, device=device),
+            _counters(device, tiles))
 
 
 def epilogue(y: torch.Tensor, bias, act, out_dtype,
@@ -181,6 +241,26 @@ def _check_weight(wq: torch.Tensor, w_scale: torch.Tensor, K: int) -> int:
     return N
 
 
+def int8_operands(xq: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
+                  bias: Optional[torch.Tensor]):
+    """B10's operands as its kernels read them: K zero-padded to a
+    multiple of 16 in ``xq [M, K]`` and ``wq [K, N]``, N to 16 in ``wq``,
+    ``w_scale [N]`` and ``bias [N]`` (f32, or None), ``xq`` and ``wq``
+    16-byte aligned. Returns ``(xq, wq, w_scale, bias, padded N)``; the
+    columns past N are the caller's to drop. A ragged weight is copied on
+    every call, decode's too: every preset's projections have K and N in
+    multiples of 16 (``tests/test_torch_int8_matmul.py`` pins this), so
+    no model path pays that copy."""
+    K, N = wq.shape
+    dk, dn = -K % 16, -N % 16
+    if dk:
+        xq, wq = F.pad(xq, (0, dk)), F.pad(wq, (0, 0, 0, dk))
+    if dn:
+        wq, w_scale = F.pad(wq, (0, dn)), F.pad(w_scale, (0, dn))
+        bias = None if bias is None else F.pad(bias, (0, dn))
+    return aligned16(xq), aligned16(wq), w_scale, bias, N + dn
+
+
 def int8_matmul(xq: torch.Tensor, x_scale: torch.Tensor, wq: torch.Tensor,
                 w_scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
                 *, act: Optional[str] = None,
@@ -202,19 +282,19 @@ def int8_matmul(xq: torch.Tensor, x_scale: torch.Tensor, wq: torch.Tensor,
         return int8_matmul_plain(xq, x_scale, wq, w_scale, bias, act=act,
                                  out_dtype=out_dtype)
     codes = act_code(act), out_code(out_dtype)
-    xq, wq = xq.contiguous(), wq.contiguous()
     xs = x_scale.reshape(M).float().contiguous()
-    ws = w_scale.reshape(N).float().contiguous()
-    b = bias_f32(bias, N)
-    gemv, splits, kps = plan(M, K, N, N % 16 == 0 and K % 4 == 0
-                             and wq.data_ptr() % 16 == 0
-                             and xq.data_ptr() % 4 == 0)
-    part, counters = scratch(xq.device, M, N, splits, torch.int32)
-    out = torch.empty((M, N), dtype=out_dtype, device=xq.device)
+    xq, wq, ws, b, n_pad = int8_operands(
+        xq.contiguous(), wq.contiguous(),
+        w_scale.reshape(N).float().contiguous(), bias_f32(bias, N))
+    Kp = xq.shape[1]
+    gemv, splits, kps = int8_plan(M, Kp, n_pad)
+    part, counters = (scratch(xq.device, M, n_pad, splits, torch.int32)
+                      if gemv else wgmma_scratch(xq.device, M, n_pad, splits))
+    out = torch.empty((M, n_pad), dtype=out_dtype, device=xq.device)
     INT8_MATMUL.launch(ptr(xq), ptr(xs), ptr(wq), ptr(ws), ptr(b), ptr(out),
-                       ptr(part), ptr(counters), M, K, N, splits, kps,
+                       ptr(part), ptr(counters), M, Kp, n_pad, splits, kps,
                        int(gemv), *codes, stream_handle(xq))
-    return out
+    return out if n_pad == N else out[:, :N].contiguous()
 
 
 def w8_matmul(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,

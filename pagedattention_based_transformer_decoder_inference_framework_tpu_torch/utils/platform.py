@@ -27,8 +27,12 @@ import torch
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC.parent / "_build"
+#: ``-fno-gnu-unique``: a function-local static of a header's template
+#: stays one per library (as GNU-unique symbols it would be one per
+#: process, shared by every library built from the same header)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-O3", "-shared", "-Xcompiler", "-fPIC,-fno-gnu-unique",
+              "-lineinfo")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

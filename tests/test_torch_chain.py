@@ -50,6 +50,7 @@ from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.mode
 from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops import chain_linear as tcl
 from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.quant.tensor import (
     QTensor,
+    quantize_per_channel,
 )
 
 from test_torch_model import narrow_dh128
@@ -257,6 +258,33 @@ def test_packed_ops_must_form_one_run():
         tcl.packed_linear(tpc, (tcl.OP_G, tcl.OP_U), x)
     with pytest.raises(ValueError, match="not all in"):
         tcl.packed_linear(tpc, (tcl.OP_O, 7), x)
+
+
+@pytest.mark.parametrize("M", [3, 40])
+def test_packed_rows_padded_for_the_tensor_cores_keep_the_product(M):
+    """B15's w8a8 rows zero-padded to a multiple of 16 (the tensor-core
+    kernel's 16-byte rows; the blocks hold at least that many rows) give
+    every op's output bit for bit, on a chain whose K fit no 16."""
+    D, I = 200, 328
+    g = torch.Generator().manual_seed(M)
+    r = lambda *s: torch.randn(s, generator=g) * 0.1
+    ops = [(tcl.OP_O, quantize_per_channel(r(D, D)), None),
+           (tcl.OP_G, quantize_per_channel(r(D, I)), None),
+           (tcl.OP_U, quantize_per_channel(r(D, I)), None),
+           (tcl.OP_D, quantize_per_channel(r(I, D)), None)]
+    pc = tcl.pack_chain(ops, D=D, I=I, ln_after_o=(1 + r(D), None),
+                        ln_after_down=None, act_kind="swiglu",
+                        norm_kind="rmsnorm", eps=1e-5, bk=128, bn=128,
+                        w8a8=True)
+    for op_id, _, _ in ops:
+        _, g0, KB, NB, K, N, sb0 = [t for t in pc.ops_geom
+                                    if t[0] == op_id][0]
+        xq, xs = tcl._quant_rows(r(M, K))
+        xp, Kp = tcl._wgmma_rows(xq)
+        assert Kp % 16 == 0 and Kp > K and xp.shape == (M, Kp)
+        assert torch.equal(xp[:, :K], xq) and not xp[:, K:].any()
+        ref = tcl._product(pc, g0, KB, NB, sb0, xq, xs)
+        assert torch.equal(tcl._product(pc, g0, KB, NB, sb0, xp, xs), ref)
 
 
 # -- the model ----------------------------------------------------------------

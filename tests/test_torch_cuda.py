@@ -12,10 +12,13 @@ These tests import no JAX, so they run where the card is (the suite's
 Without a CUDA card every test skips (the kernels have no CPU mode).
 Tolerances: f32 queries 1e-4 absolute (the kernel and the plain version
 sum the same terms in another order), bf16 queries 2e-2 (one bf16 step
-of outputs of magnitude ~1); appends are bit-exact, B9's pool too. B10 is bit-exact
-(exact s32 sums, the same epilogue); B11/B12 sum f32 in another order:
-f32 outputs within 1e-5 of max|output|, bf16 outputs within one bf16
-step or that (where cancellation leaves an output tiny). B14 against its
+of outputs of magnitude ~1); appends are bit-exact, B9's pool too. B10
+is bit-exact (exact s32 sums, the same epilogue), on the matrix-vector
+kernel (M <= 16) and on the INT8 tensor-core kernel (M > 16; every split
+count the planner chooses, ragged K and N the wrapper zero-pads);
+B11/B12 sum f32 in another order: f32 outputs within 1e-5 of
+max|output|, bf16 outputs within one bf16 step or that (where
+cancellation leaves an output tiny). B14 against its
 plain version, relative to max|output|: 1e-4 with f32 activations (f32
 sums in another order, through two norms); 2e-2 with bf16 activations
 (h and the activation are rounded to bf16 between the ops, so a sum in
@@ -489,6 +492,65 @@ def test_cuda_split_k_on_two_streams(cuda):
         assert all(within(y, ref, torch.bfloat16) for y in o)
 
 
+# B10 past the matrix-vector rows, on the tensor-core kernel: (K, N)
+# aligned, ragged in both (the wrapper zero-pads K and N to 16), a width
+# under one tile, and Llama-3-8B's qkv
+WGMMA_KN = [(256, 384), (1000, 1000), (70, 36), (4096, 6144)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act", [None, "relu", "gelu", "silu"])
+@pytest.mark.parametrize("K,N", WGMMA_KN)
+@pytest.mark.parametrize("M", [17, 36, 64, 256, 300])
+def test_cuda_int8_matmul_wgmma_bit_exact(cuda, M, K, N, act):
+    x, w, b = matmul_inputs(M, K, N, cuda, seed=4)
+    xq, wq = qt.quantize_per_row(x), qt.quantize_per_channel(w)
+    assert not i8.int8_plan(M, K, N)[0]
+    for out_dtype in (torch.float32, torch.bfloat16):
+        for bias in (None, b):
+            args = (xq.values, xq.scales, wq.values, wq.scales, bias)
+            out = i8.int8_matmul(*args, act=act, out_dtype=out_dtype)
+            ref = i8.int8_matmul_plain(*args, act=act, out_dtype=out_dtype)
+            assert torch.equal(out, ref), (out_dtype, bias is None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", range(1, 17))
+def test_cuda_int8_matmul_every_split(cuda, splits):
+    """Every split count the planner can choose: one and two row tiles,
+    whole and ragged last k-tiles, a ragged N."""
+    for M, K, N in ((17, 128 * splits, 16), (200, 128 * splits - 48, 40)):
+        assert i8.int8_plan(M, K, N)[1] == splits
+        x, w, b = matmul_inputs(M, K, N, cuda, seed=splits)
+        xq, wq = qt.quantize_per_row(x), qt.quantize_per_channel(w)
+        args = (xq.values, xq.scales, wq.values, wq.scales, b)
+        assert torch.equal(i8.int8_matmul(*args, act="silu"),
+                           i8.int8_matmul_plain(*args, act="silu"))
+
+
+@pytest.mark.cuda
+def test_cuda_wgmma_split_k_on_two_streams(cuda):
+    """The tensor-core kernel's split-K launches in flight on two streams
+    keep separate tile counters."""
+    x, w, _ = matmul_inputs(36, 4096, 1024, cuda, seed=5)
+    wq = qt.quantize_per_channel(w)
+    assert i8.int8_plan(36, 4096, 1024)[1] > 1
+    xqs = [qt.quantize_per_row(a) for a in (x, x.flip(0))]
+    refs = [i8.int8_matmul_plain(q.values, q.scales, wq.values, wq.scales)
+            for q in xqs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for s, q, o in zip(streams, xqs, outs):
+            with torch.cuda.stream(s):
+                o.append(i8.int8_matmul(q.values, q.scales, wq.values,
+                                        wq.scales))
+    torch.cuda.synchronize()
+    for o, ref in zip(outs, refs):
+        assert all(torch.equal(y, ref) for y in o)
+
+
 # B14/B15: (D, I, N3, act, norm, bk, bn): Llama-shaped with bk != bn, an
 # intermediate size that is no multiple of bn, GPT-2-shaped GELU and
 # LayerNorm with biases, and a hidden size no multiple of bk
@@ -587,6 +649,38 @@ def test_cuda_packed_linear_matches_plain(cuda, shape, kind, M):
             assert torch.equal(out, ref), ops
         else:
             assert within(out, ref, dt), ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [17, 256])
+def test_cuda_packed_linear_llama3_8b_w8a8_bit_exact(cuda, M):
+    """B15 on the tensor-core kernel at each op of a Llama-3-8B-shaped
+    w8a8 chain (bk 1024, bn 2048) and at the (gate, up) run."""
+    D, I, N3 = 4096, 14336, 6144
+    g = torch.Generator(device=cuda).manual_seed(M)
+
+    def weight(K, N):
+        return qt.quantize_per_channel(
+            torch.randn((K, N), generator=g, device=cuda) * 0.02)
+
+    ops = [(cl.OP_O, weight(D, D), None), (cl.OP_G, weight(D, I), None),
+           (cl.OP_U, weight(D, I), None), (cl.OP_D, weight(I, D), None),
+           (cl.OP_T, weight(D, N3), None)]
+    ones = torch.ones(D, device=cuda)
+    pc = cl.pack_chain(ops, D=D, I=I, ln_after_o=(ones, None),
+                       ln_after_down=(ones, None), act_kind="swiglu",
+                       norm_kind="rmsnorm", eps=1e-5, bk=1024, bn=2048,
+                       w8a8=True)
+    del ops
+    runs = [(cl.OP_O,), (cl.OP_G,), (cl.OP_U,), (cl.OP_G, cl.OP_U),
+            (cl.OP_D,), (cl.OP_T,)]
+    cl.PACKED_LINEAR.launches = 0
+    for run in runs:
+        K = I if run == (cl.OP_D,) else D
+        x = torch.randn((M, K), generator=g, device=cuda).to(torch.bfloat16)
+        assert torch.equal(cl.packed_linear(pc, run, x),
+                           cl.packed_linear_plain(pc, run, x)), run
+    assert cl.PACKED_LINEAR.launches == len(runs)
 
 
 @pytest.mark.cuda

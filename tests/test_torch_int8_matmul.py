@@ -40,6 +40,7 @@ from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops 
     int8_matmul as i8,
     linear as tlinear,
 )
+from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.config import PRESETS
 from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.quant import tensor as tt
 
 SHAPES = [(1, 300, 200), (4, 256, 384), (37, 130, 70)]
@@ -241,3 +242,97 @@ def test_wrappers_reject_bad_operands():
         i8.w8_matmul(torch.zeros(2, 7), wq, torch.ones(1, 4))
     with pytest.raises(ValueError):
         i8.act_code("tanh")
+
+
+@pytest.mark.parametrize("M,K,N,gemv,splits", [
+    (1, 4096, 6144, True, 6),          # decode rows: the matrix-vector kernel
+    (16, 4096, 4096, True, 3),
+    (17, 4096, 4096, False, 4),        # past it: the tensor-core kernel
+    (36, 4096, 6144, False, 2),        # a verify chunk's qkv: 48 tiles
+    (36, 14336, 4096, False, 4),
+    (256, 4096, 6144, False, 1),       # prefill qkv: 96 tiles
+    (256, 4096, 4096, False, 2),       # o: 64 tiles
+    (256, 4096, 28672, False, 1),      # gate-up: 448 tiles fill the SMs
+    (256, 14336, 4096, False, 2),      # down
+    (300, 4096, 4096, False, 1),
+    (17, 300, 208, False, 3)])
+def test_int8_route_and_split_plan(M, K, N, gemv, splits):
+    """B10's route by M alone (the matrix-vector kernel through 16 rows,
+    the tensor-core kernel past it) and the tensor-core kernel's splits:
+    whole k-tiles, covering K, none where the tiles fill the SMs, and no
+    more than one wave of blocks."""
+    g, s, kps = i8.int8_plan(M, K, N)
+    assert (g, s) == (gemv, splits)
+    assert s * kps >= K > (s - 1) * kps
+    if gemv:
+        assert (g, s, kps) == i8.plan(M, K, N, True)
+        return
+    assert kps % i8.WGMMA_K == 0 and s <= i8._MAX_SPLITS
+    tiles = i8.wgmma_tiles(M, N)
+    if tiles >= i8.SMS:
+        assert s == 1
+    else:
+        assert tiles * s <= i8.SMS
+
+
+@pytest.mark.parametrize("splits", range(1, 17))
+def test_wgmma_plan_reaches_every_split(splits):
+    """One output tile over ``splits`` k-tiles is split once a k-tile: the
+    shapes by which the card's tests reach every split count."""
+    assert i8.wgmma_plan(17, 128 * splits, 16) == (splits, 128)
+
+
+@pytest.mark.parametrize("M,K,N", [(17, 70, 36), (36, 300, 200),
+                                   (5, 1000, 1000), (64, 256, 384)])
+def test_int8_operands_padding_keeps_the_product(M, K, N):
+    """Zero-padded K and N (the kernels' 16-byte rows) through the plain
+    version give the unpadded result bit for bit once the padded columns
+    are dropped; aligned shapes pass through untouched."""
+    x, w, b = inputs(M, K, N, seed=7)
+    xq, wq = tt.quantize_per_row(torch.from_numpy(x)), \
+        tt.quantize_per_channel(torch.from_numpy(w))
+    bias = torch.from_numpy(b)
+    px, pw, ps, pb, n_pad = i8.int8_operands(
+        xq.values, wq.values, wq.scales.reshape(N), bias)
+    assert n_pad % 16 == 0 and px.shape[1] % 16 == 0
+    assert pw.shape == (px.shape[1], n_pad) and ps.shape == pb.shape == (
+        n_pad,)
+    for act in (None, "silu"):
+        ref = i8.int8_matmul_plain(xq.values, xq.scales, wq.values,
+                                   wq.scales, bias, act=act)
+        out = i8.int8_matmul_plain(px, xq.scales, pw, ps, pb, act=act)
+        assert torch.equal(out[:, :N], ref)
+    if K % 16 == 0 and N % 16 == 0:
+        assert px is xq.values and pw is wq.values
+
+
+@pytest.mark.parametrize("name", sorted(PRESETS))
+def test_preset_projections_need_no_padding(name):
+    """Every preset's w8a8 projections (q, k, v, o, gate, up, down, and
+    the fused qkv and gate|up) have K and N in multiples of 16, so
+    :func:`int8_operands` hands B10 the weight itself, with no copy, on
+    every model path."""
+    c = PRESETS[name]
+    D, q, kv = c.hidden_size, c.num_heads * c.head_dim, \
+        c.num_kv_heads * c.head_dim
+    I_ = c.intermediate_size
+    for K, N in [(D, q), (D, kv), (q, D), (D, I_), (I_, D), (D, q + 2 * kv),
+                 (D, 2 * I_)]:
+        wq = torch.zeros((K, N), dtype=torch.int8)
+        xq = torch.zeros((17, K), dtype=torch.int8)
+        px, pw, _, _, n_pad = i8.int8_operands(xq, wq, torch.ones(N), None)
+        assert pw is wq and px is xq and n_pad == N, (K, N)
+
+
+def test_swapped_k_tiles_move_the_plain_output():
+    """The control of the card's bit-exact checks: a kernel that read two
+    of the weight's 128-row k-tiles in each other's place would give
+    another output, so an exact comparison can fail."""
+    x, w, _ = inputs(36, 512, 256, seed=8)
+    xq, wq = tt.quantize_per_row(torch.from_numpy(x)), \
+        tt.quantize_per_channel(torch.from_numpy(w))
+    swapped = torch.cat([wq.values[128:256], wq.values[:128],
+                         wq.values[256:]])
+    ref = i8.int8_matmul_plain(xq.values, xq.scales, wq.values, wq.scales)
+    moved = i8.int8_matmul_plain(xq.values, xq.scales, swapped, wq.scales)
+    assert (moved != ref).float().mean() > 0.5
