@@ -85,7 +85,21 @@ and nothing of JAX. Phases:
    (``csrc/imma.cuh``'s ``wgmma_s8_kernel``: weight tiles transposed on
    chip, s8 x s8 -> s32 wgmma), bit-exact at every shape above; B15's
    plain output must move when the o-projection's first two blocks are
-   swapped.
+   swapped. Slice 9 (B11 and B2 redesigned): B11 past 16 rows with bf16
+   x runs its tensor-core kernel (``w8_wgmma_kernel`` on B13's mainloop,
+   ``csrc/widen_gemm.cuh``: the INT8 weight widened to bf16 on chip,
+   ``wgmma`` with f32 sums, a one-wave K split merged in split order),
+   held and timed at a layer's four projections and the LM head at M=36
+   and M=256 and at Mixtral-8x7B's qkv, o and head at M=1024 (path (k)'s
+   prefill chunk), its tolerance checked against two misreads of the
+   plain output (two 64-row k-tiles, or two 256-column blocks, of the
+   qkv weight swapped); B2 is split-KV in one launch (pages by bulk copy
+   into a ring, the splits merged in split order by the last block of a
+   sequence and KV head), held and timed at the slice, path (k)'s decode
+   shape, a 512-page table at batch 1 (B6 beside) and four ragged
+   sequences of 1-512 pages; with f32 queries at 512 pages its splits
+   merged in reverse order (plain PyTorch) must stay within 1e-4 and one
+   misread page must not.
 3. The paths, each ``Engine`` on llama3-8b at full width and full depth
    (32 layers; (a), (c) and (d) cut to 8; weights from a seed, INT8
    paged KV, page 64, prefill chunk 256, the pool ``bench.py`` sizes, for (b),
@@ -305,12 +319,14 @@ def bound(bytes_moved: float, flops: float, rate: str = "f32"):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-#: the tensor-core kernels' sources and symbols: B13, B1, and the INT8
-#: kernel of B10 (M > 16) and B15 (w8a8), one header built into two sources
+#: the tensor-core kernels' sources and symbols: B13, B1, the INT8
+#: kernel of B10 (M > 16) and B15 (w8a8), one header built into two
+#: sources, and B11's (M > 16, bf16 x) on B13's mainloop
 TENSOR_CORE_KERNELS = [("gmm.cu", "wgmma_kernel"),
                        ("paged_prefill.cu", "attention_wgmma_kernel"),
                        ("int8_matmul.cu", "wgmma_s8_kernel"),
-                       ("chain_linear.cu", "wgmma_s8_kernel")]
+                       ("chain_linear.cu", "wgmma_s8_kernel"),
+                       ("int8_matmul.cu", "w8_wgmma_kernel")]
 
 
 def tensor_core_report(log, built):
@@ -376,7 +392,7 @@ SPEC_K, SPEC_NGRAM = 8, 2
 KERNEL_NAMES = {
     "paged_attention": ("paged_attention_kernel<",),
     "paged_attention_wgmma": ("attention_wgmma_kernel<",),
-    "paged_attention_decode": ("paged_attention_decode_kernel<",),
+    "paged_attention_decode": ("decode_split_kernel<",),
     "kv_append_decode": ("append_decode_kernel",),
     "kv_append_prefill": ("append_prefill_kernel",),
     "kv_append_tokens": ("append_tokens_kernel",),
@@ -387,7 +403,8 @@ KERNEL_NAMES = {
     "paged_attention_decode_packed": ("decode_packed_kernel<",),
     "paged_attention_decode_batched": ("decode_batched_kernel<",),
     "int8_matmul": ("qmm::gemv_kernel<0,", "imma::wgmma_s8_kernel<0,"),
-    "w8_matmul": ("qmm::gemv_kernel<1,", "qmm::tiled_kernel<1,"),
+    "w8_matmul": ("qmm::gemv_kernel<1,", "qmm::tiled_kernel<1,",
+                  "w8::w8_wgmma_kernel<"),
     "w4_matmul": ("qmm::gemv_kernel<2,", "qmm::tiled_kernel<2,"),
     "chain_decode": ("chain::chain_kernel<",),
     "packed_linear": ("chain::packed_kernel<", "imma::wgmma_s8_kernel<1,"),
@@ -986,7 +1003,11 @@ def decode_variant_checks(torch, F_, dev, results):
     (B6 at paths (h)'s and (i)'s shapes also with f32 queries, whose
     tolerance must flag a table with one group of pages misread);
     B2 timed on the same inputs at path (i)'s 516-page shape (B6's
-    yardstick) and at its own shape (B7's)."""
+    yardstick) and at its own shape (B7's). B2 itself past the slice:
+    path (k)'s decode shape, a 512-page table at batch 1 (B6 timed
+    beside; with f32 queries its splits merged in reverse order must stay
+    within 1e-4 and one misread page must not) and four ragged sequences
+    of 1-512 pages."""
     from importlib import import_module
 
     pa = import_module(f"{PKG}.ops.paged_attention")
@@ -1024,6 +1045,20 @@ def decode_variant_checks(torch, F_, dev, results):
         ("8 ragged sequences, f32", "paged_attention_decode_batched", f32, i8,
          8, 8, 4, 128, 5, 80, [1, 65, 200, 320, 17, 128, 64, 250], 0, 0.0,
          1e-4),
+        # B2 (split-KV) past the slice, which attention_checks holds: path
+        # (k)'s decode (Mixtral-8x7B, 4 x 320 tokens, the table bench.py
+        # sizes), a 512-page table at batch 1 (a 32k context, where the
+        # INT8 scales budget still routes to B2; B6 timed beside), and
+        # four ragged sequences of 1 to 512 pages
+        ("(k) shape: mixtral-8x7b, 4 x 320", "paged_attention_decode", bf16,
+         i8, 4, 8, 4, 128, 7, 40, [320] * 4, 0, 0.0, 2e-2),
+        ("512 pages, B=1", "paged_attention_decode", bf16, i8, 1, 8, 4, 128,
+         512, 520, [32700], 0, 0.0, 2e-2),
+        ("512 pages, B=1, f32", "paged_attention_decode", f32, i8, 1, 8, 4,
+         128, 512, 520, [32700], 0, 0.0, 1e-4),
+        ("4 ragged sequences of 1-512 pages", "paged_attention_decode", bf16,
+         i8, 4, 8, 4, 128, 512, 2060, [1, 64 * 7 + 3, 64 * 200, 64 * 512],
+         0, 0.0, 2e-2),
     ]
     for (name, kname, qdt, pdt, batch, kh, g, dh, mp, n_pages, lens, window,
          softcap, tol) in cases:
@@ -1058,6 +1093,24 @@ def decode_variant_checks(torch, F_, dev, results):
             check(qdt == bf16 or miss > tol,
                   f"{kname} {name}: the tolerance {tol} does not flag a "
                   f"misread group ({miss})")
+        if kname == "paged_attention_decode" and qdt == f32:
+            # B2's controls: its splits merged in the reverse order (in
+            # plain PyTorch) stay within the tolerance, one page of the
+            # table misread (read in place of its neighbour) does not
+            splits = pa.decode_split_plan(batch, kh, mp)[0]
+            rev = pa.decode_split_emulation(
+                *args, order=range(splits - 1, -1, -1), **common)
+            rev_err = (rev.float() - out_p.float()).abs().max().item()
+            wrong = plain(q, kv[0], misread_group(bt, lens, window, J=1), sl,
+                          scales, layer, **common)
+            miss = (wrong.float() - out_p.float()).abs().max().item()
+            print(f"  [{kname}] {name}: {splits} splits merged in reverse "
+                  f"order differ by {rev_err:.3e}, one page misread moves "
+                  f"the output by {miss:.3e} (tol {tol:g})", flush=True)
+            check(rev_err <= tol, f"{kname} {name}: a reordered merge "
+                  f"leaves the tolerance ({rev_err})")
+            check(miss > tol, f"{kname} {name}: the tolerance {tol} does not "
+                  f"flag a misread page ({miss})")
         if qdt == bf16:
             worst[kname] = max(worst.get(kname, 0.0), err)
         ms = device_ms(lambda: kern(*args, **common),
@@ -1071,6 +1124,17 @@ def decode_variant_checks(torch, F_, dev, results):
         b2 = ""
         row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                    library_ms=lib_ms)
+        if kname == "paged_attention_decode":
+            # B6 on the same inputs: the route past the scales budget
+            b6_out = pa.paged_attention_decode_grouped(*args, **common)
+            b6_err = (b6_out.float() - out_p.float()).abs().max().item()
+            check(b6_err <= tol, f"B6 at {name}: error {b6_err}")
+            row["b6_ms"] = device_ms(
+                lambda: pa.paged_attention_decode_grouped(*args, **common),
+                match=KERNEL_NAMES["paged_attention_decode_grouped"])
+            b2 = (f"; B6 on the same inputs {row['b6_ms']:.4f} ms "
+                  f"(max|B6-plain| {b6_err:.3e})")
+            results[kname].setdefault("shapes", {})[name] = row
         if dh % 128 == 0 and kname != "paged_attention_decode":
             # B2 on the same inputs: B6's yardstick at 516 pages, B7's at
             # B2's shape
@@ -1094,7 +1158,10 @@ def decode_variant_checks(torch, F_, dev, results):
         del kv, bt, out_k, out_p
         torch.cuda.empty_cache()
     for kname, err in worst.items():
-        results[kname].update(max_abs_err=err, tol=2e-2)
+        # B2's slice cases (attention_checks) count too
+        results[kname].update(
+            max_abs_err=max(err, results[kname].get("max_abs_err") or 0.0),
+            tol=2e-2)
 
 
 #: Llama-3-8B's projections (name, K, N) as the engine fuses them, and
@@ -1102,6 +1169,12 @@ def decode_variant_checks(torch, F_, dev, results):
 PROJECTIONS = [("qkv", 4096, 6144), ("wo", 4096, 4096),
                ("gate-up", 4096, 28672), ("down", 14336, 4096)]
 LM_HEAD = ("lm-head", 4096, 128256)
+#: B11 at path (k)'s prefill chunk (4 x 256 rows): Mixtral-8x7B's qkv,
+#: o and LM head (vocabulary 32,000), the products its dispatch leaves
+#: to B11 under int8-weight
+MIXTRAL_B11 = [("mixtral qkv", 4096, 6144), ("mixtral o", 4096, 4096),
+               ("mixtral head", 4096, 32000)]
+MIXTRAL_M = 1024
 #: weight bytes the timing cycles through, so each call finds its weight
 #: outside the 50 MB L2, as a decode step does
 COLD_BYTES = 160e6
@@ -1301,8 +1374,10 @@ def matmul_checks(torch, dev, results):
             if not head:          # the w8a8 LM head is B11 (weight-only)
                 cases.insert(0, ("int8_matmul", b10, wqs,
                                  i8.int8_matmul_plain))
-            if M == 36:           # a verify chunk: B10's tensor-core route
-                cases = cases[:1] if not head else []
+            if M == 36:           # a verify chunk: B10 in the projections,
+                # B11 in the w8a8 head (both on their tensor-core routes)
+                cases = [c for c in cases if c[0] == (
+                    "w8_matmul" if head else "int8_matmul")]
             for kname, fn_of, ws, plain in cases:
                 label = f"{name} M={M} (K={K}, N={N}" + (
                     f", bn={w4.bn})" if kname == "w4_matmul" else ")")
@@ -1353,6 +1428,11 @@ def matmul_checks(torch, dev, results):
                     results[kname].update(ms=ms, plain_ms=plain_ms,
                                           bound_ms=b_ms, bound_by=b_by,
                                           library_ms=lib_ms)
+                elif kname == "w8_matmul" and head:
+                    results[kname].setdefault("shapes", {})[
+                        f"lm-head M={M}"] = dict(
+                            ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=lib_ms)
                 elif not head:
                     r = layers.setdefault((kname, M), {
                         "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
@@ -1377,6 +1457,25 @@ def matmul_checks(torch, dev, results):
                       flush=True)
                 check(moved > 0, "a misread k-tile leaves B10's plain "
                       "output unchanged")
+                # B11's controls: two of its 64-row k-tiles, or two of its
+                # 256-column blocks, read in each other's place
+                ref11 = i8.w8_matmul_plain(x, wq.values, wq.scales)
+                for what, sw in (
+                        ("k-tiles 0 and 1", torch.cat([
+                            wq.values[64:128], wq.values[:64],
+                            wq.values[128:]])),
+                        ("256-column blocks 0 and 1", torch.cat([
+                            wq.values[:, 256:512], wq.values[:, :256],
+                            wq.values[:, 512:]], dim=1))):
+                    off = i8.w8_matmul_plain(x, sw, wq.scales)
+                    print(f"  [w8_matmul] control, {what} of the qkv weight "
+                          f"swapped: max|moved-plain| "
+                          f"{(off.float() - ref11.float()).abs().max():.3e}"
+                          f", within the tolerance: "
+                          f"{matmul_close(off, ref11)} (must be False)",
+                          flush=True)
+                    check(not matmul_close(off, ref11), f"B11's tolerance "
+                          f"does not flag {what} misread")
         del wqs, w4s, libs
         torch.cuda.empty_cache()
     for (kname, M), r in sorted(layers.items()):
@@ -1394,12 +1493,52 @@ def matmul_checks(torch, dev, results):
                 f"m{M}_ms": r["ms"], f"m{M}_bound_ms": r["bound_ms"],
                 f"m{M}_library_ms": r["library_ms"]})
 
+    # B11 at path (k)'s prefill chunk: Mixtral-8x7B's qkv, o and head
+    mix = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+    for name, K, N in MIXTRAL_B11:
+        wq = qt.quantize_per_channel(randn(K, N, scale=0.02))
+        copies = max(1, int(np.ceil(COLD_BYTES / wq.values.numel())))
+        wqs = [wq] + [qt.QTensor(wq.values.clone(), wq.scales.clone())
+                      for _ in range(copies - 1)]
+        x = randn(MIXTRAL_M, K).to(bf16)
+        fn_of = lambda q, x=x: i8.w8_matmul(x, q.values, q.scales)
+        label = f"{name} M={MIXTRAL_M} (K={K}, N={N})"
+        expect = i8.w8_matmul_plain(x, wq.values, wq.scales)
+        verify("w8_matmul", label, fn_of(wq), expect)
+        ms = device_ms(cold_calls(fn_of, wqs),
+                       match=KERNEL_NAMES["w8_matmul"])
+        plain_ms = device_ms(
+            lambda: i8.w8_matmul_plain(x, wq.values, wq.scales), iters=5)
+        b_ms, b_by = bound(2 * MIXTRAL_M * K + K * N + 4 * N
+                           + 2 * MIXTRAL_M * N, 2 * MIXTRAL_M * K * N,
+                           "bf16")
+        widened = [q.values.to(bf16) for q in wqs]
+        lib_ms = device_ms(cold_calls(lambda wb, x=x: w8_matmul_library(
+            x, wq.values, wq.scales, widened=wb), widened), iters=5)
+        print(f"  [w8_matmul] {label} device time: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}, "
+              f"{b_ms / ms:.2f} of it reached), library {lib_ms:.4f} ms",
+              flush=True)
+        for k, v in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", b_ms),
+                     ("library_ms", lib_ms)):
+            mix[k] += v
+        del wqs, widened
+        torch.cuda.empty_cache()
+    print(f"  [w8_matmul] Mixtral-8x7B's qkv, o and head at M={MIXTRAL_M}: "
+          f"kernel {mix['ms']:.4f} ms, plain {mix['plain_ms']:.4f} ms, bound "
+          f"{mix['bound_ms']:.5f} ms ({mix['bound_ms'] / mix['ms']:.2f} of it "
+          f"reached), library {mix['library_ms']:.4f} ms", flush=True)
+    results["w8_matmul"].setdefault("shapes", {})[
+        f"mixtral qkv+o+head M={MIXTRAL_M}"] = dict(mix, bound_by="operations")
+
     # edge shapes: M 1 and 17, K and N that fit no tile, bias and an
     # activation, f32 activations and outputs
     for M, K, N, act, xdt, odt in [
             (1, 1000, 1000, "gelu", torch.float32, torch.float32),
             (17, 4096, 6144, "silu", bf16, bf16),
             (17, 300, 200, "relu", torch.float32, bf16),
+            (65, 1000, 1000, "gelu", bf16, torch.float32),
+            (36, 70, 36, None, bf16, bf16),
             (1, 4096, 1000, None, bf16, torch.float32),
             (5, 70, 36, "gelu", bf16, bf16)]:
         w, bias = randn(K, N, scale=0.02), randn(N)
@@ -3606,11 +3745,16 @@ def main() -> int:
     # fuses (B9: B3 then B2), null for a kernel that fuses none; b2_ms: B2
     # on the same inputs (B6 at path (i)'s 516 pages, B7 at B2's shape);
     # m36_* / m256_*: B10-B12 over a layer's four projections at a verify
-    # chunk (B10) and a prefill chunk, beside their bound and library call
+    # chunk (B10) and a prefill chunk, beside their bound and library call;
+    # shapes: the redesigned kernels' other held shapes (B11's head at
+    # M=36 and 256 and Mixtral's products at M=1024; B2 at path (k)'s
+    # decode, 512 pages with B6 beside, ragged tables), each with its
+    # times, bound and library call
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "unfused_ms", "b2_ms", "tol", "m36_ms", "m36_bound_ms",
-            "m36_library_ms", "m256_ms", "m256_bound_ms", "m256_library_ms")
+            "m36_library_ms", "m256_ms", "m256_bound_ms", "m256_library_ms",
+            "shapes")
     phase("4: summary")
     print(json.dumps({"paths": e2e}), flush=True)
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys}

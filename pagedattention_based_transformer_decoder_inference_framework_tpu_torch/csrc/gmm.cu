@@ -40,28 +40,15 @@
 //
 // wgmma_kernel's design. Each block owns one output tile of BM = 128 rows
 // (64 where bm is no multiple of 128; a tile never straddles two row
-// blocks) by 256 columns and loops over K in k-tiles of 64: two consumer
-// warpgroups (64 rows each; one where BM = 64) and one producer warp. The
-// producer keeps the loads in flight with TMA, each into a ring of stages
-// under full / empty mbarriers: the x tile through a tensor map with the
-// 128-byte swizzle that wgmma reads (K-major A), the raw weight tile [64
-// k, 256 n] through a 3-D map over [E, K, N] (so a ragged K reads zeros,
-// not the next expert). The consumers widen each raw tile once to bf16
-// (INT8 exactly) into the swizzled MN-major layout, which they read as B
-// with wgmma's transpose bit: a k-tile's four m64n256k16 products (f32
-// accumulators in registers, 128 a thread) are issued, then the next raw
-// tile is widened into another of three buffers while they run, so the
-// widening (256 threads, 16 INT8 values a load) hides under the tensor
-// cores' work, and the products of two k-tiles stay in flight. (The
-// alternative, the swapped product y^T = W^T . x^T with the widened
-// weight as the A operand in registers, would read each weight byte in a
-// strided, bank-conflicting pattern; with the transpose bit one 16-byte
-// load of 16 INT8 values gives two 16-byte swizzled stores.) Each widened
-// weight tile serves the tile's 128 rows. Blocks run row tiles fastest,
-// so the row tiles of one expert that share a weight column tile run
-// together and the second read of that tile comes from the 50 MB L2. The
-// epilogue multiplies the scales and rounds once, straight from the
-// accumulator registers.
+// blocks) by 256 columns and runs widen_gemm.cuh's mainloop over the whole
+// of K (shared with B11's w8_wgmma_kernel): TMA loads of x and of the raw
+// weight tile [64 k, 256 n] through a 3-D map over [E, K, N] (so a ragged
+// K reads zeros, not the next expert), the INT8 tile widened to bf16 in
+// shared memory and read with wgmma's transpose bit, m64n256k16 products
+// with f32 accumulators. Blocks run row tiles fastest, so the row tiles of
+// one expert that share a weight column tile run together and the second
+// read of that tile comes from the 50 MB L2. The epilogue multiplies the
+// scales and rounds once, straight from the accumulator registers.
 //
 // f32_kernel: a CUDA-core tiled product, 64 x 64 tiles.
 //
@@ -73,6 +60,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "widen_gemm.cuh"
 
 namespace gmm {
 
@@ -183,39 +171,6 @@ void launch_f32(const Args& a, cudaStream_t st) {
 
 // -- wgmma_kernel ---------------------------------------------------------
 
-constexpr int kWK = 64;   // k-tile: one 128-byte swizzled row
-constexpr int kWN = 256;  // n-tile: one m64n256k16 product
-
-// Stage counts: x stages and raw weight stages (the widened weight has
-// three buffers: the products of two k-tiles in flight, one being
-// widened).
-template <typename WT>
-struct Ring;
-template <>
-struct Ring<int8_t> {
-  static constexpr int S = 4, R = 4;
-};
-template <>
-struct Ring<__nv_bfloat16> {
-  static constexpr int S = 4, R = 2;
-};
-
-template <int NC, typename WT>
-struct WLayout {
-  static constexpr int BM = 64 * NC;
-  static constexpr int THREADS = 128 * NC + 32;  // consumers + producer warp
-  static constexpr int S = Ring<WT>::S, R = Ring<WT>::R;
-  static constexpr int X_BYTES = BM * 128;           // [BM, 64] bf16
-  static constexpr int B_BYTES = kWN * 128;          // 4 x [64 k, 64 n]
-  static constexpr int RAW_BYTES = kWK * kWN * static_cast<int>(sizeof(WT));
-  static constexpr int X_OFF = 0;
-  static constexpr int B_OFF = X_OFF + S * X_BYTES;
-  static constexpr int RAW_OFF = B_OFF + 3 * B_BYTES;
-  static constexpr int BAR_OFF = RAW_OFF + R * RAW_BYTES;
-  // the barriers, and room to align the dynamic buffer to 1024 bytes
-  static constexpr int BYTES = BAR_OFF + 8 * (2 * S + 2 * R) + 1024;
-};
-
 struct WArgs {
   const float* scales;    // [E, N] or null (bf16 experts)
   const int* gob;         // [Npad / bm]
@@ -224,42 +179,14 @@ struct WArgs {
   int Npad, K, N, E, bm;
 };
 
-// The consumers widen raw tile `raw` [64 k][256 n] into the four swizzled
-// 64-column blocks [64 k][64 n] at `wb`, 16 raw bytes a step (INT8: two
-// chunks of 8 n; bf16: one).
 template <int NC, typename WT>
-__device__ __forceinline__ void widen_tile(const uint8_t* raw, uint8_t* wb,
-                                           int ct) {
-  constexpr int PER_ROW = kWN * static_cast<int>(sizeof(WT)) / 16;
-  constexpr int UNITS = kWK * PER_ROW;
-#pragma unroll
-  for (int u = ct; u < UNITS; u += 128 * NC) {
-    const int k = u / PER_ROW, v = u % PER_ROW;
-    const uint4 in = *reinterpret_cast<const uint4*>(raw + u * 16);
-    if constexpr (sizeof(WT) == 1) {
-      const int cn = 2 * v;  // chunks cn, cn + 1 of 32, in one 64-n block
-      uint8_t* dst = wb + (cn / 8) * (kWK * 128);
-      *reinterpret_cast<uint4*>(dst + hop::swz(k, cn % 8)) =
-          hop::widen8(make_uint2(in.x, in.y));
-      *reinterpret_cast<uint4*>(dst + hop::swz(k, cn % 8 + 1)) =
-          hop::widen8(make_uint2(in.z, in.w));
-    } else {
-      *reinterpret_cast<uint4*>(wb + (v / 8) * (kWK * 128) +
-                                hop::swz(k, v % 8)) = in;
-    }
-  }
-}
-
-template <int NC, typename WT>
-__global__ void __launch_bounds__(WLayout<NC, WT>::THREADS, 1)
+__global__ void __launch_bounds__(wgemm::WLayout<NC, WT>::THREADS, 1)
     wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                  const __grid_constant__ CUtensorMap wmap, const WArgs a) {
-  using Lay = WLayout<NC, WT>;
-  constexpr int BM = Lay::BM, S = Lay::S, R = Lay::R;
-  constexpr int NT = 128 * NC;  // consumer threads
+  using Lay = wgemm::WLayout<NC, WT>;
+  constexpr int BM = Lay::BM, kWN = wgemm::kWN;
   extern __shared__ uint8_t smem_dyn[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_dyn) + 1023) & ~uintptr_t(1023));
+  uint8_t* smem = wgemm::aligned_smem(smem_dyn);
   const int tid = threadIdx.x;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * kWN;
   const int N = a.N;
@@ -275,90 +202,18 @@ __global__ void __launch_bounds__(WLayout<NC, WT>::THREADS, 1)
     return;
   }
   const int g = a.gob[m0 / a.bm];
-  uint64_t* xfull = reinterpret_cast<uint64_t*>(smem + Lay::BAR_OFF);
-  uint64_t* xempty = xfull + S;
-  uint64_t* rawfull = xempty + S;
-  uint64_t* rawempty = rawfull + R;
-  if (tid == 0) {
-    for (int i = 0; i < S; ++i) {
-      hop::mbar_init(&xfull[i], 1);
-      hop::mbar_init(&xempty[i], NT);
-    }
-    for (int i = 0; i < R; ++i) {
-      hop::mbar_init(&rawfull[i], 1);
-      hop::mbar_init(&rawempty[i], NT);
-    }
-    hop::mbar_fence_init();
-  }
-  __syncthreads();
-  const int nk = (a.K + kWK - 1) / kWK;
-  const int wg = hop::warpgroup();
-  uint8_t* const raw0 = smem + Lay::RAW_OFF;
-  uint8_t* const wb0 = smem + Lay::B_OFF;
-
-  if (wg == NC) {
-    // the producer warp: TMA loads, x into its ring, raw weights into
-    // theirs, each stage reused once its readers release it
-    if (tid == NT) {
-      for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt % S, r = kt % R;
-        if (kt >= S) hop::mbar_wait(&xempty[s], (kt / S - 1) & 1);
-        hop::mbar_arrive_tx(&xfull[s], Lay::X_BYTES);
-        hop::tma_load_2d(smem + Lay::X_OFF + s * Lay::X_BYTES, &xmap,
-                         kt * kWK, m0, &xfull[s]);
-        if (kt >= R) hop::mbar_wait(&rawempty[r], (kt / R - 1) & 1);
-        hop::mbar_arrive_tx(&rawfull[r], Lay::RAW_BYTES);
-        hop::tma_load_3d(raw0 + r * Lay::RAW_BYTES, &wmap, n0, kt * kWK, g,
-                         &rawfull[r]);
-      }
-    }
-    return;
-  }
-
-  // consumer warpgroup wg: rows m0 + 64 wg .. + 63. Each k-tile: issue the
-  // products on the widened tile kt, widen tile kt + 1 into another of the
-  // three buffers while they run, wait for the products of tile kt - 1
-  // (those of kt stay in flight), release x's stage of kt - 1, and meet the
-  // other consumers (every half of tile kt + 1 widened, tile kt - 1's
-  // buffer read, so tile kt + 2 may overwrite it).
-  const int ct = tid;
-  hop::mbar_wait(&rawfull[0], 0);
-  widen_tile<NC, WT>(raw0, wb0, ct);
-  hop::fence_async_smem();
-  hop::mbar_arrive(&rawempty[0]);
-  hop::named_sync(1, NT);
-
+  const int nk = (a.K + wgemm::kWK - 1) / wgemm::kWK;
   float acc[128];
-#pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
-  hop::fence_regs(acc);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt % S;
-    hop::mbar_wait(&xfull[s], (kt / S) & 1);
-    const uint8_t* xs = smem + Lay::X_OFF + s * Lay::X_BYTES + wg * 64 * 128;
-    const uint8_t* wb = wb0 + (kt % 3) * Lay::B_BYTES;
-    hop::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kWK / 16; ++kk)
-      hop::mma_ss_n256<1>(acc, hop::desc(xs + kk * 32, 16, 1024),
-                          hop::desc(wb + kk * 2048, kWK * 128, 1024), 1);
-    hop::wgmma_commit();
-    if (kt + 1 < nk) {
-      const int r = (kt + 1) % R;
-      hop::mbar_wait(&rawfull[r], ((kt + 1) / R) & 1);
-      widen_tile<NC, WT>(raw0 + r * Lay::RAW_BYTES,
-                         wb0 + ((kt + 1) % 3) * Lay::B_BYTES, ct);
-      hop::fence_async_smem();
-      hop::mbar_arrive(&rawempty[r]);
-    }
-    hop::wgmma_wait<1>();
-    if (kt > 0) hop::mbar_arrive(&xempty[(kt - 1) % S]);
-    hop::named_sync(1, NT);
-  }
-  hop::wgmma_wait<0>();
-  hop::fence_regs(acc);
+  if (!wgemm::mainloop<NC, WT>(
+          smem, &xmap, m0, 0, nk,
+          [&](void* dst, int kt, uint64_t* bar) {
+            hop::tma_load_3d(dst, &wmap, n0, kt * wgemm::kWK, g, bar);
+          },
+          acc))
+    return;
 
   // epilogue: scales, one rounding, zeros past the routed rows
+  const int wg = hop::warpgroup();
   const int warp = (tid % 128) / 32, lane = tid % 32;
   const int rl = 64 * wg + 16 * warp + lane / 4;
   const float* sc =
@@ -391,28 +246,20 @@ __global__ void __launch_bounds__(WLayout<NC, WT>::THREADS, 1)
 template <int NC, typename WT>
 cudaError_t launch_wgmma(const void* x, const void* w, const WArgs& a,
                          cudaStream_t st) {
-  using Lay = WLayout<NC, WT>;
+  using Lay = wgemm::WLayout<NC, WT>;
   const hop::EncodeTiled encode = hop::encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   constexpr cuuint64_t es = sizeof(WT);
   CUtensorMap xmap, wmap;
-  const cuuint64_t xdim[2] = {static_cast<cuuint64_t>(a.K),
-                              static_cast<cuuint64_t>(a.Npad)};
-  const cuuint64_t xstride[1] = {static_cast<cuuint64_t>(a.K) * 2};
-  const cuuint32_t xbox[2] = {kWK, static_cast<cuuint32_t>(Lay::BM)};
-  const cuuint32_t ones[3] = {1, 1, 1};
-  if (encode(&xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-             const_cast<void*>(x), xdim, xstride, xbox, ones,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+  if (!wgemm::encode_x(&xmap, x, a.K, a.Npad, Lay::BM))
     return cudaErrorInvalidValue;
   const cuuint64_t wdim[3] = {static_cast<cuuint64_t>(a.N),
                               static_cast<cuuint64_t>(a.K),
                               static_cast<cuuint64_t>(a.E)};
   const cuuint64_t wstride[2] = {static_cast<cuuint64_t>(a.N) * es,
                                  static_cast<cuuint64_t>(a.K) * a.N * es};
-  const cuuint32_t wbox[3] = {kWN, kWK, 1};
+  const cuuint32_t wbox[3] = {wgemm::kWN, wgemm::kWK, 1};
+  const cuuint32_t ones[3] = {1, 1, 1};
   if (encode(&wmap,
              sizeof(WT) == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                              : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
@@ -425,8 +272,8 @@ cudaError_t launch_wgmma(const void* x, const void* w, const WArgs& a,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::BYTES);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(a.Npad / Lay::BM, (a.N + kWN - 1) / kWN), Lay::THREADS,
-           Lay::BYTES, st>>>(xmap, wmap, a);
+  kernel<<<dim3(a.Npad / Lay::BM, (a.N + wgemm::kWN - 1) / wgemm::kWN),
+           Lay::THREADS, Lay::BYTES, st>>>(xmap, wmap, a);
   return cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 // Quantized-weight matrix products for Hopper, shared by int8_matmul.cu
 // (B10 int8_matmul, B11 w8_matmul) and int4_matmul.cu (B12 w4_matmul);
 // B10's multi-row product (M > 16) is the INT8 tensor-core kernel of
-// imma.cuh, which shares this file's epilogue.
+// imma.cuh, which shares this file's epilogue, and B11's with bf16 x is
+// int8_matmul.cu's w8_wgmma_kernel.
 //
 //   out[M, N] = act(epilogue(x[M, K] @ W[K, N]) + bias[N])
 //
@@ -30,8 +31,10 @@
 // product that reads every weight byte once per call, so bytes bound it
 // (qkv of Llama-3-8B: 25 MB of INT8, 7.5 us at 3.35 TB/s). Prefill
 // (M = 256 and up) is bound by operations at the tensor cores' rates and
-// by the weight stream: kI8A8 takes imma.cuh's wgmma kernel there; the
-// float kinds still take the CUDA-core tiled_kernel below.
+// by the weight stream: kI8A8 takes imma.cuh's wgmma kernel there, kW8
+// with bf16 x int8_matmul.cu's w8_wgmma_kernel; kW4, and kW8 with f32 x
+// (the tensor cores have no exact f32 product), still take the
+// CUDA-core tiled_kernel below.
 //
 // Two kernels here: gemv_kernel for every kind, tiled_kernel for kW8 and
 // kW4.
@@ -54,8 +57,8 @@
 //
 // tiled_kernel (kW8 and kW4, any M, K, N): a plain shared-memory tiled
 // product, 64x64 outputs per block, k-tiles of 32, 4x4 outputs per
-// thread, f32 FMA, with every edge masked. Right and simple; B11's and
-// B12's tensor-core versions are later work.
+// thread, f32 FMA, with every edge masked. Right and simple; B12's
+// tensor-core version is later work.
 
 #pragma once
 

@@ -1,6 +1,7 @@
-"""INT8-weight matrix products: two hand-written CUDA kernels
-(``csrc/int8_matmul.cu``, on ``csrc/qmatmul.cuh``), one per Pallas
-kernel of the JAX package's ``ops/int8_matmul.py``:
+"""INT8-weight matrix products: hand-written CUDA kernels
+(``csrc/int8_matmul.cu``, on ``csrc/qmatmul.cuh``, ``csrc/imma.cuh`` and
+``csrc/widen_gemm.cuh``), one entry per Pallas kernel of the JAX
+package's ``ops/int8_matmul.py``:
 
 * :func:`int8_matmul` (B10) replaces ``int8_matmul`` (``_kernel``):
   ``act((xq @ wq) * x_scale * w_scale + bias)``, s8 x s8 summed in s32,
@@ -14,14 +15,18 @@ Both take any ``M >= 1``, ``K`` and ``N``: no padding to the TPU's
 blocks, so the block-size arguments of the JAX wrappers are gone. The
 wrapper runs the plain version for CPU tensors only; for CUDA tensors it
 launches the kernel or raises. The kernel and its launch shape are
-chosen here, by ``M`` alone: decode (``M <= 16``) takes a matrix-vector
-kernel with K split across blocks (:func:`plan`); larger ``M`` takes,
-for B10, the INT8 tensor-core kernel (``csrc/imma.cuh``: ``wgmma`` s8 x
-s8 -> s32 on weight tiles transposed on chip), with K split only where
-its output tiles fall short of the SMs (:func:`wgmma_plan`), and for B11
-a CUDA-core tiled kernel. B10's kernels read whole 16-byte rows, so
-:func:`int8_operands` zero-pads a ragged K and N (the padding adds zeros)
-and copies a view at an odd offset: the shapes never pick the kernel.
+chosen here: decode (``M <= 16``) takes a matrix-vector kernel with K
+split across blocks (:func:`plan`); larger ``M`` takes, for B10, the INT8
+tensor-core kernel (``csrc/imma.cuh``: ``wgmma`` s8 x s8 -> s32 on weight
+tiles transposed on chip), and for B11 with bf16 ``x`` the bf16
+tensor-core kernel (``w8_wgmma_kernel``: the INT8 weight widened to bf16
+in shared memory, ``wgmma`` with f32 sums), each with K split only where
+its output tiles fall short of the SMs (:func:`wgmma_plan`); B11 with f32
+``x`` past 16 rows takes a CUDA-core tiled kernel (:func:`w8_plan`). The
+tensor-core kernels read whole 16-byte rows, so :func:`int8_operands`
+and :func:`w8_operands` zero-pad a ragged K and N (the padding adds
+zeros) and copy a view at an odd offset: the shapes never pick the
+kernel.
 """
 
 from __future__ import annotations
@@ -32,14 +37,12 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.common import cdiv, round_up
-from ..utils.platform import (DTYPE_CODES, CudaKernel, I, P, aligned16, ptr,
-                              stream_handle)
+from ..utils.platform import (DTYPE_CODES, SMS, CudaKernel, I, P, aligned16,
+                              ptr, split_counters, stream_handle)
 from .common import activation_fn
 
 #: activation codes of csrc/qmatmul.cuh (``ops/common.py`` names)
 ACT_CODES = {None: 0, "relu": 1, "gelu": 2, "silu": 3, "swiglu": 3}
-#: streaming multiprocessors of the H100; decode grids aim at 2 blocks each
-SMS = 132
 #: rows up to which the matrix-vector kernel serves (4 rows per block)
 GEMV_MAX_M = 16
 #: columns of one matrix-vector block
@@ -47,6 +50,11 @@ GEMV_COLS = 128
 #: the tensor-core kernel's output columns a block and k-tile rows
 #: (csrc/imma.cuh); its row tiles are 64 rows where M <= 64, else 128
 WGMMA_COLS, WGMMA_K = 128, 128
+#: B11's tensor-core kernel's output columns a block and k-tile rows
+#: (``csrc/widen_gemm.cuh``); its row tiles are :func:`wgmma_rows`'
+W8_COLS, W8_K = 256, 64
+#: B11's kernels by route code (``pbt_w8_matmul``'s ``route``)
+W8_ROUTES = {"tiles": 0, "gemv": 1, "wgmma": 2}
 #: K splits the tensor-core planner weighs at most
 _MAX_SPLITS = 16
 #: K rows per exact f32 partial product in :func:`exact_int_matmul`:
@@ -59,11 +67,6 @@ INT8_MATMUL = CudaKernel(
 W8_MATMUL = CudaKernel(
     "w8_matmul", "int8_matmul.cu", "pbt_w8_matmul",
     [P] * 7 + [I] * 9 + [P], "ops/int8_matmul.py:82")
-
-#: split-K tile counters by (device, stream): launches on one stream run
-#: in order, so no two launches in flight share a counter
-_COUNTERS = {}
-
 
 def plan(M: int, K: int, N: int, gemv_ok: bool) -> Tuple[bool, int, int]:
     """``(gemv, splits, k_per_split)`` for a launch: the matrix-vector
@@ -83,21 +86,24 @@ def wgmma_rows(M: int) -> int:
     return 64 if M <= 64 else 128
 
 
-def wgmma_tiles(M: int, N: int) -> int:
-    return cdiv(M, wgmma_rows(M)) * cdiv(N, WGMMA_COLS)
+def wgmma_tiles(M: int, N: int, cols: int = WGMMA_COLS) -> int:
+    return cdiv(M, wgmma_rows(M)) * cdiv(N, cols)
 
 
-def wgmma_plan(M: int, K: int, N: int) -> Tuple[int, int]:
-    """``(splits, k_per_split)`` of the tensor-core kernel (B10 at M >
-    16, B15 under w8a8): one block per output tile over the whole of K
-    where the tiles fill the SMs; else K split into ranges of whole
-    k-tiles, as many as still fit the blocks in one wave (at most
-    ``_MAX_SPLITS``): past one wave a split adds a round of blocks and
-    its partial sums' traffic for no more parallel work."""
-    nk = cdiv(K, WGMMA_K)
-    want = max(1, min(SMS // wgmma_tiles(M, N), nk, _MAX_SPLITS))
+def wgmma_plan(M: int, K: int, N: int, cols: int = WGMMA_COLS,
+               k_tile: int = WGMMA_K) -> Tuple[int, int]:
+    """``(splits, k_per_split)`` of a tensor-core kernel with output
+    tiles of ``cols`` columns and k-tiles of ``k_tile`` (B10 at M > 16
+    and B15 under w8a8 with the defaults; B11 with :data:`W8_COLS` and
+    :data:`W8_K`): one block per output tile over the whole of K where
+    the tiles fill the SMs; else K split into ranges of whole k-tiles, as
+    many as still fit the blocks in one wave (at most ``_MAX_SPLITS``):
+    past one wave a split adds a round of blocks and its partial sums'
+    traffic for no more parallel work."""
+    nk = cdiv(K, k_tile)
+    want = max(1, min(SMS // wgmma_tiles(M, N, cols), nk, _MAX_SPLITS))
     per = cdiv(nk, want)
-    return cdiv(nk, per), per * WGMMA_K
+    return cdiv(nk, per), per * k_tile
 
 
 def int8_plan(M: int, K: int, N: int) -> Tuple[bool, int, int]:
@@ -107,6 +113,23 @@ def int8_plan(M: int, K: int, N: int) -> Tuple[bool, int, int]:
     if M <= GEMV_MAX_M:
         return plan(M, K, N, True)
     return (False,) + wgmma_plan(M, K, N)
+
+
+def w8_plan(M: int, K: int, N: int, x_dtype,
+            gemv_ok: bool = True) -> Tuple[str, int, int]:
+    """B11's ``(route, splits, k_per_split)``, by M and x's dtype, for
+    operands as :func:`w8_operands` leaves them on the tensor-core route:
+    ``"gemv"`` through 16 rows where the shapes allow it (:func:`plan`),
+    ``"wgmma"`` past 16 rows for bf16 x (K split by :func:`wgmma_plan`
+    over 256-column tiles and k-tiles of 64), and ``"tiles"`` (the
+    CUDA-core kernel, whole K) for the rest: f32 x past 16 rows (the
+    tensor cores have no exact f32 product) or a ragged N at decode."""
+    if M <= GEMV_MAX_M:
+        gemv, splits, kps = plan(M, K, N, gemv_ok)
+        return ("gemv" if gemv else "tiles"), splits, kps
+    if x_dtype == torch.bfloat16:
+        return ("wgmma",) + wgmma_plan(M, K, N, W8_COLS, W8_K)
+    return "tiles", 1, K
 
 
 def act_code(act: Optional[str]) -> int:
@@ -143,25 +166,13 @@ def bias_f32(bias: Optional[torch.Tensor], N: int):
     return bias.reshape(N).float().contiguous()
 
 
-def _counters(device, need: int) -> torch.Tensor:
-    """At least ``need`` split-K tile counters of the current stream
-    (zeroed once per device and stream; the kernels' last block of each
-    tile resets its counter)."""
-    key = (device, torch.cuda.current_stream(device).cuda_stream)
-    counters = _COUNTERS.get(key)
-    if counters is None or counters.numel() < need:
-        counters = _COUNTERS[key] = torch.zeros(
-            max(need, 4096), dtype=torch.int32, device=device)
-    return counters
-
-
 def scratch(device, M: int, N: int, splits: int, dtype):
     """The matrix-vector kernel's split-K workspace ``[splits, M, N]``
     (None for one split) and its tile counters."""
     if splits == 1:
         return None, None
     return (torch.empty((splits, M, N), dtype=dtype, device=device),
-            _counters(device, cdiv(N, GEMV_COLS) * cdiv(M, 4)))
+            split_counters(device, cdiv(N, GEMV_COLS) * cdiv(M, 4)))
 
 
 def wgmma_scratch(device, M: int, N: int, splits: int):
@@ -173,7 +184,19 @@ def wgmma_scratch(device, M: int, N: int, splits: int):
     tiles = wgmma_tiles(M, N)
     return (torch.empty((splits, tiles, wgmma_rows(M) * WGMMA_COLS),
                         dtype=torch.int32, device=device),
-            _counters(device, tiles))
+            split_counters(device, tiles))
+
+
+def w8_scratch(device, M: int, N: int, splits: int):
+    """B11's tensor-core split-K workspace (None for one split): an f32
+    slot of ``rows x 256`` per split and output tile, and the tiles'
+    counters."""
+    if splits == 1:
+        return None, None
+    tiles = wgmma_tiles(M, N, W8_COLS)
+    return (torch.empty((splits, tiles, wgmma_rows(M) * W8_COLS),
+                        dtype=torch.float32, device=device),
+            split_counters(device, tiles))
 
 
 def epilogue(y: torch.Tensor, bias, act, out_dtype,
@@ -261,6 +284,25 @@ def int8_operands(xq: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
     return aligned16(xq), aligned16(wq), w_scale, bias, N + dn
 
 
+def w8_operands(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
+                bias: Optional[torch.Tensor]):
+    """B11's operands as its tensor-core kernel reads them: K zero-padded
+    to a multiple of 8 in ``x [M, K]`` (bf16 rows of 16 bytes) and ``wq
+    [K, N]``, N to 16 in ``wq`` (INT8 rows of 16 bytes), ``w_scale [N]``
+    and ``bias [N]`` (f32, or None), ``x`` and ``wq`` 16-byte aligned.
+    Returns ``(x, wq, w_scale, bias, padded N)``; the columns past N are
+    the caller's to drop. Every preset's projections and vocabularies
+    need no copy."""
+    K, N = wq.shape
+    dk, dn = -K % 8, -N % 16
+    if dk:
+        x, wq = F.pad(x, (0, dk)), F.pad(wq, (0, 0, 0, dk))
+    if dn:
+        wq, w_scale = F.pad(wq, (0, dn)), F.pad(w_scale, (0, dn))
+        bias = None if bias is None else F.pad(bias, (0, dn))
+    return aligned16(x), aligned16(wq), w_scale, bias, N + dn
+
+
 def int8_matmul(xq: torch.Tensor, x_scale: torch.Tensor, wq: torch.Tensor,
                 w_scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
                 *, act: Optional[str] = None,
@@ -304,7 +346,10 @@ def w8_matmul(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
     """B11, weight-only INT8: ``act((x @ widen(wq)) * w_scale + bias)``.
 
     x ``[M, K]`` bf16/f32; wq ``[K, N]`` int8; w_scale ``[1, N]`` f32.
-    Returns ``[M, N]`` in ``out_dtype`` (bf16 or f32)."""
+    Returns ``[M, N]`` in ``out_dtype`` (bf16 or f32). The kernel by
+    :func:`w8_plan`: the matrix-vector kernel through 16 rows, the bf16
+    tensor-core kernel past them for bf16 x, the CUDA-core tiles for f32
+    x; one launch count for all three."""
     if x.dim() != 2:
         raise ValueError("x must be [M, K]")
     M, K = x.shape
@@ -317,11 +362,16 @@ def w8_matmul(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
     x, wq = x.contiguous(), wq.contiguous()
     ws = w_scale.reshape(N).float().contiguous()
     b = bias_f32(bias, N)
-    gemv, splits, kps = plan(M, K, N, N % 16 == 0
-                             and wq.data_ptr() % 16 == 0)
-    part, counters = scratch(x.device, M, N, splits, torch.float32)
-    out = torch.empty((M, N), dtype=out_dtype, device=x.device)
+    n_pad = N
+    if w8_plan(M, K, N, x.dtype)[0] == "wgmma":
+        x, wq, ws, b, n_pad = w8_operands(x, wq, ws, b)
+    route, splits, kps = w8_plan(M, x.shape[1], n_pad, x.dtype,
+                                 n_pad % 16 == 0 and wq.data_ptr() % 16 == 0)
+    part, counters = (w8_scratch(x.device, M, n_pad, splits)
+                      if route == "wgmma" else
+                      scratch(x.device, M, n_pad, splits, torch.float32))
+    out = torch.empty((M, n_pad), dtype=out_dtype, device=x.device)
     W8_MATMUL.launch(ptr(x), ptr(wq), ptr(ws), ptr(b), ptr(out), ptr(part),
-                     ptr(counters), M, K, N, splits, kps, int(gemv), *codes,
-                     stream_handle(x))
-    return out
+                     ptr(counters), M, x.shape[1], n_pad, splits, kps,
+                     W8_ROUTES[route], *codes, stream_handle(x))
+    return out if n_pad == N else out[:, :N].contiguous()

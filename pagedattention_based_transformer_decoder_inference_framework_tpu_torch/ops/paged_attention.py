@@ -16,7 +16,11 @@ B9, ``csrc/paged_decode.cu`` B6, B7 and B8:
   dims or pages.
 * :func:`paged_attention_decode` (B2) replaces ``paged_attention_decode``
   (``_decode_kernel``): T=1, mask ``key < seq_len`` (+ window),
-  ``dh % 128 == 0``.
+  ``dh % 128 == 0``. Split-KV in one launch: :func:`decode_split_plan`
+  splits each sequence's block table into runs of pages, a block per
+  (sequence, KV head, run) writes its partial softmax state, and the last
+  block of a (sequence, KV head) merges them in split order
+  (:func:`decode_split_emulation` is that computation in plain PyTorch).
 * :func:`paged_attention_decode_grouped` (B6) replaces
   ``paged_attention_decode_grouped`` (``_decode_grouped_kernel``): B2's
   function for any even head dim, split over the block table in groups
@@ -54,8 +58,9 @@ from typing import Optional
 import torch
 
 from ..kvcache.pool import stack_new_kv
-from ..utils.platform import (DTYPE_CODES, CudaKernel, F, I, LL, P,
-                              aligned16, ptr, stream_handle)
+from ..utils.common import cdiv
+from ..utils.platform import (DTYPE_CODES, SMS, CudaKernel, F, I, LL, P,
+                              aligned16, ptr, split_counters, stream_handle)
 from .kv_append import append_plain
 from .kv_append import _check as _check_append
 
@@ -71,7 +76,7 @@ ATTENTION_WGMMA = CudaKernel(
 ATTENTION_DECODE = CudaKernel(
     "paged_attention_decode", "paged_attention.cu",
     "pbt_paged_attention_decode",
-    _ATTN_ARGS + [I] * 8 + [LL, F, F, I, I, I, P],
+    _ATTN_ARGS + [P, P, P] + [I] * 8 + [LL, I, I, F, F, I, I, I, P],
     "ops/paged_attention.py:671")
 ATTENTION_DECODE_APPEND = CudaKernel(
     "paged_attention_decode_append", "paged_attention.cu",
@@ -100,6 +105,10 @@ ATTENTION_DECODE_BATCHED = CudaKernel(
 DECODE_SCALES_BUDGET = 2 << 20
 #: the JAX whole-batch kernel's VMEM budget for every page of the batch
 _BATCHED_DECODE_VMEM = 8 * 1024 * 1024
+#: most splits of B2's key range (``csrc/paged_attention.cu``'s
+#: ``kMaxSplits``: the merge keeps a weight per split and row in shared
+#: memory)
+DECODE_MAX_SPLITS = 64
 
 
 def _pooled(kv_pages, kv_scales, layer):
@@ -123,10 +132,13 @@ def _pooled(kv_pages, kv_scales, layer):
     return kv_pages, kv_scales, int(layer)
 
 
-def _attend_plain(q, pool, scales, layer, block_tables, seq_lens, q_pos,
-                  window, softcap, scale):
-    """Masked f32 softmax of ``q [B, T, H, D]`` (rows at absolute
-    positions ``q_pos [B, T]``) over the sequences' gathered pages."""
+def _fold(q, pool, scales, layer, block_tables, seq_lens, q_pos, window,
+          softcap, scale):
+    """The reference's fold up to the softmax, for ``q [B, T, H, D]``
+    (rows at absolute positions ``q_pos [B, T]``) over the sequences'
+    gathered pages: the masked f32 scores ``[B, KH, T, G, S]`` (-1e30
+    where not visible), the visibility ``[B, 1, T, 1, S]``, the gathered
+    values ``[KH, B, S, D]`` and the V scales (or None)."""
     B, T, H, D = q.shape
     KH, page = pool.shape[2], pool.shape[4]
     G = H // KH
@@ -136,12 +148,14 @@ def _attend_plain(q, pool, scales, layer, block_tables, seq_lens, q_pos,
     k, v = g[0], g[1]                                     # [KH, B, S, D]
     qf = q.float().reshape(B, T, KH, G, D) * scale
     s = torch.einsum("btkgd,kbsd->bktgs", qf, k)          # [B, KH, T, G, S]
+    vscale = None
     if scales is not None:
         slots = (bt[:, :, None] * page
                  + torch.arange(page, device=q.device)).reshape(B, -1)
         sc = scales[layer].reshape(2, KH, -1)[:, :, slots]   # [2, KH, B, S]
         sc = sc.permute(0, 2, 1, 3)[:, :, :, None, None, :]  # [2, B, KH,..]
         s = s * sc[0]
+        vscale = sc[1]
     if softcap > 0:
         s = softcap * torch.tanh(s / softcap)
     key = torch.arange(mp * page, device=q.device)
@@ -150,11 +164,21 @@ def _attend_plain(q, pool, scales, layer, block_tables, seq_lens, q_pos,
         vis &= key > q_pos[:, :, None] - window
     vis = vis[:, None, :, None, :]                        # [B, 1, T, 1, S]
     s = torch.where(vis, s, torch.full_like(s, -1e30))
+    return s, vis, v, vscale
+
+
+def _attend_plain(q, pool, scales, layer, block_tables, seq_lens, q_pos,
+                  window, softcap, scale):
+    """Masked f32 softmax of ``q [B, T, H, D]`` (rows at absolute
+    positions ``q_pos [B, T]``) over the sequences' gathered pages."""
+    B, T, H, D = q.shape
+    s, vis, v, vscale = _fold(q, pool, scales, layer, block_tables,
+                              seq_lens, q_pos, window, softcap, scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(vis, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(dim=-1, keepdim=True)
-    if scales is not None:
-        p = p * sc[1]
+    if vscale is not None:
+        p = p * vscale
     out = torch.einsum("bktgs,kbsd->bktgd", p, v)
     out = out / torch.where(l == 0, torch.ones_like(l), l)
     return out.permute(0, 2, 1, 3, 4).reshape(B, T, H, D).to(q.dtype)
@@ -302,6 +326,71 @@ def paged_attention_decode_plain(q, kv_pages, block_tables, seq_lens,
                          q_pos, window, softcap, scale)
 
 
+def decode_split_plan(batch: int, kv_heads: int, mp: int):
+    """B2's ``(splits, pages_per_split)`` for ``batch`` sequences of
+    ``kv_heads`` KV heads over a block table ``mp`` pages wide, from the
+    shapes alone (the lengths stay on the device): as many splits as
+    bring the grid to about two waves of the SMs (``2 * SMS`` blocks), at
+    most one a page and :data:`DECODE_MAX_SPLITS`, each a run of whole
+    pages (the last may be shorter)."""
+    want = max(1, min(mp, cdiv(2 * SMS, batch * kv_heads),
+                      DECODE_MAX_SPLITS))
+    pps = max(1, cdiv(mp, want))
+    return max(1, cdiv(mp, pps)), pps
+
+
+def decode_split_emulation(q, kv_pages, block_tables, seq_lens,
+                           kv_scales=None, layer=None, *, page_size: int,
+                           num_q_heads: int, window: int = 0,
+                           softcap: float = 0.0,
+                           scale: Optional[float] = None,
+                           pages_per_split: Optional[int] = None,
+                           order=None):
+    """B2's split-KV computation in plain PyTorch (f32), for tests and
+    checks: each run of ``pages_per_split`` pages of the block table
+    (:func:`decode_split_plan`'s by default) folds its keys into a
+    partial ``(m, l, acc)`` (a run with no visible key gives ``m =
+    -1e30, l = 0, acc = 0``), and the partials merge in ``order`` (split
+    order by default): ``M = max m``, ``w = e^(m - M)``, ``out = sum acc
+    w / sum l w`` with the ``l == 0 -> 1`` guard. Same inputs and output
+    as :func:`paged_attention_decode_plain`, which it equals up to the
+    order of the sums."""
+    pool, scales, layer = _pooled(kv_pages, kv_scales, layer)
+    _check(q, pool, block_tables, seq_lens, num_q_heads, page_size)
+    B, T, H, D = q.shape
+    if T != 1:
+        raise ValueError("decode attention takes T=1")
+    mp = block_tables.shape[1]
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    pps = (decode_split_plan(B, pool.shape[2], mp)[1]
+           if pages_per_split is None else pages_per_split)
+    s, vis, v, vscale = _fold(q, pool, scales, layer, block_tables,
+                              seq_lens, seq_lens.long()[:, None] - 1, window,
+                              softcap, scale)
+    parts = []
+    for lo in range(0, mp * page_size, pps * page_size):
+        hi = min(lo + pps * page_size, mp * page_size)
+        ss, vv = s[..., lo:hi], vis[..., lo:hi]
+        m = ss.amax(dim=-1, keepdim=True)
+        p = torch.where(vv, torch.exp(ss - m), torch.zeros_like(ss))
+        l = p.sum(dim=-1, keepdim=True)
+        if vscale is not None:
+            p = p * vscale[..., lo:hi]
+        parts.append((m, l, torch.einsum("bktgs,kbsd->bktgd", p,
+                                         v[:, :, lo:hi])))
+    order = range(len(parts)) if order is None else order
+    mx = torch.stack([parts[i][0] for i in order]).amax(dim=0)
+    acc = torch.zeros_like(parts[0][2])
+    lsum = torch.zeros_like(parts[0][1])
+    for i in order:
+        m, l, a = parts[i]
+        w = torch.exp(m - mx)
+        acc = acc + a * w
+        lsum = lsum + l * w
+    out = acc / torch.where(lsum == 0, torch.ones_like(lsum), lsum)
+    return out.permute(0, 2, 1, 3, 4).reshape(B, T, H, D).to(q.dtype)
+
+
 def _decode_inputs(q, kv_pages, block_tables, seq_lens, kv_scales, layer,
                    page_size, num_q_heads, row_multiple=4):
     """The checks every decode kernel needs (T=1, at most 8 query heads
@@ -327,9 +416,12 @@ def paged_attention_decode(q: torch.Tensor, kv_pages: torch.Tensor,
                            num_q_heads: int, window: int = 0,
                            softcap: float = 0.0,
                            scale: Optional[float] = None) -> torch.Tensor:
-    """B2: T=1 decode attention (q ``[B, 1, H, dh]``, ``dh % 128 == 0``
-    as in the JAX package; at most 8 query heads per KV head). Mask
-    ``key < seq_len`` (+ window). Returns ``[B, 1, H, dh]``."""
+    """B2: T=1 decode attention (q ``[B, 1, H, dh]``, ``dh`` 128 or 256
+    (``dh % 128 == 0`` as in the JAX package); at most 8 query heads per
+    KV head). Mask ``key < seq_len`` (+ window). Returns ``[B, 1, H,
+    dh]``. One launch: the key range split by :func:`decode_split_plan`,
+    the splits merged in split order by the last block of each
+    (sequence, KV head)."""
     if q.shape[3] % 128:
         raise ValueError(
             "paged_attention_decode (B2) takes dh % 128 == 0; a sub-128 "
@@ -343,14 +435,25 @@ def paged_attention_decode(q: torch.Tensor, kv_pages: torch.Tensor,
     pool, scales, layer, qd, kd, sstride, q, bt, sl = _decode_inputs(
         q, kv_pages, block_tables, seq_lens, kv_scales, layer, page_size,
         num_q_heads)
+    pool, scales = aligned16(pool), aligned16(scales)
     B, _, H, D = q.shape
+    KH, mp = pool.shape[2], bt.shape[1]
+    G = H // KH
+    splits, pps = decode_split_plan(B, KH, mp)
+    part_acc = part_ml = counters = None
+    if splits > 1:
+        part_acc = torch.empty((B * KH, splits, G, D), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((B * KH, splits, G, 2), dtype=torch.float32,
+                              device=q.device)
+        counters = split_counters(q.device, B * KH)
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     out = torch.empty_like(q)
     ATTENTION_DECODE.launch(
         ptr(q), ptr(out), ptr(pool), ptr(scales), ptr(bt), ptr(sl),
-        B, H, pool.shape[2], D, pool.shape[3], page_size, bt.shape[1],
-        layer, sstride, float(scale), float(softcap), int(window), qd, kd,
-        stream_handle(q))
+        ptr(part_acc), ptr(part_ml), ptr(counters), B, H, KH, D,
+        pool.shape[3], page_size, mp, layer, sstride, splits, pps,
+        float(scale), float(softcap), int(window), qd, kd, stream_handle(q))
     return out
 
 

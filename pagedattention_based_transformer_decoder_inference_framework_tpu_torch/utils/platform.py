@@ -156,6 +156,28 @@ def reset_launch_counts() -> None:
         k.launches = 0
 
 
+#: streaming multiprocessors of the H100, which the kernels' grids are
+#: planned for
+SMS = 132
+
+#: split-K and split-KV counters by (device, stream), shared by every
+#: kernel whose last block of a tile combines the splits: launches on one
+#: stream run in order, so no two launches in flight share a counter
+_COUNTERS: Dict[tuple, torch.Tensor] = {}
+
+
+def split_counters(device, need: int) -> torch.Tensor:
+    """At least ``need`` zeroed int32 counters of the current stream on
+    ``device`` (zeroed once per device and stream; the kernels' last block
+    of each tile resets its counter to 0)."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    counters = _COUNTERS.get(key)
+    if counters is None or counters.numel() < need:
+        counters = _COUNTERS[key] = torch.zeros(
+            max(need, 4096), dtype=torch.int32, device=device)
+    return counters
+
+
 def stream_handle(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s device, as a C pointer."""
     return torch.cuda.current_stream(t.device).cuda_stream

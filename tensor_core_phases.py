@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Where the tensor-core kernels' time goes (B13, B1, B10/B15), on one
-NVIDIA H100.
+"""Where the tensor-core kernels' time goes (B13, B1, B10/B15, B11), on
+one NVIDIA H100.
 
-    python3 tensor_core_phases.py [SOURCE ...]
+    python3 tensor_core_phases.py [NAME ...]
 
-Builds copies of ``csrc/gmm.cu``, ``csrc/paged_prefill.cu`` and the INT8
+Builds copies of ``csrc/gmm.cu``, ``csrc/paged_prefill.cu``, the INT8
 kernel of ``csrc/imma.cuh`` (in ``int8_matmul.cu`` and
-``chain_linear.cu``) with parts cut out (their outputs are then garbage)
-and times each by CUPTI device time beside the kernel as it is (the
-sources named on the command line, by default all four):
+``chain_linear.cu``) and B11's kernel in ``csrc/int8_matmul.cu`` (on
+``csrc/widen_gemm.cuh``, the mainloop it shares with B13) with parts cut
+out (their outputs are then garbage) and times each by CUPTI device time
+beside the kernel as it is (the names on the command line, by default
+all five: ``gmm.cu``, ``paged_prefill.cu``, ``int8_matmul.cu``,
+``chain_linear.cu``, ``w8_matmul``):
 
 * B13 ``grouped_matmul`` at Mixtral-8x7B's prefill (``chip_smoke``'s
   routing of 1024 tokens to 2 of 8 experts, Npad 4096, with the
@@ -31,6 +34,12 @@ sources named on the command line, by default all four):
   the products read stale shared memory); ``no_mma`` (no wgmma);
   ``no_transpose_no_mma`` (what is left: the TMA loads, the barriers,
   the split-K reduction and the epilogue).
+* B11 ``w8_matmul`` (tensor-core route, bf16 x) at Llama-3-8B's four
+  projections at M=256, summed, and its LM head at M=256 and M=36:
+  ``full``; ``no_widen`` (as B13's); ``no_mma`` (no wgmma);
+  ``no_widen_no_mma`` (what is left: the TMA loads, the barriers, the
+  split-K merge and the epilogue); ``no_store`` (the epilogue computes
+  but writes nothing).
 
 A tool for the kernels' next tuning; it changes nothing in the package:
 the copies are written and built under the package's git-ignored
@@ -60,6 +69,10 @@ from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.quan
 from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.utils import platform as plat  # noqa: E402
 
 GMM_WIDEN = "  for (int u = ct; u < UNITS; u += 128 * NC) {"
+W8_STORE = "    imma::store4<OT>(a.out,\n"
+WIDE_MMA = ("      hop::mma_ss_n256<1>(acc, hop::desc(xs + kk * 32, 16, 1024),\n"
+            "                          hop::desc(wb + kk * 2048, kWK * 128, "
+            "1024), 1);")
 GMM_STORE = ("      *reinterpret_cast<uint32_t*>(\n"
              "          a.out + static_cast<long long>(m0 + r) * N + n) =\n")
 B1_CONVERT = "        for (int j = ci / pr; j < nk; j += step) {"
@@ -82,11 +95,15 @@ def sub(text: str, old: str, new: str) -> str:
 
 
 def variants():
-    """``{source: {label: {file name: text}}}``: each variant's source and,
-    for the INT8 kernel, its cut copy of ``imma.cuh``."""
+    """``{name: {label: {file name: text}}}``: each variant's source and
+    any cut header beside it (``imma.cuh`` for the INT8 kernel,
+    ``widen_gemm.cuh`` for the widening of B13 and B11)."""
     g = (plat.CSRC / "gmm.cu").read_text()
     p = (plat.CSRC / "paged_prefill.cu").read_text()
     h = (plat.CSRC / "imma.cuh").read_text()
+    w8 = (plat.CSRC / "int8_matmul.cu").read_text()
+    wg = (plat.CSRC / "widen_gemm.cuh").read_text()
+    no_widen = sub(wg, GMM_WIDEN, GMM_WIDEN.replace("u < UNITS", "u < 0"))
     no_convert = sub(p, B1_CONVERT, B1_CONVERT.replace("j < nk", "j < 0"))
     no_mma = sub(sub(p, B1_S, ""), B1_PV, "")
     no_transpose = sub(h, IMMA_TRANSPOSE,
@@ -96,23 +113,32 @@ def variants():
             "no_transpose_no_mma": sub(no_transpose, IMMA_MMA, "      ;")}
     out = {
         "gmm.cu": {
-            "full": g,
-            "no_widen": sub(g, GMM_WIDEN, GMM_WIDEN.replace("u < UNITS",
-                                                            "u < 0")),
-            "no_store": sub(g, GMM_STORE, "      if (v0 == 12345.f)\n"
-                            + GMM_STORE),
+            "full": {"gmm.cu": g},
+            "no_widen": {"gmm.cu": g, "widen_gemm.cuh": no_widen},
+            "no_store": {"gmm.cu": sub(g, GMM_STORE, "      if (v0 == 12345.f)\n"
+                                       + GMM_STORE)},
         },
         "paged_prefill.cu": {
-            "full": p,
-            "no_convert": no_convert,
-            "no_fold": sub(p, B1_FOLD, B1_FOLD
-                           + "    alpha[0] = alpha[1] = 1.f;\n    return;\n"),
-            "no_mma": no_mma,
-            "no_convert_no_mma": sub(no_mma, B1_CONVERT,
-                                     B1_CONVERT.replace("j < nk", "j < 0")),
+            label: {"paged_prefill.cu": text} for label, text in {
+                "full": p,
+                "no_convert": no_convert,
+                "no_fold": sub(p, B1_FOLD, B1_FOLD + "    alpha[0] = "
+                               "alpha[1] = 1.f;\n    return;\n"),
+                "no_mma": no_mma,
+                "no_convert_no_mma": sub(no_mma, B1_CONVERT,
+                                         B1_CONVERT.replace("j < nk",
+                                                            "j < 0")),
+            }.items()},
+        "w8_matmul": {
+            "full": {"int8_matmul.cu": w8},
+            "no_widen": {"int8_matmul.cu": w8, "widen_gemm.cuh": no_widen},
+            "no_mma": {"int8_matmul.cu": w8,
+                       "widen_gemm.cuh": sub(wg, WIDE_MMA, "      ;")},
+            "no_widen_no_mma": {"int8_matmul.cu": w8, "widen_gemm.cuh": sub(
+                no_widen, WIDE_MMA, "      ;")},
+            "no_store": {"int8_matmul.cu": sub(
+                w8, W8_STORE, "    if (y[0] == 12345.f)\n" + W8_STORE)},
         }}
-    out = {src: {label: {src: text} for label, text in vs.items()}
-           for src, vs in out.items()}
     for src in ("int8_matmul.cu", "chain_linear.cu"):
         text = (plat.CSRC / src).read_text()
         out[src] = {label: {src: text, "imma.cuh": hdr}
@@ -173,6 +199,26 @@ def b10_cases(dev):
     return b10
 
 
+def b11_cases(dev):
+    """B11 (bf16 x) at Llama-3-8B's four projections at M=256 (a call runs
+    all four) and at its LM head at M=256 and M=36."""
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 10)
+    cases, calls = {}, []
+    for name, K, N in smoke.PROJECTIONS + [smoke.LM_HEAD]:
+        w = qt.quantize_per_channel(torch.randn(
+            (K, N), generator=gen, device=dev) * 0.02)
+        for M in ((256, 36) if name == "lm-head" else (256,)):
+            x = torch.randn((M, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            call = (lambda x=x, w=w: i8.w8_matmul(x, w.values, w.scales))
+            if name == "lm-head":
+                cases[f"head M={M}"] = call
+            else:
+                calls.append(call)
+    cases["layer M=256"] = lambda: [c() for c in calls]
+    return cases
+
+
 def b15_cases(dev):
     """B15 at a w8a8 Llama-3-8B chain's four calls at M=256."""
     gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 9)
@@ -187,58 +233,60 @@ def b15_cases(dev):
                                     for r, K in runs]}
 
 
-#: each source's wrapper kernel, cases and profiler name
-KERNELS = {"gmm.cu": (gmm.GROUPED_MATMUL, gmm_cases, "gmm::"),
-           "paged_prefill.cu": (pa.ATTENTION_WGMMA, b1_cases,
-                                "attention_wgmma_kernel<"),
-           "int8_matmul.cu": (i8.INT8_MATMUL, b10_cases,
+#: each name's source, wrapper kernel, cases and profiler name
+KERNELS = {"gmm.cu": ("gmm.cu", gmm.GROUPED_MATMUL, gmm_cases, "gmm::"),
+           "paged_prefill.cu": ("paged_prefill.cu", pa.ATTENTION_WGMMA,
+                                b1_cases, "attention_wgmma_kernel<"),
+           "int8_matmul.cu": ("int8_matmul.cu", i8.INT8_MATMUL, b10_cases,
                               "imma::wgmma_s8_kernel<0,"),
-           "chain_linear.cu": (cl.PACKED_LINEAR, b15_cases,
-                               "imma::wgmma_s8_kernel<1,")}
+           "chain_linear.cu": ("chain_linear.cu", cl.PACKED_LINEAR,
+                               b15_cases, "imma::wgmma_s8_kernel<1,"),
+           "w8_matmul": ("int8_matmul.cu", i8.W8_MATMUL, b11_cases,
+                         "w8::w8_wgmma_kernel<")}
 
 
-def build_variants(sources):
+def build_variants(names):
     """Writes every variant under ``_build/phases/`` (a directory each)
     and compiles them all in parallel (one ``nvcc`` each, as
-    ``build_kernels`` does). Returns ``{source: {label: library
-    path}}``."""
+    ``build_kernels`` does). Returns ``{name: {label: library path}}``."""
     out_dir = plat.BUILD_DIR / "phases"
     out_dir.mkdir(parents=True, exist_ok=True)
     libs, procs = {}, []
-    for source, versions in variants().items():
-        if source not in sources:
+    for name, versions in variants().items():
+        if name not in names:
             continue
+        source = KERNELS[name][0]
         for label, files in versions.items():
-            where = out_dir / f"{label}_{source.split('.')[0]}"
+            where = out_dir / f"{label}_{name.split('.')[0]}"
             where.mkdir(exist_ok=True)
-            for name, text in files.items():
-                (where / name).write_text(text)
+            for fname, text in files.items():
+                (where / fname).write_text(text)
             src = where / source
             lib = src.with_suffix(".so")
-            libs.setdefault(source, {})[label] = lib
+            libs.setdefault(name, {})[label] = lib
             procs.append((str(src), subprocess.Popen(
                 [plat.nvcc_path(), *plat.NVCC_FLAGS, "-I", str(plat.CSRC),
                  "-o", str(lib), str(src)], stdout=subprocess.PIPE,
                 stderr=subprocess.STDOUT, text=True)))
-    for name, proc in procs:
+    for src, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            raise SystemExit(f"nvcc {name} failed:\n{log}")
+            raise SystemExit(f"nvcc {src} failed:\n{log}")
     return libs
 
 
-def main(sources) -> int:
+def main(names) -> int:
     if not torch.cuda.is_available():
         print("FAILED: no CUDA device", file=sys.stderr)
         return 1
-    unknown = set(sources) - set(KERNELS)
+    unknown = set(names) - set(KERNELS)
     if unknown:
-        print(f"FAILED: no cuts of {sorted(unknown)} (sources: "
+        print(f"FAILED: no cuts of {sorted(unknown)} (names: "
               f"{sorted(KERNELS)})", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    for source, libs in build_variants(sources or list(KERNELS)).items():
-        kernel, cases_of, match = KERNELS[source]
+    for name, libs in build_variants(names or list(KERNELS)).items():
+        _, kernel, cases_of, match = KERNELS[name]
         cases = cases_of(dev)
         try:
             for label, lib in libs.items():

@@ -16,9 +16,11 @@ of outputs of magnitude ~1); appends are bit-exact, B9's pool too. B10
 is bit-exact (exact s32 sums, the same epilogue), on the matrix-vector
 kernel (M <= 16) and on the INT8 tensor-core kernel (M > 16; every split
 count the planner chooses, ragged K and N the wrapper zero-pads);
-B11/B12 sum f32 in another order: f32 outputs within 1e-5 of
+B11/B12 sum f32 in another order (B11 past 16 rows with bf16 x on the
+tensor cores, their accumulation order): f32 outputs within 1e-5 of
 max|output|, bf16 outputs within one bf16 step or that (where
-cancellation leaves an output tiny). B14 against its
+cancellation leaves an output tiny). B2 (split-KV) sums its splits'
+partials in a fixed order: the same bits from run to run. B14 against its
 plain version, relative to max|output|: 1e-4 with f32 activations (f32
 sums in another order, through two norms); 2e-2 with bf16 activations
 (h and the activation are rounded to bf16 between the ops, so a sum in
@@ -549,6 +551,175 @@ def test_cuda_wgmma_split_k_on_two_streams(cuda):
     torch.cuda.synchronize()
     for o, ref in zip(outs, refs):
         assert all(torch.equal(y, ref) for y in o)
+
+
+# B11 past the matrix-vector rows: (K, N) aligned, ragged in both (K % 8
+# and N % 16: the wrapper zero-pads), a width under one tile, and
+# Llama-3-8B's qkv
+W8_WGMMA_KN = [(256, 384), (1000, 1000), (70, 36), (4096, 6144)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("act", [None, "relu", "gelu", "silu"])
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", [17, 36, 64, 65, 256, 1024])
+def test_cuda_w8_matmul_past_16_rows_matches_plain(cuda, M, x_dtype, act,
+                                                   bias):
+    """B11 past 16 rows: bf16 x on the tensor-core kernel (64- and
+    128-row tiles, K split or whole), f32 x on the CUDA-core tiles; both
+    output dtypes; one launch a call."""
+    for K, N in W8_WGMMA_KN:
+        x, w, b = matmul_inputs(M, K, N, cuda, seed=6)
+        wq = qt.quantize_per_channel(w)
+        x = x.to(x_dtype)
+        assert i8.w8_plan(M, K, N, x_dtype)[0] == (
+            "wgmma" if x_dtype == torch.bfloat16 else "tiles")
+        for out_dtype in (torch.float32, torch.bfloat16):
+            args = (x, wq.values, wq.scales, b if bias else None)
+            i8.W8_MATMUL.launches = 0
+            out = i8.w8_matmul(*args, act=act, out_dtype=out_dtype)
+            assert i8.W8_MATMUL.launches == 1
+            ref = i8.w8_matmul_plain(*args, act=act, out_dtype=out_dtype)
+            assert within(out, ref, out_dtype), (K, N, out_dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", range(1, 17))
+def test_cuda_w8_matmul_every_split(cuda, splits):
+    """Every split count of B11's tensor-core plan, with one and two row
+    tiles and a ragged N; the splits merge in a fixed order, so two runs
+    give the same bits."""
+    for M, K, N in ((17, 64 * splits, 16), (200, 64 * splits - 24, 40)):
+        assert i8.w8_plan(M, K, N, torch.bfloat16)[1] == splits
+        x, w, b = matmul_inputs(M, K, N, cuda, seed=splits)
+        wq = qt.quantize_per_channel(w)
+        args = (x.to(torch.bfloat16), wq.values, wq.scales, b)
+        out = i8.w8_matmul(*args, act="silu")
+        assert torch.equal(out, i8.w8_matmul(*args, act="silu"))
+        assert within(out, i8.w8_matmul_plain(*args, act="silu"),
+                      torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_cuda_w8_wgmma_split_k_on_two_streams(cuda):
+    """B11's split-K launches in flight on two streams keep separate tile
+    counters."""
+    x, w, _ = matmul_inputs(36, 4096, 1024, cuda, seed=7)
+    wq = qt.quantize_per_channel(w)
+    assert i8.w8_plan(36, 4096, 1024, torch.bfloat16)[1] > 1
+    xs = [a.to(torch.bfloat16) for a in (x, x.flip(0))]
+    refs = [i8.w8_matmul(a, wq.values, wq.scales) for a in xs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for s, a, o in zip(streams, xs, outs):
+            with torch.cuda.stream(s):
+                o.append(i8.w8_matmul(a, wq.values, wq.scales))
+    torch.cuda.synchronize()
+    for o, ref in zip(outs, refs):
+        assert all(torch.equal(y, ref) for y in o)
+
+
+def decode_pool(rng, KH, dh, page, n_pages, pool_dtype, device):
+    """A random one-layer-pair pool ``[L, 2, KH, n_pages, page, dh]`` (+
+    flat INT8 scales) on ``device``."""
+    shape = (L, 2, KH, n_pages, page, dh)
+    if pool_dtype == "int8":
+        vals = torch.from_numpy(rng.integers(-127, 128, size=shape).astype(
+            np.int8))
+        sc = torch.from_numpy((rng.random(
+            (L, 2, KH, -(-n_pages * page // 128), 128)) * 0.02
+            + 0.005).astype(np.float32))
+        return vals.to(device), sc.to(device)
+    vals = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    dt = torch.bfloat16 if pool_dtype == "bfloat16" else torch.float32
+    return vals.to(device, dt), None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (10, 20.0)])
+@pytest.mark.parametrize("G", [1, 4, 8])
+@pytest.mark.parametrize("dh", [128, 256])
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pool_dtype", ["int8", "bfloat16", "float32"])
+def test_cuda_paged_attention_decode_matches_plain(cuda, pool_dtype, q_dtype,
+                                                   dh, G, window, softcap):
+    """B2 (split-KV) against its plain version over a 40-page table of
+    8-key pages split 20 ways: a frozen lane (seq_len 0: zeros), seq_len
+    1, a window whose first key lies inside a page (the splits before it
+    empty), a lane mid-page and the table's last slot. One launch a call,
+    the same bits from run to run."""
+    rng = np.random.default_rng(12)
+    B, KH, Pn, mp = 5, 2, 208, 40
+    H = KH * G
+    assert pa.decode_split_plan(B, KH, mp) == (20, 2)
+    vals, sc = decode_pool(rng, KH, dh, PAGE, Pn, pool_dtype, cuda)
+    bt = torch.from_numpy((rng.permutation(Pn - 1)[:B * mp] + 1).reshape(
+        B, mp).astype(np.int32)).to(cuda)
+    sl = torch.tensor([0, 1, 30, mp * PAGE, 250], device=cuda)
+    q = torch.from_numpy(rng.normal(size=(B, 1, H, dh)).astype(
+        np.float32)).to(cuda, q_dtype)
+    kw = dict(page_size=PAGE, num_q_heads=H, window=window, softcap=softcap)
+    tol = 1e-4 if q_dtype == torch.float32 else 2e-2
+    pa.ATTENTION_DECODE.launches = 0
+    out = pa.paged_attention_decode(q, vals, bt, sl, sc, LAYER, **kw)
+    assert pa.ATTENTION_DECODE.launches == 1
+    ref = pa.paged_attention_decode_plain(q, vals, bt, sl, sc, LAYER, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    assert not out[0].any()                          # the frozen lane
+    assert torch.equal(out, pa.paged_attention_decode(q, vals, bt, sl, sc,
+                                                      LAYER, **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_paged_attention_decode_one_split(cuda):
+    """A batch whose blocks fill two waves alone runs B2 unsplit (the
+    block writes its output, no workspace)."""
+    rng = np.random.default_rng(13)
+    B, KH, G, Pn, mp = 40, 8, 4, 130, 3
+    assert pa.decode_split_plan(B, KH, mp) == (1, 3)
+    vals, sc = decode_pool(rng, KH, 128, PAGE, Pn, "int8", cuda)
+    bt = torch.from_numpy((rng.permutation(Pn - 1)[:B * mp] + 1).reshape(
+        B, mp).astype(np.int32)).to(cuda)
+    sl = torch.from_numpy(rng.integers(1, mp * PAGE + 1, size=B).astype(
+        np.int32)).to(cuda)
+    q = torch.randn((B, 1, KH * G, 128), device=cuda).to(torch.bfloat16)
+    kw = dict(page_size=PAGE, num_q_heads=KH * G)
+    out = pa.paged_attention_decode(q, vals, bt, sl, sc, LAYER, **kw)
+    ref = pa.paged_attention_decode_plain(q, vals, bt, sl, sc, LAYER, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_attention_decode_512_pages(cuda, q_dtype):
+    """B2 where a 32k-token INT8 table is its route (512 pages of 64 at 8
+    KV heads, the scales budget): one sequence of 32,700 keys, and four
+    ragged sequences of 1 to 512 pages."""
+    KH, G, dh, page, mp = 8, 4, 128, 64, 512
+    assert pa.decode_route(mp, KH, page, dh, True) == "paged_attention_decode"
+    rng = np.random.default_rng(14)
+    tol = 1e-4 if q_dtype == torch.float32 else 2e-2
+    for lens in ([32700], [1, 64 * 7 + 3, 64 * 200, 64 * 512]):
+        B = len(lens)
+        Pn = B * mp + 1
+        vals, sc = decode_pool(rng, KH, dh, page, Pn, "int8", cuda)
+        bt = torch.from_numpy((rng.permutation(Pn - 1) + 1).reshape(
+            B, mp).astype(np.int32)).to(cuda)
+        sl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        q = torch.randn((B, 1, KH * G, dh), device=cuda).to(q_dtype)
+        kw = dict(page_size=page, num_q_heads=KH * G)
+        pa.ATTENTION_DECODE.launches = 0
+        out = pa.paged_attention_decode(q, vals, bt, sl, sc, LAYER, **kw)
+        assert pa.ATTENTION_DECODE.launches == 1
+        ref = pa.paged_attention_decode_plain(q, vals, bt, sl, sc, LAYER,
+                                              **kw)
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=0)
+        del vals, sc, ref
+        torch.cuda.empty_cache()
 
 
 # B14/B15: (D, I, N3, act, norm, bk, bn): Llama-shaped with bk != bn, an

@@ -403,3 +403,81 @@ def test_package_data_covers_every_include():
             if line.startswith('#include "'):
                 name = line.split('"')[1]
                 assert platform.CSRC / name in shipped, (src, name)
+
+
+@pytest.mark.parametrize("B,KH,mp,expect", [
+    (4, 8, 5, (5, 1)),        # the slice: a split a page, 160 blocks
+    (4, 8, 4, (4, 1)),        # path (b)'s table width
+    (4, 8, 7, (7, 1)),        # path (k)'s decode (4 x 320 tokens)
+    (1, 8, 512, (32, 16)),    # a 32k-token table at batch 1: 256 blocks
+    (4, 8, 512, (9, 57)),     # four ragged sequences of up to 512 pages
+    (1, 8, 1, (1, 1)),
+    (64, 8, 16, (1, 16)),     # the batch alone fills two waves
+    (1, 1, 512, (64, 8))])    # at most 64 splits
+def test_decode_split_plan(B, KH, mp, expect):
+    assert pa.decode_split_plan(B, KH, mp) == expect
+
+
+@pytest.mark.parametrize("B,KH", [(1, 8), (4, 8), (8, 4), (1, 32), (3, 2)])
+def test_decode_split_plan_over_table_widths(B, KH):
+    """B2's splits from B, KH and the table width alone, for every width
+    from 1 page to 512: whole runs of pages covering the table (none
+    empty by construction), at most 64, and a grid of one to two waves
+    of blocks where the table is wide enough."""
+    for mp in range(1, 513):
+        splits, pps = pa.decode_split_plan(B, KH, mp)
+        assert 1 <= splits <= pa.DECODE_MAX_SPLITS and pps >= 1
+        assert splits * pps >= mp > (splits - 1) * pps
+        want = min(mp, -(-2 * platform.SMS // (B * KH)),
+                   pa.DECODE_MAX_SPLITS)
+        assert splits >= -(-want // 2)
+        assert B * KH * splits <= 2 * platform.SMS + B * KH
+
+
+# (G, window, softcap, seq_lens) at B=3 over a 6-page table of 8-key
+# pages: with a window of 10 the longer sequences' first visible key is
+# 20 or 38, so their early splits hold no visible key
+SPLIT_CASES = {
+    "window_softcap": (4, 10, 20.0, [1, 30, MP * PAGE]),
+    "gqa": (4, 0, 0.0, [1, 17, MP * PAGE]),
+    "mha": (1, 0, 0.0, [9, 40, 44]),
+}
+
+
+@pytest.mark.parametrize("pps", [1, 2, 4])
+@pytest.mark.parametrize("pool_dtype", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_split_decode_emulation_matches_plain_and_jax(case, pool_dtype, pps):
+    """B2's split-then-merge, emulated in plain PyTorch
+    (``decode_split_emulation``), against its plain version and the JAX
+    ``paged_attention_decode`` in interpret mode (f32 1e-5: the same
+    terms summed in another order), merged in split order and in reverse
+    (the tolerance admits the order); splits wholly before the window
+    weigh nothing."""
+    G, window, softcap, lens = SPLIT_CASES[case]
+    KH, dh = 2, 128
+    H = KH * G
+    rng = np.random.default_rng(11)
+    (jvals, jsc), (tvals, tsc) = make_pool(rng, KH, dh, pool_dtype)
+    bt = block_table(rng, len(lens))
+    q = rng.normal(size=(len(lens), 1, H, dh)).astype(np.float32)
+    sl = np.asarray(lens, np.int32)
+    common = dict(page_size=PAGE, num_q_heads=H, window=window,
+                  softcap=softcap, scale=dh ** -0.5)
+    ref = np.asarray(jpa.paged_attention_decode(
+        jnp.asarray(q), jvals, jnp.asarray(bt), jnp.asarray(sl), jsc,
+        jnp.int32(LAYER), interpret=True, **common))
+    args = (torch.from_numpy(q), tvals, torch.from_numpy(bt),
+            torch.from_numpy(sl), tsc, LAYER)
+    plain = pa.paged_attention_decode_plain(*args, **common).numpy()
+    np.testing.assert_allclose(plain, ref, **CLOSE)
+    splits = -(-MP // pps)
+    for order in (None, range(splits - 1, -1, -1)):
+        out = pa.decode_split_emulation(*args, pages_per_split=pps,
+                                        order=order, **common).numpy()
+        np.testing.assert_allclose(out, plain, **CLOSE)
+        np.testing.assert_allclose(out, ref, **CLOSE)
+    if window:
+        # the longest sequence's first visible page lies past split 0
+        first = (lens[-1] - window) // PAGE
+        assert first >= pps

@@ -336,3 +336,141 @@ def test_swapped_k_tiles_move_the_plain_output():
     ref = i8.int8_matmul_plain(xq.values, xq.scales, wq.values, wq.scales)
     moved = i8.int8_matmul_plain(xq.values, xq.scales, swapped, wq.scales)
     assert (moved != ref).float().mean() > 0.5
+
+
+@pytest.mark.parametrize("M,x_dtype,gemv_ok,route", [
+    (1, torch.bfloat16, True, "gemv"),       # decode: the matrix-vector
+    (16, torch.bfloat16, True, "gemv"),
+    (16, torch.float32, True, "gemv"),
+    (4, torch.bfloat16, False, "tiles"),     # a ragged N at decode
+    (17, torch.bfloat16, True, "wgmma"),     # past 16 rows, bf16 x: the
+    (36, torch.bfloat16, True, "wgmma"),     # tensor cores
+    (256, torch.bfloat16, False, "wgmma"),   # (the wrapper pads N)
+    (1024, torch.bfloat16, True, "wgmma"),
+    (17, torch.float32, True, "tiles"),      # f32 x: no exact f32 product
+    (256, torch.float32, True, "tiles")])    # on the tensor cores
+def test_w8_route(M, x_dtype, gemv_ok, route):
+    """B11's route as a plain function of M and x's dtype (and, through
+    16 rows, whether the matrix-vector kernel takes the shapes)."""
+    r, splits, kps = i8.w8_plan(M, 4096, 6144, x_dtype, gemv_ok)
+    assert r == route
+    if route == "tiles":
+        assert (splits, kps) == (1, 4096)
+    if route == "gemv":
+        assert (True, splits, kps) == i8.plan(M, 4096, 6144, True)
+
+
+@pytest.mark.parametrize("M,K,N,splits", [
+    (256, 4096, 6144, 2),      # Llama-3-8B qkv at prefill: 48 tiles
+    (256, 4096, 4096, 4),      # o: 32 tiles
+    (256, 4096, 28672, 1),     # gate|up: 224 tiles fill the SMs
+    (256, 14336, 4096, 4),     # down
+    (256, 4096, 128256, 1),    # the LM head
+    (36, 4096, 128256, 1),     # the head at a verify chunk
+    (36, 4096, 6144, 5),
+    (1024, 4096, 6144, 1),     # Mixtral-8x7B's qkv at (k)'s prefill chunk
+    (1024, 4096, 32000, 1),    # its head
+    (17, 4096, 256, 16)])      # one tile: as many splits as allowed
+def test_w8_split_plan(M, K, N, splits):
+    """B11's tensor-core splits: whole k-tiles of 64 covering K, one wave
+    of blocks at most, none where the tiles fill the SMs."""
+    r, s, kps = i8.w8_plan(M, K, N, torch.bfloat16)
+    assert r == "wgmma" and s == splits
+    assert kps % i8.W8_K == 0 and s * kps >= K > (s - 1) * kps
+    tiles = i8.wgmma_tiles(M, N, i8.W8_COLS)
+    assert tiles == -(-M // i8.wgmma_rows(M)) * -(-N // 256)
+    if tiles >= i8.SMS:
+        assert s == 1
+    else:
+        assert tiles * s <= i8.SMS and s <= i8._MAX_SPLITS
+
+
+@pytest.mark.parametrize("splits", range(1, 17))
+def test_w8_plan_reaches_every_split(splits):
+    """One output tile over ``splits`` k-tiles of 64 is split once a
+    k-tile: the shapes by which the card's tests reach every split
+    count of B11's tensor-core kernel."""
+    assert i8.w8_plan(17, 64 * splits, 16, torch.bfloat16) == (
+        "wgmma", splits, 64)
+
+
+def exact_w8_inputs(M, K, N, seed):
+    """bf16 x of small integers and INT8 weights: every product and
+    partial sum is an exact f32 integer, so no order of the sums (and no
+    zero padding) can move a result."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.integers(-8, 9, size=(M, K)).astype(
+        np.float32)).to(torch.bfloat16)
+    wq = torch.from_numpy(rng.integers(-127, 128, size=(K, N)).astype(
+        np.int8))
+    scales = torch.from_numpy((rng.random(N) * 1e-3).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(size=N).astype(np.float32))
+    return x, wq, scales, bias
+
+
+@pytest.mark.parametrize("M,K,N", [(17, 70, 36), (36, 300, 200),
+                                   (65, 1000, 1000), (64, 256, 384)])
+def test_w8_operands_padding_keeps_the_product(M, K, N):
+    """K zero-padded to 8 and N to 16 (the tensor-core kernel's 16-byte
+    rows) through the plain version give the unpadded result bit for bit
+    once the padded columns are dropped; aligned shapes pass through
+    untouched."""
+    x, wq, scales, bias = exact_w8_inputs(M, K, N, seed=9)
+    px, pw, ps, pb, n_pad = i8.w8_operands(x, wq, scales, bias)
+    assert n_pad % 16 == 0 and px.shape[1] % 8 == 0
+    assert pw.shape == (px.shape[1], n_pad) and ps.shape == pb.shape == (
+        n_pad,)
+    for act in (None, "silu"):
+        for out_dtype in (torch.float32, torch.bfloat16):
+            ref = i8.w8_matmul_plain(x, wq, scales, bias, act=act,
+                                     out_dtype=out_dtype)
+            out = i8.w8_matmul_plain(px, pw, ps, pb, act=act,
+                                     out_dtype=out_dtype)
+            assert torch.equal(out[:, :N], ref)
+    if K % 8 == 0 and N % 16 == 0:
+        assert px is x and pw is wq
+
+
+@pytest.mark.parametrize("name", sorted(PRESETS))
+def test_preset_products_need_no_w8_padding(name):
+    """Every preset's weight-only INT8 products (the projections, fused
+    and not, and the LM head) have K % 8 == 0 and N % 16 == 0, so
+    :func:`w8_operands` hands B11's tensor-core kernel the weight itself;
+    the one exception is GPT-2's vocabulary of 50,257, whose head the
+    wrapper pads on every call past 16 rows."""
+    c = PRESETS[name]
+    D, q, kv = c.hidden_size, c.num_heads * c.head_dim, \
+        c.num_kv_heads * c.head_dim
+    I_ = c.intermediate_size
+    x = torch.zeros((17, 8), dtype=torch.bfloat16)
+    shapes = [(D, q), (D, kv), (q, D), (D, I_), (I_, D), (D, q + 2 * kv),
+              (D, 2 * I_), (D, c.vocab_size)]
+    for K, N in shapes:
+        wq = torch.zeros((K, N), dtype=torch.int8)
+        xk = x.new_zeros((17, K))
+        px, pw, _, _, n_pad = i8.w8_operands(xk, wq, torch.ones(N), None)
+        padded = not (pw is wq and px is xk and n_pad == N)
+        assert padded == (name == "gpt2-124m" and N == c.vocab_size), (K, N)
+
+
+def test_swapped_w8_tiles_move_the_plain_output():
+    """The controls of the card's B11 checks (one bf16 step or 1e-5 of
+    max|out|): a kernel that read two of the weight's 64-row k-tiles, or
+    two of its 256-column blocks, in each other's place would give an
+    output outside that tolerance."""
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.normal(size=(36, 256)).astype(
+        np.float32)).to(torch.bfloat16)
+    wq = tt.quantize_per_channel(torch.from_numpy(
+        rng.normal(size=(256, 768)).astype(np.float32) * 0.05))
+    ref = i8.w8_matmul_plain(x, wq.values, wq.scales).float()
+    k_swapped = torch.cat([wq.values[64:128], wq.values[:64],
+                           wq.values[128:]])
+    n_swapped = torch.cat([wq.values[:, 256:512], wq.values[:, :256],
+                           wq.values[:, 512:]], dim=1)
+    for w in (k_swapped, n_swapped):
+        moved = i8.w8_matmul_plain(x, w, wq.scales).float()
+        step = torch.exp2(torch.floor(torch.log2(
+            ref.abs().clamp_min(2.0 ** -126))) - 7)
+        tol = torch.maximum(step, 1e-5 * ref.abs().max())
+        assert ((moved - ref).abs() > tol).float().mean() > 0.3

@@ -1,4 +1,4 @@
-"""Path (e)'s verify forward and B10 at a verify chunk, compared across
+"""Path (e)'s verify forward and the redesigned kernels, compared across
 checkouts of the repo on one card.
 
     python3 verify_compare.py [TREE ...]
@@ -7,11 +7,19 @@ Each TREE is the root of a checkout (default: this one); give two
 checkouts in the order ``A B B A`` to compare them on the same card.
 Each runs in a process of its own, with that checkout's package and
 ``chip_smoke.py`` imported from it, so an older checkout is measured by
-its own code:
+its own code (device time by CUPTI, ``device_ms``, each product on a
+weight outside L2):
 
 * B10 ``int8_matmul``, a Llama-3-8B layer's four projections summed at
-  M=36 (a verify chunk of 4 x 9 rows) and M=256 (a prefill chunk), each
-  call on a weight outside L2, device time by CUPTI (``device_ms``);
+  M=36 (a verify chunk of 4 x 9 rows) and M=256 (a prefill chunk);
+* B11 ``w8_matmul`` with bf16 x, the same layer's four projections at
+  M=256 and the LM head at M=36 and M=256;
+* B2 ``paged_attention_decode`` at the slice's shape (4 sequences of
+  65-128 keys, INT8 pool, bf16 queries) and at a 512-page table at
+  batch 1 (32,700 keys);
+* B13 ``grouped_matmul`` at Mixtral-8x7B's prefill (``chip_smoke``'s
+  routing, Npad 4096, ``block_rows``), we_gu and we_down with INT8
+  experts, summed;
 * path (e) as ``chip_smoke.py`` runs it (``spec_path``: w8a8
   Llama-3-8B, 32 layers, random weights from seed 0, then the
   token-repeating copy that accepts drafts; each run's launch counts and
@@ -76,6 +84,9 @@ def one(tree: pathlib.Path) -> dict:
                                      match=cs.KERNEL_NAMES["int8_matmul"])
         del wq, wqs
     torch.cuda.empty_cache()
+    b11 = b11_times(torch, cs, i8, qt, dev, gen)
+    b2 = b2_times(torch, cs, dev, gen)
+    b13 = b13_ms(torch, cs, qt, dev, gen)
 
     cfg, batch, steps, prompt_len = cs.path_config(
         "int8", spec_k=cs.SPEC_K)
@@ -101,12 +112,92 @@ def one(tree: pathlib.Path) -> dict:
 
     return {"tree": str(tree), "card": card,
             "b10_layer_ms": {str(m): v for m, v in layer.items()},
+            "b11_ms": b11, "b2_ms": b2, "b13_ms": b13,
             "random": run(""), "repeating": run("repeating_"),
             "profile_wall_ms": info["profile_wall_ms"],
             "profile_device_busy_ms": info["profile_device_busy_ms"],
             "profile_busy_share": info["profile_busy_share"],
             "profile_b10_ms": info["profile_kernel_ms"].get(
                 "int8_matmul", 0.0)}
+
+
+def b11_times(torch, cs, i8, qt, dev, gen) -> dict:
+    """B11 with bf16 x: a layer's four projections at M=256 and the LM
+    head at M=36 and 256, ms by CUPTI."""
+    import numpy as np
+
+    out = {"layer M=256": 0.0}
+    for name, K, N in cs.PROJECTIONS + [cs.LM_HEAD]:
+        wq = qt.quantize_per_channel(
+            torch.randn((K, N), generator=gen, device=dev) * 0.02)
+        copies = max(1, int(np.ceil(cs.COLD_BYTES / wq.values.numel())))
+        wqs = [wq] + [qt.QTensor(wq.values.clone(), wq.scales.clone())
+                      for _ in range(copies - 1)]
+        head = name == cs.LM_HEAD[0]
+        for M in ((36, 256) if head else (256,)):
+            x = torch.randn((M, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            ms = cs.device_ms(cs.cold_calls(
+                lambda q, x=x: i8.w8_matmul(x, q.values, q.scales), wqs),
+                match=cs.KERNEL_NAMES["w8_matmul"])
+            if head:
+                out[f"head M={M}"] = ms
+            else:
+                out["layer M=256"] += ms
+        del wq, wqs
+        torch.cuda.empty_cache()
+    return out
+
+
+def b2_times(torch, cs, dev, gen) -> dict:
+    """B2 at the slice's shape and at a 512-page table at batch 1, INT8
+    pool, bf16 queries, ms by CUPTI."""
+    from importlib import import_module
+
+    pa = import_module(f"{cs.PKG}.ops.paged_attention")
+    out = {}
+    for label, batch, mp, n_pages, lens in (
+            ("slice", cs.B, cs.MP, cs.NUM_PAGES, [65, 90, 128, 101]),
+            ("512 pages", 1, 512, 520, [32700])):
+        kv, bt = cs.make_pool(torch, gen, torch.int8, dev, batch, cs.KH,
+                              cs.DH, mp, n_pages)
+        q = torch.randn((batch, 1, cs.H, cs.DH), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        args = (q, kv[0], bt, sl, kv[1], 1)
+        kw = dict(page_size=cs.PAGE, num_q_heads=cs.H, scale=cs.DH ** -0.5)
+        out[label] = cs.device_ms(
+            lambda: pa.paged_attention_decode(*args, **kw),
+            match=cs.KERNEL_NAMES["paged_attention_decode"])
+        del kv, bt
+        torch.cuda.empty_cache()
+    return out
+
+
+def b13_ms(torch, cs, qt, dev, gen) -> float:
+    """B13 at Mixtral-8x7B's prefill, we_gu and we_down with INT8 experts
+    and the dispatch's ``block_rows``, summed, ms by CUPTI."""
+    from importlib import import_module
+
+    gmm = import_module(f"{cs.PKG}.ops.gmm")
+    _, dest, gb, rows = cs.moe_routing(torch, gen, dev)
+    npad = gb.numel() * 256
+    total = 0.0
+    for _, K, N in cs.GMM_SHAPES:
+        x = torch.zeros((npad, K), dtype=torch.bfloat16, device=dev)
+        x[dest] = torch.randn((dest.numel(), K), generator=gen,
+                              device=dev).to(torch.bfloat16)
+        w = qt.QTensor(torch.randint(-127, 128, (cs.MOE_E, K, N),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int8),
+                       torch.rand((cs.MOE_E, 1, N), generator=gen,
+                                  device=dev) * 1e-3)
+        total += cs.device_ms(
+            lambda: gmm.grouped_matmul(x, w, gb, bm=256, block_rows=rows),
+            match=cs.KERNEL_NAMES["grouped_matmul"])
+        del x, w
+        torch.cuda.empty_cache()
+    return total
 
 
 def main(trees) -> int:
@@ -127,13 +218,20 @@ def main(trees) -> int:
         res["tree"] = tree
         print(json.dumps(res), flush=True)
         results.append(res)
-    print("tree | B10 layer M=36 ms | M=256 ms | verify wall ms (random / "
-          "repeating) | spec tok/s (random / repeating) | spec/fused "
-          "(random / repeating) | profiled spec run: busy ms, share, B10 ms")
+    print("tree | B10 layer M=36 ms | M=256 ms | B11 layer M=256 / head "
+          "M=36 / head M=256 ms | B2 slice / 512 pages ms | B13 ms | verify "
+          "wall ms (random / repeating) | spec tok/s (random / repeating) | "
+          "spec/fused (random / repeating) | profiled spec run: busy ms, "
+          "share, B10 ms")
     for r in results:
         a, b = r["random"], r["repeating"]
+        b11, b2 = r["b11_ms"], r["b2_ms"]
         print(f"{r['tree']} | {r['b10_layer_ms']['36']:.4f} | "
-              f"{r['b10_layer_ms']['256']:.4f} | {a['verify_wall_ms']:.2f} "
+              f"{r['b10_layer_ms']['256']:.4f} | "
+              f"{b11['layer M=256']:.4f} / {b11['head M=36']:.4f} / "
+              f"{b11['head M=256']:.4f} | {b2['slice']:.4f} / "
+              f"{b2['512 pages']:.4f} | {r['b13_ms']:.4f} | "
+              f"{a['verify_wall_ms']:.2f} "
               f"/ {b['verify_wall_ms']:.2f} | {a['spec_tok_s']:.1f} / "
               f"{b['spec_tok_s']:.1f} | {a['spec_over_fused']:.3f} / "
               f"{b['spec_over_fused']:.3f} | "
