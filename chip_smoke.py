@@ -99,7 +99,14 @@ and nothing of JAX. Phases:
    shape, a 512-page table at batch 1 (B6 beside) and four ragged
    sequences of 1-512 pages; with f32 queries at 512 pages its splits
    merged in reverse order (plain PyTorch) must stay within 1e-4 and one
-   misread page must not.
+   misread page must not. Slice 10 (B6 and B7 on B2's split-KV body,
+   ``csrc/split_decode.cuh``, one launch each): B7 also at B2's four
+   ragged sequences of 1-512 pages (split by the real lengths), B2 timed
+   beside B7 at each of its shapes; with f32 queries B6's and B7's parts
+   merged in reverse order must stay within 1e-4 and one misread page
+   must not, as B2's; B6's cut (pages a split, ring stages, rows) swept
+   at (h)'s and (i)'s shapes; (g)'s and (h)'s profiles give their decode
+   kernel's time a layer.
 3. The paths, each ``Engine`` on llama3-8b at full width and full depth
    (32 layers; (a), (c) and (d) cut to 8; weights from a seed, INT8
    paged KV, page 64, prefill chunk 256, the pool ``bench.py`` sizes, for (b),
@@ -398,10 +405,9 @@ KERNEL_NAMES = {
     "kv_append_tokens": ("append_tokens_kernel",),
     "paged_attention_decode_append": (
         "paged_attention_decode_append_kernel<",),
-    "paged_attention_decode_grouped": ("decode_grouped_kernel<",
-                                       "decode_combine_kernel<"),
+    "paged_attention_decode_grouped": ("decode_grouped_split_kernel<",),
     "paged_attention_decode_packed": ("decode_packed_kernel<",),
-    "paged_attention_decode_batched": ("decode_batched_kernel<",),
+    "paged_attention_decode_batched": ("decode_batched_split_kernel<",),
     "int8_matmul": ("qmm::gemv_kernel<0,", "imma::wgmma_s8_kernel<0,"),
     "w8_matmul": ("qmm::gemv_kernel<1,", "qmm::tiled_kernel<1,",
                   "w8::w8_wgmma_kernel<"),
@@ -996,18 +1002,82 @@ def misread_group(bt, lens, window, J=4):
     return wrong
 
 
+#: the split-KV decode kernels on B2's body (csrc/split_decode.cuh), whose
+#: every held shape goes to the kernels line's ``shapes``
+SPLIT_KV = ("paged_attention_decode", "paged_attention_decode_grouped",
+            "paged_attention_decode_batched")
+
+
+def reverse_merge(pa, kname, args, common, batch, kv_heads, mp, window):
+    """A split-KV kernel's computation (B2, B6 or B7) in plain PyTorch with
+    its parts merged in the reverse order, and what those parts are."""
+    if kname == "paged_attention_decode":
+        splits = pa.decode_split_plan(batch, kv_heads, mp)[0]
+        return pa.decode_split_emulation(
+            *args, order=range(splits - 1, -1, -1), **common), \
+            f"{splits} splits"
+    if kname == "paged_attention_decode_grouped":
+        splits = pa.decode_grouped_plan(batch, kv_heads, mp, PAGE,
+                                        window)[0]
+        return pa.decode_grouped_emulation(
+            *args, order=range(splits - 1, -1, -1), **common), \
+            f"{splits} splits"
+    parts = pa.decode_batched_partition(
+        args[3].tolist(), kv_heads, PAGE, mp, window)
+    most = max((n for blk in parts for _, _, _, _, n in blk), default=0)
+    return pa.decode_batched_emulation(*args, reverse=True, **common), \
+        f"{sum(map(len, parts))} parts (at most {most} a KV head)"
+
+
+def b6_sweep(torch, pa, args, common, name, batch, kv_heads, G, mp, window):
+    """B6's cut swept at one shape (device time by CUPTI): the pages a
+    split (multiples of 4, from a third of the plan's splits to 64), the
+    ring's depth, and the
+    instance's rows, one at a time from :func:`decode_grouped_plan`'s cut
+    and the kernel's own choice of the others. A launch the kernel refuses
+    (a ring that does not fit) is printed as such."""
+    splits0, pps0 = pa.decode_grouped_plan(batch, kv_heads, mp, PAGE, window)
+    width = mp if window <= 0 else min(mp, -(-(window - 1) // PAGE) + 1)
+    cuts = {}
+    for pps in (4, 8, 12, 16, 24, 32, 48, 64, 128, 256, 512, pps0):
+        splits = -(-width // pps)
+        if splits0 // 3 <= splits <= pa.DECODE_MAX_SPLITS \
+                and splits not in cuts:
+            cuts[splits] = pps
+    configs = [dict(splits=s, pages_per_split=p) for s, p in sorted(cuts.items())]
+    configs += [dict(splits=splits0, pages_per_split=pps0, stages=st)
+                for st in (1, 2, 3, 4)]
+    configs += [dict(splits=splits0, pages_per_split=pps0, rows=r)
+                for r in ((1, 4) if G == 1 else (4, 8))]
+    line = []
+    for cfg in configs:
+        try:
+            ms = device_ms(lambda: pa.decode_grouped_launch(
+                *args, **common, **cfg), iters=10,
+                match=KERNEL_NAMES["paged_attention_decode_grouped"])
+            line.append(f"{cfg} {ms:.4f}")
+        except RuntimeError as exc:
+            line.append(f"{cfg} refused ({exc})")
+    print(f"  [paged_attention_decode_grouped] {name}: sweep (plan "
+          f"{splits0} splits x {pps0} pages), ms: " + "; ".join(line),
+          flush=True)
+
+
 def decode_variant_checks(torch, F_, dev, results):
     """B6, B7 and B8 against their plain versions (B2's tolerances: 2e-2
     with bf16 queries, 1e-4 with f32), each at the shapes its path gives
     it, with device times beside the bound, the plain version and SDPA
     (B6 at paths (h)'s and (i)'s shapes also with f32 queries, whose
-    tolerance must flag a table with one group of pages misread);
-    B2 timed on the same inputs at path (i)'s 516-page shape (B6's
-    yardstick) and at its own shape (B7's). B2 itself past the slice:
-    path (k)'s decode shape, a 512-page table at batch 1 (B6 timed
-    beside; with f32 queries its splits merged in reverse order must stay
-    within 1e-4 and one misread page must not) and four ragged sequences
-    of 1-512 pages."""
+    tolerance must flag a table with one group of pages misread); B2
+    timed on the same inputs wherever it takes them (dh % 128 == 0: B6 at
+    path (i)'s 516-page shape, B7 at each of its shapes). B2 itself past
+    the slice: path (k)'s decode shape, a 512-page table at batch 1 (B6
+    timed beside) and four ragged sequences of 1-512 pages, which B7
+    (split by the real lengths) takes too. The split-KV kernels (B2, B6,
+    B7) with f32 queries: their parts merged in reverse order (in plain
+    PyTorch) must stay within 1e-4 and one misread page must not. B6's
+    cut (splits, ring stages, rows) swept at (h)'s and (i)'s shapes
+    (:func:`b6_sweep`)."""
     from importlib import import_module
 
     pa = import_module(f"{PKG}.ops.paged_attention")
@@ -1045,6 +1115,10 @@ def decode_variant_checks(torch, F_, dev, results):
         ("8 ragged sequences, f32", "paged_attention_decode_batched", f32, i8,
          8, 8, 4, 128, 5, 80, [1, 65, 200, 320, 17, 128, 64, 250], 0, 0.0,
          1e-4),
+        # B7 split by the real lengths on B2's ragged inputs (below)
+        ("4 ragged sequences of 1-512 pages", "paged_attention_decode_batched",
+         bf16, i8, 4, 8, 4, 128, 512, 2060, [1, 64 * 7 + 3, 64 * 200,
+                                             64 * 512], 0, 0.0, 2e-2),
         # B2 (split-KV) past the slice, which attention_checks holds: path
         # (k)'s decode (Mixtral-8x7B, 4 x 320 tokens, the table bench.py
         # sizes), a 512-page table at batch 1 (a 32k context, where the
@@ -1093,20 +1167,20 @@ def decode_variant_checks(torch, F_, dev, results):
             check(qdt == bf16 or miss > tol,
                   f"{kname} {name}: the tolerance {tol} does not flag a "
                   f"misread group ({miss})")
-        if kname == "paged_attention_decode" and qdt == f32:
-            # B2's controls: its splits merged in the reverse order (in
-            # plain PyTorch) stay within the tolerance, one page of the
-            # table misread (read in place of its neighbour) does not
-            splits = pa.decode_split_plan(batch, kh, mp)[0]
-            rev = pa.decode_split_emulation(
-                *args, order=range(splits - 1, -1, -1), **common)
+        if qdt == f32 and kname != "paged_attention_decode_packed":
+            # the split-KV kernels' controls (B2, B6, B7): their parts
+            # merged in the reverse order (in plain PyTorch) stay within the
+            # tolerance, one page of the table misread (read in place of
+            # its neighbour) does not
+            rev, parts = reverse_merge(pa, kname, args, common, batch, kh,
+                                       mp, window)
             rev_err = (rev.float() - out_p.float()).abs().max().item()
             wrong = plain(q, kv[0], misread_group(bt, lens, window, J=1), sl,
                           scales, layer, **common)
             miss = (wrong.float() - out_p.float()).abs().max().item()
-            print(f"  [{kname}] {name}: {splits} splits merged in reverse "
-                  f"order differ by {rev_err:.3e}, one page misread moves "
-                  f"the output by {miss:.3e} (tol {tol:g})", flush=True)
+            print(f"  [{kname}] {name}: {parts} merged in reverse order "
+                  f"differ by {rev_err:.3e}, one page misread moves the "
+                  f"output by {miss:.3e} (tol {tol:g})", flush=True)
             check(rev_err <= tol, f"{kname} {name}: a reordered merge "
                   f"leaves the tolerance ({rev_err})")
             check(miss > tol, f"{kname} {name}: the tolerance {tol} does not "
@@ -1124,6 +1198,10 @@ def decode_variant_checks(torch, F_, dev, results):
         b2 = ""
         row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                    library_ms=lib_ms)
+        if kname in SPLIT_KV:
+            results[kname].setdefault("shapes", {})[name] = row
+        if kname == "paged_attention_decode_grouped" and qdt == bf16:
+            b6_sweep(torch, pa, args, common, name, batch, kh, g, mp, window)
         if kname == "paged_attention_decode":
             # B6 on the same inputs: the route past the scales budget
             b6_out = pa.paged_attention_decode_grouped(*args, **common)
@@ -1134,7 +1212,6 @@ def decode_variant_checks(torch, F_, dev, results):
                 match=KERNEL_NAMES["paged_attention_decode_grouped"])
             b2 = (f"; B6 on the same inputs {row['b6_ms']:.4f} ms "
                   f"(max|B6-plain| {b6_err:.3e})")
-            results[kname].setdefault("shapes", {})[name] = row
         if dh % 128 == 0 and kname != "paged_attention_decode":
             # B2 on the same inputs: B6's yardstick at 516 pages, B7's at
             # B2's shape
@@ -2542,6 +2619,14 @@ def decode_path(torch, refs, greedy, name, model, batch, prompt_len,
     info.update(limit_readings(tf16, "bf16"))
     checks, _ = full_checks(torch, eng, refs, prompts, greedy, steps, tf16)
     info.update(checks)
+    # the decode kernel per layer in the profiled fused run (16 tokens:
+    # 15 decode steps, every layer one launch)
+    per_layer = (checks["profile_kernel_ms"].get(decode, 0.0)
+                 / (15 * cfg.model.num_layers))
+    print(f"  {decode} in the profiled fused run: {per_layer:.4f} ms a "
+          f"layer (15 decode steps x {cfg.model.num_layers} layers)",
+          flush=True)
+    info[f"{decode}_ms_per_layer"] = per_layer
     del eng
     torch.cuda.empty_cache()
     return info

@@ -1,6 +1,8 @@
 // Building blocks of the paged-attention kernels over the
-// [L, 2, KH, P, page, D] KV pool (paged_attention.cu: B1, B2, B9;
-// paged_decode.cu: B6, B7, B8).
+// [L, 2, KH, P, page, D] KV pool: the geometry (Args) and the decode page
+// range every kernel uses, and the page step of B1's SIMT kernel and B9
+// (paged_attention.cu) and B8 (paged_decode.cu). B2, B6 and B7 run the
+// split-KV body of split_decode.cuh.
 //
 // The fold order is the JAX reference's (paged_attention.py:104-131): per
 // page, scores s = (q * scale) . k in f32; times the page's INT8 K scale;
@@ -97,30 +99,18 @@ struct Tile {
 };
 
 // Copies one page ([page, D] contiguous in the pool) into a padded
-// shared-memory tile, 4 bytes per thread per step, or 2 where a row's bytes
-// are not a multiple of 4 (an INT8 row of D = 2 mod 4, which B6 takes;
-// D * sizeof(TKV) is even, checked on the host).
+// shared-memory tile, 4 bytes per thread per step (D * sizeof(TKV) is a
+// multiple of 4, checked on the host).
 template <typename TKV>
 __device__ void stage_page(uint8_t* dst, const uint8_t* src, int D,
                            int page) {
-  const int row = D * static_cast<int>(sizeof(TKV));
+  const int words = D * static_cast<int>(sizeof(TKV)) / 4;
   const int stride = kv_stride<TKV>(D);
-  if ((row & 3) == 0) {
-    const int words = row / 4;
-    const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
-    uint32_t* d = reinterpret_cast<uint32_t*>(dst);
-    for (int w = threadIdx.x; w < page * words; w += kThreads) {
-      const int j = w / words;
-      d[j * (stride / 4) + w - j * words] = s[w];
-    }
-  } else {
-    const int halves = row / 2;
-    const uint16_t* s = reinterpret_cast<const uint16_t*>(src);
-    uint16_t* d = reinterpret_cast<uint16_t*>(dst);
-    for (int w = threadIdx.x; w < page * halves; w += kThreads) {
-      const int j = w / halves;
-      d[j * (stride / 2) + w - j * halves] = s[w];
-    }
+  const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
+  uint32_t* d = reinterpret_cast<uint32_t*>(dst);
+  for (int w = threadIdx.x; w < page * words; w += kThreads) {
+    const int j = w / words;
+    d[j * (stride / 4) + w - j * words] = s[w];
   }
 }
 

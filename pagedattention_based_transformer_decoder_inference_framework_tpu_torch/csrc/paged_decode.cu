@@ -1,8 +1,7 @@
 // T = 1 decode attention beyond B2, for Hopper: the three other decode
 // kernels of the JAX package, each computing B2's function (the lone query
 // of each sequence at position seq_len - 1, keys key < seq_len and, with a
-// window, key > seq_len - 1 - window) in the fold order of
-// paged_attention.cuh.
+// window, key > seq_len - 1 - window).
 //
 //   pbt_paged_attention_decode_grouped
 //       <- ops/paged_attention.py::paged_attention_decode_grouped
@@ -25,19 +24,36 @@
 // geometry, 21 us at 3.35 TB/s. The TPU kernels are shaped by its
 // sequential grid and 128-lane tiles; here the shape follows the card:
 //
-// * Grouped (B6) is split-KV ("flash-decoding"). The TPU walks J pages
-//   per grid program into one accumulator, in sequence over the whole
-//   table. Here the table itself is split: a block per (sequence, KV head,
-//   group of J pages) runs B2's page step (stage a page in shared memory,
-//   a thread per (query head, key) for the scores, a warp per row for the
-//   online softmax, a thread per output lane for P.V) over its J pages and
-//   writes its partial (m, l, acc) for the G query heads to an f32
-//   workspace; a second kernel in the same call, a block per (sequence,
-//   query head), rescales and sums the partials, its warps splitting the
-//   groups. Groups wholly before the window or past seq_len exit at once.
-//   At J = 4 a 516-page table at batch 1 and KH 8 is 8 x 129 blocks,
-//   enough to fill 132 SMs where B2 runs 8 blocks that each walk 513
-//   pages in turn.
+// * Grouped (B6) and batched (B7) run B2's split-KV body
+//   (split_decode.cuh: pages by bulk copy into a ring, four compute warps
+//   each with its own online softmax, the parts of a (sequence, KV head)
+//   merged in part order by the last to finish, one launch a call); only
+//   their cut of the work differs.
+//   - B6 (decode_grouped_split_kernel): grid (sequence x KV head, split).
+//     The TPU walks J = group_pages pages a grid step into one accumulator,
+//     in sequence over the whole table; here the table's visible pages,
+//     counted from the window's first, are split in runs of pps pages, pps
+//     a multiple of J, as many splits as bring the grid to about two waves
+//     (ops/paged_attention.py::decode_grouped_plan; a window of 2047 keys
+//     at page 64 leaves 33 pages to split however wide the table). The
+//     lane layout is compiled for head dims 64, 96, 128 and 256 (16-byte
+//     chunks of K a lane where a row is a multiple of 16 bytes); every other
+//     even head dim up to 256 runs the generic instance of the same kernel
+//     (pairs of values a lane; a page that is not a multiple of 16 bytes
+//     copied by plain loads). ROWS is 1 for one query head a KV head
+//     (Phi-3-mini), 4 up to four, else 8.
+//   - B7 (decode_batched_split_kernel): the JAX kernel pays its DMA latency
+//     once for the whole batch; the card has no such chain, but B2's splits
+//     come from shapes alone, so over ragged lengths the longest sequence's
+//     splits set the time. B7 splits by the batch's real lengths: its grid
+//     (about two waves of 132 SMs, no more blocks than B * KH * mp) is fixed
+//     by the shapes; each block reads seq_lens, forms the prefix of visible
+//     pages over (sequence, KV head) and takes an equal contiguous run of the
+//     flattened (sequence, KV head, page) units, which may end one (sequence,
+//     KV head) and start the next; each block derives (b, h)'s part count
+//     from the same partition (ops/paged_attention.py::
+//     decode_batched_partition). A (sequence, KV head) with no visible page
+//     gets zeros from block (b * KH + h) % blocks.
 // * Packed (B8): the TPU kernel computes in parity classes because a
 //   sub-128 head dim fills a fraction of its 128-lane tile. The card has
 //   no lane tile and an unpadded [page, D] page is already contiguous, so
@@ -48,172 +64,163 @@
 //   copied to shared memory by 16-byte loads and P.V runs a thread
 //   per (query head, lane of D) output, all 128 threads busy where B2's
 //   thread per lane of D would leave half idle. The online softmax stays
-//   per page.
-// * Batched (B7) is persistent: at most one block per SM, each pulling
-//   (sequence, KV head) work items from a counter and running B2's page
-//   loop on each. The TPU kernel issues every page DMA of the batch before
-//   any wait, to pay its DMA latency chain once; the card has no such
-//   chain, so this only saves the blocks' launch and retire.
+//   per page (paged_attention.cuh's softmax_page).
 //
-// No tensor cores, no TMA and no async copies yet (wgmma / TMA are later
-// work). Every entry point returns cudaGetLastError() after its launches.
+// Every entry point returns cudaGetLastError() after its launch.
 
+#include "hopper.cuh"
 #include "paged_attention.cuh"
+#include "split_decode.cuh"
+
+// B6's dispatch on the pool's dtype code (0 float32, 1 bfloat16, 2 int8)
+#define PBT_KV_DISPATCH(FN, ...)                                         \
+  do {                                                                   \
+    if (kv_dtype == 0) return FN<float>(__VA_ARGS__);                    \
+    if (kv_dtype == 1) return FN<__nv_bfloat16>(__VA_ARGS__);            \
+    if (kv_dtype == 2) return FN<int8_t>(__VA_ARGS__);                   \
+    return cudaErrorInvalidValue;                                        \
+  } while (0)
 
 namespace {
 
 constexpr int kMaxOut = 4;      // B8: outputs (g, d) per thread, G * D <= 512
 
-// The pages [i0, i1) of group g of J pages that hold visible keys.
-__device__ __forceinline__ void group_pages(const Args& a, int seq_len, int g,
-                                            int J, int& i0, int& i1) {
-  i0 = max(g * J, first_decode_page(a, seq_len));
-  i1 = min(g * J + J, decode_pages(a, seq_len));
+// What a launch of B6 or B7 takes besides Args.
+struct Launch {
+  const void* q;
+  void* out;
+  bool qbf;                 // B6: q and out bf16 (else f32)
+  const int* seq_lens;
+  float* part_acc;
+  float* part_ml;
+  int* counters;
+  int B, H;
+  int splits, pps;          // B6: grid (B * KH, splits); B7: splits blocks
+  int stages;               // B6: ring depth (0: the deepest that fits)
+  float scale;
+  cudaStream_t stream;
+};
+
+// B6: grid (B * KH, splits); block kSplitThreads; rows = the G <= ROWS
+// query heads of KV head h; split s takes the pages [first + s * pps,
+// first + s * pps + pps) of the block table, first the page of the
+// window's first visible key, as far as they hold visible keys. Partials:
+// acc [B * KH, splits, G, D], (m, l) [.., G, 2]; counters one a (sequence,
+// KV head). DT = 0: the head dim a.D. The q dtype is a runtime flag here
+// (qbf), not a template argument as in B2 and B7, which halves B6's 39
+// instances (4 head dims x 3 rows + the generic, x 3 pool dtypes).
+template <typename TKV, int DT, int ROWS>
+__global__ void __launch_bounds__(kSplitThreads)
+decode_grouped_split_kernel(Args a, const void* __restrict__ q,
+                            void* __restrict__ out, bool qbf,
+                            const int* __restrict__ seq_lens,
+                            float* __restrict__ part_acc,
+                            float* __restrict__ part_ml,
+                            int* __restrict__ counters, int H, int pps,
+                            int stages, float scale) {
+  using L = Lanes<TKV, DT>;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int is_last;
+  const int D = DT > 0 ? DT : a.D, es = sizeof(TKV);
+  const bool bulk = L::kVec || (a.page * D * es) % 16 == 0;
+  const SplitLay lay = split_lay(D, L::qrow(D), es, a.page,
+                                 a.scales != nullptr, ROWS, stages,
+                                 kMaxSplits);
+  ring_init(smem, lay, stages, bulk);
+  const int bh = blockIdx.x, b = bh / a.KH, split = blockIdx.y;
+  const int seq_len = seq_lens[b];
+  const int i0 = first_decode_page(a, seq_len) + split * pps;
+  const int n = max(min(i0 + pps, decode_pages(a, seq_len)) - i0, 0);
+  const Part w{b, bh % a.KH, i0, n, split, static_cast<int>(gridDim.y),
+               static_cast<long long>(bh) * gridDim.y};
+  split_part<void, TKV, DT, ROWS>(a, smem, lay, is_last, q, out, qbf, w,
+                                  seq_len, H, stages, 0, bulk, part_acc,
+                                  part_ml, counters, scale);
 }
 
-// grid (B * KH, n_groups); block kThreads; rows = the G query heads of KV
-// head h. Partials: acc [B * KH, n_groups, G, D], (m, l) [.., G, 2].
-template <typename TQ, typename TKV>
-__global__ void __launch_bounds__(kThreads)
-decode_grouped_kernel(Args a, const TQ* __restrict__ q,
-                      float* __restrict__ part_acc,
-                      float* __restrict__ part_ml,
-                      const int* __restrict__ seq_lens, int H, int J,
-                      float scale) {
+// B7: grid (blocks); block kSplitThreads. The visible pages of (b, h) are
+// the units [KH * pre[b] + h * vis_b, .. + vis_b) of the batch's U = KH *
+// pre[B] (pre: the prefix of the sequences' visible pages, vis_b); over R =
+// min(blocks, U) runs, block k < R takes the units [k U / R, (k + 1) U /
+// R) (none empty), and the parts of (b, h) are the blocks k0..k1 whose runs
+// hold its first and last unit: part k - k0 of k1 - k0 + 1, workspace slot
+// k + b * KH + h (< blocks + B * KH).
+template <typename TQ, typename TKV, int D, int ROWS>
+__global__ void __launch_bounds__(kSplitThreads)
+decode_batched_split_kernel(Args a, const TQ* __restrict__ q,
+                            TQ* __restrict__ out,
+                            const int* __restrict__ seq_lens,
+                            float* __restrict__ part_acc,
+                            float* __restrict__ part_ml,
+                            int* __restrict__ counters, int B, int H,
+                            int stages, float scale) {
   extern __shared__ __align__(16) uint8_t smem[];
-  constexpr int ROWS = kDecodeRows;
-  const int b = blockIdx.x / a.KH, h = blockIdx.x % a.KH;
-  const int G = H / a.KH;
-  const int seq_len = seq_lens[b];
-  int i0, i1;
-  group_pages(a, seq_len, blockIdx.y, J, i0, i1);
-  if (i0 >= i1) return;           // the combine skips this group too
-  Tile<TKV, ROWS> t(smem, a.D, a.page);
-  load_rows<TQ, TKV, ROWS>(t, q, b, h, 0, G, 1, H, G, a.D, scale);
-  int qpos[ROWS];
+  __shared__ int is_last;
+  const int nb = gridDim.x, k = blockIdx.x, KH = a.KH, G = H / KH;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const SplitLay lay = split_lay(D, Lanes<TKV, D>::qrow(D), sizeof(TKV),
+                                 a.page, a.scales != nullptr, ROWS, stages,
+                                 nb);
+  int* const pre = reinterpret_cast<int*>(smem + lay.bytes);  // [B + 1]
+  ring_init(smem, lay, stages, true);
+  for (int i = tid; i < B; i += kSplitThreads) {
+    const int sl = seq_lens[i];
+    pre[i + 1] = max(decode_pages(a, sl) - first_decode_page(a, sl), 0);
+  }
+  if (tid == 0) pre[0] = 0;
+  __syncthreads();
+  if (tid < 32) {  // an inclusive scan, 32 sequences a step
+    int carry = 0;
+    for (int base = 0; base < B; base += 32) {
+      int v = base + lane < B ? pre[base + lane + 1] : 0;
 #pragma unroll
-  for (int r = 0; r < ROWS; ++r) qpos[r] = seq_len - 1;
-  float acc[ROWS][kMaxDPerThread] = {};
-  for (int i = i0; i < i1; ++i)
-    attend_page<TKV, ROWS>(a, t, qpos, G, b, h, i, seq_len, acc);
-
-  const size_t part = static_cast<size_t>(blockIdx.x) * gridDim.y + blockIdx.y;
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    if (r < G) {
-#pragma unroll
-      for (int c = 0; c < kMaxDPerThread; ++c) {
-        const int d = threadIdx.x + c * kThreads;
-        if (d < a.D) part_acc[(part * G + r) * a.D + d] = acc[r][c];
+      for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, v, o);
+        if (lane >= o) v += t;
       }
+      if (base + lane < B) pre[base + lane + 1] = v + carry;
+      carry += __shfl_sync(0xffffffffu, v, 31);
     }
   }
-  if (threadIdx.x < G) {
-    part_ml[(part * G + threadIdx.x) * 2] = t.m[threadIdx.x];
-    part_ml[(part * G + threadIdx.x) * 2 + 1] = t.l[threadIdx.x];
-  }
-}
-
-// grid (B * KH, G); block kThreads; query head r = blockIdx.y of KV head
-// h. Its output from the live groups' partials: M = max m_g (threads over
-// groups), w_g = e^(m_g - M), out = sum acc_g w_g / sum l_g w_g (l == 0 ->
-// 1, so a row with no visible key is zeros); each warp sums a quarter of
-// the groups over all of D, then the warps' sums add in warp order.
-template <typename TQ>
-__global__ void __launch_bounds__(kThreads)
-decode_combine_kernel(Args a, const float* __restrict__ part_acc,
-                      const float* __restrict__ part_ml,
-                      TQ* __restrict__ out, const int* __restrict__ seq_lens,
-                      int H, int J, int n_groups) {
-  constexpr int kMaxD = kThreads * kMaxDPerThread;
-  __shared__ float sums[kWarps][kMaxD];
-  __shared__ float wmax[kWarps], wl[kWarps];
-  const int b = blockIdx.x / a.KH, h = blockIdx.x % a.KH, r = blockIdx.y;
-  const int G = H / a.KH, D = a.D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int seq_len = seq_lens[b];
-  const int first = first_decode_page(a, seq_len);
-  const int n_pages = decode_pages(a, seq_len);
-  // the live groups, [g0, g1): every group from the window's first page
-  // to the last page holds a visible key
-  const int g0 = first / J;
-  const int g1 = first < n_pages ? (n_pages + J - 1) / J : g0;
-  const size_t row0 = static_cast<size_t>(blockIdx.x) * n_groups * G + r;
-  const float* ml = part_ml + row0 * 2;       // group g: ml[g * G * 2]
-
-  float mx = kNegBig;
-  for (int g = g0 + threadIdx.x; g < g1; g += kThreads)
-    mx = fmaxf(mx, ml[static_cast<size_t>(g) * G * 2]);
-  for (int o = 16; o > 0; o >>= 1)
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-  if (lane == 0) wmax[warp] = mx;
   __syncthreads();
-  mx = wmax[0];
-#pragma unroll
-  for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, wmax[w]);
-
-  float acc[kMaxD / 32] = {}, l = 0.f;
-  for (int g = g0 + warp; g < g1; g += kWarps) {
-    const float wg = expf(ml[static_cast<size_t>(g) * G * 2] - mx);
-    l = fmaf(ml[static_cast<size_t>(g) * G * 2 + 1], wg, l);
-    const float* pa = part_acc + (row0 + static_cast<size_t>(g) * G) * D;
-#pragma unroll
-    for (int c = 0; c < kMaxD / 32; ++c) {
-      const int d = lane + c * 32;
-      if (d < D) acc[c] = fmaf(pa[d], wg, acc[c]);
+  const long long U = static_cast<long long>(KH) * pre[B];
+  // a (sequence, KV head) with no visible page: zeros
+  for (int j = k; j < B * KH; j += nb)
+    if (pre[j / KH + 1] == pre[j / KH])
+      for (int idx = tid; idx < G * a.D; idx += kSplitThreads)
+        out[static_cast<size_t>(j) * G * a.D + idx] = from_f32<TQ>(0.f);
+  // the runs: over min(blocks, U) blocks, so that none is empty
+  const long long nr = U < nb ? U : nb;
+  const long long u1 = k < nr ? (k + 1) * U / nr : 0;
+  int it0 = 0;
+  for (long long u = k < nr ? k * U / nr : 0; u < u1;) {
+    // the sequence of unit u: the last b with KH * pre[b] <= u (it has
+    // visible pages)
+    int lo = 0, hi = B - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) / 2;
+      if (static_cast<long long>(KH) * pre[mid] <= u)
+        lo = mid;
+      else
+        hi = mid - 1;
     }
-  }
-#pragma unroll
-  for (int c = 0; c < kMaxD / 32; ++c) sums[warp][lane + c * 32] = acc[c];
-  if (lane == 0) wl[warp] = l;
-  __syncthreads();
-  float lsum = 0.f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) lsum += wl[w];
-  const float inv = 1.f / (lsum == 0.f ? 1.f : lsum);
-  const size_t base = (static_cast<size_t>(b) * H + h * G + r) * D;
-#pragma unroll
-  for (int c = 0; c < kMaxDPerThread; ++c) {
-    const int d = threadIdx.x + c * kThreads;
-    if (d < D) {
-      float v = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) v += sums[w][d];
-      out[base + d] = from_f32<TQ>(v * inv);
-    }
-  }
-}
-
-// grid min(SMs, B * KH): at most one block per SM; block kThreads. Each
-// block takes (sequence, KV head) items from `next` (zeroed before the
-// launch) until none is left, and runs B2's page loop on each.
-template <typename TQ, typename TKV>
-__global__ void __launch_bounds__(kThreads)
-decode_batched_kernel(Args a, const TQ* __restrict__ q, TQ* __restrict__ out,
-                      const int* __restrict__ seq_lens, int* next, int B,
-                      int H, float scale) {
-  extern __shared__ __align__(16) uint8_t smem[];
-  __shared__ int item;
-  constexpr int ROWS = kDecodeRows;
-  const int G = H / a.KH;
-  Tile<TKV, ROWS> t(smem, a.D, a.page);
-  for (;;) {
-    if (threadIdx.x == 0) item = atomicAdd(next, 1);
-    __syncthreads();
-    const int bh = item;
-    if (bh >= B * a.KH) return;
-    const int b = bh / a.KH, h = bh % a.KH;
-    load_rows<TQ, TKV, ROWS>(t, q, b, h, 0, G, 1, H, G, a.D, scale);
+    const int b = lo, vis = pre[b + 1] - pre[b];
+    const long long sb = static_cast<long long>(KH) * pre[b];
+    const int h = static_cast<int>((u - sb) / vis);
+    const long long s0 = sb + static_cast<long long>(h) * vis;
+    const long long e0 = s0 + vis;
+    const long long k0 = ((s0 + 1) * nr - 1) / U, k1 = (e0 * nr - 1) / U;
+    const int n = static_cast<int>((e0 < u1 ? e0 : u1) - u);
     const int seq_len = seq_lens[b];
-    int qpos[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) qpos[r] = seq_len - 1;
-    float acc[ROWS][kMaxDPerThread] = {};
-    const int n_pages = decode_pages(a, seq_len);
-    for (int i = first_decode_page(a, seq_len); i < n_pages; ++i)
-      attend_page<TKV, ROWS>(a, t, qpos, G, b, h, i, seq_len, acc);
-    store_rows<TQ, TKV, ROWS>(t, out, b, h, 0, G, 1, H, G, a.D, acc);
-    __syncthreads();    // store_rows reads t.l; the next item resets it
+    const Part w{b, h,
+                 first_decode_page(a, seq_len) + static_cast<int>(u - s0), n,
+                 static_cast<int>(k - k0), static_cast<int>(k1 - k0 + 1),
+                 k0 + b * KH + h};
+    split_part<TQ, TKV, D, ROWS>(a, smem, lay, is_last, q, out, false, w,
+                                 seq_len, H, stages, it0, true, part_acc,
+                                 part_ml, counters, scale);
+    it0 += n;
+    u += n;
   }
 }
 
@@ -346,23 +353,82 @@ decode_packed_kernel(Args a, const TQ* __restrict__ q, TQ* __restrict__ out,
   }
 }
 
-template <typename TQ, typename TKV>
-cudaError_t launch_grouped(const Args& a, const void* q, void* out,
-                           float* part_acc, float* part_ml,
-                           const int* seq_lens, int B, int H, int J,
-                           float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<TKV, kDecodeRows>(a.D, a.page);
-  auto kernel = decode_grouped_kernel<TQ, TKV>;
+template <typename TKV, int DT, int ROWS>
+cudaError_t launch_grouped_split(const Args& a, const Launch& l) {
+  const int D = DT > 0 ? DT : a.D, es = sizeof(TKV);
+  const int qrow = Lanes<TKV, DT>::qrow(D);
+  const bool quant = a.scales != nullptr;
+  // the deepest ring that fits (at most a split's pages), or the one asked
+  const int stages =
+      split_stages(D, qrow, es, a.page, quant, ROWS,
+                   l.stages > 0 ? l.stages : l.pps, kMaxSplits, 0);
+  if (stages == 0 || (l.stages > 0 && stages != l.stages))
+    return cudaErrorInvalidValue;
+  const SplitLay lay =
+      split_lay(D, qrow, es, a.page, quant, ROWS, stages, kMaxSplits);
+  auto kernel = decode_grouped_split_kernel<TKV, DT, ROWS>;
+  cudaError_t err = prepare(kernel, lay.bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(l.B * a.KH, l.splits), kSplitThreads, lay.bytes,
+           l.stream>>>(a, l.q, l.out, l.qbf, l.seq_lens, l.part_acc,
+                       l.part_ml, l.counters, l.H, l.pps, stages, l.scale);
+  return cudaGetLastError();
+}
+
+template <typename TKV, int DT>
+cudaError_t grouped_rows(const Args& a, const Launch& l, int rows) {
+  if (rows == 1) return launch_grouped_split<TKV, DT, 1>(a, l);
+  if (rows == 4) return launch_grouped_split<TKV, DT, 4>(a, l);
+  if (rows == 8) return launch_grouped_split<TKV, DT, 8>(a, l);
+  return cudaErrorInvalidValue;
+}
+
+// B6's instance by head dim and rows (0: 1 for G = 1, 4 up to G = 4, else
+// 8); another even head dim takes the generic instance at 8 rows.
+template <typename TKV>
+cudaError_t launch_grouped(const Args& a, const Launch& l, int rows) {
+  const int G = l.H / a.KH;
+  if (rows == 0) rows = G == 1 ? 1 : G <= 4 ? 4 : 8;
+  if (rows < G) return cudaErrorInvalidValue;
+  switch (a.D) {
+    case 64: return grouped_rows<TKV, 64>(a, l, rows);
+    case 96: return grouped_rows<TKV, 96>(a, l, rows);
+    case 128: return grouped_rows<TKV, 128>(a, l, rows);
+    case 256: return grouped_rows<TKV, 256>(a, l, rows);
+    default: return launch_grouped_split<TKV, 0, 8>(a, l);
+  }
+}
+
+template <typename TQ, typename TKV, int D, int ROWS>
+cudaError_t launch_batched_split(const Args& a, const Launch& l) {
+  const int es = sizeof(TKV), qrow = Lanes<TKV, D>::qrow(D);
+  const bool quant = a.scales != nullptr;
+  const int extra = static_cast<int>(align16(4 * (l.B + 1)));  // pre
+  const int stages = split_stages(D, qrow, es, a.page, quant, ROWS,
+                                  kMaxStages, l.splits, extra);
+  if (stages == 0) return cudaErrorInvalidValue;
+  const int smem =
+      split_lay(D, qrow, es, a.page, quant, ROWS, stages, l.splits).bytes +
+      extra;
+  auto kernel = decode_batched_split_kernel<TQ, TKV, D, ROWS>;
   cudaError_t err = prepare(kernel, smem);
   if (err != cudaSuccess) return err;
-  const int n_groups = (a.mp + J - 1) / J;
-  kernel<<<dim3(B * a.KH, n_groups), kThreads, smem, stream>>>(
-      a, static_cast<const TQ*>(q), part_acc, part_ml, seq_lens, H, J, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  decode_combine_kernel<TQ><<<dim3(B * a.KH, H / a.KH), kThreads, 0, stream>>>(
-      a, part_acc, part_ml, static_cast<TQ*>(out), seq_lens, H, J, n_groups);
+  kernel<<<l.splits, kSplitThreads, smem, l.stream>>>(
+      a, static_cast<const TQ*>(l.q), static_cast<TQ*>(l.out), l.seq_lens,
+      l.part_acc, l.part_ml, l.counters, l.B, l.H, stages, l.scale);
   return cudaGetLastError();
+}
+
+template <typename TQ, typename TKV>
+cudaError_t launch_batched(const Args& a, const Launch& l) {
+  const bool narrow = l.H / a.KH <= 4;
+  if (a.D == 128)
+    return narrow ? launch_batched_split<TQ, TKV, 128, 4>(a, l)
+                  : launch_batched_split<TQ, TKV, 128, 8>(a, l);
+  if (a.D == 256)
+    return narrow ? launch_batched_split<TQ, TKV, 256, 4>(a, l)
+                  : launch_batched_split<TQ, TKV, 256, 8>(a, l);
+  return cudaErrorInvalidValue;
 }
 
 template <typename TQ, typename TKV>
@@ -379,44 +445,42 @@ cudaError_t launch_packed(const Args& a, const void* q, void* out,
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TKV>
-cudaError_t launch_batched(const Args& a, const void* q, void* out,
-                           const int* seq_lens, int* next, int B, int H,
-                           float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<TKV, kDecodeRows>(a.D, a.page);
-  auto kernel = decode_batched_kernel<TQ, TKV>;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
-  int device = 0, sms = 0;
-  err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  err = cudaMemsetAsync(next, 0, sizeof(int), stream);
-  if (err != cudaSuccess) return err;
-  const int blocks = sms < B * a.KH ? sms : B * a.KH;
-  kernel<<<blocks, kThreads, smem, stream>>>(
-      a, static_cast<const TQ*>(q), static_cast<TQ*>(out), seq_lens, next, B,
-      H, scale);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
+// B6: an even head dim D <= 256, G = H / KH <= 8; the visible pages of
+// each (sequence, KV head), counted from the window's first, split into
+// `splits` runs of `pps` pages (splits * pps >= the most a window leaves
+// visible: mp, or with a window cdiv(window - 1, page) + 1 pages if fewer;
+// splits <= 64); the workspace part_acc [B * KH, splits, G, D], part_ml
+// [.., G, 2] and B * KH zeroed counters where splits > 1; `stages` the
+// ring's depth (0: the deepest that fits), `rows` the instance's rows (0:
+// by G; ignored by the generic instance); the pool and the scales 16-byte
+// aligned.
 extern "C" int pbt_paged_attention_decode_grouped(
     const void* q, void* out, const void* pool, const float* scales,
     const int* block_tables, const int* seq_lens, float* part_acc,
-    float* part_ml, int B, int H, int KH, int D, int P, int page, int mp,
-    int layer, long long scale_stride, int J, float scale, float softcap,
-    int window, int q_dtype, int kv_dtype, void* stream) {
-  if (D > kThreads * kMaxDPerThread || H % KH != 0 ||
-      H / KH > kDecodeRows || J < 1)
+    float* part_ml, int* counters, int B, int H, int KH, int D, int P,
+    int page, int mp, int layer, long long scale_stride, int splits,
+    int pps, int stages, int rows, float scale, float softcap, int window,
+    int q_dtype, int kv_dtype, void* stream) {
+  const int width =
+      window > 0 ? min(mp, (window + page - 2) / page + 1) : mp;
+  if (D < 2 || D > 256 || D % 2 != 0 || H % KH != 0 ||
+      H / KH > kDecodeRows || (q_dtype != 0 && q_dtype != 1) || page < 1 ||
+      splits < 1 || splits > kMaxSplits || pps < 1 ||
+      static_cast<long long>(splits) * pps < width || stages < 0 ||
+      stages > kMaxStages || rows < 0 || !hop::aligned16(pool) ||
+      (scales != nullptr && !hop::aligned16(scales)) ||
+      (splits > 1 &&
+       (part_acc == nullptr || part_ml == nullptr || counters == nullptr)))
     return cudaErrorInvalidValue;
   const Args a{static_cast<const uint8_t*>(pool), scales, block_tables, KH,
                D, P, page, mp, layer, scale_stride, softcap, window};
+  const Launch l{q, out, q_dtype == 1, seq_lens, part_acc, part_ml,
+                 counters, B, H, splits, pps, stages, scale,
+                 static_cast<cudaStream_t>(stream)};
   auto run = [&]() -> cudaError_t {
-    PBT_DISPATCH(launch_grouped, a, q, out, part_acc, part_ml, seq_lens, B,
-                 H, J, scale, static_cast<cudaStream_t>(stream));
+    PBT_KV_DISPATCH(launch_grouped, a, l, rows);
   };
   return static_cast<int>(run());
 }
@@ -441,20 +505,29 @@ extern "C" int pbt_paged_attention_decode_packed(
   return static_cast<int>(run());
 }
 
+// B7: D 128 or 256, G = H / KH <= 8; `blocks` blocks (at most B * KH * mp
+// make sense), the workspace part_acc [blocks + B * KH, G, D], part_ml
+// [.., G, 2] and B * KH zeroed counters; the pool and the scales 16-byte
+// aligned.
 extern "C" int pbt_paged_attention_decode_batched(
     const void* q, void* out, const void* pool, const float* scales,
-    const int* block_tables, const int* seq_lens, int* next, int B, int H,
-    int KH, int D, int P, int page, int mp, int layer,
-    long long scale_stride, float scale, float softcap, int window,
-    int q_dtype, int kv_dtype, void* stream) {
-  if (D > kThreads * kMaxDPerThread || H % KH != 0 ||
-      H / KH > kDecodeRows)
+    const int* block_tables, const int* seq_lens, float* part_acc,
+    float* part_ml, int* counters, int B, int H, int KH, int D, int P,
+    int page, int mp, int layer, long long scale_stride, int blocks,
+    float scale, float softcap, int window, int q_dtype, int kv_dtype,
+    void* stream) {
+  if ((D != 128 && D != 256) || H % KH != 0 || H / KH > kDecodeRows ||
+      page < 1 || B < 1 || blocks < 1 ||
+      part_acc == nullptr || part_ml == nullptr || counters == nullptr ||
+      !hop::aligned16(pool) || (scales != nullptr && !hop::aligned16(scales)))
     return cudaErrorInvalidValue;
   const Args a{static_cast<const uint8_t*>(pool), scales, block_tables, KH,
                D, P, page, mp, layer, scale_stride, softcap, window};
+  const Launch l{q, out, q_dtype == 1, seq_lens, part_acc, part_ml,
+                 counters, B, H, blocks, 0, 0, scale,
+                 static_cast<cudaStream_t>(stream)};
   auto run = [&]() -> cudaError_t {
-    PBT_DISPATCH(launch_batched, a, q, out, seq_lens, next, B, H, scale,
-                 static_cast<cudaStream_t>(stream));
+    PBT_DISPATCH(launch_batched, a, l);
   };
   return static_cast<int>(run());
 }

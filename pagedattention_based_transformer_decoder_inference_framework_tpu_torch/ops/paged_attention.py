@@ -23,14 +23,19 @@ B9, ``csrc/paged_decode.cu`` B6, B7 and B8:
   (:func:`decode_split_emulation` is that computation in plain PyTorch).
 * :func:`paged_attention_decode_grouped` (B6) replaces
   ``paged_attention_decode_grouped`` (``_decode_grouped_kernel``): B2's
-  function for any even head dim, split over the block table in groups
-  of ``group_pages`` pages.
+  function for any even head dim on B2's split-KV body, one launch: the
+  visible pages (counted from the window's first) split by
+  :func:`decode_grouped_plan` into runs of a multiple of ``group_pages``
+  (:func:`decode_grouped_emulation` in plain PyTorch).
 * :func:`paged_attention_decode_packed` (B8) replaces
   ``paged_attention_decode_packed`` (``_decode_packed_kernel``): B2's
   function over an unpadded sub-128 pool (:func:`packable_decode`).
 * :func:`paged_attention_decode_batched` (B7) replaces
   ``paged_attention_decode_batched`` (``_decode_batched_kernel``): B2's
-  function, the whole batch in one persistent launch. Neither engine
+  function, the whole batch in one launch on B2's split-KV body, split by
+  the batch's real lengths: each block an equal run of the visible
+  (sequence, KV head, page) units (:func:`decode_batched_partition`;
+  :func:`decode_batched_emulation` in plain PyTorch). Neither engine
   calls it.
 * :func:`paged_attention_decode_append` (B9) replaces
   ``paged_attention_decode_append`` (``_decode_append_kernel``): B2 with
@@ -86,7 +91,7 @@ ATTENTION_DECODE_APPEND = CudaKernel(
 ATTENTION_DECODE_GROUPED = CudaKernel(
     "paged_attention_decode_grouped", "paged_decode.cu",
     "pbt_paged_attention_decode_grouped",
-    _ATTN_ARGS + [P, P] + [I] * 8 + [LL, I, F, F, I, I, I, P],
+    _ATTN_ARGS + [P, P, P] + [I] * 8 + [LL, I, I, I, I, F, F, I, I, I, P],
     "ops/paged_attention.py:442")
 ATTENTION_DECODE_PACKED = CudaKernel(
     "paged_attention_decode_packed", "paged_decode.cu",
@@ -96,7 +101,7 @@ ATTENTION_DECODE_PACKED = CudaKernel(
 ATTENTION_DECODE_BATCHED = CudaKernel(
     "paged_attention_decode_batched", "paged_decode.cu",
     "pbt_paged_attention_decode_batched",
-    _ATTN_ARGS + [P] + [I] * 8 + [LL, F, F, I, I, I, P],
+    _ATTN_ARGS + [P, P, P] + [I] * 8 + [LL, I, F, F, I, I, I, P],
     "ops/paged_attention.py:874")
 
 #: the JAX dispatch's budget for the INT8 scales of a whole block-table
@@ -105,7 +110,7 @@ ATTENTION_DECODE_BATCHED = CudaKernel(
 DECODE_SCALES_BUDGET = 2 << 20
 #: the JAX whole-batch kernel's VMEM budget for every page of the batch
 _BATCHED_DECODE_VMEM = 8 * 1024 * 1024
-#: most splits of B2's key range (``csrc/paged_attention.cu``'s
+#: most splits of B2's and B6's key range (``csrc/split_decode.cuh``'s
 #: ``kMaxSplits``: the merge keeps a weight per split and row in shared
 #: memory)
 DECODE_MAX_SPLITS = 64
@@ -339,6 +344,52 @@ def decode_split_plan(batch: int, kv_heads: int, mp: int):
     return max(1, cdiv(mp, pps)), pps
 
 
+def _merge_parts(s, vis, v, vscale, masks):
+    """The split-KV computation over the reference's fold (:func:`_fold`)
+    in plain PyTorch (f32): each part, a bool key mask broadcastable to
+    ``s`` (``[B or 1, KH or 1, 1, 1, S]``), folds its keys into a partial
+    ``(m, l, acc)`` (a part with no visible key gives ``m = -1e30, l = 0,
+    acc = 0``), and the partials merge in the list's order: ``M = max
+    m``, ``w = e^(m - M)``, ``out = sum acc w / sum l w`` with the ``l ==
+    0 -> 1`` guard. Returns ``[B, KH, T, G, D]``."""
+    parts = []
+    for mask in masks:
+        ss = torch.where(mask, s, torch.full_like(s, -1e30))
+        m = ss.amax(dim=-1, keepdim=True)
+        p = torch.where(vis & mask, torch.exp(ss - m), torch.zeros_like(ss))
+        l = p.sum(dim=-1, keepdim=True)
+        if vscale is not None:
+            p = p * vscale
+        parts.append((m, l, torch.einsum("bktgs,kbsd->bktgd", p, v)))
+    mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    acc = torch.zeros_like(parts[0][2])
+    lsum = torch.zeros_like(parts[0][1])
+    for m, l, a in parts:
+        w = torch.exp(m - mx)
+        acc = acc + a * w
+        lsum = lsum + l * w
+    return acc / torch.where(lsum == 0, torch.ones_like(lsum), lsum)
+
+
+def _emulation_fold(q, kv_pages, block_tables, seq_lens, kv_scales, layer,
+                    page_size, num_q_heads, window, softcap, scale):
+    """The decode emulations' common inputs: the checked pool and the
+    reference's fold (:func:`_fold`) of the lone query at ``seq_len -
+    1``."""
+    pool, scales, layer = _pooled(kv_pages, kv_scales, layer)
+    _check(q, pool, block_tables, seq_lens, num_q_heads, page_size)
+    if q.shape[1] != 1:
+        raise ValueError("decode attention takes T=1")
+    scale = 1.0 / math.sqrt(q.shape[3]) if scale is None else scale
+    return pool, _fold(q, pool, scales, layer, block_tables, seq_lens,
+                       seq_lens.long()[:, None] - 1, window, softcap, scale)
+
+
+def _emulation_out(q, acc):
+    B, _, H, D = q.shape
+    return acc.permute(0, 2, 1, 3, 4).reshape(B, 1, H, D).to(q.dtype)
+
+
 def decode_split_emulation(q, kv_pages, block_tables, seq_lens,
                            kv_scales=None, layer=None, *, page_size: int,
                            num_q_heads: int, window: int = 0,
@@ -355,40 +406,157 @@ def decode_split_emulation(q, kv_pages, block_tables, seq_lens,
     w / sum l w`` with the ``l == 0 -> 1`` guard. Same inputs and output
     as :func:`paged_attention_decode_plain`, which it equals up to the
     order of the sums."""
-    pool, scales, layer = _pooled(kv_pages, kv_scales, layer)
-    _check(q, pool, block_tables, seq_lens, num_q_heads, page_size)
-    B, T, H, D = q.shape
-    if T != 1:
-        raise ValueError("decode attention takes T=1")
+    pool, (s, vis, v, vscale) = _emulation_fold(
+        q, kv_pages, block_tables, seq_lens, kv_scales, layer, page_size,
+        num_q_heads, window, softcap, scale)
     mp = block_tables.shape[1]
-    scale = 1.0 / math.sqrt(D) if scale is None else scale
-    pps = (decode_split_plan(B, pool.shape[2], mp)[1]
+    pps = (decode_split_plan(q.shape[0], pool.shape[2], mp)[1]
            if pages_per_split is None else pages_per_split)
-    s, vis, v, vscale = _fold(q, pool, scales, layer, block_tables,
-                              seq_lens, seq_lens.long()[:, None] - 1, window,
-                              softcap, scale)
-    parts = []
-    for lo in range(0, mp * page_size, pps * page_size):
-        hi = min(lo + pps * page_size, mp * page_size)
-        ss, vv = s[..., lo:hi], vis[..., lo:hi]
-        m = ss.amax(dim=-1, keepdim=True)
-        p = torch.where(vv, torch.exp(ss - m), torch.zeros_like(ss))
-        l = p.sum(dim=-1, keepdim=True)
-        if vscale is not None:
-            p = p * vscale[..., lo:hi]
-        parts.append((m, l, torch.einsum("bktgs,kbsd->bktgd", p,
-                                         v[:, :, lo:hi])))
-    order = range(len(parts)) if order is None else order
-    mx = torch.stack([parts[i][0] for i in order]).amax(dim=0)
-    acc = torch.zeros_like(parts[0][2])
-    lsum = torch.zeros_like(parts[0][1])
-    for i in order:
-        m, l, a = parts[i]
-        w = torch.exp(m - mx)
-        acc = acc + a * w
-        lsum = lsum + l * w
-    out = acc / torch.where(lsum == 0, torch.ones_like(lsum), lsum)
-    return out.permute(0, 2, 1, 3, 4).reshape(B, T, H, D).to(q.dtype)
+    page = torch.arange(mp * page_size, device=q.device) // page_size
+    masks = [(page >= lo) & (page < lo + pps) for lo in range(0, mp, pps)]
+    order = range(len(masks)) if order is None else order
+    return _emulation_out(q, _merge_parts(s, vis, v, vscale,
+                                          [masks[i] for i in order]))
+
+
+def _visible_pages(seq_lens, page_size: int, mp: int, window: int):
+    """Each sequence's visible pages ``[first, n_pages)`` of its block
+    table at a T=1 query (``csrc/paged_attention.cuh``'s
+    ``first_decode_page`` / ``decode_pages``), as tensors."""
+    sl = seq_lens.long()
+    n_pages = torch.clamp((sl + page_size - 1) // page_size, max=mp)
+    first = (torch.clamp(sl - window, min=0) // page_size if window > 0
+             else torch.zeros_like(sl))
+    return first, n_pages
+
+
+def decode_grouped_plan(batch: int, kv_heads: int, mp: int, page_size: int,
+                        window: int = 0, group_pages: int = 4):
+    """B6's ``(splits, pages_per_split)``, from the shapes alone (the
+    lengths stay on the device): the most pages a sequence can have
+    visible (the table width ``mp``, or with a window the pages ``window``
+    keys can span, ``cdiv(window - 1, page) + 1``, if fewer) split in runs
+    of a multiple of ``group_pages`` (the JAX kernel's pages a grid step,
+    clamped to ``mp``), as many as bring the grid to about two waves of
+    the SMs (:func:`decode_split_plan`'s rule), at most
+    :data:`DECODE_MAX_SPLITS`. Split ``s`` of a sequence takes the pages
+    ``first + s * pps ..`` counted from its window's first visible page."""
+    J = max(1, min(group_pages, mp))
+    width = mp if window <= 0 else min(mp, cdiv(window - 1, page_size) + 1)
+    want = max(1, min(width, cdiv(2 * SMS, batch * kv_heads),
+                      DECODE_MAX_SPLITS))
+    pps = cdiv(cdiv(width, want), J) * J
+    return max(1, cdiv(width, pps)), pps
+
+
+def decode_grouped_emulation(q, kv_pages, block_tables, seq_lens,
+                             kv_scales=None, layer=None, *, page_size: int,
+                             num_q_heads: int, window: int = 0,
+                             softcap: float = 0.0,
+                             scale: Optional[float] = None,
+                             group_pages: int = 4, order=None):
+    """B6's split-KV computation in plain PyTorch (f32), for tests and
+    checks: :func:`decode_grouped_plan`'s runs of pages, counted from each
+    sequence's first visible page, merged in ``order`` (split order by
+    default) as :func:`decode_split_emulation` merges B2's. Same inputs
+    and output as :func:`paged_attention_decode_grouped_plain`."""
+    pool, (s, vis, v, vscale) = _emulation_fold(
+        q, kv_pages, block_tables, seq_lens, kv_scales, layer, page_size,
+        num_q_heads, window, softcap, scale)
+    mp = block_tables.shape[1]
+    splits, pps = decode_grouped_plan(q.shape[0], pool.shape[2], mp,
+                                      page_size, window, group_pages)
+    first, _ = _visible_pages(seq_lens, page_size, mp, window)
+    page = torch.arange(mp * page_size, device=q.device) // page_size
+    rel = (page - first[:, None])[:, None, None, None, :]   # [B, 1,1,1, S]
+    masks = [(rel >= i * pps) & (rel < i * pps + pps) for i in range(splits)]
+    order = range(splits) if order is None else order
+    return _emulation_out(q, _merge_parts(s, vis, v, vscale,
+                                          [masks[i] for i in order]))
+
+
+def decode_batched_blocks(batch: int, kv_heads: int, mp: int) -> int:
+    """B7's grid, from the shapes alone: about two waves of the SMs, no
+    more blocks than the batch has (sequence, KV head, page) units."""
+    return max(1, min(2 * SMS, batch * kv_heads * mp))
+
+
+def decode_batched_partition(seq_lens, kv_heads: int, page_size: int,
+                             mp: int, window: int = 0,
+                             blocks: Optional[int] = None):
+    """B7's cut of the work, as its kernel computes it
+    (``csrc/paged_decode.cu``'s ``decode_batched_split_kernel``), from
+    the lengths ``seq_lens`` (a list): the visible pages of (sequence b,
+    KV head h) are the units ``[KH * pre[b] + h * vis_b, .. + vis_b)`` of
+    the batch's ``U`` (``pre`` the prefix of the sequences' visible page
+    counts ``vis_b``), and block ``k`` of ``blocks``
+    (:func:`decode_batched_blocks`'s by default) takes the units ``[k U
+    // R, (k + 1) U // R)`` of ``R = min(blocks, U)`` runs (a block past
+    them none), so that no run is empty. Returns, for each block, its parts
+    in order as ``(j, first_page, pages, part, parts)``: ``j = b * KH +
+    h``, the block-table pages ``[first_page, first_page + pages)``, and
+    the part's index among ``j``'s ``parts`` (the blocks whose runs hold
+    ``j``'s first and last unit, each block deriving them alone)."""
+    B, KH = len(seq_lens), kv_heads
+    blocks = decode_batched_blocks(B, KH, mp) if blocks is None else blocks
+    firsts, vis, pre = [], [], [0]
+    for n in seq_lens:
+        first = max(n - window, 0) // page_size if window > 0 else 0
+        firsts.append(first)
+        vis.append(max(min(cdiv(n, page_size), mp) - first, 0))
+        pre.append(pre[-1] + vis[-1])
+    U = KH * pre[-1]
+    runs = min(blocks, U)       # so that no run is empty
+    out = []
+    for k in range(blocks):
+        parts = []
+        u, u1 = (k * U // runs, (k + 1) * U // runs) if k < runs else (0, 0)
+        while u < u1:
+            b = max(i for i in range(B) if KH * pre[i] <= u)
+            h = (u - KH * pre[b]) // vis[b]
+            s0 = KH * pre[b] + h * vis[b]
+            e0 = s0 + vis[b]
+            k0, k1 = ((s0 + 1) * runs - 1) // U, (e0 * runs - 1) // U
+            n = min(e0, u1) - u
+            parts.append((b * KH + h, firsts[b] + u - s0, n, k - k0,
+                          k1 - k0 + 1))
+            u += n
+        out.append(parts)
+    return out
+
+
+def decode_batched_emulation(q, kv_pages, block_tables, seq_lens,
+                             kv_scales=None, layer=None, *, page_size: int,
+                             num_q_heads: int, window: int = 0,
+                             softcap: float = 0.0,
+                             scale: Optional[float] = None,
+                             blocks: Optional[int] = None,
+                             reverse: bool = False):
+    """B7's computation in plain PyTorch (f32), for tests and checks:
+    :func:`decode_batched_partition`'s parts of each (sequence, KV head),
+    merged in part order (or in reverse) as :func:`decode_split_emulation`
+    merges B2's splits; a (sequence, KV head) with no visible page gives
+    zeros. Same inputs and output as
+    :func:`paged_attention_decode_batched_plain`."""
+    pool, (s, vis, v, vscale) = _emulation_fold(
+        q, kv_pages, block_tables, seq_lens, kv_scales, layer, page_size,
+        num_q_heads, window, softcap, scale)
+    B, KH, mp = q.shape[0], pool.shape[2], block_tables.shape[1]
+    by_head = [[] for _ in range(B * KH)]
+    for parts in decode_batched_partition(
+            [int(n) for n in seq_lens.tolist()], KH, page_size, mp, window,
+            blocks):
+        for j, first, n, part, _ in parts:
+            by_head[j].append((part, first, n))
+    page = torch.arange(mp * page_size, device=q.device) // page_size
+    masks = torch.zeros((max(1, max(map(len, by_head))), B * KH,
+                         mp * page_size), dtype=torch.bool, device=q.device)
+    for j, parts in enumerate(by_head):
+        parts.sort(reverse=reverse)
+        for i, (_, first, n) in enumerate(parts):
+            masks[i, j] = (page >= first) & (page < first + n)
+    masks = masks.reshape(-1, B, KH, 1, 1, mp * page_size)
+    return _emulation_out(q, _merge_parts(s, vis, v, vscale, list(masks)))
 
 
 def _decode_inputs(q, kv_pages, block_tables, seq_lens, kv_scales, layer,
@@ -525,33 +693,60 @@ def paged_attention_decode_grouped(q: torch.Tensor, kv_pages: torch.Tensor,
                                    scale: Optional[float] = None,
                                    group_pages: int = 4) -> torch.Tensor:
     """B6: T=1 decode attention for any even head dim up to 256 (at most
-    8 query heads per KV head), the block table split into groups of
-    ``group_pages`` pages: a block per (sequence, KV head, group) writes
-    its partial softmax state, a second kernel of the same call combines
-    them. Same inputs and output as :func:`paged_attention_decode`."""
+    8 query heads per KV head). One launch of B2's split-KV body: the
+    visible pages of each (sequence, KV head), counted from the window's
+    first, split by :func:`decode_grouped_plan` into runs of a multiple
+    of ``group_pages`` pages, the runs merged in order by the last to
+    finish. Same inputs and output as :func:`paged_attention_decode`."""
     if not q.is_cuda:
         return paged_attention_decode_grouped_plain(
             q, kv_pages, block_tables, seq_lens, kv_scales, layer,
             page_size=page_size, num_q_heads=num_q_heads, window=window,
             softcap=softcap, scale=scale, group_pages=group_pages)
+    splits, pps = decode_grouped_plan(
+        q.shape[0], kv_pages.shape[-4], block_tables.shape[1], page_size,
+        window, group_pages)
+    return decode_grouped_launch(
+        q, kv_pages, block_tables, seq_lens, kv_scales, layer,
+        page_size=page_size, num_q_heads=num_q_heads, window=window,
+        softcap=softcap, scale=scale, splits=splits, pages_per_split=pps)
+
+
+def decode_grouped_launch(q, kv_pages, block_tables, seq_lens,
+                          kv_scales=None, layer=None, *, page_size: int,
+                          num_q_heads: int, window: int = 0,
+                          softcap: float = 0.0,
+                          scale: Optional[float] = None, splits: int,
+                          pages_per_split: int, stages: int = 0,
+                          rows: int = 0) -> torch.Tensor:
+    """B6's launch at a given cut: ``splits`` runs of ``pages_per_split``
+    pages from each sequence's first visible one (``splits *
+    pages_per_split`` must cover what a window leaves visible), a ring of
+    ``stages`` pages and an instance of ``rows`` query rows (0: the
+    kernel's choice of each). :func:`paged_attention_decode_grouped` calls
+    it with :func:`decode_grouped_plan`'s cut; a sweep calls it with
+    others."""
     pool, scales, layer, qd, kd, sstride, q, bt, sl = _decode_inputs(
         q, kv_pages, block_tables, seq_lens, kv_scales, layer, page_size,
         num_q_heads, row_multiple=2)
+    pool, scales = aligned16(pool), aligned16(scales)
     B, _, H, D = q.shape
-    mp = bt.shape[1]
-    J = max(1, min(group_pages, mp))
-    n_groups = -(-mp // J)
-    G = H // pool.shape[2]
+    KH, mp = pool.shape[2], bt.shape[1]
+    G = H // KH
+    part_acc = part_ml = counters = None
+    if splits > 1:
+        part_acc = torch.empty((B * KH, splits, G, D), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((B * KH, splits, G, 2), dtype=torch.float32,
+                              device=q.device)
+        counters = split_counters(q.device, B * KH)
     scale = 1.0 / math.sqrt(D) if scale is None else scale
-    part_acc = torch.empty((B * pool.shape[2], n_groups, G, D),
-                           dtype=torch.float32, device=q.device)
-    part_ml = torch.empty((B * pool.shape[2], n_groups, G, 2),
-                          dtype=torch.float32, device=q.device)
     out = torch.empty_like(q)
     ATTENTION_DECODE_GROUPED.launch(
         ptr(q), ptr(out), ptr(pool), ptr(scales), ptr(bt), ptr(sl),
-        ptr(part_acc), ptr(part_ml), B, H, pool.shape[2], D, pool.shape[3],
-        page_size, mp, layer, sstride, J, float(scale), float(softcap),
+        ptr(part_acc), ptr(part_ml), ptr(counters), B, H, KH, D,
+        pool.shape[3], page_size, mp, layer, sstride, splits,
+        pages_per_split, stages, rows, float(scale), float(softcap),
         int(window), qd, kd, stream_handle(q))
     return out
 
@@ -605,9 +800,12 @@ def paged_attention_decode_batched(q: torch.Tensor, kv_pages: torch.Tensor,
                                    scale: Optional[float] = None
                                    ) -> torch.Tensor:
     """B7: B2's function (``dh % 128 == 0``, as in the JAX package) with
-    the whole batch in one launch: a persistent kernel, at most one block
-    per SM, each block taking (sequence, KV head) items from a counter.
-    Same inputs and output as :func:`paged_attention_decode`."""
+    the whole batch in one launch of B2's split-KV body, split by the
+    batch's real lengths: :func:`decode_batched_blocks` blocks, each an
+    equal run of the visible (sequence, KV head, page) units
+    (:func:`decode_batched_partition`), the parts of a (sequence, KV head)
+    merged in order by the last to finish. Same inputs and output as
+    :func:`paged_attention_decode`."""
     if q.shape[3] % 128:
         raise ValueError("paged_attention_decode_batched (B7) takes "
                          "dh % 128 == 0")
@@ -619,15 +817,22 @@ def paged_attention_decode_batched(q: torch.Tensor, kv_pages: torch.Tensor,
     pool, scales, layer, qd, kd, sstride, q, bt, sl = _decode_inputs(
         q, kv_pages, block_tables, seq_lens, kv_scales, layer, page_size,
         num_q_heads)
+    pool, scales = aligned16(pool), aligned16(scales)
     B, _, H, D = q.shape
+    KH, mp = pool.shape[2], bt.shape[1]
+    G = H // KH
+    blocks = decode_batched_blocks(B, KH, mp)
+    part_acc = torch.empty((blocks + B * KH, G, D), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((blocks + B * KH, G, 2), dtype=torch.float32,
+                          device=q.device)
     scale = 1.0 / math.sqrt(D) if scale is None else scale
-    next_item = torch.empty((1,), dtype=torch.int32, device=q.device)
     out = torch.empty_like(q)
     ATTENTION_DECODE_BATCHED.launch(
         ptr(q), ptr(out), ptr(pool), ptr(scales), ptr(bt), ptr(sl),
-        ptr(next_item), B, H, pool.shape[2], D, pool.shape[3], page_size,
-        bt.shape[1], layer, sstride, float(scale), float(softcap),
-        int(window), qd, kd, stream_handle(q))
+        ptr(part_acc), ptr(part_ml), ptr(split_counters(q.device, B * KH)),
+        B, H, KH, D, pool.shape[3], page_size, mp, layer, sstride, blocks,
+        float(scale), float(softcap), int(window), qd, kd, stream_handle(q))
     return out
 
 

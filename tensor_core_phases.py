@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where the tensor-core kernels' time goes (B13, B1, B10/B15, B11), on
-one NVIDIA H100.
+"""Where the tensor-core kernels' time goes (B13, B1, B10/B15, B11), and
+the split-KV decode body's (B6), on one NVIDIA H100.
 
     python3 tensor_core_phases.py [NAME ...]
 
@@ -10,8 +10,8 @@ kernel of ``csrc/imma.cuh`` (in ``int8_matmul.cu`` and
 ``csrc/widen_gemm.cuh``, the mainloop it shares with B13) with parts cut
 out (their outputs are then garbage) and times each by CUPTI device time
 beside the kernel as it is (the names on the command line, by default
-all five: ``gmm.cu``, ``paged_prefill.cu``, ``int8_matmul.cu``,
-``chain_linear.cu``, ``w8_matmul``):
+all six: ``gmm.cu``, ``paged_prefill.cu``, ``int8_matmul.cu``,
+``chain_linear.cu``, ``w8_matmul``, ``paged_decode.cu``):
 
 * B13 ``grouped_matmul`` at Mixtral-8x7B's prefill (``chip_smoke``'s
   routing of 1024 tokens to 2 of 8 experts, Npad 4096, with the
@@ -40,6 +40,17 @@ all five: ``gmm.cu``, ``paged_prefill.cu``, ``int8_matmul.cu``,
   ``no_widen_no_mma`` (what is left: the TMA loads, the barriers, the
   split-K merge and the epilogue); ``no_store`` (the epilogue computes
   but writes nothing).
+* B6 ``paged_attention_decode_grouped`` (``csrc/split_decode.cuh``, the
+  split-KV body it shares with B2 and B7) at path (h)'s shape (phi3-mini,
+  dh 96, G 1, window 2047, B=4) and path (i)'s (516 pages, B=1, G 4)
+  with bf16 queries, and the dh 64 shape of ``decode_variant_checks``
+  (B=4, G 4, 2-5 pages a sequence, softcap 30) with f32 queries, INT8
+  pools: ``full``; ``no_copies`` (the copy warp
+  signals each stage without copying, so the compute reads stale
+  shared memory); ``no_pv`` (no P.V product); ``no_copies_no_pv`` (what
+  is left: the scores, the softmax, the ring's barriers and the merge);
+  ``no_pages`` (every part empty: the launch, the q rows, the partials
+  and the merge alone).
 
 A tool for the kernels' next tuning; it changes nothing in the package:
 the copies are written and built under the package's git-ignored
@@ -83,6 +94,10 @@ B1_S = ("      hop::mma_ss_n64<0>(sacc, hop::desc(qs + off, 16, 1024),\n"
 IMMA_TRANSPOSE = "  for (int u = ct; u < 256; u += NT) {"
 IMMA_MMA = ("      hop::mma_s8_n128(acc, hop::desc(xs + kk * 32, 16, 1024),\n"
             "                       hop::desc(tb + kk * 32, 16, 1024), 1);")
+SPLIT_COPY = ("        hop::mbar_arrive_tx(&full[st], 2 * row + (quant ? 8 * nsc : 0));\n"
+              "        for (int kv = 0; kv < 2; ++kv) {")
+SPLIT_PV = "      for (int k = 0; k < nk; ++k) {"
+SPLIT_PAGES = "  const int b = w.b, h = w.h, i0 = w.i0, n = w.n;"
 B1_PV = ("        hop::mma_rs_n64<1>(o[c], pa[ks],\n"
          "                           hop::desc(vt + c * 8192 + ks * 2048, "
          "8192, 1024));")
@@ -103,6 +118,12 @@ def variants():
     h = (plat.CSRC / "imma.cuh").read_text()
     w8 = (plat.CSRC / "int8_matmul.cu").read_text()
     wg = (plat.CSRC / "widen_gemm.cuh").read_text()
+    pd = (plat.CSRC / "paged_decode.cu").read_text()
+    sd = (plat.CSRC / "split_decode.cuh").read_text()
+    no_copies = sub(sd, SPLIT_COPY, SPLIT_COPY.replace(
+        "mbar_arrive_tx(&full[st], 2 * row + (quant ? 8 * nsc : 0))",
+        "mbar_arrive(&full[st])").replace("kv < 2", "kv < 0"))
+    no_pv = SPLIT_PV.replace("k < nk", "k < 0")
     no_widen = sub(wg, GMM_WIDEN, GMM_WIDEN.replace("u < UNITS", "u < 0"))
     no_convert = sub(p, B1_CONVERT, B1_CONVERT.replace("j < nk", "j < 0"))
     no_mma = sub(sub(p, B1_S, ""), B1_PV, "")
@@ -129,6 +150,14 @@ def variants():
                                          B1_CONVERT.replace("j < nk",
                                                             "j < 0")),
             }.items()},
+        "paged_decode.cu": {
+            label: {"paged_decode.cu": pd, "split_decode.cuh": text}
+            for label, text in {
+                "full": sd, "no_copies": no_copies,
+                "no_pv": sub(sd, SPLIT_PV, no_pv),
+                "no_copies_no_pv": sub(no_copies, SPLIT_PV, no_pv),
+                "no_pages": sub(sd, SPLIT_PAGES, SPLIT_PAGES.replace(
+                    "n = w.n", "n = 0"))}.items()},
         "w8_matmul": {
             "full": {"int8_matmul.cu": w8},
             "no_widen": {"int8_matmul.cu": w8, "widen_gemm.cuh": no_widen},
@@ -233,6 +262,31 @@ def b15_cases(dev):
                                     for r, K in runs]}
 
 
+def b6_cases(dev):
+    """B6 at path (h)'s and path (i)'s decode shapes (bf16 queries) and the
+    dh 64 shape with its softcap of 30 (f32 queries), ``chip_smoke``'s
+    ``decode_variant_checks`` cases, INT8 pools."""
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 11)
+    cases = {}
+    for label, batch, kh, g, dh, mp, n_pages, lens, window, softcap in (
+            ("(h)", 4, 32, 1, 96, 36, 150, [2049, 2080, 2100, 2112], 2047,
+             0.0),
+            ("(i)", 1, 8, 4, 128, 516, 520, [32832], 0, 0.0),
+            ("dh 64 softcap", 4, 8, 4, 64, 5, 80, [65, 90, 128, 300], 0,
+             30.0)):
+        kv, bt = smoke.make_pool(torch, gen, torch.int8, dev, batch, kh, dh,
+                                 mp, n_pages)
+        q = torch.randn((batch, 1, kh * g, dh), generator=gen, device=dev)
+        if not softcap:
+            q = q.to(torch.bfloat16)
+        sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        kw = dict(page_size=smoke.PAGE, num_q_heads=kh * g, window=window,
+                  softcap=softcap)
+        cases[label] = (lambda a=(q, kv[0], bt, sl, kv[1], 1), kw=kw:
+                        pa.paged_attention_decode_grouped(*a, **kw))
+    return cases
+
+
 #: each name's source, wrapper kernel, cases and profiler name
 KERNELS = {"gmm.cu": ("gmm.cu", gmm.GROUPED_MATMUL, gmm_cases, "gmm::"),
            "paged_prefill.cu": ("paged_prefill.cu", pa.ATTENTION_WGMMA,
@@ -242,7 +296,9 @@ KERNELS = {"gmm.cu": ("gmm.cu", gmm.GROUPED_MATMUL, gmm_cases, "gmm::"),
            "chain_linear.cu": ("chain_linear.cu", cl.PACKED_LINEAR,
                                b15_cases, "imma::wgmma_s8_kernel<1,"),
            "w8_matmul": ("int8_matmul.cu", i8.W8_MATMUL, b11_cases,
-                         "w8::w8_wgmma_kernel<")}
+                         "w8::w8_wgmma_kernel<"),
+           "paged_decode.cu": ("paged_decode.cu", pa.ATTENTION_DECODE_GROUPED,
+                               b6_cases, "decode_grouped_split_kernel<")}
 
 
 def build_variants(names):

@@ -28,7 +28,9 @@ another order can move one value by a bf16 step) and under w8a8 (an
 f32 norm sum in another order can move one re-quantized activation by
 an INT8 step). B15 as B10 under w8a8 (bit-exact) and as B11 otherwise.
 B13 as B11 (f32 sums in another order: bf16 outputs within one bf16
-step or 1e-5 of max|output|, f32 outputs 1e-5 of max|output|).
+step or 1e-5 of max|output|, f32 outputs 1e-5 of max|output|). B6 and
+B7 run B2's split-KV body: the same tolerances, and the same bits from
+run to run.
 """
 
 import numpy as np
@@ -301,9 +303,10 @@ def test_cuda_spec_accepted_drafts_equal_fused(cuda, kv_dtype):
 
 
 # the decode kernels past B2, each with the head dims it covers: B6 any
-# even dh (18: INT8 rows of 2-byte granules), B8 dh 16/32/64, B7 dh 128
+# even dh (its compiled lane layouts 64, 96, 128, 256; 18, INT8 rows of
+# 2-byte pairs, on the generic instance), B8 dh 16/32/64, B7 dh 128
 DECODE_VARIANTS = {
-    "grouped": (pa.paged_attention_decode_grouped, (18, 96, 128)),
+    "grouped": (pa.paged_attention_decode_grouped, (18, 64, 96, 128, 256)),
     "packed": (pa.paged_attention_decode_packed, (16, 32, 64)),
     "batched": (pa.paged_attention_decode_batched, (128,)),
 }
@@ -311,7 +314,7 @@ DECODE_VARIANTS = {
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("G,window,softcap", [(1, 0, 0.0), (4, 0, 0.0),
-                                              (4, 10, 20.0)])
+                                              (4, 10, 20.0), (8, 0, 0.0)])
 @pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pool_dtype", ["int8", "bfloat16"])
 @pytest.mark.parametrize("variant", sorted(DECODE_VARIANTS))
@@ -320,7 +323,9 @@ def test_cuda_decode_variants_match_plain(cuda, variant, pool_dtype, q_dtype,
     """B6, B7 and B8 against their plain versions over a 40-page table: a
     frozen lane (seq_len 0, no visible key: zeros), a window whose first
     key lies inside a page, a lane mid-page, the table's last slot and a
-    long lane; B6 at several group widths. One launch per call."""
+    long lane; B6 at several group widths. One launch per call; B6's and
+    B7's parts merged in a fixed order, so the same bits from run to
+    run."""
     wrapper, dhs = DECODE_VARIANTS[variant]
     plain = getattr(pa, wrapper.__name__ + "_plain")
     kernel = {"grouped": pa.ATTENTION_DECODE_GROUPED,
@@ -358,6 +363,73 @@ def test_cuda_decode_variants_match_plain(cuda, variant, pool_dtype, q_dtype,
             torch.testing.assert_close(out.float(), ref.float(), atol=tol,
                                        rtol=0)
             assert not out[0].any()                  # the frozen lane
+            if variant != "packed":
+                assert torch.equal(out, wrapper(q, vals, bt, sl, sc, LAYER,
+                                                **kw, **extra))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool_dtype,dh,page", [
+    ("int8", 96, 8), ("bfloat16", 64, 8), ("int8", 18, 4), ("int8", 18, 1),
+    ("bfloat16", 26, 2)])
+def test_cuda_decode_grouped_every_cut(cuda, pool_dtype, dh, page):
+    """B6 at cuts other than its plan's (``decode_grouped_launch``, as
+    chip_smoke.py's sweep calls it): pages a split, ring depths and rows;
+    pages that are not a multiple of 16 bytes (dh 18 INT8 at pages of 4
+    and 1, dh 26 bf16 at pages of 2) take the copy warp's plain copies.
+    Each against the plain version at 1e-4 (f32 queries)."""
+    rng = np.random.default_rng(15)
+    B, KH, G, mp = 4, 2, 4, 24
+    Pn = B * mp + 1
+    vals, sc = decode_pool(rng, KH, dh, page, Pn, pool_dtype, cuda)
+    bt = torch.from_numpy((rng.permutation(Pn - 1) + 1).reshape(
+        B, mp).astype(np.int32)).to(cuda)
+    sl = torch.tensor([0, 1, page * mp, page * 7 + 1], device=cuda)
+    q = torch.randn((B, 1, KH * G, dh), device=cuda)
+    kw = dict(page_size=page, num_q_heads=KH * G, window=page * 5 + 1)
+    ref = pa.paged_attention_decode_plain(q, vals, bt, sl, sc, LAYER, **kw)
+    for cut in (dict(splits=6, pages_per_split=1), dict(splits=1,
+                                                         pages_per_split=6),
+                dict(splits=2, pages_per_split=3, stages=1),
+                dict(splits=3, pages_per_split=2, stages=4),
+                dict(splits=2, pages_per_split=4, rows=8),
+                dict(splits=2, pages_per_split=4, rows=4)):
+        out = pa.decode_grouped_launch(q, vals, bt, sl, sc, LAYER, **kw,
+                                       **cut)
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        pa.decode_grouped_launch(q, vals, bt, sl, sc, LAYER, **kw,
+                                 splits=2, pages_per_split=2)  # too few
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_batched_ragged_512_pages(cuda, q_dtype):
+    """B7 over B2's four ragged sequences of 1 to 512 pages (64-key pages,
+    8 KV heads, INT8): split by the real lengths, one launch, the same bits
+    from run to run, and the parts merged in the order of
+    ``decode_batched_emulation`` (1e-4 against it with f32 queries)."""
+    KH, G, dh, page, mp = 8, 4, 128, 64, 512
+    lens = [1, 64 * 7 + 3, 64 * 200, 64 * 512]
+    rng = np.random.default_rng(16)
+    B = len(lens)
+    Pn = B * mp + 1
+    vals, sc = decode_pool(rng, KH, dh, page, Pn, "int8", cuda)
+    bt = torch.from_numpy((rng.permutation(Pn - 1) + 1).reshape(
+        B, mp).astype(np.int32)).to(cuda)
+    sl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q = torch.randn((B, 1, KH * G, dh), device=cuda).to(q_dtype)
+    kw = dict(page_size=page, num_q_heads=KH * G)
+    tol = 1e-4 if q_dtype == torch.float32 else 2e-2
+    pa.ATTENTION_DECODE_BATCHED.launches = 0
+    out = pa.paged_attention_decode_batched(q, vals, bt, sl, sc, LAYER, **kw)
+    assert pa.ATTENTION_DECODE_BATCHED.launches == 1
+    ref = pa.paged_attention_decode_plain(q, vals, bt, sl, sc, LAYER, **kw)
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=0)
+    emu = pa.decode_batched_emulation(q, vals, bt, sl, sc, LAYER, **kw)
+    torch.testing.assert_close(out.float(), emu.float(), atol=tol, rtol=0)
+    assert torch.equal(out, pa.paged_attention_decode_batched(
+        q, vals, bt, sl, sc, LAYER, **kw))
 
 
 @pytest.mark.cuda

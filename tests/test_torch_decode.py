@@ -1,7 +1,10 @@
 """T=1 decode attention past B2 in the PyTorch port: the grouped (B6),
 packed (B8) and batched (B7) kernels' plain versions against the JAX
-package's Pallas kernels, the backend's choice between B2, B6 and B8
-against the JAX backend's, and greedy engine streams on unpadded pools
+package's Pallas kernels, the split-KV cuts of B2, B6 and B7 (their
+plans, B7's partition, and their computations in plain PyTorch, the
+``*_emulation`` functions) against the plain versions and the JAX
+kernels, the backend's choice between B2, B6 and B8 against the JAX
+backend's, and greedy engine streams on unpadded pools
 (``pad_head_dim=False``) against the JAX engine's.
 
 On the CPU the port's wrappers run their plain versions; the JAX kernels
@@ -481,3 +484,169 @@ def test_split_decode_emulation_matches_plain_and_jax(case, pool_dtype, pps):
         # the longest sequence's first visible page lies past split 0
         first = (lens[-1] - window) // PAGE
         assert first >= pps
+
+
+# -- B6's and B7's cuts (the kernels on B2's split-KV body) ---------------
+
+@pytest.mark.parametrize("B,KH,mp,page,window,J,expect", [
+    (4, 32, 36, 64, 2047, 4, (3, 12)),   # path (h): 33 pages visible
+    (1, 8, 516, 64, 0, 4, (33, 16)),     # path (i): B2's cut at 516 pages
+    (4, 8, 5, 64, 0, 4, (2, 4)),         # the dh 64 softcap shape
+    (5, 2, 40, 8, 10, 7, (1, 7)),        # a window of 10 keys: 3 pages
+    (1, 1, 512, 64, 0, 1, (64, 8)),      # at most 64 splits
+    (64, 8, 16, 64, 0, 4, (1, 16)),      # the batch alone fills two waves
+    (2, 2, 3, 8, 0, 9, (1, 3))])         # J clamped to the table
+def test_decode_grouped_plan(B, KH, mp, page, window, J, expect):
+    assert pa.decode_grouped_plan(B, KH, mp, page, window, J) == expect
+
+
+@pytest.mark.parametrize("J", [1, 4, 7])
+@pytest.mark.parametrize("B,KH", [(1, 8), (4, 32), (3, 2)])
+def test_decode_grouped_plan_covers_the_window(B, KH, J):
+    """Every table width from 1 to 300 pages, with and without windows:
+    runs of a multiple of J pages (J clamped to the table), at most 64,
+    covering the most pages a sequence can have visible, none empty."""
+    for mp in range(1, 301):
+        for window in (0, 1, 9, 64, 65, 2047):
+            splits, pps = pa.decode_grouped_plan(B, KH, mp, 8, window, J)
+            width = mp if window == 0 else min(mp, -(-(window - 1) // 8) + 1)
+            most = max(n_vis(sl, 8, mp, window) for sl in range(1, mp * 8 + 1,
+                                                                 max(1, mp)))
+            assert most <= width
+            assert pps % min(J, mp) == 0 and 1 <= splits <= 64
+            assert splits * pps >= width > (splits - 1) * pps
+
+
+def n_vis(seq_len, page, mp, window):
+    """Pages of a sequence of ``seq_len`` keys that hold visible keys."""
+    first = max(seq_len - window, 0) // page if window else 0
+    return max(min(-(-seq_len // page), mp) - first, 0)
+
+
+# (B, KH, mp, seq_lens, window, blocks): ragged batches with empty
+# sequences, a window, one block, fewer units than blocks, a sequence's
+# pages over many blocks, and runs that span several (sequence, KV head)s
+PARTITIONS = {
+    "ragged": (5, 2, 40, [0, 30, 17, 320, 250], 10, None),
+    "one_block": (3, 2, 6, [5, 48, 17], 0, 1),
+    "few_units": (4, 8, 5, [65, 90, 128, 101], 0, None),
+    "all_empty": (3, 4, 6, [0, 0, 0], 0, None),
+    "long_and_short": (2, 1, 512, [1, 64 * 512], 0, None),
+    "spans": (8, 8, 5, [1, 65, 200, 320, 17, 128, 64, 250], 0, 7),
+    "b2_ragged": (4, 8, 512, [1, 64 * 7 + 3, 64 * 200, 64 * 512], 0, None),
+    "window_64": (6, 3, 20, [1, 63, 64, 65, 640, 1000], 100, 13),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PARTITIONS))
+def test_decode_batched_partition(case):
+    """B7's partition, each block deriving its parts alone: every visible
+    page of every (sequence, KV head) covered exactly once, runs of equal
+    length (within one unit), none empty where there are units enough,
+    and every (sequence, KV head)'s parts numbered 0..parts-1 in page
+    order by the blocks, which agree on the count."""
+    B, KH, mp, lens, window, blocks = PARTITIONS[case]
+    page = 64 if max(lens) > 320 else 8
+    parts = pa.decode_batched_partition(lens, KH, page, mp, window, blocks)
+    nb = pa.decode_batched_blocks(B, KH, mp) if blocks is None else blocks
+    assert len(parts) == nb
+    seen = collections.defaultdict(list)
+    for blk in parts:
+        for j, first, n, part, count in blk:
+            assert n >= 1
+            seen[j].append((part, first, n, count))
+    U = sum(KH * n_vis(sl, page, mp, window) for sl in lens)
+    runs = [sum(n for _, _, n, _, _ in blk) for blk in parts]
+    assert sum(runs) == U
+    live = [r for r in runs if r]
+    assert len(live) == min(nb, U)
+    if live:
+        assert max(live) - min(live) <= 1
+    for b, sl in enumerate(lens):
+        first = max(sl - window, 0) // page if window else 0
+        for h in range(KH):
+            got = sorted(seen.pop(b * KH + h, []))
+            assert [p for p, _, _, _ in got] == list(range(len(got)))
+            assert all(c == len(got) for _, _, _, c in got)
+            pages = [first + i for i in range(n_vis(sl, page, mp, window))]
+            assert [pg for _, f, n, _ in got for pg in range(f, f + n)] == \
+                pages
+    assert not seen
+
+
+# (G, window, softcap, seq_lens) at B=5 over a 6-page table of 8-key
+# pages: an empty sequence, a window starting inside a page, the table's
+# last slot
+SPLIT_KV_CASES = {
+    "gqa_window": (4, 10, 0.0, [0, 30, 17, MP * PAGE, 41]),
+    "mha_softcap": (1, 0, 20.0, [1, 9, MP * PAGE - 3, 0, 24]),
+}
+
+
+@pytest.mark.parametrize("blocks", [None, 1, 3, 7])
+@pytest.mark.parametrize("pool_dtype", ["float32", "int8"])
+@pytest.mark.parametrize("case", sorted(SPLIT_KV_CASES))
+def test_batched_emulation_matches_plain_and_jax(case, pool_dtype, blocks):
+    """B7's partition and part-order merge in plain PyTorch
+    (``decode_batched_emulation``) against its plain version and the JAX
+    ``paged_attention_decode_batched`` in interpret mode (1e-5: the same
+    terms summed in another order), in part order and in reverse; with 3
+    or 7 blocks runs span two (sequence, KV head)s."""
+    G, window, softcap, lens = SPLIT_KV_CASES[case]
+    KH, dh = 2, 128
+    rng = np.random.default_rng(21)
+    (jvals, jsc), (tvals, tsc) = make_pool(rng, KH, dh, pool_dtype)
+    bt = block_table(rng, len(lens))
+    q = rng.normal(size=(len(lens), 1, KH * G, dh)).astype(np.float32)
+    sl = np.asarray(lens, np.int32)
+    common = dict(page_size=PAGE, num_q_heads=KH * G, window=window,
+                  softcap=softcap, scale=dh ** -0.5)
+    ref = np.asarray(jpa.paged_attention_decode_batched(
+        jnp.asarray(q), jvals, jnp.asarray(bt), jnp.asarray(sl), jsc,
+        jnp.int32(LAYER), interpret=True, **common))
+    args = (torch.from_numpy(q), tvals, torch.from_numpy(bt),
+            torch.from_numpy(sl), tsc, LAYER)
+    plain = pa.paged_attention_decode_batched_plain(*args, **common).numpy()
+    np.testing.assert_allclose(plain, ref, **CLOSE)
+    if blocks is not None:
+        spans = [blk for blk in pa.decode_batched_partition(
+            lens, KH, PAGE, MP, window, blocks) if len(blk) > 1]
+        assert spans                 # a run holds two (sequence, KV head)s
+    for reverse in (False, True):
+        out = pa.decode_batched_emulation(*args, blocks=blocks,
+                                          reverse=reverse, **common).numpy()
+        np.testing.assert_allclose(out, plain, **CLOSE)
+        np.testing.assert_allclose(out, ref, **CLOSE)
+    assert not out[0 if lens[0] == 0 else 3].any()       # the empty lane
+
+
+@pytest.mark.parametrize("case", sorted(DECODE_CASES))
+@pytest.mark.parametrize("J", [1, 4, 7])
+@pytest.mark.parametrize("dh", [24, 64, 96])
+def test_grouped_emulation_matches_jax(dh, J, case):
+    """B6's cut (``decode_grouped_plan``: runs of a multiple of J pages
+    counted from the window's first visible page) and its split-order
+    merge in plain PyTorch (``decode_grouped_emulation``) against the JAX
+    ``paged_attention_decode_grouped`` in interpret mode at the same J
+    (f32 1e-5: the same terms in another order), in split order and in
+    reverse, over an INT8 pool."""
+    G, window, softcap, seq_lens = DECODE_CASES[case]
+    rng = np.random.default_rng(30 + dh)
+    KH = 2
+    (jvals, jsc), (tvals, tsc) = make_pool(rng, KH, dh, "int8")
+    bt = block_table(rng, len(seq_lens))
+    q = rng.normal(size=(len(seq_lens), 1, KH * G, dh)).astype(np.float32)
+    sl = np.asarray(seq_lens, np.int32)
+    common = dict(page_size=PAGE, num_q_heads=KH * G, window=window,
+                  softcap=softcap, scale=dh ** -0.5)
+    ref = np.asarray(jpa.paged_attention_decode_grouped(
+        jnp.asarray(q), jvals, jnp.asarray(bt), jnp.asarray(sl), jsc,
+        jnp.int32(LAYER), interpret=True, group_pages=J, **common))
+    args = (torch.from_numpy(q), tvals, torch.from_numpy(bt),
+            torch.from_numpy(sl), tsc, LAYER)
+    splits = pa.decode_grouped_plan(len(seq_lens), KH, MP, PAGE, window,
+                                    J)[0]
+    for order in (None, range(splits - 1, -1, -1)):
+        out = pa.decode_grouped_emulation(*args, group_pages=J, order=order,
+                                          **common).numpy()
+        np.testing.assert_allclose(out, ref, **CLOSE)

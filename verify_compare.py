@@ -1,7 +1,7 @@
 """Path (e)'s verify forward and the redesigned kernels, compared across
 checkouts of the repo on one card.
 
-    python3 verify_compare.py [TREE ...]
+    python3 verify_compare.py [--decode] [TREE ...]
 
 Each TREE is the root of a checkout (default: this one); give two
 checkouts in the order ``A B B A`` to compare them on the same card.
@@ -14,9 +14,14 @@ weight outside L2):
   M=36 (a verify chunk of 4 x 9 rows) and M=256 (a prefill chunk);
 * B11 ``w8_matmul`` with bf16 x, the same layer's four projections at
   M=256 and the LM head at M=36 and M=256;
-* B2 ``paged_attention_decode`` at the slice's shape (4 sequences of
-  65-128 keys, INT8 pool, bf16 queries) and at a 512-page table at
-  batch 1 (32,700 keys);
+* the split-KV decode kernels, INT8 pool, bf16 queries (``chip_smoke``'s
+  ``decode_variant_checks`` shapes): B2 ``paged_attention_decode`` at the
+  slice's shape (4 sequences of 65-128 keys), at a 512-page table at
+  batch 1 (32,700 keys) and at four ragged sequences of 1-512 pages; B6
+  ``paged_attention_decode_grouped`` at path (h)'s shape (phi3-mini, dh
+  96, window 2047, B=4) and path (i)'s (516 pages, B=1); B7
+  ``paged_attention_decode_batched`` at the slice's shape and the four
+  ragged sequences;
 * B13 ``grouped_matmul`` at Mixtral-8x7B's prefill (``chip_smoke``'s
   routing, Npad 4096, ``block_rows``), we_gu and we_down with INT8
   experts, summed;
@@ -27,8 +32,9 @@ weight outside L2):
   run's decode time over its verify forwards, and the device time of the
   profiled spec run.
 
-Prints each checkout's output and results (one JSON line), then a
-table. Needs a card; exits 1 without one.
+With ``--decode`` only the split-KV decode kernels are timed (only their
+sources are built). Prints each checkout's output and results (one JSON
+line), then a table. Needs a card; exits 1 without one.
 """
 
 from __future__ import annotations
@@ -43,7 +49,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 TAG = "VERIFY_COMPARE "
 
 
-def one(tree: pathlib.Path) -> dict:
+def one(tree: pathlib.Path, decode_only: bool) -> dict:
     """The measurements on the checkout at ``tree``, in this process."""
     os.chdir(tree)
     sys.path.insert(0, str(tree))
@@ -63,9 +69,13 @@ def one(tree: pathlib.Path) -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    plat.build_kernels()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 3)
+    if decode_only:
+        plat.build_kernels(["paged_attention.cu", "paged_decode.cu"])
+        return {"tree": str(tree), "card": card,
+                "decode_ms": decode_times(torch, cs, dev, gen)}
+    plat.build_kernels()
 
     layer = {36: 0.0, 256: 0.0}
     for _, K, N in cs.PROJECTIONS:
@@ -85,7 +95,7 @@ def one(tree: pathlib.Path) -> dict:
         del wq, wqs
     torch.cuda.empty_cache()
     b11 = b11_times(torch, cs, i8, qt, dev, gen)
-    b2 = b2_times(torch, cs, dev, gen)
+    decode = decode_times(torch, cs, dev, gen)
     b13 = b13_ms(torch, cs, qt, dev, gen)
 
     cfg, batch, steps, prompt_len = cs.path_config(
@@ -112,7 +122,7 @@ def one(tree: pathlib.Path) -> dict:
 
     return {"tree": str(tree), "card": card,
             "b10_layer_ms": {str(m): v for m, v in layer.items()},
-            "b11_ms": b11, "b2_ms": b2, "b13_ms": b13,
+            "b11_ms": b11, "decode_ms": decode, "b13_ms": b13,
             "random": run(""), "repeating": run("repeating_"),
             "profile_wall_ms": info["profile_wall_ms"],
             "profile_device_busy_ms": info["profile_device_busy_ms"],
@@ -149,26 +159,46 @@ def b11_times(torch, cs, i8, qt, dev, gen) -> dict:
     return out
 
 
-def b2_times(torch, cs, dev, gen) -> dict:
-    """B2 at the slice's shape and at a 512-page table at batch 1, INT8
-    pool, bf16 queries, ms by CUPTI."""
+#: the split-KV decode kernels' shapes: (label, wrapper, batch, KV heads,
+#: G, dh, table width, pool pages, seq lens, window)
+DECODE_SHAPES = [
+    ("B2 slice", "paged_attention_decode", 4, 8, 4, 128, 5, 80,
+     [65, 90, 128, 101], 0),
+    ("B2 512 pages", "paged_attention_decode", 1, 8, 4, 128, 512, 520,
+     [32700], 0),
+    ("B2 ragged", "paged_attention_decode", 4, 8, 4, 128, 512, 2060,
+     [1, 64 * 7 + 3, 64 * 200, 64 * 512], 0),
+    ("B6 (h)", "paged_attention_decode_grouped", 4, 32, 1, 96, 36, 150,
+     [2049, 2080, 2100, 2112], 2047),
+    ("B6 (i)", "paged_attention_decode_grouped", 1, 8, 4, 128, 516, 520,
+     [32832], 0),
+    ("B7 slice", "paged_attention_decode_batched", 4, 8, 4, 128, 5, 80,
+     [65, 90, 128, 101], 0),
+    ("B7 ragged", "paged_attention_decode_batched", 4, 8, 4, 128, 512, 2060,
+     [1, 64 * 7 + 3, 64 * 200, 64 * 512], 0),
+]
+
+
+def decode_times(torch, cs, dev, gen) -> dict:
+    """The split-KV decode kernels at :data:`DECODE_SHAPES`, INT8 pool,
+    bf16 queries, ms by CUPTI."""
     from importlib import import_module
 
     pa = import_module(f"{cs.PKG}.ops.paged_attention")
     out = {}
-    for label, batch, mp, n_pages, lens in (
-            ("slice", cs.B, cs.MP, cs.NUM_PAGES, [65, 90, 128, 101]),
-            ("512 pages", 1, 512, 520, [32700])):
-        kv, bt = cs.make_pool(torch, gen, torch.int8, dev, batch, cs.KH,
-                              cs.DH, mp, n_pages)
-        q = torch.randn((batch, 1, cs.H, cs.DH), generator=gen,
+    for label, kname, batch, kh, g, dh, mp, n_pages, lens, window in \
+            DECODE_SHAPES:
+        kv, bt = cs.make_pool(torch, gen, torch.int8, dev, batch, kh, dh, mp,
+                              n_pages)
+        q = torch.randn((batch, 1, kh * g, dh), generator=gen,
                         device=dev).to(torch.bfloat16)
         sl = torch.tensor(lens, dtype=torch.int32, device=dev)
         args = (q, kv[0], bt, sl, kv[1], 1)
-        kw = dict(page_size=cs.PAGE, num_q_heads=cs.H, scale=cs.DH ** -0.5)
-        out[label] = cs.device_ms(
-            lambda: pa.paged_attention_decode(*args, **kw),
-            match=cs.KERNEL_NAMES["paged_attention_decode"])
+        kw = dict(page_size=cs.PAGE, num_q_heads=kh * g, window=window,
+                  scale=dh ** -0.5)
+        fn = getattr(pa, kname)
+        out[label] = cs.device_ms(lambda: fn(*args, **kw),
+                                  match=cs.KERNEL_NAMES[kname])
         del kv, bt
         torch.cuda.empty_cache()
     return out
@@ -200,13 +230,14 @@ def b13_ms(torch, cs, qt, dev, gen) -> float:
     return total
 
 
-def main(trees) -> int:
+def main(trees, decode_only) -> int:
     results = []
     for tree in trees or ["."]:
         path = (pathlib.Path.cwd() / tree).resolve()
         proc = subprocess.run(
             [sys.executable, str(ROOT / "verify_compare.py"), "--one",
-             str(path)], capture_output=True, text=True)
+             str(path)] + (["--decode"] if decode_only else []),
+            capture_output=True, text=True)
         print(f"== {tree}", proc.stdout, proc.stderr[-8000:], sep="\n",
               flush=True)
         lines = [ln for ln in proc.stdout.splitlines()
@@ -218,19 +249,25 @@ def main(trees) -> int:
         res["tree"] = tree
         print(json.dumps(res), flush=True)
         results.append(res)
+    print("tree | " + " | ".join(f"{label} ms" for label, *_ in DECODE_SHAPES))
+    for r in results:
+        print(f"{r['tree']} | " + " | ".join(
+            f"{r['decode_ms'][label]:.4f}" for label, *_ in DECODE_SHAPES)
+            + f" ({r['card']})")
+    if decode_only:
+        return 0
     print("tree | B10 layer M=36 ms | M=256 ms | B11 layer M=256 / head "
-          "M=36 / head M=256 ms | B2 slice / 512 pages ms | B13 ms | verify "
+          "M=36 / head M=256 ms | B13 ms | verify "
           "wall ms (random / repeating) | spec tok/s (random / repeating) | "
           "spec/fused (random / repeating) | profiled spec run: busy ms, "
           "share, B10 ms")
     for r in results:
         a, b = r["random"], r["repeating"]
-        b11, b2 = r["b11_ms"], r["b2_ms"]
+        b11 = r["b11_ms"]
         print(f"{r['tree']} | {r['b10_layer_ms']['36']:.4f} | "
               f"{r['b10_layer_ms']['256']:.4f} | "
               f"{b11['layer M=256']:.4f} / {b11['head M=36']:.4f} / "
-              f"{b11['head M=256']:.4f} | {b2['slice']:.4f} / "
-              f"{b2['512 pages']:.4f} | {r['b13_ms']:.4f} | "
+              f"{b11['head M=256']:.4f} | {r['b13_ms']:.4f} | "
               f"{a['verify_wall_ms']:.2f} "
               f"/ {b['verify_wall_ms']:.2f} | {a['spec_tok_s']:.1f} / "
               f"{b['spec_tok_s']:.1f} | {a['spec_over_fused']:.3f} / "
@@ -242,7 +279,10 @@ def main(trees) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--one"]:
-        print(TAG + json.dumps(one(pathlib.Path(sys.argv[2]))), flush=True)
+    decode = "--decode" in sys.argv[1:]
+    argv = [a for a in sys.argv[1:] if a != "--decode"]
+    if argv[:1] == ["--one"]:
+        print(TAG + json.dumps(one(pathlib.Path(argv[1]), decode)),
+              flush=True)
     else:
-        sys.exit(main(sys.argv[1:]))
+        sys.exit(main(argv, decode))
