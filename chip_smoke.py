@@ -11,7 +11,8 @@ and nothing of JAX. Phases:
 1. Card and build: the card's name and power limit, then every kernel
    built from ``csrc/`` (one ``nvcc`` per source, in parallel), timed;
    for the tensor-core kernels (B13's ``wgmma_kernel``, B1's
-   ``attention_wgmma_kernel``, B10's and B15's ``wgmma_s8_kernel``)
+   ``attention_wgmma_kernel``, B10's and B15's ``wgmma_s8_kernel``, B11's
+   ``w8_wgmma_kernel``, B12's ``w4_wgmma_kernel``)
    ptxas's registers, static shared memory and spills, and, where
    ``cuobjdump`` is found, the HGMMA / IGMMA (bf16 / INT8 wgmma),
    UTMALDG (TMA) and UBLKCP (bulk copy) instructions in their SASS; a
@@ -106,7 +107,20 @@ and nothing of JAX. Phases:
    merged in reverse order must stay within 1e-4 and one misread page
    must not, as B2's; B6's cut (pages a split, ring stages, rows) swept
    at (h)'s and (i)'s shapes; (g)'s and (h)'s profiles give their decode
-   kernel's time a layer.
+   kernel's time a layer. Slice 11 (B12 and B8 redesigned): B12 past 16
+   rows with bf16 x runs ``int4_matmul.cu``'s ``w4_wgmma_kernel`` on
+   ``widen_gemm.cuh``'s INT4 mainloop (a raw carrier tile feeding two
+   128-column runs, each K-group's f32 sums folded with its scales), and
+   at M <= 16 the tensor-core gemv ``gemv_w4_kernel`` (mma.sync, weights as
+   the A operand); B12 is held and timed at a layer's four projections at
+   M=4, 36 and 256 and the head at M=4 and 256 beside tinygemm and the
+   bound (phase 1 reports its wgmma kernel's registers and HGMMA/UTMALDG
+   counts), and two 128-column carrier runs of the qkv weight swapped must
+   move its plain output past the tolerance; B8 runs on the split-KV body
+   (``decode_packed_split_kernel``), held at (g)'s shape and the dh-32
+   cases beside SDPA, with f32 queries its parts merged in reverse order
+   within 1e-4 and one misread page past it, and its cut swept at (g)'s
+   shape (``b8_sweep``).
 3. The paths, each ``Engine`` on llama3-8b at full width and full depth
    (32 layers; (a), (c) and (d) cut to 8; weights from a seed, INT8
    paged KV, page 64, prefill chunk 256, the pool ``bench.py`` sizes, for (b),
@@ -328,12 +342,14 @@ def bound(bytes_moved: float, flops: float, rate: str = "f32"):
 
 #: the tensor-core kernels' sources and symbols: B13, B1, the INT8
 #: kernel of B10 (M > 16) and B15 (w8a8), one header built into two
-#: sources, and B11's (M > 16, bf16 x) on B13's mainloop
+#: sources, B11's (M > 16, bf16 x) on B13's mainloop and B12's (M > 16,
+#: bf16 x) on its INT4 variant
 TENSOR_CORE_KERNELS = [("gmm.cu", "wgmma_kernel"),
                        ("paged_prefill.cu", "attention_wgmma_kernel"),
                        ("int8_matmul.cu", "wgmma_s8_kernel"),
                        ("chain_linear.cu", "wgmma_s8_kernel"),
-                       ("int8_matmul.cu", "w8_wgmma_kernel")]
+                       ("int8_matmul.cu", "w8_wgmma_kernel"),
+                       ("int4_matmul.cu", "w4_wgmma_kernel")]
 
 
 def tensor_core_report(log, built):
@@ -406,12 +422,13 @@ KERNEL_NAMES = {
     "paged_attention_decode_append": (
         "paged_attention_decode_append_kernel<",),
     "paged_attention_decode_grouped": ("decode_grouped_split_kernel<",),
-    "paged_attention_decode_packed": ("decode_packed_kernel<",),
+    "paged_attention_decode_packed": ("decode_packed_split_kernel<",),
     "paged_attention_decode_batched": ("decode_batched_split_kernel<",),
     "int8_matmul": ("qmm::gemv_kernel<0,", "imma::wgmma_s8_kernel<0,"),
     "w8_matmul": ("qmm::gemv_kernel<1,", "qmm::tiled_kernel<1,",
                   "w8::w8_wgmma_kernel<"),
-    "w4_matmul": ("qmm::gemv_kernel<2,", "qmm::tiled_kernel<2,"),
+    "w4_matmul": ("qmm::gemv_w4_kernel<", "qmm::tiled_kernel<2,",
+                  "w4::w4_wgmma_kernel<"),
     "chain_decode": ("chain::chain_kernel<",),
     "packed_linear": ("chain::packed_kernel<", "imma::wgmma_s8_kernel<1,"),
     "grouped_matmul": ("gmm::wgmma_kernel<", "gmm::f32_kernel<")}
@@ -1005,12 +1022,13 @@ def misread_group(bt, lens, window, J=4):
 #: the split-KV decode kernels on B2's body (csrc/split_decode.cuh), whose
 #: every held shape goes to the kernels line's ``shapes``
 SPLIT_KV = ("paged_attention_decode", "paged_attention_decode_grouped",
-            "paged_attention_decode_batched")
+            "paged_attention_decode_batched", "paged_attention_decode_packed")
 
 
 def reverse_merge(pa, kname, args, common, batch, kv_heads, mp, window):
-    """A split-KV kernel's computation (B2, B6 or B7) in plain PyTorch with
-    its parts merged in the reverse order, and what those parts are."""
+    """A split-KV kernel's computation (B2, B6, B7 or B8) in plain PyTorch
+    with its parts merged in the reverse order, and what those parts
+    are."""
     if kname == "paged_attention_decode":
         splits = pa.decode_split_plan(batch, kv_heads, mp)[0]
         return pa.decode_split_emulation(
@@ -1020,6 +1038,11 @@ def reverse_merge(pa, kname, args, common, batch, kv_heads, mp, window):
         splits = pa.decode_grouped_plan(batch, kv_heads, mp, PAGE,
                                         window)[0]
         return pa.decode_grouped_emulation(
+            *args, order=range(splits - 1, -1, -1), **common), \
+            f"{splits} splits"
+    if kname == "paged_attention_decode_packed":
+        splits = pa.decode_packed_plan(batch, kv_heads, mp, PAGE, window)[0]
+        return pa.decode_packed_emulation(
             *args, order=range(splits - 1, -1, -1), **common), \
             f"{splits} splits"
     parts = pa.decode_batched_partition(
@@ -1063,6 +1086,31 @@ def b6_sweep(torch, pa, args, common, name, batch, kv_heads, G, mp, window):
           flush=True)
 
 
+def b8_sweep(torch, pa, args, common, name, batch, kv_heads, mp, window):
+    """B8's cut at one shape (device time by CUPTI): the plan's (a split a
+    page), one split a sequence, splits of two pages, and the plan's with
+    rings of 1 to 4 stages."""
+    splits0, pps0 = pa.decode_packed_plan(batch, kv_heads, mp, PAGE, window)
+    width = splits0 * pps0
+    configs = [dict(splits=splits0, pages_per_split=pps0),
+               dict(splits=1, pages_per_split=width),
+               dict(splits=-(-width // 2), pages_per_split=2)]
+    configs += [dict(splits=splits0, pages_per_split=pps0, stages=st)
+                for st in (1, 2, 3, 4)]
+    line = []
+    for cfg in configs:
+        try:
+            ms = device_ms(lambda: pa.decode_packed_launch(
+                *args, **common, **cfg), iters=10,
+                match=KERNEL_NAMES["paged_attention_decode_packed"])
+            line.append(f"{cfg} {ms:.4f}")
+        except RuntimeError as exc:
+            line.append(f"{cfg} refused ({exc})")
+    print(f"  [paged_attention_decode_packed] {name}: sweep (plan "
+          f"{splits0} splits x {pps0} pages), ms: " + "; ".join(line),
+          flush=True)
+
+
 def decode_variant_checks(torch, F_, dev, results):
     """B6, B7 and B8 against their plain versions (B2's tolerances: 2e-2
     with bf16 queries, 1e-4 with f32), each at the shapes its path gives
@@ -1074,10 +1122,10 @@ def decode_variant_checks(torch, F_, dev, results):
     the slice: path (k)'s decode shape, a 512-page table at batch 1 (B6
     timed beside) and four ragged sequences of 1-512 pages, which B7
     (split by the real lengths) takes too. The split-KV kernels (B2, B6,
-    B7) with f32 queries: their parts merged in reverse order (in plain
-    PyTorch) must stay within 1e-4 and one misread page must not. B6's
-    cut (splits, ring stages, rows) swept at (h)'s and (i)'s shapes
-    (:func:`b6_sweep`)."""
+    B7, B8) with f32 queries: their parts merged in reverse order (in
+    plain PyTorch) must stay within 1e-4 and one misread page must not.
+    B6's cut (splits, ring stages, rows) swept at (h)'s and (i)'s shapes
+    (:func:`b6_sweep`), B8's at (g)'s (:func:`b8_sweep`)."""
     from importlib import import_module
 
     pa = import_module(f"{PKG}.ops.paged_attention")
@@ -1167,8 +1215,8 @@ def decode_variant_checks(torch, F_, dev, results):
             check(qdt == bf16 or miss > tol,
                   f"{kname} {name}: the tolerance {tol} does not flag a "
                   f"misread group ({miss})")
-        if qdt == f32 and kname != "paged_attention_decode_packed":
-            # the split-KV kernels' controls (B2, B6, B7): their parts
+        if qdt == f32:
+            # the split-KV kernels' controls (B2, B6, B7, B8): their parts
             # merged in the reverse order (in plain PyTorch) stay within the
             # tolerance, one page of the table misread (read in place of
             # its neighbour) does not
@@ -1202,6 +1250,8 @@ def decode_variant_checks(torch, F_, dev, results):
             results[kname].setdefault("shapes", {})[name] = row
         if kname == "paged_attention_decode_grouped" and qdt == bf16:
             b6_sweep(torch, pa, args, common, name, batch, kh, g, mp, window)
+        if kname == "paged_attention_decode_packed" and name.startswith("(g)"):
+            b8_sweep(torch, pa, args, common, name, batch, kh, mp, window)
         if kname == "paged_attention_decode":
             # B6 on the same inputs: the route past the scales budget
             b6_out = pa.paged_attention_decode_grouped(*args, **common)
@@ -1452,9 +1502,11 @@ def matmul_checks(torch, dev, results):
                 cases.insert(0, ("int8_matmul", b10, wqs,
                                  i8.int8_matmul_plain))
             if M == 36:           # a verify chunk: B10 in the projections,
-                # B11 in the w8a8 head (both on their tensor-core routes)
-                cases = [c for c in cases if c[0] == (
-                    "w8_matmul" if head else "int8_matmul")]
+                # B11 in the w8a8 head (both on their tensor-core routes),
+                # B12 in the int4 projections
+                cases = [c for c in cases if c[0] in (
+                    ("w8_matmul",) if head else ("int8_matmul",
+                                                  "w4_matmul"))]
             for kname, fn_of, ws, plain in cases:
                 label = f"{name} M={M} (K={K}, N={N}" + (
                     f", bn={w4.bn})" if kname == "w4_matmul" else ")")
@@ -1505,7 +1557,7 @@ def matmul_checks(torch, dev, results):
                     results[kname].update(ms=ms, plain_ms=plain_ms,
                                           bound_ms=b_ms, bound_by=b_by,
                                           library_ms=lib_ms)
-                elif kname == "w8_matmul" and head:
+                elif head:          # B11's and B12's heads past decode
                     results[kname].setdefault("shapes", {})[
                         f"lm-head M={M}"] = dict(
                             ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -1553,6 +1605,21 @@ def matmul_checks(torch, dev, results):
                           flush=True)
                     check(not matmul_close(off, ref11), f"B11's tolerance "
                           f"does not flag {what} misread")
+                # B12's control: two 128-column carrier runs (its
+                # tensor-core kernel's raw tiles) read in each other's place
+                p4 = w4.packed
+                sw4 = torch.cat([p4[:, 128:256], p4[:, :128], p4[:, 256:]],
+                                dim=1)
+                k4 = dict(group=w4.group, bn=w4.bn)
+                ref12 = i4.w4_matmul_plain(x, p4, w4.scales, **k4)
+                off = i4.w4_matmul_plain(x, sw4, w4.scales, **k4)
+                print(f"  [w4_matmul] control, carrier runs 0 and 1 of the "
+                      f"qkv weight swapped: max|moved-plain| "
+                      f"{(off.float() - ref12.float()).abs().max():.3e}, "
+                      f"within the tolerance: {matmul_close(off, ref12)} "
+                      "(must be False)", flush=True)
+                check(not matmul_close(off, ref12), "B12's tolerance does "
+                      "not flag a misread carrier run")
         del wqs, w4s, libs
         torch.cuda.empty_cache()
     for (kname, M), r in sorted(layers.items()):

@@ -2,9 +2,10 @@
 // wgmma_kernel; paged_prefill.cu: B1's attention_wgmma_kernel; imma.cuh:
 // B10's and B15's wgmma_s8_kernel), as inline PTX for sm_90a:
 // shared-memory mbarriers, bulk and tensor (TMA) copies into shared
-// memory, the exact INT8 -> bf16 widening, the 128-byte swizzled tile
-// layout and its wgmma matrix descriptors, the warpgroup products
-// (wgmma.mma_async) the kernels issue, and the host's tensor-map encoder.
+// memory, the exact INT8 and INT4 -> bf16 widenings, the 128-byte swizzled
+// tile layout and its wgmma matrix descriptors, the warpgroup products
+// (wgmma.mma_async) the kernels issue, the warp product (mma.sync) of
+// B12's gemv, and the host's tensor-map encoder.
 //
 // The one tile layout the kernels use: a tile of R rows by 64 bf16
 // columns (or 128 INT8 columns) is R rows of 128 bytes, and the 16-byte
@@ -98,6 +99,24 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       : "memory");
 }
 
+// 16 bytes from global to shared memory without passing through registers
+// (cp.async, cached in L2 only); zeros where !full (src is then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's cp.async groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // A TMA box at coordinates (c0 innermost, c1[, c2]) of the tensor map.
 __device__ __forceinline__ void tma_load_2d(void* dst, const void* map,
                                             int c0, int c1, uint64_t* bar) {
@@ -154,6 +173,16 @@ __device__ __forceinline__ uint4 widen8(uint2 v) {
   }
   return make_uint4(i8pair_bf16(f[0], f[1]), i8pair_bf16(f[2], f[3]),
                     i8pair_bf16(f[4], f[5]), i8pair_bf16(f[6], f[7]));
+}
+
+// Two bf16 holding 128 + u (u = q + 8, an INT4 value q made offset-binary,
+// in the low bits of the mantissa) -> the two bf16 q, exactly (B12's
+// widening: lop3 puts the nibble under the bf16 128, one bf16x2 subtraction
+// of 136 follows; no I2F).
+__device__ __forceinline__ uint32_t nibble_pair(uint32_t biased) {
+  __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&biased);
+  v = __hsub2(v, __float2bfloat162_rn(136.f));
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -263,6 +292,37 @@ __device__ __forceinline__ void mma_ss_n256(float (&d)[128], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
 }
 
+// D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A and B from shared memory
+template <int TB>
+__device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TB));
+}
+
 // D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B from shared memory
 template <int TB>
 __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
@@ -306,6 +366,20 @@ __device__ __forceinline__ void mma_rs_n64(float (&d)[32],
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1),
         "n"(TB));
+}
+
+// D[16 x 8] += A[16 x 16] . B[16 x 8] (mma.sync, bf16 in, f32 sums): with
+// g = lane / 4 and c = lane % 4, a = {A[g][2c..2c+1], A[g+8][2c..2c+1],
+// A[g][2c+8..2c+9], A[g+8][2c+8..2c+9]} and b = {B[2c..2c+1][g],
+// B[2c+8..2c+9][g]} as bf16 pairs; d = {D[g][2c], D[g][2c+1], D[g+8][2c],
+// D[g+8][2c+1]}
+__device__ __forceinline__ void mma_16816(float (&d)[4],
+                                          const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
 // In the accumulator of m64nNk32 (s32), thread t holds the same rows and

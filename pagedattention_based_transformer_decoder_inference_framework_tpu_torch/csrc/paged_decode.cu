@@ -54,17 +54,21 @@
 //     from the same partition (ops/paged_attention.py::
 //     decode_batched_partition). A (sequence, KV head) with no visible page
 //     gets zeros from block (b * KH + h) % blocks.
-// * Packed (B8): the TPU kernel computes in parity classes because a
-//   sub-128 head dim fills a fraction of its 128-lane tile. The card has
-//   no lane tile and an unpadded [page, D] page is already contiguous, so
-//   the design is about keeping threads busy at small D: the K rows are
-//   read straight from the pool with one 16-byte load per lane, so at
-//   D = 64 INT8 a warp's 512-byte load covers 8 keys, each key's D-long
-//   dot split over its 4 lanes and reduced by shuffles; the V page is
-//   copied to shared memory by 16-byte loads and P.V runs a thread
-//   per (query head, lane of D) output, all 128 threads busy where B2's
-//   thread per lane of D would leave half idle. The online softmax stays
-//   per page (paged_attention.cuh's softmax_page).
+// * Packed (B8, decode_packed_split_kernel) runs the same body too: the
+//   TPU kernel computes in parity classes because a sub-128 head dim fills
+//   a fraction of its 128-lane tile; the card has no lane tile and an
+//   unpadded [page, D] page is contiguous, so the bulk copies take it as
+//   it is. Grid (sequence x KV head, split), each split a run of pps pages
+//   from the window's first visible one (ops/paged_attention.py::
+//   decode_packed_plan: B6's plan with runs of single pages). At TinyLlama's
+//   shape (path (g): 8 sequences x 4 KV heads of 1-2 pages) the time is
+//   fixed cost and latency, not bytes (the bound is 0.15 us), so a split
+//   past a sequence's visible pages exits at once and only the splits that
+//   hold pages take part in the merge. Head dims 16, 32 and 64 are compiled
+//   (split_decode.cuh's narrow lane layout: a row of 16, 32 or 64 bytes in
+//   eighths, so no lane of a key idles, and P.V's key slices at dh 16 and
+//   32, so no lane idles there either); the q dtype is a template
+//   argument, as in B2 and B7, and the rows 8 (G <= 8).
 //
 // Every entry point returns cudaGetLastError() after its launch.
 
@@ -83,8 +87,6 @@
 
 namespace {
 
-constexpr int kMaxOut = 4;      // B8: outputs (g, d) per thread, G * D <= 512
-
 // What a launch of B6 or B7 takes besides Args.
 struct Launch {
   const void* q;
@@ -95,8 +97,8 @@ struct Launch {
   float* part_ml;
   int* counters;
   int B, H;
-  int splits, pps;          // B6: grid (B * KH, splits); B7: splits blocks
-  int stages;               // B6: ring depth (0: the deepest that fits)
+  int splits, pps;          // B6, B8: grid (B * KH, splits); B7: blocks
+  int stages;               // B6, B8: ring depth (0: the deepest that fits)
   float scale;
   cudaStream_t stream;
 };
@@ -224,133 +226,40 @@ decode_batched_split_kernel(Args a, const TQ* __restrict__ q,
   }
 }
 
-// B8's shared memory: q rows [8, D] f32 (pre-scaled), probabilities
-// [8, page], K and V scales [page], m, l, alpha [8], the V page [page, D].
-template <typename TKV>
-__host__ __device__ size_t packed_smem_bytes(int D, int page) {
-  return align16(sizeof(float) * kDecodeRows * D) +
-         align16(sizeof(float) * kDecodeRows * page) +
-         align16(sizeof(float) * page) * 2 +
-         align16(sizeof(float) * kDecodeRows) * 3 +
-         align16(sizeof(TKV) * static_cast<size_t>(page) * D);
-}
-
-// grid (B * KH); block kThreads; rows = the G query heads of KV head h.
-// D * sizeof(TKV) is a multiple of 16 and at most 512 (16 lanes a key).
-template <typename TQ, typename TKV>
-__global__ void __launch_bounds__(kThreads)
-decode_packed_kernel(Args a, const TQ* __restrict__ q, TQ* __restrict__ out,
-                     const int* __restrict__ seq_lens, int H, float scale) {
+// B8: grid (B * KH, splits); block kSplitThreads; rows = the G <= 8 query
+// heads of KV head h; split s takes the pages [first + s * pps, .. + pps)
+// of the block table (first: the page of the window's first visible key)
+// as far as they hold visible keys. A split past them exits at once: the
+// (sequence, KV head)'s parts are its splits that hold pages, and with
+// none, split 0 writes zeros. Partials: acc [B * KH, splits, G, D], (m, l)
+// [.., G, 2]; counters one a (sequence, KV head).
+template <typename TQ, typename TKV, int DT>
+__global__ void __launch_bounds__(kSplitThreads, 1)
+decode_packed_split_kernel(Args a, const TQ* __restrict__ q,
+                           TQ* __restrict__ out,
+                           const int* __restrict__ seq_lens,
+                           float* __restrict__ part_acc,
+                           float* __restrict__ part_ml,
+                           int* __restrict__ counters, int H, int pps,
+                           int stages, float scale) {
   extern __shared__ __align__(16) uint8_t smem[];
-  constexpr int E = 16 / sizeof(TKV);       // values per 16-byte load
-  constexpr int ROWS = kDecodeRows;
-  const int D = a.D, page = a.page;
-  const int b = blockIdx.x / a.KH, h = blockIdx.x % a.KH;
-  const int G = H / a.KH;
-  uint8_t* base = smem;
-  float* sq = reinterpret_cast<float*>(base);
-  base += align16(sizeof(float) * ROWS * D);
-  float* sp = reinterpret_cast<float*>(base);
-  base += align16(sizeof(float) * ROWS * page);
-  float* sck = reinterpret_cast<float*>(base);
-  base += align16(sizeof(float) * page);
-  float* scv = reinterpret_cast<float*>(base);
-  base += align16(sizeof(float) * page);
-  float* sm = reinterpret_cast<float*>(base);
-  base += align16(sizeof(float) * ROWS);
-  float* sl = reinterpret_cast<float*>(base);
-  base += align16(sizeof(float) * ROWS);
-  float* salpha = reinterpret_cast<float*>(base);
-  base += align16(sizeof(float) * ROWS);
-  TKV* sv = reinterpret_cast<TKV*>(base);
-
-  for (int idx = threadIdx.x; idx < G * D; idx += kThreads)
-    sq[idx] = to_f32(q[(static_cast<size_t>(b) * H + h * G) * D + idx]) *
-              scale;
-  for (int r = threadIdx.x; r < ROWS; r += kThreads) {
-    sm[r] = kNegBig;
-    sl[r] = 0.f;
-  }
-  __syncthreads();
-
+  __shared__ int is_last;
+  const int bh = blockIdx.x, b = bh / a.KH, split = blockIdx.y;
   const int seq_len = seq_lens[b];
-  int qpos[ROWS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) qpos[r] = seq_len - 1;
-  const int lanes = D / E;                  // lanes per key: 1, 2, 4, ... 16
-  const int keys = 32 / lanes;              // keys per warp step
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int sub = lane % lanes;             // this lane's E values of a row
-  const int row_vecs = page * D / E;        // 16-byte vectors of a page
-  float acc[kMaxOut] = {};
-  const int n_pages = decode_pages(a, seq_len);
-  for (int i = first_decode_page(a, seq_len); i < n_pages; ++i) {
-    const int pid = a.block_tables[static_cast<long long>(b) * a.mp + i];
-    const TKV* kp = reinterpret_cast<const TKV*>(a.pool) +
-                    page_offset(a, 0, h, pid);
-    const uint4* vp = reinterpret_cast<const uint4*>(
-        reinterpret_cast<const TKV*>(a.pool) + page_offset(a, 1, h, pid));
-    for (int w = threadIdx.x; w < row_vecs; w += kThreads)
-      reinterpret_cast<uint4*>(sv)[w] = vp[w];
-    if (a.scales != nullptr) stage_scales(a, h, pid, sck, scv);
-
-    // scores: `keys` keys per warp step, a key's dot over its lanes
-    for (int j0 = warp * keys; j0 < page; j0 += kWarps * keys) {
-      const int j = j0 + lane / lanes;
-      float kv[E];
-      if (j < page) {
-        const uint4 raw =
-            reinterpret_cast<const uint4*>(kp + static_cast<size_t>(j) * D)
-                [sub];
-        const TKV* vals = reinterpret_cast<const TKV*>(&raw);
-#pragma unroll
-        for (int e = 0; e < E; ++e) kv[e] = to_f32(vals[e]);
-      } else {
-#pragma unroll
-        for (int e = 0; e < E; ++e) kv[e] = 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        if (r < G) {                        // G is uniform: no divergence
-          const float* qr = sq + r * D + sub * E;
-          float s = 0.f;
-#pragma unroll
-          for (int e = 0; e < E; ++e) s = fmaf(qr[e], kv[e], s);
-          for (int o = lanes / 2; o > 0; o >>= 1)
-            s += __shfl_xor_sync(0xffffffffu, s, o);
-          if (j < page && sub == 0) sp[r * page + j] = s;
-        }
-      }
-    }
-    __syncthreads();
-    softmax_page(a, sp, sck, scv, sm, sl, salpha, qpos, G, i * page,
-                 seq_len);
-    __syncthreads();
-
-    // acc = acc * alpha + p . v, a thread per (query head, lane of D)
-#pragma unroll
-    for (int k = 0; k < kMaxOut; ++k) {
-      const int o = threadIdx.x + k * kThreads;
-      if (o < G * D) {
-        const int g = o / D, d = o - g * D;
-        const float* pg = sp + g * page;
-        float s = acc[k] * salpha[g];
-        for (int j = 0; j < page; ++j)
-          s = fmaf(pg[j], to_f32(sv[j * D + d]), s);
-        acc[k] = s;
-      }
-    }
-    __syncthreads();    // the next page overwrites sv and sp
-  }
-#pragma unroll
-  for (int k = 0; k < kMaxOut; ++k) {
-    const int o = threadIdx.x + k * kThreads;
-    if (o < G * D) {
-      const float l = sl[o / D];
-      out[(static_cast<size_t>(b) * H + h * G) * D + o] =
-          from_f32<TQ>(acc[k] / (l == 0.f ? 1.f : l));
-    }
-  }
+  const int first = first_decode_page(a, seq_len);
+  const int vis = max(decode_pages(a, seq_len) - first, 0);
+  const int parts = max(1, (vis + pps - 1) / pps);
+  if (split >= parts) return;
+  const SplitLay lay =
+      split_lay(DT, Lanes<TKV, DT>::qrow(DT), sizeof(TKV), a.page,
+                a.scales != nullptr, kDecodeRows, stages, kMaxSplits);
+  ring_init(smem, lay, stages, true);
+  const Part w{b, bh % a.KH, first + split * pps,
+               max(min(pps, vis - split * pps), 0), split, parts,
+               static_cast<long long>(bh) * gridDim.y};
+  split_part<TQ, TKV, DT, kDecodeRows>(a, smem, lay, is_last, q, out, false,
+                                       w, seq_len, H, stages, 0, true,
+                                       part_acc, part_ml, counters, scale);
 }
 
 template <typename TKV, int DT, int ROWS>
@@ -431,18 +340,36 @@ cudaError_t launch_batched(const Args& a, const Launch& l) {
   return cudaErrorInvalidValue;
 }
 
-template <typename TQ, typename TKV>
-cudaError_t launch_packed(const Args& a, const void* q, void* out,
-                          const int* seq_lens, int B, int H, float scale,
-                          cudaStream_t stream) {
-  const size_t smem = packed_smem_bytes<TKV>(a.D, a.page);
-  auto kernel = decode_packed_kernel<TQ, TKV>;
-  cudaError_t err = prepare(kernel, smem);
+template <typename TQ, typename TKV, int DT>
+cudaError_t launch_packed_split(const Args& a, const Launch& l) {
+  const int es = sizeof(TKV), qrow = Lanes<TKV, DT>::qrow(DT);
+  const bool quant = a.scales != nullptr;
+  // the deepest ring that fits (at most a split's pages), or the one asked
+  const int stages =
+      split_stages(DT, qrow, es, a.page, quant, kDecodeRows,
+                   l.stages > 0 ? l.stages : l.pps, kMaxSplits, 0);
+  if (stages == 0 || (l.stages > 0 && stages != l.stages))
+    return cudaErrorInvalidValue;
+  const SplitLay lay =
+      split_lay(DT, qrow, es, a.page, quant, kDecodeRows, stages, kMaxSplits);
+  auto kernel = decode_packed_split_kernel<TQ, TKV, DT>;
+  cudaError_t err = prepare(kernel, lay.bytes);
   if (err != cudaSuccess) return err;
-  kernel<<<B * a.KH, kThreads, smem, stream>>>(
-      a, static_cast<const TQ*>(q), static_cast<TQ*>(out), seq_lens, H,
-      scale);
+  kernel<<<dim3(l.B * a.KH, l.splits), kSplitThreads, lay.bytes,
+           l.stream>>>(a, static_cast<const TQ*>(l.q), static_cast<TQ*>(l.out),
+                       l.seq_lens, l.part_acc, l.part_ml, l.counters, l.H,
+                       l.pps, stages, l.scale);
   return cudaGetLastError();
+}
+
+template <typename TQ, typename TKV>
+cudaError_t launch_packed(const Args& a, const Launch& l) {
+  switch (a.D) {
+    case 16: return launch_packed_split<TQ, TKV, 16>(a, l);
+    case 32: return launch_packed_split<TQ, TKV, 32>(a, l);
+    case 64: return launch_packed_split<TQ, TKV, 64>(a, l);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -485,22 +412,39 @@ extern "C" int pbt_paged_attention_decode_grouped(
   return static_cast<int>(run());
 }
 
+// B8: D 16, 32 or 64, G = H / KH <= 8, pages of a multiple of 16 bytes;
+// the visible pages of each (sequence, KV head), counted from the window's
+// first, split into `splits` runs of `pps` pages (splits * pps >= the most a
+// window leaves visible, as B6's; splits <= 64); the workspace part_acc
+// [B * KH, splits, G, D], part_ml [.., G, 2] and B * KH zeroed counters
+// where splits > 1; `stages` the ring's depth (0: the deepest that fits);
+// the pool and the scales 16-byte aligned.
 extern "C" int pbt_paged_attention_decode_packed(
     const void* q, void* out, const void* pool, const float* scales,
-    const int* block_tables, const int* seq_lens, int B, int H, int KH,
-    int D, int P, int page, int mp, int layer, long long scale_stride,
-    float scale, float softcap, int window, int q_dtype, int kv_dtype,
-    void* stream) {
-  const int row = D * (kv_dtype == 0 ? 4 : kv_dtype == 1 ? 2 : 1);
-  const int lanes = row / 16;       // a power of two: shuffles stay in a key
-  if (row % 16 != 0 || row > 512 || (lanes & (lanes - 1)) != 0 ||
-      H % KH != 0 || H / KH > kDecodeRows || (H / KH) * D > kMaxOut * kThreads)
+    const int* block_tables, const int* seq_lens, float* part_acc,
+    float* part_ml, int* counters, int B, int H, int KH, int D, int P,
+    int page, int mp, int layer, long long scale_stride, int splits,
+    int pps, int stages, float scale, float softcap, int window,
+    int q_dtype, int kv_dtype, void* stream) {
+  const int es = kv_dtype == 0 ? 4 : kv_dtype == 1 ? 2 : 1;
+  const int width =
+      window > 0 ? min(mp, (window + page - 2) / page + 1) : mp;
+  if ((D != 16 && D != 32 && D != 64) || H % KH != 0 ||
+      H / KH > kDecodeRows || page < 1 || (page * D * es) % 16 != 0 ||
+      splits < 1 || splits > kMaxSplits || pps < 1 ||
+      static_cast<long long>(splits) * pps < width || stages < 0 ||
+      stages > kMaxStages || !hop::aligned16(pool) ||
+      (scales != nullptr && !hop::aligned16(scales)) ||
+      (splits > 1 &&
+       (part_acc == nullptr || part_ml == nullptr || counters == nullptr)))
     return cudaErrorInvalidValue;
   const Args a{static_cast<const uint8_t*>(pool), scales, block_tables, KH,
                D, P, page, mp, layer, scale_stride, softcap, window};
+  const Launch l{q, out, q_dtype == 1, seq_lens, part_acc, part_ml,
+                 counters, B, H, splits, pps, stages, scale,
+                 static_cast<cudaStream_t>(stream)};
   auto run = [&]() -> cudaError_t {
-    PBT_DISPATCH(launch_packed, a, q, out, seq_lens, B, H, scale,
-                 static_cast<cudaStream_t>(stream));
+    PBT_DISPATCH(launch_packed, a, l);
   };
   return static_cast<int>(run());
 }

@@ -32,12 +32,12 @@
 // (qkv of Llama-3-8B: 25 MB of INT8, 7.5 us at 3.35 TB/s). Prefill
 // (M = 256 and up) is bound by operations at the tensor cores' rates and
 // by the weight stream: kI8A8 takes imma.cuh's wgmma kernel there, kW8
-// with bf16 x int8_matmul.cu's w8_wgmma_kernel; kW4, and kW8 with f32 x
-// (the tensor cores have no exact f32 product), still take the
-// CUDA-core tiled_kernel below.
+// with bf16 x int8_matmul.cu's w8_wgmma_kernel, kW4 with bf16 x
+// int4_matmul.cu's w4_wgmma_kernel; kW8 and kW4 with f32 x (the tensor
+// cores have no exact f32 product) take the CUDA-core tiled_kernel below.
 //
-// Two kernels here: gemv_kernel for every kind, tiled_kernel for kW8 and
-// kW4.
+// Three kernels here: gemv_kernel for kI8A8 and kW8, gemv_w4_kernel for
+// kW4, tiled_kernel for kW8 and kW4.
 //
 // gemv_kernel (M <= 16, aligned shapes): each block owns 128 output
 // columns and 4 rows of x; its 256 threads are 8 column chunks of 16
@@ -45,9 +45,9 @@
 // per step with one 16-byte load per row (8 bytes for int4: 8 carrier
 // bytes are 16 columns), so a warp reads 4 whole 128-byte lines per step.
 // kI8A8 transposes the 4x16 bytes in registers (__byte_perm) into
-// column words of 4 consecutive k and sums them with __dp4a; the float
-// kinds widen weights with the exponent trick (2^23 + byte, then a
-// subtraction) instead of the slow I2F conversion. The k-lanes reduce by
+// column words of 4 consecutive k and sums them with __dp4a; kW8 widens
+// weights with the exponent trick (2^23 + byte, then a subtraction)
+// instead of the slow I2F conversion. The k-lanes reduce by
 // warp shuffles and shared memory in a fixed order. Where the column
 // blocks alone cannot fill the 132 SMs, grid.y splits K: each split
 // writes its partial sums to a workspace, and the last block of a column
@@ -55,10 +55,32 @@
 // splits in order and runs the epilogue: deterministic, and exact for
 // kI8A8.
 //
+// gemv_w4_kernel (kW4, M <= 16): at half a byte a weight, instruction
+// issue, not bytes, runs out first on the CUDA cores (a conversion and a
+// multiply by the scale per weight, then M FMAs), so the products go to
+// the tensor cores (mma.sync m16n8k16, bf16 in, f32 sums), transposed: the
+// weights are the A operand, x the B operand (its 8 columns: 8 rows of x a
+// block). A block owns a run of 128 carrier columns (256 outputs) and 8
+// rows of x; each lane reads 16 carrier bytes (32 columns) of 4 rows a
+// k-step of 16 rows, and builds each A pair of consecutive k from the same
+// byte of two rows (prmt, lop3 under the bf16 128, a bf16x2 subtraction:
+// exact). The weights come through a ring of kW4Ring k-steps a warp in
+// shared memory, by cp.async (three k-steps in flight beyond the one
+// being multiplied, no register held for them).
+// x's rows for the block's K range are staged in shared memory once, as
+// bf16 pairs: bf16 x as it is, f32 x as three bf16 that sum to it exactly
+// (three products, so f32 x loses nothing either). The K range is cut
+// into units of U rows inside one K-group (w4_unit: 64, or the group);
+// warp w takes units w, w + 8, ..., and each unit's f32 sums, times the
+// group's scales (one multiply-add a unit and output, not a multiply a
+// weight), go into the lane's running sums. The warps' sums meet in shared
+// memory in warp order; K splits and their last-block merge in split order
+// are gemv_kernel's.
+//
 // tiled_kernel (kW8 and kW4, any M, K, N): a plain shared-memory tiled
 // product, 64x64 outputs per block, k-tiles of 32, 4x4 outputs per
-// thread, f32 FMA, with every edge masked. Right and simple; B12's
-// tensor-core version is later work.
+// thread, f32 FMA, with every edge masked: the route of f32 x past 16
+// rows (on no path of the card) and of layouts no other kernel takes.
 
 #pragma once
 
@@ -67,7 +89,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace qmm {
 
@@ -84,8 +109,20 @@ constexpr int kBlockCols = kChunks * kChunkCols;  // 128
 constexpr int kKLanes = kThreads / kChunks;     // 32
 constexpr int kQuad = 4;                        // rows per k-lane step
 constexpr int kWarps = kThreads / 32;
+// gemv_w4_kernel: K rows of x staged a block, times its planes (64 KB);
+// k-steps of weights in flight a warp (a ring of 2 KB slots in shared
+// memory); its dynamic shared memory
+constexpr int kW4Stage = 4096;
+constexpr int kW4Ring = 4;
+constexpr int kW4Smem = kW4Stage * 8 * 2 + kWarps * kW4Ring * 2048;
 // tiled_kernel
 constexpr int kTileM = 64, kTileN = 64, kTileK = 32, kPad = 4;
+
+// gemv_w4_kernel's unit of K rows for a K-group of `group` rows (the host
+// needs unit % 16 == 0 and unit <= kW4Stage)
+__host__ __device__ inline int w4_unit(int group) {
+  return group % 64 == 0 ? 64 : group;
+}
 
 struct Args {
   const void* x;          // [M, K]: int8 (kI8A8), f32 or bf16
@@ -172,14 +209,6 @@ __device__ __forceinline__ void s8x4_to_f32(uint32_t u, float* f) {
            8388736.0f;  // 2^23 + 128
 }
 
-// Four bytes holding q + 8 (q an int4 in [-8, 7]) -> four floats q.
-__device__ __forceinline__ void u4x4_to_f32(uint32_t v, float* f) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    f[i] = __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7440 + i)) -
-           8388616.0f;  // 2^23 + 8
-}
-
 // The int4 carrier byte of weight (k, n) and its value q in [-8, 7].
 __device__ __forceinline__ int int4_at(const Args& a, int k, int n) {
   const int half = a.bn / 2;
@@ -210,27 +239,18 @@ __device__ __forceinline__ typename AccT<KIND>::type load_w(const Args& a,
 }
 
 // Output column of local column lc (0..127) of column block cb, or -1.
-template <int KIND>
 __device__ __forceinline__ int column_of(const Args& a, int cb, int lc) {
-  if constexpr (KIND == kW4) {
-    const int half = a.bn / 2;
-    const int cc0 = (cb * kChunks + lc / kChunkCols) * 8;  // carrier column
-    if (cc0 >= a.N / 2) return -1;
-    const int j = cc0 / half, t0 = cc0 - j * half, i = lc % kChunkCols;
-    return j * a.bn + t0 + (i < 8 ? i : half + i - 8);
-  } else {
-    const int n = cb * kBlockCols + lc;
-    return n < a.N ? n : -1;
-  }
+  const int n = cb * kBlockCols + lc;
+  return n < a.N ? n : -1;
 }
 
 // ---------------------------------------------------------------------------
 // gemv_kernel: grid (ceil(N / 128), splits, ceil(M / 4)).
-// Needs: kI8A8 and kW8 N % 16 == 0 with W 16-byte aligned, kI8A8 also
-// K % 4 == 0 and x 4-byte aligned; kW4 (bn / 2) % 8 == 0, the carrier
-// 8-byte and the scales 16-byte aligned. The wrapper checks.
+// Needs: N % 16 == 0 with W 16-byte aligned, kI8A8 also K % 4 == 0 and x
+// 4-byte aligned. The wrapper checks.
 template <int KIND, typename XT, typename OT>
 __global__ void __launch_bounds__(kThreads) gemv_kernel(Args a) {
+  static_assert(KIND != kW4, "kW4 takes gemv_w4_kernel");
   using Acc = typename AccT<KIND>::type;
   __shared__ Acc red[kWarps][kRows][kBlockCols];
   __shared__ int is_last;
@@ -247,24 +267,10 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(Args a) {
 #pragma unroll
     for (int i = 0; i < kChunkCols; ++i) acc[m][i] = Acc(0);
 
-  const uint8_t* wbase;
-  long long wstride;
-  bool valid;
-  int n_lo = 0, n_hi = 0;  // kW4: first columns of the two 8-column runs
-  if constexpr (KIND == kW4) {
-    const int half = a.bn / 2, cc0 = chunk * 8;
-    valid = cc0 < a.N / 2;
-    wstride = a.N / 2;
-    wbase = static_cast<const uint8_t*>(a.w) + cc0;
-    const int j = cc0 / half;
-    n_lo = j * a.bn + (cc0 - j * half);
-    n_hi = n_lo + half;
-  } else {
-    const int n0 = chunk * kChunkCols;
-    valid = n0 < a.N;
-    wstride = a.N;
-    wbase = static_cast<const uint8_t*>(a.w) + n0;
-  }
+  const int n0 = chunk * kChunkCols;
+  const bool valid = n0 < a.N;
+  const long long wstride = a.N;
+  const uint8_t* wbase = static_cast<const uint8_t*>(a.w) + n0;
 
   if (valid) {
     for (int k = k_begin + kl * kQuad; k < k_end; k += kKLanes * kQuad) {
@@ -304,7 +310,7 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(Args a) {
             for (int m = 0; m < kRows; ++m)
               acc[m][4 * g + j] = __dp4a(col[j], xq[m], acc[m][4 * g + j]);
         }
-      } else if constexpr (KIND == kW8) {
+      } else {  // kW8
         uint4 w[kQuad];
 #pragma unroll
         for (int r = 0; r < kQuad; ++r)
@@ -329,56 +335,6 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(Args a) {
 #pragma unroll
             for (int m = 0; m < kRows; ++m)
               acc[m][i] = fmaf(xf[m], wf[i], acc[m][i]);
-        }
-      } else {  // kW4
-        uint2 w[kQuad];
-#pragma unroll
-        for (int r = 0; r < kQuad; ++r)
-          w[r] = k + r < k_end
-                     ? __ldg(reinterpret_cast<const uint2*>(
-                           wbase + static_cast<long long>(k + r) * wstride))
-                     : make_uint2(0, 0);
-        // the 16 columns' scales, reloaded only where the K-group changes
-        float s[kChunkCols];
-        int group_loaded = -1;
-#pragma unroll
-        for (int r = 0; r < kQuad; ++r) {
-          if (k + r >= k_end) break;
-          const int g = (k + r) / a.group;
-          if (g != group_loaded) {
-            const float* srow = a.w_scale + static_cast<long long>(g) * a.N;
-            const float4 s0 =
-                __ldg(reinterpret_cast<const float4*>(srow + n_lo));
-            const float4 s1 =
-                __ldg(reinterpret_cast<const float4*>(srow + n_lo + 4));
-            const float4 s2 =
-                __ldg(reinterpret_cast<const float4*>(srow + n_hi));
-            const float4 s3 =
-                __ldg(reinterpret_cast<const float4*>(srow + n_hi + 4));
-            s[0] = s0.x; s[1] = s0.y; s[2] = s0.z; s[3] = s0.w;
-            s[4] = s1.x; s[5] = s1.y; s[6] = s1.z; s[7] = s1.w;
-            s[8] = s2.x; s[9] = s2.y; s[10] = s2.z; s[11] = s2.w;
-            s[12] = s3.x; s[13] = s3.y; s[14] = s3.z; s[15] = s3.w;
-            group_loaded = g;
-          }
-          float xf[kRows];
-#pragma unroll
-          for (int m = 0; m < kRows; ++m)
-            xf[m] = m0 + m < a.M ? load_x<KIND, XT>(a, m0 + m, k + r) : 0.0f;
-          // carrier bytes 0..7: columns n_lo + i (low nibbles, q + 8) and
-          // n_hi + i (high nibbles, two's complement; ^ 8 makes them q + 8)
-          float q[kChunkCols];
-          u4x4_to_f32(w[r].x & 0x0F0F0F0Fu, q);
-          u4x4_to_f32(w[r].y & 0x0F0F0F0Fu, q + 4);
-          u4x4_to_f32(((w[r].x >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, q + 8);
-          u4x4_to_f32(((w[r].y >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u, q + 12);
-#pragma unroll
-          for (int i = 0; i < kChunkCols; ++i) {
-            const float wf = __fmul_rn(q[i], s[i]);
-#pragma unroll
-            for (int m = 0; m < kRows; ++m)
-              acc[m][i] = fmaf(xf[m], wf, acc[m][i]);
-          }
         }
       }
     }
@@ -406,7 +362,7 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(Args a) {
   Acc* partials = static_cast<Acc*>(a.partials);
   for (int o = threadIdx.x; o < kRows * kBlockCols; o += kThreads) {
     const int mm = o / kBlockCols, lc = o % kBlockCols;
-    const int m = m0 + mm, n = column_of<KIND>(a, blockIdx.x, lc);
+    const int m = m0 + mm, n = column_of(a, blockIdx.x, lc);
     if (m >= a.M || n < 0) continue;
     Acc v = red[0][mm][lc];
 #pragma unroll
@@ -430,13 +386,315 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(Args a) {
   if (!is_last) return;
   for (int o = threadIdx.x; o < kRows * kBlockCols; o += kThreads) {
     const int mm = o / kBlockCols, lc = o % kBlockCols;
-    const int m = m0 + mm, n = column_of<KIND>(a, blockIdx.x, lc);
+    const int m = m0 + mm, n = column_of(a, blockIdx.x, lc);
     if (m >= a.M || n < 0) continue;
     Acc v = Acc(0);
     for (int s = 0; s < a.splits; ++s)
       v += __ldcg(&partials[(static_cast<long long>(s) * a.M + m) * a.N + n]);
     finish<KIND, OT>(a, v, m, n);
   }
+  if (threadIdx.x == 0) a.counters[tile] = 0;
+}
+
+// ---------------------------------------------------------------------------
+// gemv_w4_kernel: grid (ceil(N / 256), splits, ceil(M / 8)). Needs (bn / 2)
+// % 16 == 0, x, the carrier and the scales 16-byte aligned, the unit U =
+// w4_unit(group) a multiple of 16, and k_per_split a multiple of U with
+// W4Planes<XT>::P * k_per_split <= kW4Stage. The wrapper checks.
+template <typename XT>
+struct W4Planes {
+  static constexpr int P = 1;  // bf16 x: itself
+};
+template <>
+struct W4Planes<float> {
+  static constexpr int P = 3;  // f32 x: three bf16 that sum to it exactly
+};
+
+// Four f32 values of x as three planes of bf16 pairs whose sums are the
+// values exactly: x1 = bf16(x), x2 = bf16(x - x1), x3 = x - x1 - x2 (f32's
+// 24 significant bits in three bf16 of 8; each difference exact).
+__device__ __forceinline__ void f32_planes(const uint4& raw,
+                                           uint32_t (&w)[3][2]) {
+  const float f[4] = {__uint_as_float(raw.x), __uint_as_float(raw.y),
+                      __uint_as_float(raw.z), __uint_as_float(raw.w)};
+  uint32_t h[3][4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float r = f[e];
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      const __nv_bfloat16 v = __float2bfloat16_rn(r);
+      h[p][e] = __bfloat16_as_ushort(v);
+      r -= __bfloat162float(v);
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    w[p][0] = h[p][0] | h[p][1] << 16;
+    w[p][1] = h[p][2] | h[p][3] << 16;
+  }
+}
+
+template <typename XT, typename OT>
+__global__ void __launch_bounds__(kThreads, 1) gemv_w4_kernel(Args a) {
+  constexpr int P = W4Planes<XT>::P;
+  constexpr int kM = 8;              // x rows a block: the product's n
+  constexpr int kLocal = 256;        // output columns a block
+  // x rows m0..m0+7 of the block's K range as P planes of bf16 pairs,
+  // [p][k / 2][row] (after the main loop the warps' sums, [warp][4 rows]
+  // [256 local columns], four x rows a round); then each warp's ring of
+  // kW4Ring k-steps of weights, [slot][4 rows][32 lanes] of 16 bytes
+  extern __shared__ __align__(16) uint8_t smem_dyn[];
+  uint32_t* const stage = reinterpret_cast<uint32_t*>(smem_dyn);
+  __shared__ int is_last;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int g = lane / 4, c = lane % 4;
+  const int m0 = blockIdx.z * kM;
+  const int k_begin = blockIdx.y * a.k_per_split;
+  const int k_end = min(a.K, k_begin + a.k_per_split);
+  const int nkp = (k_end - k_begin) / 2;
+  const int U = w4_unit(a.group), units = (k_end - k_begin) / U;
+
+  // The lane's 16 carrier bytes of a row: byte j holds the columns n_lo + j
+  // (low nibble) and n_hi + j (high nibble). A k-step of 16 rows reads the
+  // lane's rows 2c, 2c + 1, 2c + 8, 2c + 9 (a warp: 16 rows x 128 bytes),
+  // and byte j of them is the product's A operand for columns n_lo + j and
+  // n_hi + j of lanes g (its rows g and g + 8), k pairs formed across
+  // the rows; B is x (its column g: x row m0 + g).
+  const int half = a.bn / 2, cc0 = blockIdx.x * 128 + 16 * g;
+  const bool valid = cc0 < a.N / 2;
+  const int jb = cc0 / half;
+  const int n_lo = jb * a.bn + (cc0 - jb * half), n_hi = n_lo + half;
+  const uint8_t* wcol = static_cast<const uint8_t*>(a.w) + cc0;
+  const long long wstride = a.N / 2;
+  const int spu = U / 16;  // k-steps a unit
+  const int nsteps = warp < units ? (units - warp + kWarps - 1) / kWarps * spu
+                                  : 0;
+  // The warp's k-steps: units warp, warp + 8, ..., spu k-steps each. The
+  // next k-step to copy (its unit's first row, its step there, its count)
+  // goes by cp.async into ring slot count % kW4Ring: its 4 rows of this
+  // lane, which this lane alone reads back.
+  uint4* const ring = reinterpret_cast<uint4*>(smem_dyn + kW4Stage * kM * 2) +
+                      warp * kW4Ring * 128;
+  int cp_k = k_begin + warp * U, cp_st = 0, cp_s = 0;
+  auto issue = [&]() {
+    const int k0 = cp_k + 16 * cp_st;
+    uint4* slot = ring + (cp_s % kW4Ring) * 128;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = k0 + 2 * c + (i & 1) + (i >> 1) * 8;
+      hop::cp_async16(slot + i * 32 + lane,
+                      valid ? wcol + static_cast<long long>(row) * wstride
+                            : a.w,
+                      valid);
+    }
+    if (++cp_st == spu) {
+      cp_st = 0;
+      cp_k += kWarps * U;
+    }
+    ++cp_s;
+  };
+  // d = {lo column, rows 2c, 2c + 1; hi column, rows 2c, 2c + 1} of x
+  float tot[16][4], part[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tot[j][e] = 0.0f;
+  // the products of a k-step on the 4 rows in r, x's pairs from kp0
+  auto products = [&](const uint4 (&r)[4], int kp0) {
+    uint32_t b[P][2];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      b[p][0] = stage[(p * nkp + kp0 + c) * kM + g];
+      b[p][1] = stage[(p * nkp + kp0 + c + 4) * kM + g];
+    }
+    const uint32_t wv[4][4] = {{r[0].x, r[0].y, r[0].z, r[0].w},
+                               {r[1].x, r[1].y, r[1].z, r[1].w},
+                               {r[2].x, r[2].y, r[2].z, r[2].w},
+                               {r[3].x, r[3].y, r[3].z, r[3].w}};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {      // the lane's carrier word q
+      const uint32_t s0 = wv[0][q] >> 4, s1 = wv[1][q] >> 4;
+      const uint32_t s2 = wv[2][q] >> 4, s3 = wv[3][q] >> 4;
+#pragma unroll
+      for (int bb = 0; bb < 4; ++bb) {  // byte bb of each row's word
+        const uint32_t sel = bb | (4 + bb) << 8;
+        const uint32_t A[4] = {
+            hop::nibble_pair(
+                (__byte_perm(wv[0][q], wv[1][q], sel) & 0x000F000Fu) |
+                0x43004300u),
+            hop::nibble_pair((__byte_perm(s0, s1, sel) & 0x000F000Fu) ^
+                             0x43084308u),
+            hop::nibble_pair(
+                (__byte_perm(wv[2][q], wv[3][q], sel) & 0x000F000Fu) |
+                0x43004300u),
+            hop::nibble_pair((__byte_perm(s2, s3, sel) & 0x000F000Fu) ^
+                             0x43084308u)};
+#pragma unroll
+        for (int p = 0; p < P; ++p) hop::mma_16816(part[4 * q + bb], A, b[p]);
+      }
+    }
+  };
+  // kW4Ring - 1 k-steps of weights in flight beyond the one being
+  // multiplied (a group of copies a k-step, empty past the last)
+#pragma unroll
+  for (int s = 0; s < kW4Ring - 1; ++s) {
+    if (s < nsteps) issue();
+    hop::cp_async_commit();
+  }
+  // x's rows of the block, while the first weights are on their way
+  // (16-byte loads, all issued before they are used); a row past M is
+  // left as it is: it only feeds outputs of that row, which are never
+  // stored
+  const int rows = min(kM, a.M - m0);
+  constexpr int VE = 16 / sizeof(XT);  // values a load
+  const int vpr = (k_end - k_begin) / VE;
+  const uint4* xv = reinterpret_cast<const uint4*>(
+      static_cast<const XT*>(a.x) + static_cast<long long>(m0) * a.K +
+      k_begin);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < rows * vpr; i += kThreads) {
+    const int m = i / vpr, v = i - m * vpr, kp = v * VE / 2;
+    const uint4 raw = __ldg(xv + static_cast<long long>(m) * (a.K / VE) + v);
+    if constexpr (P == 1) {
+      stage[kp * kM + m] = raw.x;
+      stage[(kp + 1) * kM + m] = raw.y;
+      stage[(kp + 2) * kM + m] = raw.z;
+      stage[(kp + 3) * kM + m] = raw.w;
+    } else {
+      uint32_t w[3][2];
+      f32_planes(raw, w);
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        stage[(p * nkp + kp) * kM + m] = w[p][0];
+        stage[(p * nkp + kp + 1) * kM + m] = w[p][1];
+      }
+    }
+  }
+  __syncthreads();
+
+  int s = 0;
+  for (int ku = k_begin + warp * U; ku < k_end; ku += kWarps * U) {
+    // the unit's K-group scales, on their way while its k-steps run
+    float4 sc[8];
+    const float* srow =
+        a.w_scale + static_cast<long long>(ku / a.group) * a.N;
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      sc[v] = valid ? __ldg(reinterpret_cast<const float4*>(srow + n_lo +
+                                                            4 * v))
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+      sc[4 + v] = valid ? __ldg(reinterpret_cast<const float4*>(
+                              srow + n_hi + 4 * v))
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[j][e] = 0.0f;
+    for (int st = 0; st < spu; ++st, ++s) {
+      if (s + kW4Ring - 1 < nsteps) issue();
+      hop::cp_async_commit();
+      hop::cp_async_wait<kW4Ring - 1>();  // k-step s's copies have landed
+      const uint4* slot = ring + (s % kW4Ring) * 128;
+      const uint4 r[4] = {slot[lane], slot[32 + lane], slot[64 + lane],
+                          slot[96 + lane]};
+      products(r, (ku - k_begin) / 2 + 8 * st);
+    }
+    // the unit's sums times its K-group's scales
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const float slo[4] = {sc[v].x, sc[v].y, sc[v].z, sc[v].w};
+      const float shi[4] = {sc[4 + v].x, sc[4 + v].y, sc[4 + v].z,
+                            sc[4 + v].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float* t = tot[4 * v + e];
+        const float* p = part[4 * v + e];
+        t[0] = fmaf(p[0], slo[e], t[0]);
+        t[1] = fmaf(p[1], slo[e], t[1]);
+        t[2] = fmaf(p[2], shi[e], t[2]);
+        t[3] = fmaf(p[3], shi[e], t[3]);
+      }
+    }
+  }
+  hop::cp_async_wait<0>();
+
+  // The warps' sums through shared memory (over the x rows, read by now),
+  // four x rows a round, added in warp order. Local column 8 i + g of the
+  // block: chunk g's column n_lo + i (i < 16) or n_hi + i - 16.
+  float* red = reinterpret_cast<float*>(stage);
+  auto column = [&](int lc) {
+    const int gc = lc % 8, i = lc / 8;
+    const int cc = blockIdx.x * 128 + 16 * gc;
+    if (cc >= a.N / 2) return -1;
+    const int jc = cc / half;
+    const int nl = jc * a.bn + (cc - jc * half);
+    return i < 16 ? nl + i : nl + half + i - 16;
+  };
+  float* partials = static_cast<float*>(a.partials);
+  for (int r = 0; r < (rows + 3) / 4; ++r) {
+    __syncthreads();
+    if (c / 2 == r) {  // the lane's x rows 2c, 2c + 1 are in this round
+      float* dst = red + (warp * 4 + 2 * c - 4 * r) * kLocal + g;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        dst[8 * j] = tot[j][0];
+        dst[kLocal + 8 * j] = tot[j][1];
+        dst[8 * (16 + j)] = tot[j][2];
+        dst[kLocal + 8 * (16 + j)] = tot[j][3];
+      }
+    }
+    __syncthreads();
+    for (int o = threadIdx.x; o < 4 * kLocal; o += kThreads) {
+      const int mm = o / kLocal, lc = o % kLocal;
+      const int m = m0 + 4 * r + mm, n = column(lc);
+      if (m >= a.M || n < 0) continue;
+      float v = red[mm * kLocal + lc];
+#pragma unroll
+      for (int w = 1; w < kWarps; ++w) v += red[(w * 4 + mm) * kLocal + lc];
+      if (a.splits == 1) {
+        finish<kW4, OT>(a, v, m, n);
+      } else {
+        partials[(static_cast<long long>(blockIdx.y) * a.M + m) * a.N + n] =
+            v;
+      }
+    }
+  }
+  if (a.splits == 1) return;
+
+  // split-K: the last block of this column block and row tile to arrive
+  // adds the splits' partial sums in order and runs the epilogue
+  __threadfence();
+  __syncthreads();
+  const int tile = blockIdx.z * gridDim.x + blockIdx.x;
+  if (threadIdx.x == 0)
+    is_last = atomicAdd(&a.counters[tile], 1) == a.splits - 1;
+  __syncthreads();
+  if (!is_last) return;
+  // each thread its outputs o = tid + k * threads; split by split, all of
+  // their partials' loads issued together
+  constexpr int PER = kM * kLocal / kThreads;
+  long long at[PER];
+  float v[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int o = threadIdx.x + k * kThreads;
+    const int m = m0 + o / kLocal, n = column(o % kLocal);
+    at[k] = m < a.M && n >= 0 ? static_cast<long long>(m) * a.N + n : -1;
+    v[k] = 0.0f;
+  }
+  for (int s = 0; s < a.splits; ++s) {
+    const float* src = partials + static_cast<long long>(s) * a.M * a.N;
+#pragma unroll
+    for (int k = 0; k < PER; ++k)
+      if (at[k] >= 0) v[k] += __ldcg(src + at[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < PER; ++k)
+    if (at[k] >= 0)
+      finish<kW4, OT>(a, v[k], static_cast<int>(at[k] / a.N),
+                      static_cast<int>(at[k] % a.N));
   if (threadIdx.x == 0) a.counters[tile] = 0;
 }
 
@@ -500,8 +758,26 @@ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 template <int KIND, typename XT, typename OT>
 int launch_gemv(const Args& a, cudaStream_t stream) {
-  const dim3 grid(cdiv(a.N, kBlockCols), a.splits, cdiv(a.M, kRows));
-  gemv_kernel<KIND, XT, OT><<<grid, kThreads, 0, stream>>>(a);
+  if constexpr (KIND == kW4) {
+    auto kernel = gemv_w4_kernel<XT, OT>;
+    // the shared-memory limit, set once per device (as B11's)
+    static std::atomic<uint64_t> allowed{0};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const uint64_t bit = uint64_t(1) << (dev % 64);
+    if (!(allowed.load() & bit)) {
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kW4Smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      allowed.fetch_or(bit);
+    }
+    const dim3 grid(cdiv(a.N / 2, kChunks * 16), a.splits, cdiv(a.M, 8));
+    kernel<<<grid, kThreads, kW4Smem, stream>>>(a);
+  } else {
+    const dim3 grid(cdiv(a.N, kBlockCols), a.splits, cdiv(a.M, kRows));
+    gemv_kernel<KIND, XT, OT><<<grid, kThreads, 0, stream>>>(a);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,9 @@
 // Split-KV decode attention for Hopper: the device body that B2
-// (paged_attention.cu's decode_split_kernel), B6 and B7 (paged_decode.cu's
-// decode_grouped_split_kernel and decode_batched_split_kernel) share. Each
-// entry point is its own __global__ (so a profile tells the three apart);
-// what differs between them is only how the work is cut into parts:
+// (paged_attention.cu's decode_split_kernel), B6, B7 and B8 (paged_decode.cu's
+// decode_grouped_split_kernel, decode_batched_split_kernel and
+// decode_packed_split_kernel) share. Each entry point is its own __global__
+// (so a profile tells the four apart); what differs between them is only
+// how the work is cut into parts:
 //
 //   B2  grid (sequence x KV head, split): split s takes the pages [s * pps,
 //       s * pps + pps) of the block table (the shapes alone fix the
@@ -15,6 +16,9 @@
 //       in one flat order, each block an equal contiguous run of them,
 //       which may end one (sequence, KV head) and start the next
 //       (decode_batched_partition).
+//   B8  grid (sequence x KV head, split): as B6 with runs of single pages
+//       (decode_packed_plan); a split past the visible pages exits at once
+//       and only the splits with pages merge.
 //
 // A part is a run of pages of one (sequence, KV head) for the G <= ROWS
 // query heads of that KV head. What bounds it on the H100: bytes and
@@ -31,12 +35,14 @@
 // * No block-wide barrier per page. Each of the four compute warps takes
 //   16 keys of every 64 with its own online softmax (m, l) and P.V
 //   accumulator in registers: eight lanes a key, each lane a chunk of the
-//   K row (16 bytes where a row is a multiple of 16 bytes, else a pair of
-//   values) against q rows kept in shared memory in the same lane order;
-//   shuffles sum the eight parts; the probabilities go through a per-warp
-//   buffer to P.V, where each lane owns PV (4, or 2 at D <= 64 and for
-//   other head dims) values of d a run of 32 * PV. The warps' results
-//   merge once, at the end of the part.
+//   K row (16 bytes where a row is a multiple of 16 bytes, an eighth of a
+//   row of 16, 32 or 64 bytes, else a pair of values) against q rows kept
+//   in shared memory in the same lane order; shuffles sum the eight parts;
+//   the probabilities go through a per-warp buffer to P.V, where each lane
+//   owns PV (4, or 2 at D <= 64 and for other head dims) values of d a run
+//   of 32 * PV (at dh 16 and 32, shorter than a run, the lanes also split
+//   the keys in slices). The warps' results merge once, at the end of the
+//   part.
 // * One launch. Each part writes its partial (m, l, acc) to an f32
 //   workspace; the last part of a (sequence, KV head) to finish (a counter
 //   it resets itself, keyed by device and stream on the host) merges them
@@ -44,6 +50,10 @@
 //   part with no visible page writes (m = -1e30, l = 0, acc = 0) and counts
 //   toward the merge; a (sequence, KV head) with a single part writes its
 //   output directly.
+// * The merges (the warps' at the end of a part, the parts' by the last to
+//   finish) take every (query row, d) of the G rows at once, each thread
+//   its own outputs, so the parts' partials are read with independent
+//   loads rather than a row at a time.
 // The fold order is the reference's per key (the K scale, the softcap, the
 // mask, then m, l, and the V scale on p); only the grouping of the online
 // softmax (16 keys a step, then warps, then parts) differs, which moves the
@@ -75,14 +85,25 @@ constexpr int kSplitSmem = 232448 - 1024;
 template <typename TKV, int DT>
 struct Lanes {
   static constexpr int es = sizeof(TKV);
-  // 16-byte chunks of K a lane where a row is a multiple of 16 bytes
-  static constexpr bool kVec = DT > 0 && (DT * es) % 16 == 0;
-  static constexpr int W = kVec ? 16 : 2 * es;  // bytes of a chunk
+  static constexpr int ROW = DT * es;           // bytes of a row (DT > 0)
+  // 16-byte chunks of K a lane where a row is a multiple of 16 bytes; a
+  // row of 16, 32 or 64 bytes (INT8 at dh 16 / 32 / 64, bf16 at 16 / 32,
+  // f32 at 16) in eighths instead, so that none of a key's eight lanes
+  // idles (in 16-byte chunks an INT8 row of dh 64 would leave four)
+  static constexpr bool kVec = DT > 0 && ROW % 16 == 0;
+  static constexpr bool kNarrow =
+      kVec && (ROW == 16 || ROW == 32 || ROW == 64) && ROW / 8 >= 2 * es;
+  static constexpr int W = kNarrow ? ROW / 8 : kVec ? 16 : 2 * es;  // bytes
   static constexpr int E = W / es;              // values of a chunk
-  static constexpr int GV = kVec ? 4 : 2;       // q values read at once
+  static constexpr int GV = E >= 4 ? 4 : 2;     // q values read at once
   static constexpr int F = E / GV;              // such groups a chunk
   static constexpr int PV = (DT > 64 && DT % 4 == 0) ? 4 : 2;  // P.V
   static constexpr int RUN = 32 * PV;           // values of d a warp step
+  // P.V's key slices where a head dim is shorter than a warp's run (dh 16
+  // and 32): the lanes take d in runs of DT and the keys in KS slices,
+  // whose sums meet by shuffles at the end of a part
+  static constexpr int KS = DT > 0 && DT < RUN && RUN % DT == 0 ? RUN / DT
+                                                                : 1;
   static constexpr int DMAX = DT > 0 ? DT : 256;
   static constexpr int CIM = (DMAX / E + 7) / 8;   // chunks a lane, at most
   static constexpr int DCM = (DMAX + RUN - 1) / RUN;  // P.V runs, at most
@@ -181,6 +202,15 @@ __device__ __forceinline__ void kgroup(const typename RawT<W>::T& v, int f,
                                        float (&o)[GV]) {
   if constexpr (W == 16) {
     chunk4<T>(v, f, o);
+  } else if constexpr (GV == 4 && sizeof(T) == 1) {  // an INT8 word
+    uint32_t wv;
+    if constexpr (W == 8)
+      wv = f == 0 ? v.x : v.y;
+    else
+      wv = v;
+    chunk4<int8_t>(make_uint4(wv, 0, 0, 0), 0, o);
+  } else if constexpr (GV == 4) {                    // four bf16
+    chunk4<__nv_bfloat16>(make_uint4(v.x, v.y, 0, 0), 0, o);
   } else if constexpr (sizeof(T) == 1) {            // an INT8 pair
     o[0] = static_cast<float>(static_cast<int8_t>(v & 0xFF));
     o[1] = static_cast<float>(static_cast<int8_t>(v >> 8));
@@ -292,6 +322,7 @@ __device__ __forceinline__ void split_part(
   using L = Lanes<TKV, DT>;
   constexpr int es = L::es, W = L::W, E = L::E, GV = L::GV, F = L::F;
   constexpr int PV = L::PV, RUN = L::RUN, CIM = L::CIM, DCM = L::DCM;
+  constexpr int KS = L::KS, LPD = 32 / KS;  // P.V key slices, lanes along d
   using Raw = typename RawT<W>::T;
   const int D = DT > 0 ? DT : a.D;
   const int NCH = D / E;                  // chunks of a K row
@@ -307,32 +338,12 @@ __device__ __forceinline__ void split_part(
   const int* bt = a.block_tables + static_cast<long long>(b) * a.mp;
   const size_t row0 = static_cast<size_t>(b) * H + h * G;  // q / out row
 
-  if (it0 > 0) {
-    // a previous part of the block: its reads and writes of the ring (its
-    // warps' merge) and of the q rows done, and ordered before this
-    // part's bulk copies into the ring
-    if (warp < kSplitWarps) hop::fence_async_smem();
-    __syncthreads();
-  }
-  // the G query rows, times the scale, in the order the scores read them:
-  // value d of chunk c = d / E sits at group (c / 8 * F + d % E / GV) * 8 +
-  // c % 8, so the 8 lanes of a key read 8 consecutive groups; the padding
-  // of a row past its last chunk (DQ > D) is zero
-  for (int idx = tid; idx < G * D; idx += kSplitThreads) {
-    const int r = idx / D, d = idx - r * D;
-    const int c = d / E, e = d % E;
-    qs[r * DQ + ((c / 8 * F + e / GV) * 8 + c % 8) * GV + e % GV] =
-        load_q<TQ>(q, qbf, row0 * D + idx) * scale;
-  }
-  if (DQ > D) {
-    for (int idx = tid; idx < G * (DQ - D); idx += kSplitThreads) {
-      const int r = idx / (DQ - D), c = NCH + (idx - r * (DQ - D)) / E;
-      const int e = idx % E;
-      qs[r * DQ + ((c / 8 * F + e / GV) * 8 + c % 8) * GV + e % GV] = 0.f;
-    }
-  }
+  // the ring's barriers (ring_init) visible to every thread, and a previous
+  // part of the block (its reads and writes of the ring, the warps' merge,
+  // and of the q rows) done and ordered before this part's copies
+  if (it0 > 0 && warp < kSplitWarps) hop::fence_async_smem();
   __syncthreads();
-
+  constexpr int NT = 32 * kSplitWarps;  // the compute warps
   if (warp == kSplitWarps) {
     // the copy warp: page i0 + it's K and V runs (contiguous [page, D] in
     // the pool) and an aligned run of each one's scales into stage (it0 +
@@ -381,12 +392,34 @@ __device__ __forceinline__ void split_part(
     return;
   }
 
+  // The compute warps stage the G query rows while the copy warp's first
+  // pages are on their way: times the scale, in the order the scores read
+  // them (value d of chunk c = d / E sits at group (c / 8 * F + d % E / GV)
+  // * 8 + c % 8, so the 8 lanes of a key read 8 consecutive groups; the
+  // padding of a row past its last chunk, DQ > D, is zero).
+  for (int idx = tid; idx < G * D; idx += NT) {
+    const int r = idx / D, d = idx - r * D;
+    const int c = d / E, e = d % E;
+    qs[r * DQ + ((c / 8 * F + e / GV) * 8 + c % 8) * GV + e % GV] =
+        load_q<TQ>(q, qbf, row0 * D + idx) * scale;
+  }
+  if (DQ > D) {
+    for (int idx = tid; idx < G * (DQ - D); idx += NT) {
+      const int r = idx / (DQ - D), c = NCH + (idx - r * (DQ - D)) / E;
+      const int e = idx % E;
+      qs[r * DQ + ((c / 8 * F + e / GV) * 8 + c % 8) * GV + e % GV] = 0.f;
+    }
+  }
+  hop::named_sync(1, NT);
+
   // Compute warp `warp`: in every page, the keys jb + 4 u + kg (u < 4) of
   // each block of 16 at jb = 16 warp + 64 t, key group kg = lane / 8 of 8
   // lanes; its own online softmax (m the same in every lane, l a partial
   // of the lane's key group) and P.V accumulator (lane: values RUN c + PV
-  // lane .. + PV - 1 of d), merged with the other warps' at the end.
+  // dl .. + PV - 1 of d over the keys of its slice ks), merged with the
+  // other warps' at the end.
   const int kg = lane / 8, l8 = lane % 8;
+  const int ks = lane / LPD, dl = lane % LPD;
   float* const pw = reinterpret_cast<float*>(smem + lay.p_off) +
                     warp * kKeyBlock * ROWS;
   float m[ROWS], l[ROWS], acc[ROWS][PV * DCM];
@@ -533,7 +566,7 @@ __device__ __forceinline__ void split_part(
       }
       __syncwarp();
       const int nk = min(kKeyBlock, page - jb);
-      for (int k = 0; k < nk; ++k) {
+      for (int k = ks; k < nk; k += KS) {
         float p[ROWS];
         const float* pk = pw + k * ROWS;
         if constexpr (ROWS % 4 == 0) {
@@ -553,7 +586,7 @@ __device__ __forceinline__ void split_part(
 #pragma unroll
         for (int c = 0; c < DCM; ++c) {
           if (DT == 0 && c >= DC) break;
-          const int d0 = RUN * c + PV * lane;
+          const int d0 = RUN * c + PV * dl;
           if ((DT > 0 && DT % RUN == 0) || d0 < D) {
             float vv[PV];
             loadv<TKV, PV>(vr + d0 * es, vv);
@@ -572,13 +605,21 @@ __device__ __forceinline__ void split_part(
 
   // The warps' results, merged in warp order over the ring (every stage
   // read once all compute warps meet): m_w, l_w (the key groups' partials
-  // summed) and acc_w, weighted by e^(m_w - M).
+  // summed) and acc_w (the key slices' summed), weighted by e^(m_w - M).
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 8);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 16);
   }
-  constexpr int NT = 32 * kSplitWarps;
+  if constexpr (KS > 1) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int c = 0; c < PV * DCM; ++c)
+#pragma unroll
+        for (int o = LPD; o < 32; o <<= 1)
+          acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], o);
+  }
   hop::named_sync(1, NT);
   float* const cacc = reinterpret_cast<float*>(smem + lay.stage_off);
   float* const cml = cacc + kSplitWarps * ROWS * D;  // [warp][r][m, l]
@@ -587,9 +628,13 @@ __device__ __forceinline__ void split_part(
 #pragma unroll
     for (int c = 0; c < DCM; ++c) {
       if (DT == 0 && c >= DC) break;
-      const int d0 = RUN * c + PV * lane;
+      const int d0 = RUN * c + PV * dl;
       float* dst = cacc + (warp * ROWS + r) * D + d0;
-      if constexpr (PV == 4) {
+      if constexpr (KS > 1) {
+        if (ks == 0)
+          *reinterpret_cast<float2*>(dst) =
+              make_float2(acc[r][2 * c], acc[r][2 * c + 1]);
+      } else if constexpr (PV == 4) {
         if ((DT > 0 && DT % RUN == 0) || d0 < D)
           *reinterpret_cast<float4*>(dst) =
               make_float4(acc[r][4 * c], acc[r][4 * c + 1],
@@ -608,7 +653,9 @@ __device__ __forceinline__ void split_part(
   hop::named_sync(1, NT);
   const long long slot = w.base + w.part;
   const size_t orow = row0 * D;
-  for (int r = 0; r < G; ++r) {
+  // every (row, d) of the G rows at once, each thread its own outputs
+  for (int idx = tid; idx < G * D; idx += NT) {
+    const int r = idx / D, d = idx - r * D;
     float mx = kNegBig;
 #pragma unroll
     for (int v = 0; v < kSplitWarps; ++v)
@@ -619,20 +666,19 @@ __device__ __forceinline__ void split_part(
       wt[v] = expf(cml[(v * ROWS + r) * 2] - mx);
       lsum = fmaf(cml[(v * ROWS + r) * 2 + 1], wt[v], lsum);
     }
-    const float inv = 1.f / (lsum == 0.f ? 1.f : lsum);
-    for (int d = tid; d < D; d += NT) {
-      float v = 0.f;
+    float v = 0.f;
 #pragma unroll
-      for (int u = 0; u < kSplitWarps; ++u)
-        v = fmaf(cacc[(u * ROWS + r) * D + d], wt[u], v);
-      if (w.parts == 1)
-        store_out<TQ>(out, qbf, orow + r * D + d, v * inv);
-      else
-        part_acc[(slot * G + r) * D + d] = v;
-    }
-    if (w.parts > 1 && tid == 0) {
-      part_ml[(slot * G + r) * 2] = mx;
-      part_ml[(slot * G + r) * 2 + 1] = lsum;
+    for (int u = 0; u < kSplitWarps; ++u)
+      v = fmaf(cacc[(u * ROWS + r) * D + d], wt[u], v);
+    if (w.parts == 1) {
+      store_out<TQ>(out, qbf, orow + idx,
+                    v * (1.f / (lsum == 0.f ? 1.f : lsum)));
+    } else {
+      part_acc[(slot * G + r) * D + d] = v;
+      if (d == 0) {
+        part_ml[(slot * G + r) * 2] = mx;
+        part_ml[(slot * G + r) * 2 + 1] = lsum;
+      }
     }
   }
   if (w.parts == 1) return;
@@ -665,14 +711,13 @@ __device__ __forceinline__ void split_part(
     invs[r] = 1.f / (lsum == 0.f ? 1.f : lsum);
   }
   hop::named_sync(1, NT);
-  for (int r = 0; r < G; ++r) {
-    for (int d = tid; d < D; d += NT) {
-      float v = 0.f;
-      for (int s = 0; s < w.parts; ++s)
-        v = fmaf(__ldcg(part_acc + ((p0 + s) * G + r) * D + d),
-                 wts[s * ROWS + r], v);
-      store_out<TQ>(out, qbf, orow + r * D + d, v * invs[r]);
-    }
+  for (int idx = tid; idx < G * D; idx += NT) {
+    const int r = idx / D, d = idx - r * D;
+    float v = 0.f;
+    for (int s = 0; s < w.parts; ++s)
+      v = fmaf(__ldcg(part_acc + ((p0 + s) * G + r) * D + d),
+               wts[s * ROWS + r], v);
+    store_out<TQ>(out, qbf, orow + idx, v * invs[r]);
   }
   if (tid == 0) counters[bh] = 0;
 }

@@ -291,8 +291,10 @@ def w8_operands(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
     [K, N]``, N to 16 in ``wq`` (INT8 rows of 16 bytes), ``w_scale [N]``
     and ``bias [N]`` (f32, or None), ``x`` and ``wq`` 16-byte aligned.
     Returns ``(x, wq, w_scale, bias, padded N)``; the columns past N are
-    the caller's to drop. Every preset's projections and vocabularies
-    need no copy."""
+    the caller's to drop. Every preset's projections need no copy, and
+    so does every vocabulary but GPT-2's: its 50,257-column head is
+    padded to 50,272, so that weight is copied on every B11 call past 16
+    rows (``tests/test_torch_int8_matmul.py`` pins both)."""
     K, N = wq.shape
     dk, dn = -K % 8, -N % 16
     if dk:

@@ -29,7 +29,11 @@ B9, ``csrc/paged_decode.cu`` B6, B7 and B8:
   (:func:`decode_grouped_emulation` in plain PyTorch).
 * :func:`paged_attention_decode_packed` (B8) replaces
   ``paged_attention_decode_packed`` (``_decode_packed_kernel``): B2's
-  function over an unpadded sub-128 pool (:func:`packable_decode`).
+  function over an unpadded sub-128 pool (:func:`packable_decode`) on
+  B2's split-KV body, one launch: the visible pages split by
+  :func:`decode_packed_plan` into runs of single pages, only the runs
+  that hold pages merged (:func:`decode_packed_emulation` in plain
+  PyTorch).
 * :func:`paged_attention_decode_batched` (B7) replaces
   ``paged_attention_decode_batched`` (``_decode_batched_kernel``): B2's
   function, the whole batch in one launch on B2's split-KV body, split by
@@ -96,7 +100,7 @@ ATTENTION_DECODE_GROUPED = CudaKernel(
 ATTENTION_DECODE_PACKED = CudaKernel(
     "paged_attention_decode_packed", "paged_decode.cu",
     "pbt_paged_attention_decode_packed",
-    _ATTN_ARGS + [I] * 8 + [LL, F, F, I, I, I, P],
+    _ATTN_ARGS + [P, P, P] + [I] * 8 + [LL, I, I, I, F, F, I, I, I, P],
     "ops/paged_attention.py:1083")
 ATTENTION_DECODE_BATCHED = CudaKernel(
     "paged_attention_decode_batched", "paged_decode.cu",
@@ -449,6 +453,39 @@ def decode_grouped_plan(batch: int, kv_heads: int, mp: int, page_size: int,
     return max(1, cdiv(width, pps)), pps
 
 
+def _runs_from_first(q, kv_pages, block_tables, seq_lens, kv_scales, layer,
+                     page_size, num_q_heads, window, softcap, scale, plan,
+                     order, skip_empty):
+    """B6's and B8's split-KV computation in plain PyTorch (f32): runs of
+    ``pps`` pages counted from each sequence's first visible page (``plan
+    (KH, mp) -> (splits, pps)``), merged in ``order`` (split order by
+    default) as :func:`decode_split_emulation` merges B2's. With
+    ``skip_empty`` a run past a sequence's visible pages takes no part in
+    its merge (B8's early exit; such a run would add exact zeros)."""
+    pool, (s, vis, v, vscale) = _emulation_fold(
+        q, kv_pages, block_tables, seq_lens, kv_scales, layer, page_size,
+        num_q_heads, window, softcap, scale)
+    mp = block_tables.shape[1]
+    splits, pps = plan(pool.shape[2], mp)
+    first, n_pages = _visible_pages(seq_lens, page_size, mp, window)
+    page = torch.arange(mp * page_size, device=q.device) // page_size
+    rel = (page - first[:, None])[:, None, None, None, :]   # [B, 1,1,1, S]
+    order = range(splits) if order is None else order
+    if not skip_empty:
+        masks = [(rel >= i * pps) & (rel < i * pps + pps) for i in order]
+        return _emulation_out(q, _merge_parts(s, vis, v, vscale, masks))
+    # each sequence merges only its runs that hold pages (at least run 0)
+    parts = torch.clamp((n_pages - first + pps - 1) // pps, min=1)
+    outs = []
+    for b in range(q.shape[0]):
+        masks = [(rel[b:b + 1] >= i * pps) & (rel[b:b + 1] < i * pps + pps)
+                 for i in order if i < int(parts[b])]
+        outs.append(_merge_parts(
+            s[b:b + 1], vis[b:b + 1], v[:, b:b + 1],
+            None if vscale is None else vscale[b:b + 1], masks))
+    return _emulation_out(q, torch.cat(outs))
+
+
 def decode_grouped_emulation(q, kv_pages, block_tables, seq_lens,
                              kv_scales=None, layer=None, *, page_size: int,
                              num_q_heads: int, window: int = 0,
@@ -460,19 +497,41 @@ def decode_grouped_emulation(q, kv_pages, block_tables, seq_lens,
     sequence's first visible page, merged in ``order`` (split order by
     default) as :func:`decode_split_emulation` merges B2's. Same inputs
     and output as :func:`paged_attention_decode_grouped_plain`."""
-    pool, (s, vis, v, vscale) = _emulation_fold(
+    return _runs_from_first(
         q, kv_pages, block_tables, seq_lens, kv_scales, layer, page_size,
-        num_q_heads, window, softcap, scale)
-    mp = block_tables.shape[1]
-    splits, pps = decode_grouped_plan(q.shape[0], pool.shape[2], mp,
-                                      page_size, window, group_pages)
-    first, _ = _visible_pages(seq_lens, page_size, mp, window)
-    page = torch.arange(mp * page_size, device=q.device) // page_size
-    rel = (page - first[:, None])[:, None, None, None, :]   # [B, 1,1,1, S]
-    masks = [(rel >= i * pps) & (rel < i * pps + pps) for i in range(splits)]
-    order = range(splits) if order is None else order
-    return _emulation_out(q, _merge_parts(s, vis, v, vscale,
-                                          [masks[i] for i in order]))
+        num_q_heads, window, softcap, scale,
+        lambda kh, mp: decode_grouped_plan(q.shape[0], kh, mp, page_size,
+                                           window, group_pages),
+        order, skip_empty=False)
+
+
+def decode_packed_plan(batch: int, kv_heads: int, mp: int, page_size: int,
+                       window: int = 0):
+    """B8's ``(splits, pages_per_split)``, from the shapes alone:
+    :func:`decode_grouped_plan` with runs of single pages (B8 has no page
+    grouping to keep), so a table of a few pages a sequence (TinyLlama's
+    1-3 on path (g)) gets a split a page, up to about two waves of the
+    SMs. A split past a sequence's visible pages exits at once."""
+    return decode_grouped_plan(batch, kv_heads, mp, page_size, window,
+                               group_pages=1)
+
+
+def decode_packed_emulation(q, kv_pages, block_tables, seq_lens,
+                            kv_scales=None, layer=None, *, page_size: int,
+                            num_q_heads: int, window: int = 0,
+                            softcap: float = 0.0,
+                            scale: Optional[float] = None, order=None):
+    """B8's split-KV computation in plain PyTorch (f32), for tests and
+    checks: :func:`decode_packed_plan`'s runs of pages from each
+    sequence's first visible one, only the runs that hold pages merged, in
+    ``order`` (split order by default). Same inputs and output as
+    :func:`paged_attention_decode_packed_plain`."""
+    return _runs_from_first(
+        q, kv_pages, block_tables, seq_lens, kv_scales, layer, page_size,
+        num_q_heads, window, softcap, scale,
+        lambda kh, mp: decode_packed_plan(q.shape[0], kh, mp, page_size,
+                                          window),
+        order, skip_empty=True)
 
 
 def decode_batched_blocks(batch: int, kv_heads: int, mp: int) -> int:
@@ -761,10 +820,12 @@ def paged_attention_decode_packed(q: torch.Tensor, kv_pages: torch.Tensor,
                                   scale: Optional[float] = None
                                   ) -> torch.Tensor:
     """B8: T=1 decode attention over an unpadded sub-128 pool
-    (:func:`packable_decode`: dh 16, 32 or 64 at the engine's pages); the
-    kernel reads K rows with 16-byte loads, so it also needs ``dh *
-    itemsize % 16 == 0``. Same inputs and output as
-    :func:`paged_attention_decode`."""
+    (:func:`packable_decode`: dh 16, 32 or 64 at the engine's pages; the
+    kernel is compiled for those three). One launch of B2's split-KV body:
+    the visible pages of each (sequence, KV head), counted from the
+    window's first, split by :func:`decode_packed_plan`, the splits that
+    hold pages merged in order by the last to finish. Same inputs and
+    output as :func:`paged_attention_decode`."""
     if not packable_decode(page_size, q.shape[3]):
         raise ValueError(f"packable_decode({page_size}, {q.shape[3]}) is "
                          "False: the packed decode kernel does not cover "
@@ -774,19 +835,49 @@ def paged_attention_decode_packed(q: torch.Tensor, kv_pages: torch.Tensor,
             q, kv_pages, block_tables, seq_lens, kv_scales, layer,
             page_size=page_size, num_q_heads=num_q_heads, window=window,
             softcap=softcap, scale=scale)
+    splits, pps = decode_packed_plan(q.shape[0], kv_pages.shape[-4],
+                                     block_tables.shape[1], page_size,
+                                     window)
+    return decode_packed_launch(
+        q, kv_pages, block_tables, seq_lens, kv_scales, layer,
+        page_size=page_size, num_q_heads=num_q_heads, window=window,
+        softcap=softcap, scale=scale, splits=splits, pages_per_split=pps)
+
+
+def decode_packed_launch(q, kv_pages, block_tables, seq_lens,
+                         kv_scales=None, layer=None, *, page_size: int,
+                         num_q_heads: int, window: int = 0,
+                         softcap: float = 0.0,
+                         scale: Optional[float] = None, splits: int,
+                         pages_per_split: int,
+                         stages: int = 0) -> torch.Tensor:
+    """B8's launch at a given cut (as :func:`decode_grouped_launch` takes
+    B6's): ``splits`` runs of ``pages_per_split`` pages from each
+    sequence's first visible one and a ring of ``stages`` pages (0: the
+    kernel's choice). :func:`paged_attention_decode_packed` calls it with
+    :func:`decode_packed_plan`'s cut; a sweep calls it with others."""
     pool, scales, layer, qd, kd, sstride, q, bt, sl = _decode_inputs(
         q, kv_pages, block_tables, seq_lens, kv_scales, layer, page_size,
         num_q_heads, row_multiple=16)
-    if pool.data_ptr() % 16:
-        raise ValueError("the pool must be 16-byte aligned")
+    pool, scales = aligned16(pool), aligned16(scales)
     B, _, H, D = q.shape
+    KH, mp = pool.shape[2], bt.shape[1]
+    G = H // KH
+    part_acc = part_ml = counters = None
+    if splits > 1:
+        part_acc = torch.empty((B * KH, splits, G, D), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((B * KH, splits, G, 2), dtype=torch.float32,
+                              device=q.device)
+        counters = split_counters(q.device, B * KH)
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     out = torch.empty_like(q)
     ATTENTION_DECODE_PACKED.launch(
         ptr(q), ptr(out), ptr(pool), ptr(scales), ptr(bt), ptr(sl),
-        B, H, pool.shape[2], D, pool.shape[3], page_size, bt.shape[1],
-        layer, sstride, float(scale), float(softcap), int(window), qd, kd,
-        stream_handle(q))
+        ptr(part_acc), ptr(part_ml), ptr(counters), B, H, KH, D,
+        pool.shape[3], page_size, mp, layer, sstride, splits,
+        pages_per_split, stages, float(scale), float(softcap), int(window),
+        qd, kd, stream_handle(q))
     return out
 
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Where the tensor-core kernels' time goes (B13, B1, B10/B15, B11), and
-the split-KV decode body's (B6), on one NVIDIA H100.
+"""Where the tensor-core kernels' time goes (B13, B1, B10/B15, B11, B12),
+and the split-KV decode body's (B6, B8), on one NVIDIA H100.
 
     python3 tensor_core_phases.py [NAME ...]
 
@@ -10,8 +10,9 @@ kernel of ``csrc/imma.cuh`` (in ``int8_matmul.cu`` and
 ``csrc/widen_gemm.cuh``, the mainloop it shares with B13) with parts cut
 out (their outputs are then garbage) and times each by CUPTI device time
 beside the kernel as it is (the names on the command line, by default
-all six: ``gmm.cu``, ``paged_prefill.cu``, ``int8_matmul.cu``,
-``chain_linear.cu``, ``w8_matmul``, ``paged_decode.cu``):
+all nine: ``gmm.cu``, ``paged_prefill.cu``, ``int8_matmul.cu``,
+``chain_linear.cu``, ``w8_matmul``, ``w4_matmul``, ``w4_gemv``,
+``paged_decode.cu``, ``packed``):
 
 * B13 ``grouped_matmul`` at Mixtral-8x7B's prefill (``chip_smoke``'s
   routing of 1024 tokens to 2 of 8 experts, Npad 4096, with the
@@ -51,6 +52,25 @@ all six: ``gmm.cu``, ``paged_prefill.cu``, ``int8_matmul.cu``,
   is left: the scores, the softmax, the ring's barriers and the merge);
   ``no_pages`` (every part empty: the launch, the q rows, the partials
   and the merge alone).
+* B12 ``w4_matmul`` (tensor-core route, bf16 x, ``int4_matmul.cu`` on
+  ``widen_gemm.cuh``'s ``mainloop_w4``) at Llama-3-8B's four projections
+  at M=256, summed, and its LM head at M=256: ``full``; ``no_widen`` (the
+  raw carrier tiles are not widened, so the products read stale shared
+  memory); ``no_mma`` (no wgmma); ``no_widen_no_mma``; ``no_store`` (the
+  epilogue computes but writes nothing).
+* B12's decode gemv (``qmatmul.cuh``'s ``gemv_w4_kernel``, bf16 x) at
+  Llama-3-8B's four projections at M=4, summed, and its LM head at M=4,
+  each call on a weight outside L2: ``full``; ``no_loads`` (the carrier
+  words written to the ring from the row index, so no weight byte is
+  read);
+  ``no_convert`` (the raw carrier words go to the products as they are);
+  ``no_mma`` (the widened words folded into the sums by an add, no
+  mma.sync); ``no_steps`` (no k-step at all: the launch, x's staging, the
+  warps' merge, the split-K merge and the epilogue alone).
+* B8 ``paged_attention_decode_packed`` (the same split-KV body, built once
+  with B6's cuts) at path (g)'s shape (tinyllama-1.1b: B=8, KH 4, G 8, dh
+  64, 1-2 pages a sequence, bf16 queries) and at dh 32 with a window of 40
+  keys (f32 queries), INT8 pools: B6's five cuts.
 
 A tool for the kernels' next tuning; it changes nothing in the package:
 the copies are written and built under the package's git-ignored
@@ -74,6 +94,7 @@ sys.path.insert(0, HERE)
 import chip_smoke as smoke  # noqa: E402
 from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops import chain_linear as cl  # noqa: E402
 from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops import gmm  # noqa: E402
+from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops import int4_matmul as i4  # noqa: E402
 from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops import int8_matmul as i8  # noqa: E402
 from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops import paged_attention as pa  # noqa: E402
 from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.quant import tensor as qt  # noqa: E402
@@ -96,8 +117,23 @@ IMMA_MMA = ("      hop::mma_s8_n128(acc, hop::desc(xs + kk * 32, 16, 1024),\n"
             "                       hop::desc(tb + kk * 32, 16, 1024), 1);")
 SPLIT_COPY = ("        hop::mbar_arrive_tx(&full[st], 2 * row + (quant ? 8 * nsc : 0));\n"
               "        for (int kv = 0; kv < 2; ++kv) {")
-SPLIT_PV = "      for (int k = 0; k < nk; ++k) {"
+SPLIT_PV = "      for (int k = ks; k < nk; k += KS) {"
 SPLIT_PAGES = "  const int b = w.b, h = w.h, i0 = w.i0, n = w.n;"
+W4_WIDEN = "  for (int u = ct; u < UNITS; u += W4Layout::NT) {"
+W4_MMA = ("        hop::mma_ss_n128<1>(part, hop::desc(xs + kk * 32, 16, 1024),\n"
+          "                            hop::desc(wb + kk * 2048, kWK * 128, "
+          "1024),\n                            kt > kfirst || kk > 0);")
+W4_STORE = "    imma::store4<OT>(a.out,\n"
+GEMV_LOAD = ("      hop::cp_async16(slot + i * 32 + lane,\n"
+             "                      valid ? wcol + static_cast<long long>(row) "
+             "* wstride\n                            : a.w,\n"
+             "                      valid);")
+GEMV_A = "        const uint32_t A[4] = {"
+GEMV_UNITS = ("  for (int ku = k_begin + warp * U; ku < k_end; ku += kWarps * U) "
+              "{")
+GEMV_A_END = "0x43084308u)};\n"
+GEMV_MMA = ("        for (int p = 0; p < P; ++p) hop::mma_16816(part[4 * q + bb], "
+            "A, b[p]);")
 B1_PV = ("        hop::mma_rs_n64<1>(o[c], pa[ks],\n"
          "                           hop::desc(vt + c * 8192 + ks * 2048, "
          "8192, 1024));")
@@ -118,6 +154,12 @@ def variants():
     h = (plat.CSRC / "imma.cuh").read_text()
     w8 = (plat.CSRC / "int8_matmul.cu").read_text()
     wg = (plat.CSRC / "widen_gemm.cuh").read_text()
+    w4 = (plat.CSRC / "int4_matmul.cu").read_text()
+    qm = (plat.CSRC / "qmatmul.cuh").read_text()
+    a0 = qm.index(GEMV_A)
+    a1 = qm.index(GEMV_A_END, a0) + len(GEMV_A_END)
+    gemv_no_convert = (qm[:a0] + "        const uint32_t A[4] = {wv[0][q], "
+                       "s1, wv[2][q], s3};\n" + qm[a1:])
     pd = (plat.CSRC / "paged_decode.cu").read_text()
     sd = (plat.CSRC / "split_decode.cuh").read_text()
     no_copies = sub(sd, SPLIT_COPY, SPLIT_COPY.replace(
@@ -125,6 +167,7 @@ def variants():
         "mbar_arrive(&full[st])").replace("kv < 2", "kv < 0"))
     no_pv = SPLIT_PV.replace("k < nk", "k < 0")
     no_widen = sub(wg, GMM_WIDEN, GMM_WIDEN.replace("u < UNITS", "u < 0"))
+    no_widen4 = sub(wg, W4_WIDEN, W4_WIDEN.replace("u < UNITS", "u < 0"))
     no_convert = sub(p, B1_CONVERT, B1_CONVERT.replace("j < nk", "j < 0"))
     no_mma = sub(sub(p, B1_S, ""), B1_PV, "")
     no_transpose = sub(h, IMMA_TRANSPOSE,
@@ -167,7 +210,34 @@ def variants():
                 no_widen, WIDE_MMA, "      ;")},
             "no_store": {"int8_matmul.cu": sub(
                 w8, W8_STORE, "    if (y[0] == 12345.f)\n" + W8_STORE)},
+        },
+        "w4_matmul": {
+            "full": {"int4_matmul.cu": w4},
+            "no_widen": {"int4_matmul.cu": w4, "widen_gemm.cuh": no_widen4},
+            "no_mma": {"int4_matmul.cu": w4,
+                       "widen_gemm.cuh": sub(wg, W4_MMA, "        ;")},
+            "no_widen_no_mma": {"int4_matmul.cu": w4, "widen_gemm.cuh": sub(
+                no_widen4, W4_MMA, "        ;")},
+            "no_store": {"int4_matmul.cu": sub(
+                w4, W4_STORE, "    if (y[0] == 12345.f)\n" + W4_STORE)},
         }}
+    out["packed"] = out["paged_decode.cu"]
+    # imma.cuh beside the cut qmatmul.cuh, so that its include of it finds
+    # the cut copy and not csrc's (two definitions)
+    imma_h = (plat.CSRC / "imma.cuh").read_text()
+    out["w4_gemv"] = {label: {"int4_matmul.cu": w4, "qmatmul.cuh": text,
+                              "imma.cuh": imma_h}
+                      for label, text in {
+        "full": qm,
+        "no_loads": sub(qm, GEMV_LOAD, "      slot[i * 32 + lane] = make_uint4("
+                        "row, row * 3u, row ^ 0x5a5a5a5au, row + 7u);"),
+        "no_convert": gemv_no_convert,
+        "no_steps": sub(qm, GEMV_UNITS, GEMV_UNITS.replace("ku < k_end",
+                                                           "ku < 0")),
+        "no_mma": sub(qm, GEMV_MMA, "        for (int p = 0; p < P; ++p) "
+                      "part[4 * q + bb][0] += __uint_as_float(\n"
+                      "            A[0] ^ A[1] ^ A[2] ^ A[3] ^ b[p][0]);"),
+    }.items()}
     for src in ("int8_matmul.cu", "chain_linear.cu"):
         text = (plat.CSRC / src).read_text()
         out[src] = {label: {src: text, "imma.cuh": hdr}
@@ -287,6 +357,70 @@ def b6_cases(dev):
     return cases
 
 
+def b12_cases(dev):
+    """B12 (bf16 x) at Llama-3-8B's four projections at M=256 (a call runs
+    all four) and at its LM head (bn 768) at M=256."""
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 12)
+    cases, calls = {}, []
+    for name, K, N in smoke.PROJECTIONS + [smoke.LM_HEAD]:
+        w = qt.quantize_int4_groupwise(torch.randn(
+            (K, N), generator=gen, device=dev) * 0.02)
+        x = torch.randn((256, K), generator=gen, device=dev).to(
+            torch.bfloat16)
+        call = (lambda x=x, w=w: i4.w4_matmul(x, w.packed, w.scales,
+                                              group=w.group, bn=w.bn))
+        if name == "lm-head":
+            cases["head M=256"] = call
+        else:
+            calls.append(call)
+    cases["layer M=256"] = lambda: [c() for c in calls]
+    return cases
+
+
+def b12_gemv_cases(dev):
+    """B12's gemv (bf16 x) at Llama-3-8B's four projections at M=4 (a call
+    runs all four) and at its LM head at M=4, each call on the next of
+    enough weight copies to overflow L2 (``chip_smoke``'s cold weights)."""
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 14)
+    cases, calls = {}, []
+    for name, K, N in smoke.PROJECTIONS + [smoke.LM_HEAD]:
+        w = qt.quantize_int4_groupwise(torch.randn(
+            (K, N), generator=gen, device=dev) * 0.02)
+        copies = max(1, -(-int(2 * smoke.COLD_BYTES) // w.packed.numel()))
+        ws = [w] + [qt.Q4Tensor(w.packed.clone(), w.scales.clone(), w.group,
+                                w.bn) for _ in range(copies - 1)]
+        x = torch.randn((4, K), generator=gen, device=dev).to(
+            torch.bfloat16)
+        call = smoke.cold_calls(lambda q, x=x: i4.w4_matmul(
+            x, q.packed, q.scales, group=q.group, bn=q.bn), ws)
+        if name == "lm-head":
+            cases["head M=4"] = call
+        else:
+            calls.append(call)
+    cases["layer M=4"] = lambda: [c() for c in calls]
+    return cases
+
+
+def b8_cases(dev):
+    """B8 at path (g)'s decode shape (bf16 queries) and at dh 32 with a
+    window of 40 keys (f32 queries), ``chip_smoke``'s
+    ``decode_variant_checks`` cases, INT8 pools."""
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 13)
+    cases = {}
+    for label, dh, lens, window, qdt in (
+            ("(g)", 64, [65, 72, 80, 96, 100, 112, 120, 128], 0,
+             torch.bfloat16),
+            ("dh 32 window 40", 32, [65, 72, 80, 96, 100, 112, 120, 320], 40,
+             torch.float32)):
+        kv, bt = smoke.make_pool(torch, gen, torch.int8, dev, 8, 4, dh, 5, 96)
+        q = torch.randn((8, 1, 32, dh), generator=gen, device=dev).to(qdt)
+        sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+        kw = dict(page_size=smoke.PAGE, num_q_heads=32, window=window)
+        cases[label] = (lambda a=(q, kv[0], bt, sl, kv[1], 1), kw=kw:
+                        pa.paged_attention_decode_packed(*a, **kw))
+    return cases
+
+
 #: each name's source, wrapper kernel, cases and profiler name
 KERNELS = {"gmm.cu": ("gmm.cu", gmm.GROUPED_MATMUL, gmm_cases, "gmm::"),
            "paged_prefill.cu": ("paged_prefill.cu", pa.ATTENTION_WGMMA,
@@ -298,7 +432,13 @@ KERNELS = {"gmm.cu": ("gmm.cu", gmm.GROUPED_MATMUL, gmm_cases, "gmm::"),
            "w8_matmul": ("int8_matmul.cu", i8.W8_MATMUL, b11_cases,
                          "w8::w8_wgmma_kernel<"),
            "paged_decode.cu": ("paged_decode.cu", pa.ATTENTION_DECODE_GROUPED,
-                               b6_cases, "decode_grouped_split_kernel<")}
+                               b6_cases, "decode_grouped_split_kernel<"),
+           "w4_matmul": ("int4_matmul.cu", i4.W4_MATMUL, b12_cases,
+                         "w4::w4_wgmma_kernel<"),
+           "w4_gemv": ("int4_matmul.cu", i4.W4_MATMUL, b12_gemv_cases,
+                       "qmm::gemv_w4_kernel<"),
+           "packed": ("paged_decode.cu", pa.ATTENTION_DECODE_PACKED, b8_cases,
+                      "decode_packed_split_kernel<")}
 
 
 def build_variants(names):
@@ -307,19 +447,23 @@ def build_variants(names):
     ``build_kernels`` does). Returns ``{name: {label: library path}}``."""
     out_dir = plat.BUILD_DIR / "phases"
     out_dir.mkdir(parents=True, exist_ok=True)
-    libs, procs = {}, []
+    libs, procs, done = {}, [], {}
     for name, versions in variants().items():
         if name not in names:
             continue
         source = KERNELS[name][0]
         for label, files in versions.items():
+            key = (label, source, tuple(sorted(files.items())))
+            if key in done:              # B8 reuses B6's cut builds
+                libs.setdefault(name, {})[label] = done[key]
+                continue
             where = out_dir / f"{label}_{name.split('.')[0]}"
             where.mkdir(exist_ok=True)
             for fname, text in files.items():
                 (where / fname).write_text(text)
             src = where / source
             lib = src.with_suffix(".so")
-            libs.setdefault(name, {})[label] = lib
+            libs.setdefault(name, {})[label] = done[key] = lib
             procs.append((str(src), subprocess.Popen(
                 [plat.nvcc_path(), *plat.NVCC_FLAGS, "-I", str(plat.CSRC),
                  "-o", str(lib), str(src)], stdout=subprocess.PIPE,

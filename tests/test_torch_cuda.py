@@ -28,9 +28,11 @@ another order can move one value by a bf16 step) and under w8a8 (an
 f32 norm sum in another order can move one re-quantized activation by
 an INT8 step). B15 as B10 under w8a8 (bit-exact) and as B11 otherwise.
 B13 as B11 (f32 sums in another order: bf16 outputs within one bf16
-step or 1e-5 of max|output|, f32 outputs 1e-5 of max|output|). B6 and
-B7 run B2's split-KV body: the same tolerances, and the same bits from
-run to run.
+step or 1e-5 of max|output|, f32 outputs 1e-5 of max|output|); B12 past
+16 rows with bf16 x on the tensor cores as B11 (its group sums folded
+with the scales: the order of the sums and the place of the scale
+differ). B6, B7 and B8 run B2's split-KV body: the same tolerances, and
+the same bits from run to run.
 """
 
 import numpy as np
@@ -323,9 +325,8 @@ def test_cuda_decode_variants_match_plain(cuda, variant, pool_dtype, q_dtype,
     """B6, B7 and B8 against their plain versions over a 40-page table: a
     frozen lane (seq_len 0, no visible key: zeros), a window whose first
     key lies inside a page, a lane mid-page, the table's last slot and a
-    long lane; B6 at several group widths. One launch per call; B6's and
-    B7's parts merged in a fixed order, so the same bits from run to
-    run."""
+    long lane; B6 at several group widths. One launch per call; the parts
+    merged in a fixed order, so the same bits from run to run."""
     wrapper, dhs = DECODE_VARIANTS[variant]
     plain = getattr(pa, wrapper.__name__ + "_plain")
     kernel = {"grouped": pa.ATTENTION_DECODE_GROUPED,
@@ -363,9 +364,8 @@ def test_cuda_decode_variants_match_plain(cuda, variant, pool_dtype, q_dtype,
             torch.testing.assert_close(out.float(), ref.float(), atol=tol,
                                        rtol=0)
             assert not out[0].any()                  # the frozen lane
-            if variant != "packed":
-                assert torch.equal(out, wrapper(q, vals, bt, sl, sc, LAYER,
-                                                **kw, **extra))
+            assert torch.equal(out, wrapper(q, vals, bt, sl, sc, LAYER,
+                                            **kw, **extra))
 
 
 @pytest.mark.cuda
@@ -400,6 +400,79 @@ def test_cuda_decode_grouped_every_cut(cuda, pool_dtype, dh, page):
     with pytest.raises(RuntimeError, match="cudaError"):
         pa.decode_grouped_launch(q, vals, bt, sl, sc, LAYER, **kw,
                                  splits=2, pages_per_split=2)  # too few
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (100, 30.0)])
+@pytest.mark.parametrize("pool_dtype", ["int8", "bfloat16", "float32"])
+@pytest.mark.parametrize("page", [16, 64])
+@pytest.mark.parametrize("dh", [16, 32, 64])
+def test_cuda_decode_packed_pages(cuda, dh, page, pool_dtype, window,
+                                  softcap):
+    """B8 at pages of 16 and 64 keys, dh 16 / 32 / 64, G 8, over ragged
+    lengths (a frozen lane, one key, mid-page, a long lane): against its
+    plain version (f32 queries 1e-4, bf16 2e-2), against
+    ``decode_packed_emulation`` at 1e-4 (f32 queries), the same bits from
+    run to run, one launch; and at other cuts (``decode_packed_launch``:
+    one split a sequence, splits of 2 pages, a ring of 1 and 2 stages)."""
+    rng = np.random.default_rng(17)
+    B, KH, G, mp = 5, 2, 8, 12
+    Pn = B * mp + 1
+    vals, sc = decode_pool(rng, KH, dh, page, Pn, pool_dtype, cuda)
+    bt = torch.from_numpy((rng.permutation(Pn - 1) + 1).reshape(
+        B, mp).astype(np.int32)).to(cuda)
+    sl = torch.tensor([0, 1, page * 3 + 5, page * mp, page + 1], device=cuda)
+    kw = dict(page_size=page, num_q_heads=KH * G, window=window,
+              softcap=softcap)
+    for q_dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        q = torch.randn((B, 1, KH * G, dh), device=cuda).to(q_dtype)
+        ref = pa.paged_attention_decode_plain(q, vals, bt, sl, sc, LAYER,
+                                              **kw)
+        pa.ATTENTION_DECODE_PACKED.launches = 0
+        out = pa.paged_attention_decode_packed(q, vals, bt, sl, sc, LAYER,
+                                               **kw)
+        assert pa.ATTENTION_DECODE_PACKED.launches == 1
+        torch.testing.assert_close(out.float(), ref.float(), atol=tol,
+                                   rtol=0)
+        assert not out[0].any()
+        assert torch.equal(out, pa.paged_attention_decode_packed(
+            q, vals, bt, sl, sc, LAYER, **kw))
+        if q_dtype == torch.float32:
+            emu = pa.decode_packed_emulation(q, vals, bt, sl, sc, LAYER, **kw)
+            torch.testing.assert_close(out, emu, atol=1e-4, rtol=0)
+            splits, pps = pa.decode_packed_plan(B, KH, mp, page, window)
+            for cut in (dict(splits=1, pages_per_split=splits * pps),
+                        dict(splits=-(-splits * pps // 2),
+                             pages_per_split=2),
+                        dict(splits=splits, pages_per_split=pps, stages=1),
+                        dict(splits=splits, pages_per_split=pps, stages=2)):
+                got = pa.decode_packed_launch(q, vals, bt, sl, sc, LAYER,
+                                              **kw, **cut)
+                torch.testing.assert_close(got, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_decode_packed_misread_page_leaves_the_tolerance(cuda):
+    """The control: one page of a sequence's table read in place of its
+    neighbour moves B8's plain output past the 1e-4 the kernel is held to
+    with f32 queries (path (g)'s shape: dh 64, G 8, page 64)."""
+    rng = np.random.default_rng(18)
+    B, KH, G, dh, page, mp = 8, 4, 8, 64, 64, 5
+    Pn = B * mp + 1
+    vals, sc = decode_pool(rng, KH, dh, page, Pn, "int8", cuda)
+    bt = torch.from_numpy((rng.permutation(Pn - 1) + 1).reshape(
+        B, mp).astype(np.int32)).to(cuda)
+    sl = torch.tensor([65, 72, 80, 96, 100, 112, 120, 128], device=cuda)
+    q = torch.randn((B, 1, KH * G, dh), device=cuda)
+    kw = dict(page_size=page, num_q_heads=KH * G)
+    ref = pa.paged_attention_decode_plain(q, vals, bt, sl, sc, LAYER, **kw)
+    out = pa.paged_attention_decode_packed(q, vals, bt, sl, sc, LAYER, **kw)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    wrong = bt.clone()
+    wrong[0, 0] = bt[0, 1]
+    off = pa.paged_attention_decode_plain(q, vals, wrong, sl, sc, LAYER,
+                                          **kw)
+    assert (off - ref).abs().max() > 1e-4
 
 
 @pytest.mark.cuda
@@ -509,11 +582,24 @@ def test_cuda_w8_matmul_matches_plain(cuda, M, K, N, x_dtype, out_dtype):
         assert within(out, ref, out_dtype)
 
 
-# (M, K, N, group): bn 768 (the LM head's width), a K of one group, a
-# width whose block (100) no vector load fits, rows past the
-# matrix-vector kernel
-W4_SHAPES = [(4, 384, 2304, 128), (1, 64, 512, 128), (3, 256, 100, 128),
-             (17, 256, 1024, 64)]
+# (M, K, N, group): the gemv at M 1, 4 and 16 (bn 768, the LM head's
+# width; a K of one group; Llama-3-8B's K at bn 2048); a width whose block
+# (100) no vector load fits (the tiles); past 16 rows the tensor-core
+# kernel for bf16 x (the tiles for f32 x): bn 1024 with groups of 64, bn
+# 768 and 2048 at Llama-3-8B's K of 4096 and 14336, ragged row tiles (17,
+# 300)
+W4_SHAPES = [(4, 384, 2304, 128), (1, 64, 512, 128), (16, 4096, 4096, 128),
+             (3, 256, 100, 128), (17, 256, 1024, 64), (17, 4096, 2304, 128),
+             (64, 14336, 4096, 128), (256, 4096, 2304, 128),
+             (300, 4096, 4096, 128)]
+
+
+def w4_route(M, x_dtype, bn, group, packed):
+    """The route the wrapper must take (the plan's rule, written out)."""
+    if M <= 16:
+        return "gemv" if (bn // 2) % 16 == 0 else "tiles"
+    return ("wgmma" if x_dtype == torch.bfloat16 and (bn // 2) % 128 == 0
+            and group % 64 == 0 else "tiles")
 
 
 @pytest.mark.cuda
@@ -522,14 +608,57 @@ W4_SHAPES = [(4, 384, 2304, 128), (1, 64, 512, 128), (3, 256, 100, 128),
 @pytest.mark.parametrize("M,K,N,group", W4_SHAPES)
 def test_cuda_w4_matmul_matches_plain(cuda, M, K, N, group, x_dtype,
                                       out_dtype):
+    """B12 on each of its routes (:func:`w4_route`), with a bias and each
+    activation: one launch a call."""
     x, w, b = matmul_inputs(M, K, N, cuda, seed=2)
     q = qt.quantize_int4_groupwise(w, group=group)
     x = x.to(x_dtype)
-    for bias, act in ((None, None), (b, "silu")):
+    route = w4_route(M, x_dtype, q.bn, q.group, q.packed)
+    assert i4.w4_plan(M, K, N, q.group, q.bn, x_dtype)[0] == route
+    for bias, act in ((None, None), (b, "silu"), (b, "gelu"),
+                      (None, "relu")):
         kw = dict(group=q.group, bn=q.bn, act=act, out_dtype=out_dtype)
+        i4.W4_MATMUL.launches = 0
         out = i4.w4_matmul(x, q.packed, q.scales, bias, **kw)
+        assert i4.W4_MATMUL.launches == 1
         ref = i4.w4_matmul_plain(x, q.packed, q.scales, bias, **kw)
-        assert within(out, ref, out_dtype)
+        assert within(out, ref, out_dtype), (route, act)
+
+
+@pytest.mark.cuda
+def test_cuda_w4_wgmma_every_split_and_run_to_run(cuda):
+    """B12's tensor-core route with K split: 16 splits of one group of
+    128 rows each, and 10 splits of three 64-row k-tiles (groups cut at a
+    split's end, folded there); the splits merge in a fixed order, so two
+    runs give the same bits."""
+    for M, K, N in ((17, 128 * 16, 256), (200, 64 * 30, 768)):
+        q = qt.quantize_int4_groupwise(
+            matmul_inputs(M, K, N, cuda, seed=3)[1], group=128)
+        x = matmul_inputs(M, K, N, cuda, seed=3)[0].to(torch.bfloat16)
+        route, splits, _ = i4.w4_plan(M, K, N, q.group, q.bn, torch.bfloat16)
+        assert route == "wgmma" and splits > 1
+        kw = dict(group=q.group, bn=q.bn, act="silu")
+        out = i4.w4_matmul(x, q.packed, q.scales, **kw)
+        assert torch.equal(out, i4.w4_matmul(x, q.packed, q.scales, **kw))
+        assert within(out, i4.w4_matmul_plain(x, q.packed, q.scales, **kw),
+                      torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_cuda_w4_swapped_carrier_run_leaves_the_tolerance(cuda):
+    """The control: two 128-column carrier runs (the tensor-core kernel's
+    raw tiles) read in each other's place move the plain output past the
+    tolerance the kernel is held to."""
+    x, w, _ = matmul_inputs(64, 1024, 2304, cuda, seed=4)
+    q = qt.quantize_int4_groupwise(w)
+    x = x.to(torch.bfloat16)
+    p = q.packed
+    swapped = torch.cat([p[:, 128:256], p[:, :128], p[:, 256:]], dim=1)
+    ref = i4.w4_matmul_plain(x, p, q.scales, group=q.group, bn=q.bn)
+    off = i4.w4_matmul_plain(x, swapped, q.scales, group=q.group, bn=q.bn)
+    assert within(i4.w4_matmul(x, p, q.scales, group=q.group, bn=q.bn), ref,
+                  torch.bfloat16)
+    assert not within(off, ref, torch.bfloat16)
 
 
 @pytest.mark.cuda

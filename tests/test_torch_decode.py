@@ -650,3 +650,55 @@ def test_grouped_emulation_matches_jax(dh, J, case):
         out = pa.decode_grouped_emulation(*args, group_pages=J, order=order,
                                           **common).numpy()
         np.testing.assert_allclose(out, ref, **CLOSE)
+
+
+@pytest.mark.parametrize("B,KH,mp,page,window,expect", [
+    (8, 4, 5, 64, 0, (5, 1)),       # path (g): a split a page, 160 blocks
+    (8, 4, 5, 64, 40, (2, 1)),      # a window of 40 keys: two pages
+    (8, 4, 3, 64, 0, (3, 1)),       # path (g)'s engine (64 + 64 tokens)
+    (2, 2, 40, 8, 0, (40, 1)),      # 40 single pages
+    (1, 1, 512, 64, 0, (64, 8)),    # at most 64 splits
+    (64, 8, 16, 64, 0, (1, 16))])   # the batch alone fills two waves
+def test_decode_packed_plan(B, KH, mp, page, window, expect):
+    """B8's cut: B6's plan with runs of single pages."""
+    assert pa.decode_packed_plan(B, KH, mp, page, window) == expect
+    assert expect == pa.decode_grouped_plan(B, KH, mp, page, window, 1)
+
+
+# B8's emulation cases beside DECODE_CASES: ragged lengths over the whole
+# table (a frozen lane, one key, the table's last slot) and a window that
+# leaves one page
+PACKED_CASES = dict(DECODE_CASES, ragged=(8, 0, 0.0, [0, 1, 9, MP * PAGE]),
+                    one_page=(4, 6, 30.0, [7, 40, 47]))
+
+
+@pytest.mark.parametrize("case", sorted(PACKED_CASES))
+@pytest.mark.parametrize("pool_dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("dh", [16, 32, 64])
+def test_packed_emulation_matches_jax(dh, pool_dtype, case):
+    """B8's cut (``decode_packed_plan``: a split a page from the window's
+    first visible one) and its merge of the splits that hold pages
+    (``decode_packed_emulation``), in split order and in reverse, against
+    the JAX ``paged_attention_decode_packed`` in interpret mode (f32
+    1e-5: the same terms in another order); the frozen lane gives zeros."""
+    G, window, softcap, seq_lens = PACKED_CASES[case]
+    rng = np.random.default_rng(40 + dh)
+    KH = 2
+    (jvals, jsc), (tvals, tsc) = make_pool(rng, KH, dh, pool_dtype)
+    bt = block_table(rng, len(seq_lens))
+    q = rng.normal(size=(len(seq_lens), 1, KH * G, dh)).astype(np.float32)
+    sl = np.asarray(seq_lens, np.int32)
+    common = dict(page_size=PAGE, num_q_heads=KH * G, window=window,
+                  softcap=softcap, scale=dh ** -0.5)
+    ref = np.asarray(jpa.paged_attention_decode_packed(
+        jnp.asarray(q), jvals, jnp.asarray(bt), jnp.asarray(sl), jsc,
+        jnp.int32(LAYER), interpret=True, **common))
+    args = (torch.from_numpy(q), tvals, torch.from_numpy(bt),
+            torch.from_numpy(sl), tsc, LAYER)
+    splits = pa.decode_packed_plan(len(seq_lens), KH, MP, PAGE, window)[0]
+    for order in (None, range(splits - 1, -1, -1)):
+        out = pa.decode_packed_emulation(*args, order=order,
+                                         **common).numpy()
+        np.testing.assert_allclose(out, ref, **CLOSE)
+    if seq_lens[0] == 0:
+        assert not out[0].any()

@@ -1,7 +1,7 @@
 """Path (e)'s verify forward and the redesigned kernels, compared across
 checkouts of the repo on one card.
 
-    python3 verify_compare.py [--decode] [TREE ...]
+    python3 verify_compare.py [--decode | --kernels] [TREE ...]
 
 Each TREE is the root of a checkout (default: this one); give two
 checkouts in the order ``A B B A`` to compare them on the same card.
@@ -11,9 +11,12 @@ its own code (device time by CUPTI, ``device_ms``, each product on a
 weight outside L2):
 
 * B10 ``int8_matmul``, a Llama-3-8B layer's four projections summed at
-  M=36 (a verify chunk of 4 x 9 rows) and M=256 (a prefill chunk);
+  M=4 (decode, the gemv), M=36 (a verify chunk of 4 x 9 rows) and M=256
+  (a prefill chunk);
 * B11 ``w8_matmul`` with bf16 x, the same layer's four projections at
-  M=256 and the LM head at M=36 and M=256;
+  M=256 and the LM head at M=4 (the gemv), M=36 and M=256;
+* B12 ``w4_matmul`` with bf16 x, the same layer's four projections at
+  M=4, 36 and 256 and the LM head at M=4 and 256;
 * the split-KV decode kernels, INT8 pool, bf16 queries (``chip_smoke``'s
   ``decode_variant_checks`` shapes): B2 ``paged_attention_decode`` at the
   slice's shape (4 sequences of 65-128 keys), at a 512-page table at
@@ -21,7 +24,8 @@ weight outside L2):
   ``paged_attention_decode_grouped`` at path (h)'s shape (phi3-mini, dh
   96, window 2047, B=4) and path (i)'s (516 pages, B=1); B7
   ``paged_attention_decode_batched`` at the slice's shape and the four
-  ragged sequences;
+  ragged sequences; B8 ``paged_attention_decode_packed`` at path (g)'s
+  shape (tinyllama-1.1b, B=8, dh 64);
 * B13 ``grouped_matmul`` at Mixtral-8x7B's prefill (``chip_smoke``'s
   routing, Npad 4096, ``block_rows``), we_gu and we_down with INT8
   experts, summed;
@@ -33,8 +37,9 @@ weight outside L2):
   profiled spec run.
 
 With ``--decode`` only the split-KV decode kernels are timed (only their
-sources are built). Prints each checkout's output and results (one JSON
-line), then a table. Needs a card; exits 1 without one.
+sources are built); with ``--kernels`` every kernel above but not path
+(e). Prints each checkout's output and results (one JSON line), then a
+table. Needs a card; exits 1 without one.
 """
 
 from __future__ import annotations
@@ -49,7 +54,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 TAG = "VERIFY_COMPARE "
 
 
-def one(tree: pathlib.Path, decode_only: bool) -> dict:
+def one(tree: pathlib.Path, mode: str) -> dict:
     """The measurements on the checkout at ``tree``, in this process."""
     os.chdir(tree)
     sys.path.insert(0, str(tree))
@@ -71,13 +76,13 @@ def one(tree: pathlib.Path, decode_only: bool) -> dict:
         check=True).stdout.strip()
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 3)
-    if decode_only:
+    if mode == "decode":
         plat.build_kernels(["paged_attention.cu", "paged_decode.cu"])
         return {"tree": str(tree), "card": card,
                 "decode_ms": decode_times(torch, cs, dev, gen)}
     plat.build_kernels()
 
-    layer = {36: 0.0, 256: 0.0}
+    layer = {4: 0.0, 36: 0.0, 256: 0.0}
     for _, K, N in cs.PROJECTIONS:
         wq = qt.quantize_per_channel(
             torch.randn((K, N), generator=gen, device=dev) * 0.02)
@@ -95,8 +100,15 @@ def one(tree: pathlib.Path, decode_only: bool) -> dict:
         del wq, wqs
     torch.cuda.empty_cache()
     b11 = b11_times(torch, cs, i8, qt, dev, gen)
+    b12 = b12_times(torch, cs, qt, dev, gen)
     decode = decode_times(torch, cs, dev, gen)
     b13 = b13_ms(torch, cs, qt, dev, gen)
+    kernels = {"tree": str(tree), "card": card,
+               "b10_layer_ms": {str(m): v for m, v in layer.items()},
+               "b11_ms": b11, "b12_ms": b12, "decode_ms": decode,
+               "b13_ms": b13}
+    if mode == "kernels":
+        return kernels
 
     cfg, batch, steps, prompt_len = cs.path_config(
         "int8", spec_k=cs.SPEC_K)
@@ -120,10 +132,7 @@ def one(tree: pathlib.Path, decode_only: bool) -> dict:
                 "verify_wall_ms": decode_ms
                 / info[f"{prefix}verify_forwards"]}
 
-    return {"tree": str(tree), "card": card,
-            "b10_layer_ms": {str(m): v for m, v in layer.items()},
-            "b11_ms": b11, "decode_ms": decode, "b13_ms": b13,
-            "random": run(""), "repeating": run("repeating_"),
+    return {**kernels, "random": run(""), "repeating": run("repeating_"),
             "profile_wall_ms": info["profile_wall_ms"],
             "profile_device_busy_ms": info["profile_device_busy_ms"],
             "profile_busy_share": info["profile_busy_share"],
@@ -144,7 +153,7 @@ def b11_times(torch, cs, i8, qt, dev, gen) -> dict:
         wqs = [wq] + [qt.QTensor(wq.values.clone(), wq.scales.clone())
                       for _ in range(copies - 1)]
         head = name == cs.LM_HEAD[0]
-        for M in ((36, 256) if head else (256,)):
+        for M in ((4, 36, 256) if head else (256,)):
             x = torch.randn((M, K), generator=gen, device=dev).to(
                 torch.bfloat16)
             ms = cs.device_ms(cs.cold_calls(
@@ -155,6 +164,37 @@ def b11_times(torch, cs, i8, qt, dev, gen) -> dict:
             else:
                 out["layer M=256"] += ms
         del wq, wqs
+        torch.cuda.empty_cache()
+    return out
+
+
+def b12_times(torch, cs, qt, dev, gen) -> dict:
+    """B12 with bf16 x: a layer's four projections at M=4, 36 and 256 and
+    the LM head at M=4 and 256, ms by CUPTI, each call on a weight outside
+    L2."""
+    import numpy as np
+    from importlib import import_module
+
+    i4 = import_module(f"{cs.PKG}.ops.int4_matmul")
+    out = {"layer M=4": 0.0, "layer M=36": 0.0, "layer M=256": 0.0}
+    for name, K, N in cs.PROJECTIONS + [cs.LM_HEAD]:
+        w4 = qt.quantize_int4_groupwise(
+            torch.randn((K, N), generator=gen, device=dev) * 0.02)
+        copies = max(1, int(np.ceil(2 * cs.COLD_BYTES / w4.packed.numel())))
+        w4s = [w4] + [qt.Q4Tensor(w4.packed.clone(), w4.scales.clone(),
+                                  w4.group, w4.bn)
+                      for _ in range(copies - 1)]
+        head = name == cs.LM_HEAD[0]
+        for M in ((4, 256) if head else (4, 36, 256)):
+            x = torch.randn((M, K), generator=gen, device=dev).to(
+                torch.bfloat16)
+            ms = cs.device_ms(cs.cold_calls(
+                lambda q, x=x: i4.w4_matmul(x, q.packed, q.scales,
+                                            group=q.group, bn=q.bn), w4s),
+                match=cs.KERNEL_NAMES["w4_matmul"])
+            key = f"head M={M}" if head else f"layer M={M}"
+            out[key] = ms if head else out[key] + ms
+        del w4, w4s
         torch.cuda.empty_cache()
     return out
 
@@ -176,6 +216,8 @@ DECODE_SHAPES = [
      [65, 90, 128, 101], 0),
     ("B7 ragged", "paged_attention_decode_batched", 4, 8, 4, 128, 512, 2060,
      [1, 64 * 7 + 3, 64 * 200, 64 * 512], 0),
+    ("B8 (g)", "paged_attention_decode_packed", 8, 4, 8, 64, 5, 96,
+     [65, 72, 80, 96, 100, 112, 120, 128], 0),
 ]
 
 
@@ -230,13 +272,13 @@ def b13_ms(torch, cs, qt, dev, gen) -> float:
     return total
 
 
-def main(trees, decode_only) -> int:
+def main(trees, mode) -> int:
     results = []
     for tree in trees or ["."]:
         path = (pathlib.Path.cwd() / tree).resolve()
         proc = subprocess.run(
             [sys.executable, str(ROOT / "verify_compare.py"), "--one",
-             str(path)] + (["--decode"] if decode_only else []),
+             str(path)] + ([f"--{mode}"] if mode != "all" else []),
             capture_output=True, text=True)
         print(f"== {tree}", proc.stdout, proc.stderr[-8000:], sep="\n",
               flush=True)
@@ -254,7 +296,21 @@ def main(trees, decode_only) -> int:
         print(f"{r['tree']} | " + " | ".join(
             f"{r['decode_ms'][label]:.4f}" for label, *_ in DECODE_SHAPES)
             + f" ({r['card']})")
-    if decode_only:
+    if mode == "decode":
+        return 0
+    print("tree | B10 layer M=4 / 36 / 256 ms | B11 layer M=256 / head M=4 "
+          "/ 36 / 256 ms | B12 layer M=4 / 36 / 256, head M=4 / 256 ms | "
+          "B13 ms")
+    for r in results:
+        b10, b11, b12 = r["b10_layer_ms"], r["b11_ms"], r["b12_ms"]
+        print(f"{r['tree']} | {b10['4']:.4f} / {b10['36']:.4f} / "
+              f"{b10['256']:.4f} | {b11['layer M=256']:.4f} / "
+              f"{b11['head M=4']:.4f} / {b11['head M=36']:.4f} / "
+              f"{b11['head M=256']:.4f} | {b12['layer M=4']:.4f} / "
+              f"{b12['layer M=36']:.4f} / {b12['layer M=256']:.4f}, "
+              f"{b12['head M=4']:.4f} / {b12['head M=256']:.4f} | "
+              f"{r['b13_ms']:.4f} ({r['card']})")
+    if mode == "kernels":
         return 0
     print("tree | B10 layer M=36 ms | M=256 ms | B11 layer M=256 / head "
           "M=36 / head M=256 ms | B13 ms | verify "
@@ -279,10 +335,11 @@ def main(trees, decode_only) -> int:
 
 
 if __name__ == "__main__":
-    decode = "--decode" in sys.argv[1:]
-    argv = [a for a in sys.argv[1:] if a != "--decode"]
+    MODE = ("decode" if "--decode" in sys.argv[1:] else
+            "kernels" if "--kernels" in sys.argv[1:] else "all")
+    argv = [a for a in sys.argv[1:] if a not in ("--decode", "--kernels")]
     if argv[:1] == ["--one"]:
-        print(TAG + json.dumps(one(pathlib.Path(argv[1]), decode)),
+        print(TAG + json.dumps(one(pathlib.Path(argv[1]), MODE)),
               flush=True)
     else:
-        sys.exit(main(argv, decode))
+        sys.exit(main(argv, MODE))
