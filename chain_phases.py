@@ -5,11 +5,13 @@
 
 Builds copies of ``csrc/chain_linear.cu`` with parts of the chain kernel
 cut out (each cut part returns at once, so its outputs are garbage) and
-times each on Llama-3-8B's chain (``chip_smoke.CHAIN_MAIN``: w8a8 and
-bf16 blocks, B=4, with the next layer's qkv) by CUPTI device time:
+times each on Llama-3-8B's chain (``chip_smoke.CHAIN_MAIN``: w8a8,
+int8-weight and bf16 blocks, B=4, with the next layer's qkv) by CUPTI
+device time:
 
 * ``full``: the kernel as it is;
-* ``no_matmul``: the matmul tasks cut: the row phases and the barriers;
+* ``no_matmul``: the matmul tasks' k-steps and weight copies cut: the row
+  phases, the barriers, the tasks' staging and epilogues;
 * ``no_rows``: the row phases cut: the matmul phases and the barriers;
 * ``barriers_only``: both cut: the launch and the grid barriers.
 
@@ -37,12 +39,15 @@ import chip_smoke as smoke  # noqa: E402
 from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops import chain_linear as cl  # noqa: E402
 from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.utils import platform as plat  # noqa: E402
 
-#: where each part of the kernel begins (a ``return;`` after it cuts it)
-MATMUL = ("                         int rg, const void* src, int src_w, "
-          "Smem& sm) {\n")
+#: where each row phase begins (a ``return;`` after it cuts it), and the
+#: k-step loop and the first copies of the matmul tasks (with no k-step
+#: consumed, none may be left in flight)
 ROWS = ["__device__ void init_rows(const Args& a, Smem& sm) {\n",
         "__device__ void norm_rows(const Args& a, int which, Smem& sm) {\n",
         "__device__ void act_rows(const Args& a, Smem& sm) {\n"]
+STEPS = "  for (int st = warp; st < Sr / S::KS; st += kWarps, ++bk.s) {"
+FIRST = ("  for (int i = 0; i < RING; ++i) issue<WT, A8, RING>(a, bk.cu, "
+         "bk.ring, bk.bar);")
 
 
 def cut(text: str, markers) -> str:
@@ -53,14 +58,23 @@ def cut(text: str, markers) -> str:
     return text
 
 
+def no_steps(text: str) -> str:
+    for old, new in ((STEPS, STEPS.replace("st < Sr / S::KS", "st < 0")),
+                     (FIRST, FIRST.replace("i < RING", "i < 0"))):
+        if old not in text:
+            raise SystemExit(f"marker not in the source: {old!r}")
+        text = text.replace(old, new, 1)
+    return text
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("FAILED: no CUDA device", file=sys.stderr)
         return 1
     src = (plat.CSRC / "chain_linear.cu").read_text()
-    variants = {"full": src, "no_matmul": cut(src, [MATMUL]),
+    variants = {"full": src, "no_matmul": no_steps(src),
                 "no_rows": cut(src, ROWS),
-                "barriers_only": cut(src, ROWS + [MATMUL])}
+                "barriers_only": cut(no_steps(src), ROWS)}
     for arg in sys.argv[1:]:
         name, path = arg.split("=", 1)
         variants[name] = pathlib.Path(path).read_text()
@@ -86,7 +100,7 @@ def main() -> int:
     ops, lns = smoke.chain_ops(torch, gen, dev, smoke.CHAIN_MAIN)
     runs = [(name, cl._TASKS) for name in variants]
     runs += [("full", 2 * cl._TASKS), ("full", 4 * cl._TASKS)]
-    for variant in ("w8a8", "bf16"):
+    for variant in ("w8a8", "int8-weight", "bf16"):
         pc, _ = smoke.chain_variant(torch, ops, lns, smoke.CHAIN_MAIN,
                                     variant)
         ain = torch.randn((4, pc.K0), generator=gen, device=dev).to(

@@ -12,7 +12,8 @@ and nothing of JAX. Phases:
    built from ``csrc/`` (one ``nvcc`` per source, in parallel), timed;
    for the tensor-core kernels (B13's ``wgmma_kernel``, B1's
    ``attention_wgmma_kernel``, B10's and B15's ``wgmma_s8_kernel``, B11's
-   ``w8_wgmma_kernel``, B12's ``w4_wgmma_kernel``)
+   ``w8_wgmma_kernel`` and ``gemv_w8_kernel``, B12's ``w4_wgmma_kernel``
+   and ``gemv_w4_kernel``, B14's ``chain_kernel``)
    ptxas's registers, static shared memory and spills, and, where
    ``cuobjdump`` is found, the HGMMA / IGMMA (bf16 / INT8 wgmma),
    UTMALDG (TMA) and UBLKCP (bulk copy) instructions in their SASS; a
@@ -120,7 +121,22 @@ and nothing of JAX. Phases:
    (``decode_packed_split_kernel``), held at (g)'s shape and the dh-32
    cases beside SDPA, with f32 queries its parts merged in reverse order
    within 1e-4 and one misread page past it, and its cut swept at (g)'s
-   shape (``b8_sweep``).
+   shape (``b8_sweep``). Slice 12 (B11's decode gemv and B14's matmul
+   tasks redesigned):
+   B11 at M <= 16 runs ``gemv_w8_kernel`` (``csrc/qmatmul.cuh`` on
+   ``csrc/mma_gemv.cuh``: mma.sync with the INT8 weights widened exactly
+   to bf16 as the A operand, each warp's k-steps brought by TMA into a
+   ring that runs on across a block's tiles, x staged once), held at a
+   layer's four projections and the head at M=4 with bf16 and f32 x and
+   at Mixtral-8x7B's expert gate|up and down at M=4 (path (k)'s decode
+   step), timed with cold weights beside the bound, the widened GEMM and
+   (the layer) B10's gemv; two of its 16-row k-steps of the qkv weight
+   swapped must move the plain output past one bf16 step. Phase 1's
+   report adds the mma.sync kernels (B11's and B12's gemv, B14):
+   registers, spills and their HMMA / IMMA, UTMALDG and LDGSTS (cp.async)
+   counts. B14's matmul tasks run on mma.sync with the weights through
+   TMA rings whose copies run on across the row phases and barriers; it
+   is held as before in every variant and edge chain.
 3. The paths, each ``Engine`` on llama3-8b at full width and full depth
    (32 layers; (a), (c) and (d) cut to 8; weights from a seed, INT8
    paged KV, page 64, prefill chunk 256, the pool ``bench.py`` sizes, for (b),
@@ -179,6 +195,7 @@ and nothing of JAX. Phases:
    and last, once every earlier engine is freed, slice 6's MoE path:
    k. moe: ``mixtral-8x7b`` (``bench.py --model mixtral-8x7b --quant
       int8-weight --batch 4 --prompt-len 256``) at full width and depth,
+      32 greedy tokens (half the other paths', for the script's time),
       INT8 experts: the 256-token prefill chunk routes 4 x 256 x 2 = 2048
       = 8 x 256 slots, so it takes the sorted dispatch (B13 twice a
       layer, on the fused ``we_gu`` and on ``we_down``) and each decode
@@ -343,13 +360,17 @@ def bound(bytes_moved: float, flops: float, rate: str = "f32"):
 #: the tensor-core kernels' sources and symbols: B13, B1, the INT8
 #: kernel of B10 (M > 16) and B15 (w8a8), one header built into two
 #: sources, B11's (M > 16, bf16 x) on B13's mainloop and B12's (M > 16,
-#: bf16 x) on its INT4 variant
+#: bf16 x) on its INT4 variant (all wgmma); and the warp-product (mma.sync)
+#: kernels: B11's and B12's decode gemv and B14
 TENSOR_CORE_KERNELS = [("gmm.cu", "wgmma_kernel"),
                        ("paged_prefill.cu", "attention_wgmma_kernel"),
                        ("int8_matmul.cu", "wgmma_s8_kernel"),
                        ("chain_linear.cu", "wgmma_s8_kernel"),
                        ("int8_matmul.cu", "w8_wgmma_kernel"),
-                       ("int4_matmul.cu", "w4_wgmma_kernel")]
+                       ("int4_matmul.cu", "w4_wgmma_kernel"),
+                       ("int8_matmul.cu", "gemv_w8_kernel"),
+                       ("int4_matmul.cu", "gemv_w4_kernel"),
+                       ("chain_linear.cu", "chain_kernel")]
 
 
 def tensor_core_report(log, built):
@@ -358,8 +379,10 @@ def tensor_core_report(log, built):
     ``-Xptxas -v`` log; their shared memory is dynamic, set at launch),
     and, where ``cuobjdump`` is found, the count of wgmma (HGMMA for
     bf16, IGMMA for INT8), TMA (UTMALDG) and bulk-copy (UBLKCP)
-    instructions in its SASS. Fails on a wgmma serialization warning
-    (C7510-C7520) in the build log."""
+    instructions in its SASS, and the warp products (HMMA for bf16, IMMA
+    for INT8, from mma.sync) of the gemv kernels and B14. Fails on a wgmma
+    serialization warning (C7510-C7520) in the build log, and where a
+    kernel's SASS holds no tensor-core product."""
     import re
     import shutil
 
@@ -386,9 +409,13 @@ def tensor_core_report(log, built):
         print("  SASS instruction counts: not available (no cuobjdump)",
               flush=True)
         return
+    dumps = {}                       # one disassembly a library
     for source, symbol in TENSOR_CORE_KERNELS:
-        r = subprocess.run([tool, "-sass", str(built[source])],
-                           capture_output=True, text=True, timeout=300)
+        if source not in dumps:
+            dumps[source] = subprocess.run(
+                [tool, "-sass", str(built[source])], capture_output=True,
+                text=True, timeout=300)
+        r = dumps[source]
         if r.returncode != 0:
             print(f"  SASS of {source}: not available (cuobjdump "
                   f"{r.returncode})", flush=True)
@@ -398,11 +425,13 @@ def tensor_core_report(log, built):
             if symbol not in name:
                 continue
             counts = {op: len(re.findall(rf"\b{op}\b", fn))
-                      for op in ("HGMMA", "IGMMA", "UTMALDG", "UBLKCP")}
+                      for op in ("HGMMA", "IGMMA", "HMMA", "IMMA",
+                                 "UTMALDG", "UBLKCP", "LDGSTS")}
             print(f"  SASS {source} {name[name.find(symbol):][:64]}: "
                   f"{counts}", flush=True)
-            check(counts["HGMMA"] + counts["IGMMA"] > 0,
-                  f"{name}: no warpgroup MMA in its SASS")
+            check(counts["HGMMA"] + counts["IGMMA"] + counts["HMMA"]
+                  + counts["IMMA"] > 0,
+                  f"{name}: no tensor-core product in its SASS")
 
 
 # -- phase 2: kernels against their plain versions -------------------------
@@ -425,7 +454,7 @@ KERNEL_NAMES = {
     "paged_attention_decode_packed": ("decode_packed_split_kernel<",),
     "paged_attention_decode_batched": ("decode_batched_split_kernel<",),
     "int8_matmul": ("qmm::gemv_kernel<0,", "imma::wgmma_s8_kernel<0,"),
-    "w8_matmul": ("qmm::gemv_kernel<1,", "qmm::tiled_kernel<1,",
+    "w8_matmul": ("qmm::gemv_w8_kernel<", "qmm::tiled_kernel<1,",
                   "w8::w8_wgmma_kernel<"),
     "w4_matmul": ("qmm::gemv_w4_kernel<", "qmm::tiled_kernel<2,",
                   "w4::w4_wgmma_kernel<"),
@@ -1302,6 +1331,10 @@ LM_HEAD = ("lm-head", 4096, 128256)
 MIXTRAL_B11 = [("mixtral qkv", 4096, 6144), ("mixtral o", 4096, 4096),
                ("mixtral head", 4096, 32000)]
 MIXTRAL_M = 1024
+#: B11's decode gemv at path (k)'s decode step: Mixtral-8x7B's fused expert
+#: gate|up and down, the masked expert loop's two B11 calls an expert and
+#: layer (every decode row through every expert, M = 4)
+MIXTRAL_EXPERTS = [("expert gate-up", 4096, 28672), ("expert down", 14336, 4096)]
 #: weight bytes the timing cycles through, so each call finds its weight
 #: outside the 50 MB L2, as a decode step does
 COLD_BYTES = 160e6
@@ -1494,6 +1527,7 @@ def matmul_checks(torch, dev, results):
             b10 = lambda q, f=i8.int8_matmul: f(
                 xq.values, xq.scales, q.values, q.scales)
             b11 = lambda q, f=i8.w8_matmul: f(x, q.values, q.scales)
+            fn_of_f32 = lambda q, x32: i8.w8_matmul(x32, q.values, q.scales)
             b12 = lambda q, f=i4.w4_matmul: f(
                 x, q.packed, q.scales, group=q.group, bn=q.bn)
             cases = [("w8_matmul", b11, wqs, i8.w8_matmul_plain),
@@ -1553,6 +1587,12 @@ def matmul_checks(torch, dev, results):
                       f"({b_by}, {b_ms / ms:.2f} of it reached), library "
                       f"{lib_ms:.4f} ms (its max|library-plain| "
                       f"{lib_err:.3e}, tol {lib_tol:.3e})", flush=True)
+                if kname == "w8_matmul" and M == 4:
+                    # the gemv with f32 x: three bf16 planes a value
+                    x32 = randn(M, K)
+                    verify(kname, label.replace("M=4", "M=4 x f32"),
+                           fn_of_f32(wqs[0], x32),
+                           plain(x32, wq.values, wq.scales))
                 if kname == "w8_matmul" and head and M == 4:
                     results[kname].update(ms=ms, plain_ms=plain_ms,
                                           bound_ms=b_ms, bound_by=b_by,
@@ -1571,6 +1611,20 @@ def matmul_checks(torch, dev, results):
                     r["bound_ms"] += b_ms
                     r["library_ms"] += lib_ms
                     r["by"].add(b_by)
+            if name == "qkv" and M == 4:
+                # B11's decode control: two of its gemv's 16-row k-steps
+                # read in each other's place
+                ref11 = i8.w8_matmul_plain(x, wq.values, wq.scales)
+                sw = torch.cat([wq.values[16:32], wq.values[:16],
+                                wq.values[32:]])
+                off = i8.w8_matmul_plain(x, sw, wq.scales)
+                print(f"  [w8_matmul] control, k-steps 0 and 1 of the qkv "
+                      f"weight swapped at M=4: max|moved-plain| "
+                      f"{(off.float() - ref11.float()).abs().max():.3e}, "
+                      f"within the tolerance: {matmul_close(off, ref11)} "
+                      "(must be False)", flush=True)
+                check(not matmul_close(off, ref11), "B11's tolerance does "
+                      "not flag two k-steps misread at decode")
             if name == "qkv" and M == 256:
                 # the control: tiles 0 and 1 of K swapped in the weight
                 sw = torch.cat([wq.values[128:256], wq.values[:128],
@@ -1636,6 +1690,47 @@ def matmul_checks(torch, dev, results):
             results[kname].update({
                 f"m{M}_ms": r["ms"], f"m{M}_bound_ms": r["bound_ms"],
                 f"m{M}_library_ms": r["library_ms"]})
+
+    # B11's decode gemv: a layer at M=4 against B10's gemv, and at path
+    # (k)'s expert products (bf16 and f32 x; timed with bf16 x)
+    b10_m4 = layers[("int8_matmul", 4)]["ms"]
+    b11_m4 = layers[("w8_matmul", 4)]["ms"]
+    print(f"  [w8_matmul] a layer's four projections at M=4: gemv "
+          f"{b11_m4:.4f} ms, B10's gemv on the same layer {b10_m4:.4f} ms "
+          f"({b11_m4 / b10_m4:.3f} of it)", flush=True)
+    results["w8_matmul"].setdefault("shapes", {})["layer M=4"] = dict(
+        ms=b11_m4, plain_ms=layers[("w8_matmul", 4)]["plain_ms"],
+        bound_ms=layers[("w8_matmul", 4)]["bound_ms"], bound_by="bytes",
+        library_ms=layers[("w8_matmul", 4)]["library_ms"], b10_ms=b10_m4)
+    for name, K, N in MIXTRAL_EXPERTS:
+        wq = qt.quantize_per_channel(randn(K, N, scale=0.02))
+        copies = max(1, int(np.ceil(COLD_BYTES / wq.values.numel())))
+        wqs = [wq] + [qt.QTensor(wq.values.clone(), wq.scales.clone())
+                      for _ in range(copies - 1)]
+        for xdt in (bf16, torch.float32):
+            x = randn(4, K).to(xdt)
+            verify("w8_matmul", f"{name} M=4 (K={K}, N={N}) x "
+                   f"{str(xdt)[6:]}", i8.w8_matmul(x, wq.values, wq.scales),
+                   i8.w8_matmul_plain(x, wq.values, wq.scales))
+        fn_of = lambda q, x=x.to(bf16): i8.w8_matmul(x, q.values, q.scales)
+        x = x.to(bf16)
+        ms = device_ms(cold_calls(fn_of, wqs), match=KERNEL_NAMES["w8_matmul"])
+        plain_ms = device_ms(
+            lambda: i8.w8_matmul_plain(x, wq.values, wq.scales), iters=5)
+        b_ms, b_by = bound(2 * 4 * K + K * N + 4 * N + 2 * 4 * N,
+                           2 * 4 * K * N, "bf16")
+        widened = [q.values.to(bf16) for q in wqs]
+        lib_ms = device_ms(cold_calls(lambda wb, x=x: w8_matmul_library(
+            x, wq.values, wq.scales, widened=wb), widened), iters=10)
+        print(f"  [w8_matmul] {name} M=4 (K={K}, N={N}) device time: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}, {b_ms / ms:.2f} of it reached), library (widened "
+              f"GEMM) {lib_ms:.4f} ms", flush=True)
+        results["w8_matmul"]["shapes"][f"{name} M=4"] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms)
+        del wqs, widened
+        torch.cuda.empty_cache()
 
     # B11 at path (k)'s prefill chunk: Mixtral-8x7B's qkv, o and head
     mix = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
@@ -2298,6 +2393,9 @@ LONG_MODEL, LONG_PROMPT = "llama3.1-8b", 32768
 #: --prompt-len 256, whose one 256-token prefill chunk routes 4 * 256 * 2
 #: = 2048 = 8 * 256 slots: the dispatch's threshold, met exactly
 MOE_MODEL, MOE_BATCH, MOE_PROMPT = "mixtral-8x7b", 4, 256
+#: its greedy tokens: 32 of the other paths' 64 (each (k) decode step is
+#: ~200 ms of host issue, and the script's whole run has 1200 s)
+MOE_STEPS = 32
 #: the path each kernel's launch count in the kernels line comes from:
 #: slice 2's main path (w8a8); B12 the INT4 path, B5 the spec path, B9
 #: the fused-append path, B8 the packed path, B6 the long-context path,
@@ -3547,7 +3645,7 @@ def moe_path(torch, refs, greedy, card):
           flush=True)
     cfg, batch, steps, prompt_len = path_config(
         "int8-weight", model=MOE_MODEL, batch=MOE_BATCH,
-        prompt_len=MOE_PROMPT)
+        prompt_len=MOE_PROMPT, steps=MOE_STEPS)
     prompts = np.random.default_rng(SEED).integers(
         0, cfg.model.vocab_size, size=(batch, prompt_len)).tolist()
     eng, held = build_engine(torch, cfg)

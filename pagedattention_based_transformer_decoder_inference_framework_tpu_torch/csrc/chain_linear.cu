@@ -37,21 +37,28 @@
 //
 // A task is 128 output columns by 4 batch rows over S rows of K (S divides
 // bk and is a multiple of 128; the wrapper splits K only until a phase has
-// a task per SM). Its 256 threads are 8 column
-// chunks of 16 columns times 32 k-lanes, each k-lane reading 4 rows of
-// the block per step with one 16-byte load per row per 16 bytes of
-// weights (qmatmul.cuh's gemv: __byte_perm + __dp4a for s8 x s8, the
-// exponent trick to widen int8, bf16 as its high half). The k-lanes reduce
-// by shuffles and shared memory in a fixed order. Where K is split, each
-// task writes its partial sums (s32 under w8a8, so they stay exact) to the
-// workspace, and the last task of a column tile to arrive (a counter per
-// tile, reset by that task) adds the splits in order and runs the
-// epilogue: deterministic. The row phases (norms, row quantization, the
-// activation) need whole rows: one block per batch row, 4 columns a
-// thread a step, block reductions in a fixed order. The residual, h, gate, up and act rows (L2-sized:
-// 4 x 14336 f32 is 229 KB) live in a workspace the wrapper allocates;
-// everything the kernel writes is read back through L2 (__ldcg), never a
-// stale L1 line.
+// a task per SM). Its source rows are staged in shared memory, and its
+// products run on the tensor cores' warp product (mma.sync, the weights
+// the A operand as in mma_gemv.cuh: s8 x s8 -> s32 m16n8k32 under w8a8,
+// else bf16 m16n8k16 with int8 blocks widened exactly, bf16 blocks as
+// they are and f32 blocks or activations as three bf16 planes, f32 sums).
+// Each warp takes the task's k-steps (16 rows, 32 under w8a8, by the 128
+// columns) in turn from its ring of kRingBytes in shared memory, which
+// TMA fills (128-byte swizzled boxes of a 3-D map over [G, bk, bn], an
+// mbarrier a slot); the ring's copy cursor walks the block's k-steps over
+// the whole launch, so a task's, a phase's and (across the row phases and
+// barriers, the weights depending on no activation) the next phase's
+// first weights are in flight while a block finishes a task, waits or
+// works on rows. The warps' sums meet in shared memory in warp order.
+// Where K is split, each task writes its partial sums (s32 under w8a8,
+// so they stay exact) to the workspace, and the last task of a column tile
+// to arrive (a counter per tile, reset by that task) adds the splits in
+// order and runs the epilogue: deterministic. The row phases (norms, row
+// quantization, the activation) need whole rows: one block per batch row,
+// 4 columns a thread a step, block reductions in a fixed order. The
+// residual, h, gate, up and act rows (L2-sized: 4 x 14336 f32 is 229 KB)
+// live in a workspace the wrapper allocates; everything the kernel writes
+// is read back through L2 (__ldcg), never a stale L1 line.
 //
 // Rounding points are the chain's: the residual stays f32 from entry to
 // x_out; h and act are rounded to the activation type (or re-quantized per
@@ -61,10 +68,11 @@
 // acc + bias). Norms use correctly rounded division and square roots.
 //
 // What bounds B14 on the H100: its weight bytes, read once (Llama-3-8B
-// w8a8: 218 MB a layer, 0.065 ms at 3.35 TB/s). The barriers and the row
-// phases between the matmul phases are the overhead this simple version
-// carries; the TPU kernel's point (no drain of the weight stream between
-// ops) is kept within each phase only.
+// w8a8: 218 MB a layer, 0.065 ms at 3.35 TB/s), and the seven barriers
+// and the row phases between the matmul phases. Folding the row phases
+// into every block (each computing the norms' statistics and staging its
+// own rows from the residual) measured slower than the barriers it saves:
+// every block then reads the same rows in dependent rounds.
 //
 // B15 under w8a8 (every chain a card path packs) is imma.cuh's INT8
 // tensor-core kernel reading the packed blocks through a 3-D tensor map
@@ -80,6 +88,8 @@
 //
 // Each entry point returns cudaGetLastError() after its launch.
 
+#include <atomic>
+
 #include "imma.cuh"
 #include "qmatmul.cuh"
 
@@ -94,13 +104,17 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTileN = 128;        // columns of a task
 constexpr int kRows = 4;           // batch rows of a task
-constexpr int kChunks = 8;         // column chunks of a task
-constexpr int kChunkCols = 16;     // columns of a chunk
-constexpr int kKLanes = kThreads / kChunks;  // 32
-constexpr int kQuad = 4;           // rows of a k-lane step
 constexpr int kMaxS = 1024;        // rows of K a task stages at most
 constexpr int kMaxOps = 5;
 constexpr int kRegions = 8;
+// a warp's ring of weight k-steps, x's stage (4-byte words: kMaxS rows of
+// 4 batch rows as three bf16 planes at most) and the warps' sums; the
+// dynamic shared memory (1024 bytes to align the ring, as the swizzled
+// boxes need), two blocks an SM
+constexpr int kRingBytes = 8192;
+constexpr int kStageWords = 3 * kMaxS * kRows / 2;
+constexpr int kRedWords = kWarps * kRows * kTileN;
+constexpr int kSmem = 1024 + kWarps * kRingBytes + 4 * (kStageWords + kRedWords);
 
 struct Op {
   int id, g0, KB, NB, K, N, sb0, S;
@@ -110,6 +124,7 @@ struct Op {
 };
 
 struct Args {
+  CUtensorMap wmap;  // the blocks [G, bk, bn]: boxes of 128 bytes x a k-step
   const void* ain;   // [B, K0] activation type
   const void* x;     // [B, D] activation type
   const void* w;     // [G, bk, bn]
@@ -134,15 +149,7 @@ struct Args {
   int act_kind, norm_kind, has_tail;
 };
 
-struct __align__(16) Smem {
-  union {
-    int i[kWarps][kRows][kTileN];
-    float f[kWarps][kRows][kTileN];
-  } red;
-  union {
-    float f[kRows][kMaxS];
-    int8_t q[kRows][kMaxS];
-  } x;
+struct Smem {
   float warp_part[kWarps];
   float total;
   int is_last;
@@ -424,40 +431,178 @@ __device__ void act_rows(const Args& a, Smem& sm) {
 
 // -- matmul phases -----------------------------------------------------------
 
-// 16 weights of one row (16 consecutive columns) as floats.
-template <typename WT>
-__device__ __forceinline__ void widen16(const WT* p, float* f) {
-  if constexpr (std::is_same<WT, int8_t>::value) {
-    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-    qmm::s8x4_to_f32(u.x, f);
-    qmm::s8x4_to_f32(u.y, f + 4);
-    qmm::s8x4_to_f32(u.z, f + 8);
-    qmm::s8x4_to_f32(u.w, f + 12);
-  } else if constexpr (std::is_same<WT, __nv_bfloat16>::value) {
+// f32 -> three bf16 (as their bits) that sum to it exactly
+__device__ __forceinline__ void planes3(float v, uint32_t (&h)[3]) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint4 u = __ldg(reinterpret_cast<const uint4*>(p) + h);
-      const uint32_t w4[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        f[8 * h + 2 * i] = __uint_as_float(w4[i] << 16);
-        f[8 * h + 2 * i + 1] = __uint_as_float(w4[i] & 0xffff0000u);
-      }
-    }
-  } else {
-#pragma unroll
-    for (int h = 0; h < 4; ++h) {
-      const float4 u = __ldg(reinterpret_cast<const float4*>(p) + h);
-      f[4 * h] = u.x;
-      f[4 * h + 1] = u.y;
-      f[4 * h + 2] = u.z;
-      f[4 * h + 3] = u.w;
-    }
+  for (int p = 0; p < 3; ++p) {
+    const __nv_bfloat16 b = __float2bfloat16_rn(v);
+    h[p] = __bfloat16_as_ushort(b);
+    v -= __bfloat162float(b);
   }
+}
+
+// The products (the weights the A operand of mma.sync, as in mma_gemv.cuh;
+// here for every kind of block): a warp's k-step is KS rows of a block by
+// the task's 128 columns, CH 128-byte boxes by TMA; lane (g, c) multiplies
+// the 16 columns 16 g .. 16 g + 15 of its ROWS rows (Step::row). int8
+// blocks widened exactly to bf16 pairs (B11's widening), bf16 ones paired
+// by one prmt, f32 ones as three bf16 planes; under w8a8 s8 x s8 -> s32
+// (m16n8k32, four k of a column by a 4 x 4 byte transpose). x's rows are
+// staged as [plane][k pair][4 rows] bf16 pairs ([k quad][4 rows] int8
+// under w8a8); the n-tile's rows 4..7 read rows 0..3 again and feed no
+// stored output.
+template <typename WT, bool A8>
+struct Step {
+  static constexpr int KS = 16, ROWS = 4, CH = sizeof(WT);
+  static constexpr int BYTES = KS * 128 * CH;
+  __device__ static int row(int i, int c) {
+    return 2 * c + (i & 1) + (i >> 1) * 8;
+  }
+};
+template <>
+struct Step<int8_t, true> {
+  static constexpr int KS = 32, ROWS = 8, CH = 1;
+  static constexpr int BYTES = KS * 128;
+  __device__ static int row(int i, int c) {
+    return 4 * c + (i & 3) + (i >> 2) * 16;
+  }
+};
+
+// Lane 0: one k-step into `slot` (1024-byte aligned), counted on `bar`: its
+// CH boxes at column col, row row of block z.
+template <typename WT, bool A8>
+__device__ __forceinline__ void fill_step(uint8_t* slot, uint64_t* bar,
+                                          const CUtensorMap* map, int col,
+                                          int row, int z) {
+  using S = Step<WT, A8>;
+  constexpr int BOX = 128 / static_cast<int>(sizeof(WT));
+  hop::mbar_arrive_tx(bar, S::BYTES);
+#pragma unroll
+  for (int b = 0; b < S::CH; ++b)
+    hop::tma_load_3d(slot + b * S::KS * 128, map, col + b * BOX, row, z, bar);
+}
+
+// The lane's 16-byte chunk h of its row i, as the 128-byte swizzle lays
+// the boxes out.
+template <typename WT, bool A8>
+__device__ __forceinline__ uint4 chunk(const uint8_t* slot, int i, int h) {
+  using S = Step<WT, A8>;
+  const int lane = threadIdx.x % 32, c = lane % 4;
+  const int r = S::row(i, c), byte = 16 * ((lane / 4) * S::CH + h);
+  return *reinterpret_cast<const uint4*>(slot + (byte >> 7) * (S::KS * 128) +
+                                         hop::swz(r, (byte >> 4) & 7));
 }
 
 template <bool A8>
 using Acc = typename std::conditional<A8, int, float>::type;
+
+// The products of one k-step (its first k unit ku0 of the stage, planes
+// `plane` words apart) into acc[8 products][4].
+template <typename WT, bool A8, int P>
+__device__ __forceinline__ void step_products(const uint8_t* slot,
+                                              const uint32_t* stage, int ku0,
+                                              int plane,
+                                              Acc<A8> (&acc)[8][4]) {
+  using S = Step<WT, A8>;
+  const int lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
+  uint4 r[S::ROWS][S::CH];
+#pragma unroll
+  for (int i = 0; i < S::ROWS; ++i)
+#pragma unroll
+    for (int h = 0; h < S::CH; ++h) r[i][h] = chunk<WT, A8>(slot, i, h);
+  uint32_t b[P][2];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    b[p][0] = stage[(p * plane + ku0 + c) * kRows + (g & 3)];
+    b[p][1] = stage[(p * plane + ku0 + c + 4) * kRows + (g & 3)];
+  }
+  if constexpr (A8) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t col[2][4];
+#pragma unroll
+      for (int hk = 0; hk < 2; ++hk) {
+        const uint32_t w0 = mgv::word(r[4 * hk][0], q);
+        const uint32_t w1 = mgv::word(r[4 * hk + 1][0], q);
+        const uint32_t w2 = mgv::word(r[4 * hk + 2][0], q);
+        const uint32_t w3 = mgv::word(r[4 * hk + 3][0], q);
+        const uint32_t t0 = __byte_perm(w0, w1, 0x5140);
+        const uint32_t t1 = __byte_perm(w0, w1, 0x7362);
+        const uint32_t t2 = __byte_perm(w2, w3, 0x5140);
+        const uint32_t t3 = __byte_perm(w2, w3, 0x7362);
+        col[hk][0] = __byte_perm(t0, t2, 0x5410);
+        col[hk][1] = __byte_perm(t0, t2, 0x7632);
+        col[hk][2] = __byte_perm(t1, t3, 0x5410);
+        col[hk][3] = __byte_perm(t1, t3, 0x7632);
+      }
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const uint32_t A[4] = {col[0][2 * h2], col[0][2 * h2 + 1],
+                               col[1][2 * h2], col[1][2 * h2 + 1]};
+        hop::mma_16832_s8(acc[2 * q + h2], A, b[0]);
+      }
+    }
+  } else if constexpr (std::is_same<WT, int8_t>::value) {
+    constexpr float kBias = 8388736.0f;  // 2^23 + 128
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float f[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t u = mgv::word(r[i][0], q) ^ 0x80808080u;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          f[i][e] =
+              __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + e)) - kBias;
+      }
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int ca = 2 * h2, cb = 2 * h2 + 1;
+        const uint32_t A[4] = {hop::i8pair_bf16(f[0][ca], f[1][ca]),
+                               hop::i8pair_bf16(f[0][cb], f[1][cb]),
+                               hop::i8pair_bf16(f[2][ca], f[3][ca]),
+                               hop::i8pair_bf16(f[2][cb], f[3][cb])};
+#pragma unroll
+        for (int p = 0; p < P; ++p) hop::mma_16816(acc[2 * q + h2], A, b[p]);
+      }
+    }
+  } else if constexpr (std::is_same<WT, __nv_bfloat16>::value) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {  // word j of a row: columns 2j, 2j + 1
+      const uint32_t w0 = mgv::word(r[0][j / 4], j % 4);
+      const uint32_t w1 = mgv::word(r[1][j / 4], j % 4);
+      const uint32_t w2 = mgv::word(r[2][j / 4], j % 4);
+      const uint32_t w3 = mgv::word(r[3][j / 4], j % 4);
+      const uint32_t A[4] = {__byte_perm(w0, w1, 0x5410),
+                             __byte_perm(w0, w1, 0x7632),
+                             __byte_perm(w2, w3, 0x5410),
+                             __byte_perm(w2, w3, 0x7632)};
+#pragma unroll
+      for (int p = 0; p < P; ++p) hop::mma_16816(acc[j], A, b[p]);
+    }
+  } else {  // f32 blocks: column j is word j % 4 of chunk j / 4
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      uint32_t h[4][2][3];  // [row][column 2j + e][plane]
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          planes3(__uint_as_float(
+                      mgv::word(r[i][(2 * j + e) / 4], (2 * j + e) % 4)),
+                  h[i][e]);
+#pragma unroll
+      for (int pa = 0; pa < 3; ++pa) {
+        const uint32_t A[4] = {h[0][0][pa] | h[1][0][pa] << 16,
+                               h[0][1][pa] | h[1][1][pa] << 16,
+                               h[2][0][pa] | h[3][0][pa] << 16,
+                               h[2][1][pa] | h[3][1][pa] << 16};
+#pragma unroll
+        for (int p = 0; p < P; ++p) hop::mma_16816(acc[j], A, b[p]);
+      }
+    }
+  }
+}
 
 // The epilogue of column n (of the op's padded columns) of row m.
 template <typename XT, bool A8>
@@ -497,126 +642,168 @@ __device__ __forceinline__ void finish(const Args& a, const Op& op, int m,
   }
 }
 
+// The ring's copy cursor of one warp over the launch's matmul phases:
+// phase p (its ops first .. first + count, as run_phase enumerates their
+// tasks), task t (blockIdx.x, + gridDim.x, ...), k-step st (warp, warp +
+// 8, ...) of the task's `steps`; the task's column within its block
+// column, first row and the first block of its block column; `issued`
+// k-steps so far. Weights depend on no activation, so the cursor copies
+// on across the row phases and the barriers.
+struct Cursor {
+  int p, t, st, steps, c0, k0, g, issued;
+};
+
+// The matmul phases' ops: O; G and U (or U); D; T (with a tail).
+__device__ __forceinline__ void phase_ops(const Args& a, int p, int& first,
+                                          int& count) {
+  const int n_mlp = a.act_kind == kSwiglu ? 2 : 1;
+  first = p == 0 ? 0 : p == 1 ? 1 : p == 2 ? 1 + n_mlp : 2 + n_mlp;
+  count = p == 1 ? n_mlp : 1;
+}
+
+// Moves the cursor from task (p, t) to the first one with a k-step for
+// this warp, and takes its coordinates.
+template <int KS>
+__device__ __forceinline__ void settle(const Args& a, Cursor& cu) {
+  const int warp = threadIdx.x / 32;
+  const int phases = a.has_tail ? 4 : 3;
+  for (; cu.p < phases; ++cu.p, cu.t = blockIdx.x) {
+    int first, count;
+    phase_ops(a, cu.p, first, count);
+    for (;; cu.t += gridDim.x) {
+      int i = first, local = cu.t;
+      while (i < first + count && local >= a.ops[i].tasks)
+        local -= a.ops[i++].tasks;
+      if (i == first + count) break;  // past the phase's tasks
+      const Op& op = a.ops[i];
+      if (warp >= op.S / KS) continue;
+      local /= a.RG;
+      const int tile = local % op.tiles, split = local / op.tiles;
+      const int n0 = tile * kTileN, nb = n0 / a.bn;
+      cu.steps = op.S / KS;
+      cu.c0 = n0 - nb * a.bn;
+      cu.k0 = split * op.S;
+      cu.g = op.g0 + nb * op.KB;
+      cu.st = warp;
+      return;
+    }
+  }
+}
+
+// Lane 0 fills the next ring slot with the cursor's k-step; every lane
+// moves the cursor on (nothing past the launch's last k-step).
+template <typename WT, bool A8, int RING>
+__device__ __forceinline__ void issue(const Args& a, Cursor& cu,
+                                      uint8_t* ring, uint64_t* bar) {
+  using S = Step<WT, A8>;
+  if (cu.p >= (a.has_tail ? 4 : 3)) return;
+  if (threadIdx.x % 32 == 0) {
+    const int kr = cu.k0 + cu.st * S::KS, kb = kr / a.bk;
+    fill_step<WT, A8>(ring + (cu.issued % RING) * S::BYTES,
+                      &bar[cu.issued % RING], &a.wmap, cu.c0,
+                      kr - kb * a.bk, cu.g + kb);
+  }
+  ++cu.issued;
+  cu.st += kWarps;
+  if (cu.st >= cu.steps) {
+    cu.t += gridDim.x;
+    settle<S::KS>(a, cu);
+  }
+}
+
+// Per-block state of the matmul phases.
+struct Block {
+  Cursor cu;
+  int s;  // k-steps consumed
+  uint8_t* ring;
+  uint64_t* bar;
+  uint32_t* stage;
+  void* red;
+};
+
 // One task: column tile `tile`, K split `split`, row group `rg` of `op`,
 // whose source rows are `src` (width src_w; f32, or int8 under w8a8).
 template <typename WT, typename XT, bool A8>
 __device__ void run_task(const Args& a, const Op& op, int tile, int split,
-                         int rg, const void* src, int src_w, Smem& sm) {
+                         int rg, const void* src, int src_w, Smem& sm,
+                         Block& bk) {
   using AccT = Acc<A8>;
-  const int c = threadIdx.x % kChunks, kl = threadIdx.x / kChunks;
+  using S = Step<WT, A8>;
+  constexpr int RING = kRingBytes / S::BYTES;
+  constexpr int P = !A8 && std::is_same<XT, float>::value ? 3 : 1;
   const int warp = threadIdx.x / 32;
-  const int S = op.S;
-  const int kr0 = split * S, kb = kr0 / a.bk, r0 = kr0 - kb * a.bk;
-  const int n0 = tile * kTileN, nb = n0 / a.bn, c0 = n0 - nb * a.bn;
-  const int m0 = rg * kRows;
-  const WT* wbase = static_cast<const WT*>(a.w) +
-                    (static_cast<long long>(op.g0 + nb * op.KB + kb) * a.bk +
-                     r0) * a.bn +
-                    c0 + c * kChunkCols;
+  const int Sr = op.S, kr0 = split * Sr;
+  const int n0 = tile * kTileN, m0 = rg * kRows;
 
-  // stage the task's x rows in shared memory
-  if constexpr (A8) {
-    const int words = S / 4;
-    for (int i = threadIdx.x; i < kRows * words; i += kThreads) {
-      const int mm = i / words, k = (i - mm * words) * 4;
-      *reinterpret_cast<int*>(&sm.x.q[mm][k]) = __ldcg(
-          reinterpret_cast<const int*>(static_cast<const int8_t*>(src) +
-                                       static_cast<long long>(m0 + mm) * src_w +
-                                       kr0 + k));
-    }
-  } else {
-    const int vecs = S / 4;
-    for (int i = threadIdx.x; i < kRows * vecs; i += kThreads) {
-      const int mm = i / vecs, k = (i - mm * vecs) * 4;
-      *reinterpret_cast<float4*>(&sm.x.f[mm][k]) = __ldcg(
-          reinterpret_cast<const float4*>(static_cast<const float*>(src) +
-                                          static_cast<long long>(m0 + mm) *
-                                              src_w +
-                                          kr0 + k));
+  // the task's x rows into the stage as the products read them (under
+  // w8a8 [S / 4][4 rows] words of four int8, else [P][S / 2][4 rows] bf16
+  // pairs of the f32 rows, which hold values of the activation type, or
+  // three planes for f32 activations); four columns an item
+  __syncthreads();  // the last task's stage is read
+  const int nq = Sr / 4;
+  for (int o = threadIdx.x; o < kRows * nq; o += kThreads) {
+    const int mm = o / nq, kq = o - mm * nq;
+    const long long at = static_cast<long long>(m0 + mm) * src_w + kr0 + 4 * kq;
+    if constexpr (A8) {
+      bk.stage[kq * kRows + mm] = static_cast<uint32_t>(__ldcg(
+          reinterpret_cast<const int*>(static_cast<const int8_t*>(src) + at)));
+    } else {
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(
+          static_cast<const float*>(src) + at));
+      const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t lo[3], hi[3];
+        planes3(e[2 * h], lo);
+        planes3(e[2 * h + 1], hi);
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+          bk.stage[(p * (Sr / 2) + 2 * kq + h) * kRows + mm] =
+              lo[p] | hi[p] << 16;
+      }
     }
   }
   __syncthreads();
 
-  AccT acc[kRows][kChunkCols];
+  AccT acc[8][4];
 #pragma unroll
-  for (int m = 0; m < kRows; ++m)
+  for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int i = 0; i < kChunkCols; ++i) acc[m][i] = AccT(0);
-
-  for (int k = kl * kQuad; k < S; k += kKLanes * kQuad) {
-    if constexpr (A8) {
-      uint4 w[kQuad];
-#pragma unroll
-      for (int r = 0; r < kQuad; ++r)
-        w[r] = __ldg(reinterpret_cast<const uint4*>(
-            wbase + static_cast<long long>(k + r) * a.bn));
-      int xq[kRows];
-#pragma unroll
-      for (int m = 0; m < kRows; ++m)
-        xq[m] = *reinterpret_cast<const int*>(&sm.x.q[m][k]);
-      const uint32_t words[kQuad][4] = {{w[0].x, w[0].y, w[0].z, w[0].w},
-                                        {w[1].x, w[1].y, w[1].z, w[1].w},
-                                        {w[2].x, w[2].y, w[2].z, w[2].w},
-                                        {w[3].x, w[3].y, w[3].z, w[3].w}};
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const uint32_t t0 = __byte_perm(words[0][g], words[1][g], 0x5140);
-        const uint32_t t1 = __byte_perm(words[0][g], words[1][g], 0x7362);
-        const uint32_t t2 = __byte_perm(words[2][g], words[3][g], 0x5140);
-        const uint32_t t3 = __byte_perm(words[2][g], words[3][g], 0x7362);
-        const int col[4] = {static_cast<int>(__byte_perm(t0, t2, 0x5410)),
-                            static_cast<int>(__byte_perm(t0, t2, 0x7632)),
-                            static_cast<int>(__byte_perm(t1, t3, 0x5410)),
-                            static_cast<int>(__byte_perm(t1, t3, 0x7632))};
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-          for (int m = 0; m < kRows; ++m)
-            acc[m][4 * g + j] = __dp4a(col[j], xq[m], acc[m][4 * g + j]);
-      }
-    } else {
-#pragma unroll
-      for (int r = 0; r < kQuad; ++r) {
-        float wf[kChunkCols];
-        widen16<WT>(wbase + static_cast<long long>(k + r) * a.bn, wf);
-#pragma unroll
-        for (int m = 0; m < kRows; ++m) {
-          const float xv = sm.x.f[m][k + r];
-#pragma unroll
-          for (int i = 0; i < kChunkCols; ++i)
-            acc[m][i] = fmaf(xv, wf[i], acc[m][i]);
-        }
-      }
-    }
+    for (int e = 0; e < 4; ++e) acc[j][e] = AccT(0);
+  const int plane = A8 ? Sr / 4 : Sr / 2;
+  for (int st = warp; st < Sr / S::KS; st += kWarps, ++bk.s) {
+    hop::mbar_wait(&bk.bar[bk.s % RING], (bk.s / RING) & 1);
+    step_products<WT, A8, P>(bk.ring + (bk.s % RING) * S::BYTES, bk.stage,
+                             st * S::KS / (A8 ? 4 : 2), plane, acc);
+    __syncwarp();  // the slot is read: it takes the ring's next k-step
+    issue<WT, A8, RING>(a, bk.cu, bk.ring, bk.bar);
   }
 
-  // the 4 k-lanes of a warp that share a chunk are lanes c, c+8, c+16, c+24
+  // The warps' sums in shared memory: lane (g, c) holds columns 16 g + 2j
+  // + e / 2 of rows 2c + e % 2 (rows 0..3: lanes c < 2); column 16 g + i
+  // at i * 8 + g of a row, then added in warp order.
+  AccT* red = static_cast<AccT*>(bk.red);
+  {
+    const int lane = threadIdx.x % 32, g = lane / 4, c = lane % 4;
+    if (c < 2) {
 #pragma unroll
-  for (int m = 0; m < kRows; ++m)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int i = 0; i < kChunkCols; ++i) {
-      AccT v = acc[m][i];
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      acc[m][i] = v;
+        for (int e = 0; e < 4; ++e)
+          red[(warp * kRows + 2 * c + (e & 1)) * kTileN +
+              (2 * j + (e >> 1)) * 8 + g] = acc[j][e];
     }
-  auto* red = reinterpret_cast<AccT(*)[kRows][kTileN]>(&sm.red);
-  if (threadIdx.x % 32 < kChunks) {
-#pragma unroll
-    for (int m = 0; m < kRows; ++m)
-#pragma unroll
-      for (int i = 0; i < kChunkCols; ++i)
-        red[warp][m][c * kChunkCols + i] = acc[m][i];
   }
   __syncthreads();
 
   const int Np = op.NB * a.bn;
   AccT* part = static_cast<AccT*>(a.part) + op.part;
   for (int o = threadIdx.x; o < kRows * kTileN; o += kThreads) {
-    const int mm = o / kTileN, lc = o - mm * kTileN;
-    AccT v = red[0][mm][lc];
+    const int mm = o / kTileN, phys = o - mm * kTileN;
+    const int lc = 16 * (phys % 8) + phys / 8;
+    AccT v = red[mm * kTileN + phys];
 #pragma unroll
-    for (int w = 1; w < kWarps; ++w) v += red[w][mm][lc];
+    for (int w = 1; w < kWarps; ++w) v += red[(w * kRows + mm) * kTileN + phys];
     if (op.splits == 1) {
       finish<XT, A8>(a, op, m0 + mm, n0 + lc, v);
     } else {
@@ -624,10 +811,7 @@ __device__ void run_task(const Args& a, const Op& op, int tile, int split,
           v;
     }
   }
-  if (op.splits == 1) {
-    __syncthreads();
-    return;
-  }
+  if (op.splits == 1) return;
 
   // split K: the last task of this column tile and row group to arrive
   // adds the splits' partial sums in order and runs the epilogue
@@ -648,13 +832,12 @@ __device__ void run_task(const Args& a, const Op& op, int tile, int split,
     }
     if (threadIdx.x == 0) a.ctr[ctr] = 0;
   }
-  __syncthreads();
 }
 
 // Every task of ops[first .. first + count), spread over the grid.
 template <typename WT, typename XT, bool A8>
 __device__ void run_phase(const Args& a, int first, int count,
-                          const void* src, int src_w, Smem& sm) {
+                          const void* src, int src_w, Smem& sm, Block& bk) {
   int total = 0;
   for (int i = first; i < first + count; ++i) total += a.ops[i].tasks;
   for (int t = blockIdx.x; t < total; t += gridDim.x) {
@@ -664,45 +847,74 @@ __device__ void run_phase(const Args& a, int first, int count,
     const int rg = local % a.RG;
     local /= a.RG;
     const int tile = local % op.tiles;
-    run_task<WT, XT, A8>(a, op, tile, local / op.tiles, rg, src, src_w, sm);
+    run_task<WT, XT, A8>(a, op, tile, local / op.tiles, rg, src, src_w, sm,
+                         bk);
   }
 }
 
 template <typename WT, typename XT, bool A8>
-__global__ void __launch_bounds__(kThreads, 2) chain_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads, 2)
+    chain_kernel(const __grid_constant__ Args a) {
+  using S = Step<WT, A8>;
+  constexpr int RING = kRingBytes / S::BYTES;
+  extern __shared__ __align__(16) uint8_t smem_dyn[];
   __shared__ Smem sm;
+  __shared__ uint64_t bars[kWarps][RING];
+  const int warp = threadIdx.x / 32;
+  uint8_t* const base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_dyn) + 1023) & ~uintptr_t(1023));
+  Block bk;
+  bk.ring = base + warp * kRingBytes;
+  bk.bar = bars[warp];
+  bk.stage = reinterpret_cast<uint32_t*>(base + kWarps * kRingBytes);
+  bk.red = bk.stage + kStageWords;
+  bk.s = 0;
+  if (threadIdx.x % 32 == 0) {
+    for (int i = 0; i < RING; ++i) hop::mbar_init(&bk.bar[i], 1);
+    hop::mbar_fence_init();
+  }
+  __syncwarp();
+  bk.cu = Cursor{0, static_cast<int>(blockIdx.x), warp, 0, 0, 0, 0, 0};
+  settle<S::KS>(a, bk.cu);
+  // the first weights in flight while the rows are set up
+#pragma unroll
+  for (int i = 0; i < RING; ++i) issue<WT, A8, RING>(a, bk.cu, bk.ring, bk.bar);
   const int n_mlp = a.act_kind == kSwiglu ? 2 : 1;  // (G, U) or U
   init_rows<XT, A8>(a, sm);
   grid_sync(a.bar);
-  run_phase<WT, XT, A8>(a, 0, 1, a.src_o, a.K0p, sm);
+  run_phase<WT, XT, A8>(a, 0, 1, a.src_o, a.K0p, sm, bk);
   grid_sync(a.bar);
   norm_rows<XT, A8>(a, 0, sm);
   grid_sync(a.bar);
-  run_phase<WT, XT, A8>(a, 1, n_mlp, a.h, a.Wd, sm);
+  run_phase<WT, XT, A8>(a, 1, n_mlp, a.h, a.Wd, sm, bk);
   grid_sync(a.bar);
   act_rows<XT, A8>(a, sm);
   grid_sync(a.bar);
-  run_phase<WT, XT, A8>(a, 1 + n_mlp, 1, a.act, a.Wi, sm);
+  run_phase<WT, XT, A8>(a, 1 + n_mlp, 1, a.act, a.Wi, sm, bk);
   if (!a.has_tail) return;
   grid_sync(a.bar);
   norm_rows<XT, A8>(a, 2, sm);
   grid_sync(a.bar);
-  run_phase<WT, XT, A8>(a, 2 + n_mlp, 1, a.h, a.Wd, sm);
+  run_phase<WT, XT, A8>(a, 2 + n_mlp, 1, a.h, a.Wd, sm, bk);
 }
 
 template <typename WT, typename XT, bool A8>
 int launch_chain(Args& a, cudaStream_t stream) {
+  static std::atomic<uint64_t> allowed{0};
   auto kern = chain_kernel<WT, XT, A8>;
+  const int err = qmm::allow_smem(kern, kSmem, allowed);
+  if (err) return err;
   int dev = 0, sms = 0, per_sm = 0, coop = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+                                                kSmem);
   if (!coop || per_sm < 1) return static_cast<int>(cudaErrorNotSupported);
   void* params[] = {&a};
   cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kern),
-                              dim3(per_sm * sms), dim3(kThreads), params, 0,
-                              stream);
+                              dim3(per_sm * sms), dim3(kThreads), params,
+                              kSmem, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -889,6 +1101,32 @@ extern "C" int pbt_chain_decode(const void* ain, const void* x, const void* w,
     a.totN = (op.sb0 + op.NB) * bn;
     if (op.id == kT) a.has_tail = 1;
   }
+  // the blocks as boxes of 128 bytes by a k-step's rows (32 under w8a8,
+  // else 16), one block deep
+  int G = 0;
+  for (int i = 0; i < a.n_ops; ++i)
+    G = max(G, a.ops[i].g0 + a.ops[i].KB * a.ops[i].NB);
+  const int es = w8a8 || w_code == kWI8 ? 1 : w_code == kWBF16 ? 2 : 4;
+  const hop::EncodeTiled encode = hop::encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(bn),
+                              static_cast<cuuint64_t>(bk),
+                              static_cast<cuuint64_t>(G)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(bn) * es,
+                                 static_cast<cuuint64_t>(bk) * bn * es};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(128 / es),
+                             static_cast<cuuint32_t>(w8a8 ? 32 : 16), 1};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  const CUtensorMapDataType type =
+      es == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+              : es == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  if (!hop::aligned16(w) ||
+      encode(&a.wmap, type, 3, const_cast<void*>(w), dims, strides, box,
+             ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool bf = x_code == qmm::kBF16;
   if (w8a8)

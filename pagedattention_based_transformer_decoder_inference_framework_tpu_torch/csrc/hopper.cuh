@@ -4,8 +4,9 @@
 // shared-memory mbarriers, bulk and tensor (TMA) copies into shared
 // memory, the exact INT8 and INT4 -> bf16 widenings, the 128-byte swizzled
 // tile layout and its wgmma matrix descriptors, the warpgroup products
-// (wgmma.mma_async) the kernels issue, the warp product (mma.sync) of
-// B12's gemv, and the host's tensor-map encoder.
+// (wgmma.mma_async) the kernels issue, the warp products (mma.sync, bf16
+// and s8) of B11's and B12's gemv and B14, and the host's tensor-map
+// encoder.
 //
 // The one tile layout the kernels use: a tile of R rows by 64 bf16
 // columns (or 128 INT8 columns) is R rows of 128 bytes, and the 16-byte
@@ -379,6 +380,19 @@ __device__ __forceinline__ void mma_16816(float (&d)[4],
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// D[16 x 8] += A[16 x 32] . B[32 x 8] (mma.sync, s8 in, s32 sums): a =
+// {A[g][4c..4c+3], A[g+8][4c..4c+3], A[g][4c+16..4c+19],
+// A[g+8][4c+16..4c+19]} and b = {B[4c..4c+3][g], B[4c+16..4c+19][g]} as
+// four bytes each (the lowest byte the lowest k); d as mma_16816's
+__device__ __forceinline__ void mma_16832_s8(int (&d)[4],
+                                             const uint32_t (&a)[4],
+                                             const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 

@@ -13,14 +13,19 @@
 // The TPU kernels run one (bm, bn) block per program with the K axis as
 // the sequential grid dimension, carrying the accumulator in VMEM. Here a
 // block owns its outputs and loops over K itself. Small M (decode, M <=
-// 16) takes the bandwidth-shaped gemv_kernel, with K split across blocks
-// where the columns alone cannot fill the card: bytes bound it, every
-// call streams its whole weight once. Larger M takes, for B10, the INT8
-// tensor-core kernel (imma.cuh: TMA, the weight tile transposed on chip,
-// wgmma s8 x s8 -> s32), with K split where its output tiles fall short
-// of the SMs; for B11 with bf16 x, w8_wgmma_kernel below; for B11 with
-// f32 x, the CUDA-core tiled_kernel (the tensor cores have no exact f32
-// product, and no path of the card runs f32 x past 16 rows).
+// 16) streams every weight byte once a call, so bytes bound it: B10 takes
+// qmatmul.cuh's gemv_kernel (16-byte loads, __dp4a; K split across blocks
+// where the columns alone cannot fill the card), B11 gemv_w8_kernel (the
+// weights widened exactly to bf16 as the A operand of mma.sync, streamed
+// through a cp.async ring per warp that runs on across the block's tiles,
+// x staged once in shared memory, at most one block an SM; Mixtral-8x7B's
+// expert gate|up at M = 4 is 117 MB, 35 us at 3.35 TB/s). Larger M takes,
+// for B10, the INT8 tensor-core kernel (imma.cuh: TMA, the weight tile
+// transposed on chip, wgmma s8 x s8 -> s32), with K split where its
+// output tiles fall short of the SMs; for B11 with bf16 x,
+// w8_wgmma_kernel below; for B11 with f32 x, the CUDA-core tiled_kernel
+// (the tensor cores have no exact f32 product, and no path of the card
+// runs f32 x past 16 rows).
 //
 // w8_wgmma_kernel (B11, bf16 x, M > 16). What bounds it on the H100: a
 // Llama-3-8B layer's four products at M = 256 do 2 * 256 * 4096 * 53,248 =
@@ -284,8 +289,9 @@ qmm::Args make_args(const void* x, const float* x_scale, const void* w,
 
 }  // namespace
 
-// gemv 1: the matrix-vector kernel (N % 16 == 0, K % 4 == 0, W 16-byte
-// and x 4-byte aligned; k_per_split rows a split, a multiple of 4). gemv
+// gemv 1: the matrix-vector kernel gemv_kernel (N % 16 == 0, K % 4 == 0, W
+// 16-byte and x 4-byte aligned; k_per_split rows a split, a multiple of
+// 4). gemv
 // 0: the tensor-core kernel (K % 16 == 0, N % 16 == 0, x and W 16-byte
 // aligned; k_per_split rows a split, a multiple of 128). The wrapper
 // zero-pads and aligns the operands for both.
@@ -326,10 +332,12 @@ extern "C" int pbt_int8_matmul(const void* xq, const float* x_scale,
                                   st);
 }
 
-// route 1: the matrix-vector kernel (as B10's, N % 16 == 0, W 16-byte
-// aligned); route 2: w8_wgmma_kernel (bf16 x, K % 8 == 0, N % 16 == 0, x,
-// W and out 16-byte aligned; k_per_split rows a split, a multiple of 64);
-// route 0: the CUDA-core tiled kernel (any shape; f32 x past 16 rows).
+// route 1: the matrix-vector kernel gemv_w8_kernel (M <= 16, K % 16 == 0,
+// N % 16 == 0, x and W 16-byte aligned; k_per_split rows a split, a
+// multiple of 16 whose rows of x fit its stage); route 2: w8_wgmma_kernel
+// (bf16 x, K % 8 == 0, N % 16 == 0, x, W and out 16-byte aligned;
+// k_per_split rows a split, a multiple of 64); route 0: the CUDA-core
+// tiled kernel (any shape; f32 x past 16 rows).
 extern "C" int pbt_w8_matmul(const void* x, const void* wq,
                              const float* w_scale, const float* bias,
                              void* out, void* partials, int* counters, int M,
@@ -353,6 +361,17 @@ extern "C" int pbt_w8_matmul(const void* x, const void* wq,
     a.kt_per_split = k_per_split / wgemm::kWK;
     a.act = act;
     return w8::run(x, wq, a, out_dtype, st);
+  }
+  if (route == 1) {
+    const int planes = x_dtype == qmm::kBF16 ? 1 : 3;
+    if (M < 1 || M > 16 || K % 16 != 0 || N % 16 != 0 ||
+        !hop::aligned16(x) || !hop::aligned16(wq) || k_per_split < 16 ||
+        k_per_split % 16 != 0 ||
+        planes * k_per_split * qmm::w8_rows(M) > 2 * qmm::kW8Stage ||
+        splits < 1 || splits * k_per_split < K ||
+        (splits - 1) * k_per_split >= K ||
+        (splits > 1 && (partials == nullptr || counters == nullptr)))
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   const qmm::Args a = make_args(x, nullptr, wq, w_scale, bias, out, partials,
                                 counters, M, K, N, splits, k_per_split, act);

@@ -36,24 +36,46 @@
 // int4_matmul.cu's w4_wgmma_kernel; kW8 and kW4 with f32 x (the tensor
 // cores have no exact f32 product) take the CUDA-core tiled_kernel below.
 //
-// Three kernels here: gemv_kernel for kI8A8 and kW8, gemv_w4_kernel for
-// kW4, tiled_kernel for kW8 and kW4.
+// Four kernels here: gemv_kernel for kI8A8, gemv_w8_kernel for kW8,
+// gemv_w4_kernel for kW4, tiled_kernel for kW8 and kW4.
 //
-// gemv_kernel (M <= 16, aligned shapes): each block owns 128 output
-// columns and 4 rows of x; its 256 threads are 8 column chunks of 16
-// columns times 32 k-lanes, each k-lane taking 4 consecutive rows of W
-// per step with one 16-byte load per row (8 bytes for int4: 8 carrier
-// bytes are 16 columns), so a warp reads 4 whole 128-byte lines per step.
-// kI8A8 transposes the 4x16 bytes in registers (__byte_perm) into
-// column words of 4 consecutive k and sums them with __dp4a; kW8 widens
-// weights with the exponent trick (2^23 + byte, then a subtraction)
-// instead of the slow I2F conversion. The k-lanes reduce by
-// warp shuffles and shared memory in a fixed order. Where the column
-// blocks alone cannot fill the 132 SMs, grid.y splits K: each split
-// writes its partial sums to a workspace, and the last block of a column
-// block to finish (a per-tile counter, reset by that block) adds the
-// splits in order and runs the epilogue: deterministic, and exact for
-// kI8A8.
+// gemv_kernel (kI8A8, M <= 16, aligned shapes): each block owns 128
+// output columns and 4 rows of x; its 256 threads are 8 column chunks of
+// 16 columns times 32 k-lanes, each k-lane taking 4 consecutive rows of W
+// per step with one 16-byte load per row, so a warp reads 4 whole
+// 128-byte lines per step. It transposes the 4x16 bytes in registers
+// (__byte_perm) into column words of 4 consecutive k and sums them with
+// __dp4a. The k-lanes reduce by warp shuffles and shared memory in a
+// fixed order. Where the column blocks alone cannot fill the 132 SMs,
+// grid.y splits K: each split writes its partial sums to a workspace, and
+// the last block of a column block to finish (a per-tile counter, reset
+// by that block) adds the splits in order and runs the epilogue:
+// deterministic, and exact.
+//
+// gemv_w8_kernel (kW8, M <= 16): a decode step streams the whole INT8
+// weight once (Mixtral-8x7B's expert gate|up, 117 MB, is 35 us at 3.35
+// TB/s), so bytes bound it; a CUDA-core layout lost to the stream draining (a
+// load consumed in the step that issued it), to the CUDA cores' widening
+// and FMAs per weight, and to fixed costs paid per block. So: the
+// products go to the tensor cores (mma_gemv.cuh: mma.sync m16n8k16 with
+// the weights, widened exactly to bf16, as the A operand); each warp's
+// k-steps of 16 rows x 128 columns come by TMA into a ring of kW8Ring
+// slots in shared memory (a whole ring in flight, 128 KB an SM, kW8Pre
+// of it while x is staged), and the ring runs on from one tile into the
+// block's next; x's rows for a block's K range are staged in shared
+// memory once (bf16 pairs; f32 x as three bf16 planes that sum to it
+// exactly), rows padded to a power of two. The grid is at most one block
+// an SM, each walking the tiles (128 columns x a K split) b, b + grid,
+// ...: tiles past one wave cost no new block, and the planner
+// (ops/int8_matmul.py::w8_gemv_plan) splits K only where the column tiles
+// fall short of the SMs or a block's range would not fit the stage. The
+// 8 warps take a tile's k-steps in turn; their sums meet in shared memory
+// in warp order; K splits write f32 partials, merged in split order by
+// the tile's last block (a counter per column tile), so the result is
+// the same from run to run. With the stream at 2.3-2.8 TB/s, what bounds
+// it on the H100 is the k-steps' own work (the widening, the operands'
+// shared-memory reads, the products: ~220 instructions a warp and k-step),
+// which the copies overlap only in part.
 //
 // gemv_w4_kernel (kW4, M <= 16): at half a byte a weight, instruction
 // issue, not bytes, runs out first on the CUDA cores (a conversion and a
@@ -93,6 +115,7 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "mma_gemv.cuh"
 
 namespace qmm {
 
@@ -101,7 +124,7 @@ enum Act { kNone = 0, kRelu = 1, kGelu = 2, kSilu = 3 };
 enum DType { kF32 = 0, kBF16 = 1 };
 
 constexpr int kThreads = 256;
-// gemv_kernel
+// gemv_kernel (kI8A8)
 constexpr int kRows = 4;                        // rows of x per block
 constexpr int kChunks = 8;                      // column chunks per block
 constexpr int kChunkCols = 16;                  // columns per chunk
@@ -115,6 +138,19 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kW4Stage = 4096;
 constexpr int kW4Ring = 4;
 constexpr int kW4Smem = kW4Stage * 8 * 2 + kWarps * kW4Ring * 2048;
+// gemv_w8_kernel: its warps, the words of x's stage (64 KB), the k-steps
+// of 2 KB a warp's ring holds, the warps' sums (4 x rows of 128 columns a
+// warp), and its dynamic shared memory
+constexpr int kW8Warps = 8;
+constexpr int kW8Threads = 32 * kW8Warps;
+constexpr int kW8Stage = 16384;
+constexpr int kW8Ring = 8;
+// k-steps a warp has in flight while x is staged (a whole ring on every SM
+// would queue ahead of x's loads)
+constexpr int kW8Pre = 2;
+constexpr int kW8Red = kW8Warps * 4 * 128;
+constexpr int kW8Smem =
+    1024 + kW8Warps * kW8Ring * mgv::kBytes + kW8Stage * 4 + kW8Red * 4;
 // tiled_kernel
 constexpr int kTileM = 64, kTileN = 64, kTileK = 32, kPad = 4;
 
@@ -199,16 +235,6 @@ __device__ __forceinline__ void finish(const Args& a,
   store<OT>(a.out, static_cast<long long>(m) * a.N + n, activate(y, a.act));
 }
 
-// Four int8 in a word -> four floats, exactly: the byte, made offset-binary
-// (q + 128), becomes the low mantissa bits of 2^23.
-__device__ __forceinline__ void s8x4_to_f32(uint32_t u, float* f) {
-  const uint32_t v = u ^ 0x80808080u;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    f[i] = __uint_as_float(__byte_perm(v, 0x4B000000u, 0x7440 + i)) -
-           8388736.0f;  // 2^23 + 128
-}
-
 // The int4 carrier byte of weight (k, n) and its value q in [-8, 7].
 __device__ __forceinline__ int int4_at(const Args& a, int k, int n) {
   const int half = a.bn / 2;
@@ -238,6 +264,8 @@ __device__ __forceinline__ typename AccT<KIND>::type load_w(const Args& a,
   }
 }
 
+__host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
 // Output column of local column lc (0..127) of column block cb, or -1.
 __device__ __forceinline__ int column_of(const Args& a, int cb, int lc) {
   const int n = cb * kBlockCols + lc;
@@ -246,11 +274,11 @@ __device__ __forceinline__ int column_of(const Args& a, int cb, int lc) {
 
 // ---------------------------------------------------------------------------
 // gemv_kernel: grid (ceil(N / 128), splits, ceil(M / 4)).
-// Needs: N % 16 == 0 with W 16-byte aligned, kI8A8 also K % 4 == 0 and x
-// 4-byte aligned. The wrapper checks.
+// Needs: N % 16 == 0 with W 16-byte aligned, K % 4 == 0 and x 4-byte
+// aligned. The wrapper checks.
 template <int KIND, typename XT, typename OT>
 __global__ void __launch_bounds__(kThreads) gemv_kernel(Args a) {
-  static_assert(KIND != kW4, "kW4 takes gemv_w4_kernel");
+  static_assert(KIND == kI8A8, "kW8 takes gemv_w8_kernel, kW4 gemv_w4_kernel");
   using Acc = typename AccT<KIND>::type;
   __shared__ Acc red[kWarps][kRows][kBlockCols];
   __shared__ int is_last;
@@ -274,68 +302,40 @@ __global__ void __launch_bounds__(kThreads) gemv_kernel(Args a) {
 
   if (valid) {
     for (int k = k_begin + kl * kQuad; k < k_end; k += kKLanes * kQuad) {
-      if constexpr (KIND == kI8A8) {
-        // K % 4 == 0 and k_per_split % 4 == 0: the quad lies inside
-        uint4 w[kQuad];
+      // K % 4 == 0 and k_per_split % 4 == 0: the quad lies inside
+      uint4 w[kQuad];
 #pragma unroll
-        for (int r = 0; r < kQuad; ++r)
-          w[r] = __ldg(reinterpret_cast<const uint4*>(
-              wbase + static_cast<long long>(k + r) * wstride));
-        int xq[kRows];
+      for (int r = 0; r < kQuad; ++r)
+        w[r] = __ldg(reinterpret_cast<const uint4*>(
+            wbase + static_cast<long long>(k + r) * wstride));
+      int xq[kRows];
 #pragma unroll
-        for (int m = 0; m < kRows; ++m)
-          xq[m] = m0 + m < a.M
-                      ? __ldg(reinterpret_cast<const int*>(
-                            static_cast<const int8_t*>(a.x) +
-                            static_cast<long long>(m0 + m) * a.K + k))
-                      : 0;
-        const uint32_t words[kQuad][4] = {{w[0].x, w[0].y, w[0].z, w[0].w},
-                                          {w[1].x, w[1].y, w[1].z, w[1].w},
-                                          {w[2].x, w[2].y, w[2].z, w[2].w},
-                                          {w[3].x, w[3].y, w[3].z, w[3].w}};
+      for (int m = 0; m < kRows; ++m)
+        xq[m] = m0 + m < a.M
+                    ? __ldg(reinterpret_cast<const int*>(
+                          static_cast<const int8_t*>(a.x) +
+                          static_cast<long long>(m0 + m) * a.K + k))
+                    : 0;
+      const uint32_t words[kQuad][4] = {{w[0].x, w[0].y, w[0].z, w[0].w},
+                                        {w[1].x, w[1].y, w[1].z, w[1].w},
+                                        {w[2].x, w[2].y, w[2].z, w[2].w},
+                                        {w[3].x, w[3].y, w[3].z, w[3].w}};
 #pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          // rows k..k+3 of columns 4g..4g+3 -> one word of 4 k per column
-          const uint32_t t0 = __byte_perm(words[0][g], words[1][g], 0x5140);
-          const uint32_t t1 = __byte_perm(words[0][g], words[1][g], 0x7362);
-          const uint32_t t2 = __byte_perm(words[2][g], words[3][g], 0x5140);
-          const uint32_t t3 = __byte_perm(words[2][g], words[3][g], 0x7362);
-          const int col[4] = {static_cast<int>(__byte_perm(t0, t2, 0x5410)),
-                              static_cast<int>(__byte_perm(t0, t2, 0x7632)),
-                              static_cast<int>(__byte_perm(t1, t3, 0x5410)),
-                              static_cast<int>(__byte_perm(t1, t3, 0x7632))};
+      for (int g = 0; g < 4; ++g) {
+        // rows k..k+3 of columns 4g..4g+3 -> one word of 4 k per column
+        const uint32_t t0 = __byte_perm(words[0][g], words[1][g], 0x5140);
+        const uint32_t t1 = __byte_perm(words[0][g], words[1][g], 0x7362);
+        const uint32_t t2 = __byte_perm(words[2][g], words[3][g], 0x5140);
+        const uint32_t t3 = __byte_perm(words[2][g], words[3][g], 0x7362);
+        const int col[4] = {static_cast<int>(__byte_perm(t0, t2, 0x5410)),
+                            static_cast<int>(__byte_perm(t0, t2, 0x7632)),
+                            static_cast<int>(__byte_perm(t1, t3, 0x5410)),
+                            static_cast<int>(__byte_perm(t1, t3, 0x7632))};
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int m = 0; m < kRows; ++m)
-              acc[m][4 * g + j] = __dp4a(col[j], xq[m], acc[m][4 * g + j]);
-        }
-      } else {  // kW8
-        uint4 w[kQuad];
-#pragma unroll
-        for (int r = 0; r < kQuad; ++r)
-          w[r] = k + r < k_end
-                     ? __ldg(reinterpret_cast<const uint4*>(
-                           wbase + static_cast<long long>(k + r) * wstride))
-                     : make_uint4(0, 0, 0, 0);
-#pragma unroll
-        for (int r = 0; r < kQuad; ++r) {
-          if (k + r >= k_end) break;
-          float xf[kRows];
+        for (int j = 0; j < 4; ++j)
 #pragma unroll
           for (int m = 0; m < kRows; ++m)
-            xf[m] = m0 + m < a.M ? load_x<KIND, XT>(a, m0 + m, k + r) : 0.0f;
-          float wf[kChunkCols];
-          s8x4_to_f32(w[r].x, wf);
-          s8x4_to_f32(w[r].y, wf + 4);
-          s8x4_to_f32(w[r].z, wf + 8);
-          s8x4_to_f32(w[r].w, wf + 12);
-#pragma unroll
-          for (int i = 0; i < kChunkCols; ++i)
-#pragma unroll
-            for (int m = 0; m < kRows; ++m)
-              acc[m][i] = fmaf(xf[m], wf[i], acc[m][i]);
-        }
+            acc[m][4 * g + j] = __dp4a(col[j], xq[m], acc[m][4 * g + j]);
       }
     }
   }
@@ -699,6 +699,179 @@ __global__ void __launch_bounds__(kThreads, 1) gemv_w4_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
+// gemv_w8_kernel: grid min(SMs, tiles), a tile 128 columns x one K split
+// (tiles split-major). Needs K % 16 == 0, N % 16 == 0, x and W 16-byte
+// aligned, k_per_split % 16 == 0 and W8Planes * k_per_split * w8_rows(M)
+// <= 2 kW8Stage. NT n-tiles of 8 x rows: 1 for M <= 8, 2 for M <= 16. The
+// wrapper checks.
+
+// x rows as staged: M padded to a power of two (16 with two n-tiles)
+__host__ __device__ inline int w8_rows(int M) {
+  return M > 8 ? 16 : M > 4 ? 8 : M > 2 ? 4 : M;
+}
+
+template <typename XT, typename OT, int NT>
+__global__ void __launch_bounds__(kW8Threads, 1)
+    gemv_w8_kernel(const __grid_constant__ CUtensorMap wmap, Args a) {
+  constexpr int P = W4Planes<XT>::P;
+  constexpr int W = kW8Warps;
+  // each warp's ring of kW8Ring k-steps of 2 KB (1024-byte aligned, as
+  // the swizzled boxes need); x's stage [P][K range / 2][R] bf16 pairs;
+  // the warps' sums
+  extern __shared__ __align__(16) uint8_t smem_dyn[];
+  __shared__ uint64_t bars[kW8Warps][kW8Ring];
+  __shared__ int is_last;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  uint8_t* const base = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_dyn) + 1023) & ~uintptr_t(1023));
+  uint8_t* const ring = base + warp * kW8Ring * mgv::kBytes;
+  uint32_t* const stage =
+      reinterpret_cast<uint32_t*>(base + W * kW8Ring * mgv::kBytes);
+  float* const red = reinterpret_cast<float*>(stage + kW8Stage);
+  uint64_t* const bar = bars[warp];
+  if (lane == 0) {
+    for (int i = 0; i < kW8Ring; ++i) hop::mbar_init(&bar[i], 1);
+    hop::mbar_fence_init();
+  }
+  __syncwarp();
+  const int R = w8_rows(a.M);
+  const int CB = cdiv(a.N, mgv::kCols), T = CB * a.splits;
+  // The warp's copy cursor: tile ct (tiles b, b + grid, ...; split-major),
+  // k-step cs of it (warp, warp + W, ...) of its cn, the tile's first
+  // column and first row; moved past tiles where the warp has no k-step.
+  // Lane 0 fills the ring's slots in turn, as the k-steps are consumed.
+  int ct = blockIdx.x, cs = warp, cn = 0, ccol = 0, crow = 0, issued = 0;
+  auto to_tile = [&]() {
+    for (; ct < T; ct += gridDim.x) {
+      crow = ct / CB * a.k_per_split;
+      ccol = ct % CB * mgv::kCols;
+      cn = (min(a.K, crow + a.k_per_split) - crow) / 16;
+      if (cs < cn) return;
+      cs = warp;
+    }
+  };
+  to_tile();
+  auto issue = [&]() {
+    if (ct >= T) return;
+    if (lane == 0)
+      mgv::fill_step(ring + (issued % kW8Ring) * mgv::kBytes,
+                     &bar[issued % kW8Ring], &wmap, ccol, crow + 16 * cs);
+    ++issued;
+    cs += W;
+    if (cs >= cn) {
+      cs = warp;
+      ct += gridDim.x;
+      to_tile();
+    }
+  };
+  // the first k-steps in flight before anything else (the rest of the
+  // ring once x is staged)
+#pragma unroll
+  for (int s = 0; s < kW8Pre; ++s) issue();
+
+  float* partials = static_cast<float*>(a.partials);
+  int staged = -1, s = 0;
+  for (int t = blockIdx.x; t < T; t += gridDim.x) {
+    const int split = t / CB, cb = t % CB;
+    const int k_begin = split * a.k_per_split;
+    const int k_end = min(a.K, k_begin + a.k_per_split);
+    const int nkp = (k_end - k_begin) / 2;
+    if (split != staged) {
+      // x's rows of the split, 16-byte loads all issued before use (the
+      // weights' first k-steps already on their way); every block starts
+      // at another line, so that the blocks' reads of the same x do not
+      // meet on one line at once
+      __syncthreads();
+      constexpr int VE = 16 / sizeof(XT);  // values a load
+      const int vpr = (k_end - k_begin) / VE, tot = a.M * vpr;
+      const int rot = (8 * blockIdx.x) % tot;
+      const uint4* xv = reinterpret_cast<const uint4*>(
+          static_cast<const XT*>(a.x) + k_begin);
+#pragma unroll 4
+      for (int j = threadIdx.x; j < tot; j += kW8Threads) {
+        const int i = j + rot < tot ? j + rot : j + rot - tot;
+        const int m = i / vpr, v = i - m * vpr, kp = v * VE / 2;
+        const uint4 raw =
+            __ldg(xv + static_cast<long long>(m) * (a.K / VE) + v);
+        if constexpr (P == 1) {
+          stage[kp * R + m] = raw.x;
+          stage[(kp + 1) * R + m] = raw.y;
+          stage[(kp + 2) * R + m] = raw.z;
+          stage[(kp + 3) * R + m] = raw.w;
+        } else {
+          uint32_t w[3][2];
+          f32_planes(raw, w);
+#pragma unroll
+          for (int p = 0; p < 3; ++p) {
+            stage[(p * nkp + kp) * R + m] = w[p][0];
+            stage[(p * nkp + kp + 1) * R + m] = w[p][1];
+          }
+        }
+      }
+      __syncthreads();
+      staged = split;
+      for (int i = issued - s; i < kW8Ring; ++i) issue();
+    }
+    float acc[NT][8][4];
+#pragma unroll
+    for (int u = 0; u < NT; ++u)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[u][j][e] = 0.0f;
+    const int n_steps = (k_end - k_begin) / 16;
+    for (int st = warp; st < n_steps; st += W, ++s) {
+      hop::mbar_wait(&bar[s % kW8Ring], (s / kW8Ring) & 1);
+      mgv::step_products<NT, P>(ring + (s % kW8Ring) * mgv::kBytes, stage,
+                                8 * st, nkp, R, acc);
+      __syncwarp();  // the slot is read: it takes the ring's next k-step
+      issue();
+    }
+    const int n0 = cb * mgv::kCols;
+    mgv::reduce_warps<W, NT>(acc, red, a.M, [&](int m, int lc, float v) {
+      const int n = n0 + lc;
+      if (n >= a.N) return;
+      if (a.splits == 1) {
+        finish<kW8, OT>(a, v, m, n);
+      } else {
+        partials[(static_cast<long long>(split) * a.M + m) * a.N + n] = v;
+      }
+    });
+    if (a.splits == 1) continue;
+    // split K: the last block of this column tile to arrive adds the
+    // splits' partial sums in split order and runs the epilogue
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0)
+      is_last = atomicAdd(&a.counters[cb], 1) == a.splits - 1;
+    __syncthreads();
+    if (!is_last) continue;
+    constexpr int PER = (16 * mgv::kCols + kW8Threads - 1) / kW8Threads;
+    long long at[PER];
+    float v[PER];
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int o = threadIdx.x + k * kW8Threads;
+      const int m = o / mgv::kCols, n = n0 + o % mgv::kCols;
+      at[k] = m < a.M && n < a.N ? static_cast<long long>(m) * a.N + n : -1;
+      v[k] = 0.0f;
+    }
+    for (int sp = 0; sp < a.splits; ++sp) {
+      const float* src = partials + static_cast<long long>(sp) * a.M * a.N;
+#pragma unroll
+      for (int k = 0; k < PER; ++k)
+        if (at[k] >= 0) v[k] += __ldcg(src + at[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < PER; ++k)
+      if (at[k] >= 0)
+        finish<kW8, OT>(a, v[k], static_cast<int>(at[k] / a.N),
+                        static_cast<int>(at[k] % a.N));
+    if (threadIdx.x == 0) a.counters[cb] = 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // tiled_kernel: grid (ceil(N / 64), ceil(M / 64)); any M, K, N.
 template <int KIND, typename XT, typename OT>
 __global__ void __launch_bounds__(kThreads) tiled_kernel(Args a) {
@@ -754,26 +927,76 @@ __global__ void __launch_bounds__(kThreads) tiled_kernel(Args a) {
     }
 }
 
-inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+// Sets a kernel's shared-memory limit once per device (the attribute
+// belongs to the kernel in that device's context); `allowed` is the
+// kernel's own.
+template <typename Kernel>
+int allow_smem(Kernel kernel, int bytes, std::atomic<uint64_t>& allowed) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const uint64_t bit = uint64_t(1) << (dev % 64);
+  if (!(allowed.load() & bit)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    allowed.fetch_or(bit);
+  }
+  return 0;
+}
+
+// The SMs of the current device (read once per device).
+inline int device_sms() {
+  static std::atomic<int> sms[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 1;
+  int n = sms[dev % 64].load();
+  if (n == 0) {
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    n = n > 0 ? n : 1;
+    sms[dev % 64].store(n);
+  }
+  return n;
+}
+
+template <typename XT, typename OT, int NT>
+int launch_w8(const Args& a, cudaStream_t stream) {
+  static std::atomic<uint64_t> allowed{0};
+  auto kernel = gemv_w8_kernel<XT, OT, NT>;
+  const int err = allow_smem(kernel, kW8Smem, allowed);
+  if (err) return err;
+  // W [K, N] as 128-byte boxes of 16 rows (a warp's k-step), zeros past
+  // its edges
+  const hop::EncodeTiled encode = hop::encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap wmap;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(a.N),
+                              static_cast<cuuint64_t>(a.K)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(a.N)};
+  const cuuint32_t box[2] = {128, 16}, ones[2] = {1, 1};
+  if (encode(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(a.w),
+             dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = cdiv(a.N, mgv::kCols) * a.splits;
+  const int grid = tiles < device_sms() ? tiles : device_sms();
+  kernel<<<grid, kW8Threads, kW8Smem, stream>>>(wmap, a);
+  return static_cast<int>(cudaGetLastError());
+}
 
 template <int KIND, typename XT, typename OT>
 int launch_gemv(const Args& a, cudaStream_t stream) {
   if constexpr (KIND == kW4) {
-    auto kernel = gemv_w4_kernel<XT, OT>;
-    // the shared-memory limit, set once per device (as B11's)
     static std::atomic<uint64_t> allowed{0};
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const uint64_t bit = uint64_t(1) << (dev % 64);
-    if (!(allowed.load() & bit)) {
-      err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kW4Smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      allowed.fetch_or(bit);
-    }
+    auto kernel = gemv_w4_kernel<XT, OT>;
+    const int err = allow_smem(kernel, kW4Smem, allowed);
+    if (err) return err;
     const dim3 grid(cdiv(a.N / 2, kChunks * 16), a.splits, cdiv(a.M, 8));
     kernel<<<grid, kThreads, kW4Smem, stream>>>(a);
+  } else if constexpr (KIND == kW8) {
+    return a.M > 8 ? launch_w8<XT, OT, 2>(a, stream)
+                   : launch_w8<XT, OT, 1>(a, stream);
   } else {
     const dim3 grid(cdiv(a.N, kBlockCols), a.splits, cdiv(a.M, kRows));
     gemv_kernel<KIND, XT, OT><<<grid, kThreads, 0, stream>>>(a);

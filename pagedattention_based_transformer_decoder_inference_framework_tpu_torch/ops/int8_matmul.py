@@ -15,17 +15,21 @@ Both take any ``M >= 1``, ``K`` and ``N``: no padding to the TPU's
 blocks, so the block-size arguments of the JAX wrappers are gone. The
 wrapper runs the plain version for CPU tensors only; for CUDA tensors it
 launches the kernel or raises. The kernel and its launch shape are
-chosen here: decode (``M <= 16``) takes a matrix-vector kernel with K
-split across blocks (:func:`plan`); larger ``M`` takes, for B10, the INT8
-tensor-core kernel (``csrc/imma.cuh``: ``wgmma`` s8 x s8 -> s32 on weight
-tiles transposed on chip), and for B11 with bf16 ``x`` the bf16
-tensor-core kernel (``w8_wgmma_kernel``: the INT8 weight widened to bf16
-in shared memory, ``wgmma`` with f32 sums), each with K split only where
-its output tiles fall short of the SMs (:func:`wgmma_plan`); B11 with f32
-``x`` past 16 rows takes a CUDA-core tiled kernel (:func:`w8_plan`). The
-tensor-core kernels read whole 16-byte rows, so :func:`int8_operands`
-and :func:`w8_operands` zero-pad a ragged K and N (the padding adds
-zeros) and copy a view at an odd offset: the shapes never pick the
+chosen here: decode (``M <= 16``) takes, for B10, a matrix-vector kernel
+with K split across blocks (:func:`plan`), and for B11 the tensor-core
+matrix-vector kernel (``gemv_w8_kernel``: INT8 weights widened to bf16
+as the A operand of ``mma.sync``, streamed through a ring in shared
+memory, x staged once; :func:`w8_gemv_plan`); larger ``M`` takes, for
+B10, the INT8 tensor-core kernel (``csrc/imma.cuh``: ``wgmma`` s8 x s8 ->
+s32 on weight tiles transposed on chip), and for B11 with bf16 ``x`` the
+bf16 tensor-core kernel (``w8_wgmma_kernel``: the INT8 weight widened to
+bf16 in shared memory, ``wgmma`` with f32 sums), each with K split only
+where its output tiles fall short of the SMs (:func:`wgmma_plan`); B11
+with f32 ``x`` past 16 rows takes a CUDA-core tiled kernel
+(:func:`w8_plan`). The tensor-core kernels read whole 16-byte rows, so
+:func:`int8_operands`, :func:`w8_operands` and
+:func:`w8_gemv_operands` zero-pad a ragged K (and N where the kernel
+needs it) and copy a view at an odd offset: the shapes never pick the
 kernel.
 """
 
@@ -55,6 +59,10 @@ WGMMA_COLS, WGMMA_K = 128, 128
 W8_COLS, W8_K = 256, 64
 #: B11's kernels by route code (``pbt_w8_matmul``'s ``route``)
 W8_ROUTES = {"tiles": 0, "gemv": 1, "wgmma": 2}
+#: B11's matrix-vector kernel (``csrc/qmatmul.cuh``'s ``gemv_w8_kernel``):
+#: columns of a tile, rows of a k-step, warps a block (each taking the
+#: tile's k-steps in turn), and the 4-byte words of x's stage
+W8_GEMV_COLS, W8_GEMV_K, W8_GEMV_WARPS, W8_GEMV_STAGE = 128, 16, 8, 16384
 #: K splits the tensor-core planner weighs at most
 _MAX_SPLITS = 16
 #: K rows per exact f32 partial product in :func:`exact_int_matmul`:
@@ -115,18 +123,50 @@ def int8_plan(M: int, K: int, N: int) -> Tuple[bool, int, int]:
     return (False,) + wgmma_plan(M, K, N)
 
 
+def w8_gemv_rows(M: int) -> int:
+    """Rows of x that B11's matrix-vector kernel stages for ``M`` rows (a
+    power of two; 16, two n-tiles of 8, past 8 rows)."""
+    return 16 if M > 8 else 8 if M > 4 else 4 if M > 2 else M
+
+
+def w8_gemv_plan(M: int, K: int, N: int, x_dtype) -> Tuple[int, int]:
+    """``(splits, k_per_split)`` of B11's matrix-vector kernel for ``M <=
+    16`` and ``K % 16 == 0`` (:func:`w8_gemv_operands` pads K): a tile is
+    128 columns over one K split; the grid is at most one block an SM,
+    each walking tiles ``b, b + grid, ...``, so no split is needed where
+    the column tiles reach the SMs. K is split where a split's rows of x
+    (times x's bf16 planes: three for f32 x) would not fit the stage, and
+    further where the column tiles alone fall short of the SMs: into as
+    many splits as still fit one wave of tiles (each at least one k-step
+    a warp). Each split is a whole number of 16-row k-steps; the last may
+    be shorter."""
+    planes = 1 if x_dtype == torch.bfloat16 else 3
+    kmax = 2 * W8_GEMV_STAGE // (planes * w8_gemv_rows(M)) \
+        // W8_GEMV_K * W8_GEMV_K
+    steps = cdiv(K, W8_GEMV_K)
+    tiles = cdiv(N, W8_GEMV_COLS)
+    splits = cdiv(K, kmax)
+    if tiles * splits < SMS:
+        splits = max(splits, min(SMS // tiles, cdiv(steps, W8_GEMV_WARPS)))
+    kps = cdiv(steps, splits) * W8_GEMV_K
+    return cdiv(K, kps), kps
+
+
 def w8_plan(M: int, K: int, N: int, x_dtype,
             gemv_ok: bool = True) -> Tuple[str, int, int]:
     """B11's ``(route, splits, k_per_split)``, by M and x's dtype, for
-    operands as :func:`w8_operands` leaves them on the tensor-core route:
-    ``"gemv"`` through 16 rows where the shapes allow it (:func:`plan`),
+    operands as the wrapper leaves them (:func:`w8_gemv_operands` on the
+    matrix-vector route, :func:`w8_operands` on the tensor-core route):
+    ``"gemv"`` through 16 rows where the weight allows it (``gemv_ok``: N
+    a multiple of 16, the weight on 16 bytes; :func:`w8_gemv_plan`),
     ``"wgmma"`` past 16 rows for bf16 x (K split by :func:`wgmma_plan`
     over 256-column tiles and k-tiles of 64), and ``"tiles"`` (the
     CUDA-core kernel, whole K) for the rest: f32 x past 16 rows (the
     tensor cores have no exact f32 product) or a ragged N at decode."""
     if M <= GEMV_MAX_M:
-        gemv, splits, kps = plan(M, K, N, gemv_ok)
-        return ("gemv" if gemv else "tiles"), splits, kps
+        if not gemv_ok:
+            return "tiles", 1, K
+        return ("gemv",) + w8_gemv_plan(M, K, N, x_dtype)
     if x_dtype == torch.bfloat16:
         return ("wgmma",) + wgmma_plan(M, K, N, W8_COLS, W8_K)
     return "tiles", 1, K
@@ -253,6 +293,58 @@ def w8_matmul_plain(x: torch.Tensor, wq: torch.Tensor,
                     out_dtype, w_scale.reshape(1, -1))
 
 
+def x_planes(x: torch.Tensor) -> list:
+    """x as the bf16 planes B11's matrix-vector kernel stages (as f32
+    tensors): bf16 x itself; f32 x as three bf16 that sum to it exactly
+    (``x1 = bf16(x)``, ``x2 = bf16(x - x1)``, ``x3 = x - x1 - x2``: each
+    difference exact, f32's 24 significant bits in three of 8)."""
+    if x.dtype == torch.bfloat16:
+        return [x.float()]
+    planes, r = [], x.float()
+    for _ in range(3):
+        p = r.to(torch.bfloat16).float()
+        planes.append(p)
+        r = r - p
+    return planes
+
+
+def w8_gemv_emulation(x: torch.Tensor, wq: torch.Tensor,
+                      w_scale: torch.Tensor,
+                      bias: Optional[torch.Tensor] = None, *,
+                      act: Optional[str] = None, out_dtype=torch.bfloat16,
+                      splits: Optional[int] = None) -> torch.Tensor:
+    """B11's matrix-vector kernel's order of work in plain PyTorch (f32),
+    for tests: K zero-padded to 16; each split of K (:func:`w8_gemv_plan`'s
+    by default) summed on its own: each of the block's warps over its
+    16-row k-steps w, w + 8, ... (x's planes of :func:`x_planes` times the
+    exact INT8 values), the warps added in warp order; the splits added
+    in split order; then the epilogue. Same inputs and output as
+    :func:`w8_matmul_plain`, which it equals up to the order of the
+    sums."""
+    M, K = x.shape
+    dk = -K % W8_GEMV_K
+    xs = [F.pad(p, (0, dk)) for p in x_planes(x)]
+    w = F.pad(wq, (0, 0, 0, dk)).float()
+    Kp = K + dk
+    if splits is None:
+        splits = w8_gemv_plan(M, Kp, wq.shape[1], x.dtype)[0]
+    kps = cdiv(Kp // W8_GEMV_K, splits) * W8_GEMV_K
+    total = None
+    for k0 in range(0, Kp, kps):
+        k1 = min(Kp, k0 + kps)
+        part = None
+        for warp in range(W8_GEMV_WARPS):
+            acc = torch.zeros((M, wq.shape[1]), device=x.device)
+            for ks in range(k0 + warp * W8_GEMV_K, k1,
+                            W8_GEMV_WARPS * W8_GEMV_K):
+                for p in xs:
+                    acc = acc + p[:, ks:ks + W8_GEMV_K] @ \
+                        w[ks:ks + W8_GEMV_K]
+            part = acc if part is None else part + acc
+        total = part if total is None else total + part
+    return epilogue(total, bias, act, out_dtype, w_scale.reshape(1, -1))
+
+
 def _check_weight(wq: torch.Tensor, w_scale: torch.Tensor, K: int) -> int:
     if wq.dtype != torch.int8 or wq.dim() != 2 or wq.shape[0] != K:
         raise ValueError(f"wq must be int8 [K={K}, N], got {wq.dtype} "
@@ -305,6 +397,18 @@ def w8_operands(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
     return aligned16(x), aligned16(wq), w_scale, bias, N + dn
 
 
+def w8_gemv_operands(x: torch.Tensor, wq: torch.Tensor):
+    """B11's operands as its matrix-vector kernel reads them: K
+    zero-padded to a multiple of 16 (its k-step) in ``x [M, K]`` and ``wq
+    [K, N]``, ``x`` 16-byte aligned (``wq`` is, or the wrapper takes the
+    tiles). Every preset's products need no copy
+    (``tests/test_torch_int8_matmul.py`` pins this)."""
+    dk = -wq.shape[0] % W8_GEMV_K
+    if dk:
+        x, wq = F.pad(x, (0, dk)), F.pad(wq, (0, 0, 0, dk))
+    return aligned16(x), wq
+
+
 def int8_matmul(xq: torch.Tensor, x_scale: torch.Tensor, wq: torch.Tensor,
                 w_scale: torch.Tensor, bias: Optional[torch.Tensor] = None,
                 *, act: Optional[str] = None,
@@ -349,9 +453,9 @@ def w8_matmul(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
 
     x ``[M, K]`` bf16/f32; wq ``[K, N]`` int8; w_scale ``[1, N]`` f32.
     Returns ``[M, N]`` in ``out_dtype`` (bf16 or f32). The kernel by
-    :func:`w8_plan`: the matrix-vector kernel through 16 rows, the bf16
-    tensor-core kernel past them for bf16 x, the CUDA-core tiles for f32
-    x; one launch count for all three."""
+    :func:`w8_plan`: the tensor-core matrix-vector kernel through 16 rows,
+    the bf16 tensor-core kernel past them for bf16 x, the CUDA-core tiles
+    for f32 x past them or a ragged N; one launch count for all three."""
     if x.dim() != 2:
         raise ValueError("x must be [M, K]")
     M, K = x.shape
@@ -365,10 +469,14 @@ def w8_matmul(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
     ws = w_scale.reshape(N).float().contiguous()
     b = bias_f32(bias, N)
     n_pad = N
-    if w8_plan(M, K, N, x.dtype)[0] == "wgmma":
+    route = w8_plan(M, K, N, x.dtype,
+                    N % 16 == 0 and wq.data_ptr() % 16 == 0)[0]
+    if route == "wgmma":
         x, wq, ws, b, n_pad = w8_operands(x, wq, ws, b)
+    elif route == "gemv":
+        x, wq = w8_gemv_operands(x, wq)
     route, splits, kps = w8_plan(M, x.shape[1], n_pad, x.dtype,
-                                 n_pad % 16 == 0 and wq.data_ptr() % 16 == 0)
+                                 route != "tiles")
     part, counters = (w8_scratch(x.device, M, n_pad, splits)
                       if route == "wgmma" else
                       scratch(x.device, M, n_pad, splits, torch.float32))

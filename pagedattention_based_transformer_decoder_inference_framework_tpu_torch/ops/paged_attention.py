@@ -3,7 +3,7 @@
 Hand-written CUDA kernels for the Pallas kernels of the JAX package's
 ``ops/paged_attention.py``; ``csrc/paged_prefill.cu`` holds B1's
 tensor-core kernel, ``csrc/paged_attention.cu`` B1's SIMT kernel, B2 and
-B9, ``csrc/paged_decode.cu`` B6, B7 and B8:
+B9, ``csrc/paged_decode.cu`` B6 and B7, ``csrc/paged_decode_packed.cu`` B8:
 
 * :func:`paged_attention` (B1) replaces ``paged_attention``
   (``_kernel`` / ``_attend``): a T>=1 chunk, GQA rows ``t*G+g``, causal
@@ -98,7 +98,7 @@ ATTENTION_DECODE_GROUPED = CudaKernel(
     _ATTN_ARGS + [P, P, P] + [I] * 8 + [LL, I, I, I, I, F, F, I, I, I, P],
     "ops/paged_attention.py:442")
 ATTENTION_DECODE_PACKED = CudaKernel(
-    "paged_attention_decode_packed", "paged_decode.cu",
+    "paged_attention_decode_packed", "paged_decode_packed.cu",
     "pbt_paged_attention_decode_packed",
     _ATTN_ARGS + [P, P, P] + [I] * 8 + [LL, I, I, I, F, F, I, I, I, P],
     "ops/paged_attention.py:1083")

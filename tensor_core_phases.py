@@ -10,9 +10,9 @@ kernel of ``csrc/imma.cuh`` (in ``int8_matmul.cu`` and
 ``csrc/widen_gemm.cuh``, the mainloop it shares with B13) with parts cut
 out (their outputs are then garbage) and times each by CUPTI device time
 beside the kernel as it is (the names on the command line, by default
-all nine: ``gmm.cu``, ``paged_prefill.cu``, ``int8_matmul.cu``,
+all ten: ``gmm.cu``, ``paged_prefill.cu``, ``int8_matmul.cu``,
 ``chain_linear.cu``, ``w8_matmul``, ``w4_matmul``, ``w4_gemv``,
-``paged_decode.cu``, ``packed``):
+``paged_decode.cu``, ``packed``, ``w8_gemv``):
 
 * B13 ``grouped_matmul`` at Mixtral-8x7B's prefill (``chip_smoke``'s
   routing of 1024 tokens to 2 of 8 experts, Npad 4096, with the
@@ -67,8 +67,17 @@ all nine: ``gmm.cu``, ``paged_prefill.cu``, ``int8_matmul.cu``,
   ``no_mma`` (the widened words folded into the sums by an add, no
   mma.sync); ``no_steps`` (no k-step at all: the launch, x's staging, the
   warps' merge, the split-K merge and the epilogue alone).
-* B8 ``paged_attention_decode_packed`` (the same split-KV body, built once
-  with B6's cuts) at path (g)'s shape (tinyllama-1.1b: B=8, KH 4, G 8, dh
+* B11's decode gemv (``qmatmul.cuh``'s ``gemv_w8_kernel`` on
+  ``mma_gemv.cuh``, bf16 x) at Llama-3-8B's four projections at M=4,
+  summed, its LM head and Mixtral-8x7B's expert gate|up and down at M=4,
+  each call on a weight outside L2: ``full``; ``no_loads`` (no TMA copy
+  and no wait: the products read the ring's stale slots);
+  ``no_widen`` (the INT8 bytes not widened: the raw words go on to the
+  bf16 pairs); ``no_mma`` (the pairs folded into the sums by an add, no
+  mma.sync); ``no_steps`` (no k-step and no copy at all: the launch, x's
+  staging, the warps' merge, the split-K merge and the epilogue).
+* B8 ``paged_attention_decode_packed`` (``paged_decode_packed.cu``, on the
+  same split-KV body, with B6's cuts) at path (g)'s shape (tinyllama-1.1b: B=8, KH 4, G 8, dh
   64, 1-2 pages a sequence, bf16 queries) and at dh 32 with a window of 40
   keys (f32 queries), INT8 pools: B6's five cuts.
 
@@ -134,6 +143,15 @@ GEMV_UNITS = ("  for (int ku = k_begin + warp * U; ku < k_end; ku += kWarps * U)
 GEMV_A_END = "0x43084308u)};\n"
 GEMV_MMA = ("        for (int p = 0; p < P; ++p) hop::mma_16816(part[4 * q + bb], "
             "A, b[p]);")
+W8_FILL = ("    if (lane == 0)\n"
+           "      mgv::fill_step(")
+W8_WAIT = "      hop::mbar_wait(&bar[s % kW8Ring], (s / kW8Ring) & 1);\n"
+W8_FIRST = "  for (int s = 0; s < kW8Pre; ++s) issue();"
+W8_TOPUP = "      for (int i = issued - s; i < kW8Ring; ++i) issue();"
+W8_WIDEN = ("        f[i][e] =\n"
+            "            __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + e)) - kBias;")
+W8_MMA = "          hop::mma_16816(acc[t][2 * q + h2], A, b[t][p]);"
+W8_STEPS = "    for (int st = warp; st < n_steps; st += W, ++s) {"
 B1_PV = ("        hop::mma_rs_n64<1>(o[c], pa[ks],\n"
          "                           hop::desc(vt + c * 8192 + ks * 2048, "
          "8192, 1024));")
@@ -221,7 +239,10 @@ def variants():
             "no_store": {"int4_matmul.cu": sub(
                 w4, W4_STORE, "    if (y[0] == 12345.f)\n" + W4_STORE)},
         }}
-    out["packed"] = out["paged_decode.cu"]
+    pp = (plat.CSRC / "paged_decode_packed.cu").read_text()
+    out["packed"] = {label: {"paged_decode_packed.cu": pp,
+                             "split_decode.cuh": files["split_decode.cuh"]}
+                     for label, files in out["paged_decode.cu"].items()}
     # imma.cuh beside the cut qmatmul.cuh, so that its include of it finds
     # the cut copy and not csrc's (two definitions)
     imma_h = (plat.CSRC / "imma.cuh").read_text()
@@ -238,6 +259,28 @@ def variants():
                       "part[4 * q + bb][0] += __uint_as_float(\n"
                       "            A[0] ^ A[1] ^ A[2] ^ A[3] ^ b[p][0]);"),
     }.items()}
+    # B11's decode gemv: int8_matmul.cu with cut copies of mma_gemv.cuh
+    # (the products, shared with B14) or qmatmul.cuh (the kernel), and
+    # imma.cuh and qmatmul.cuh copied beside them so that each is included
+    # once
+    mg = (plat.CSRC / "mma_gemv.cuh").read_text()
+    out["w8_gemv"] = {label: dict({"int8_matmul.cu": w8, "qmatmul.cuh": q,
+                                   "imma.cuh": imma_h}, **(
+                                       {"mma_gemv.cuh": m} if m else {}))
+                      for label, q, m in (
+        ("full", qm, None),
+        ("no_loads", sub(sub(qm, W8_FILL, W8_FILL.replace("lane == 0",
+                                                          "false")),
+                         W8_WAIT, ""), None),
+        ("no_widen", qm, sub(mg, W8_WIDEN, "        f[i][e] = "
+                             "__uint_as_float(u ^ e);")),
+        ("no_mma", qm, sub(mg, W8_MMA, "          acc[t][2 * q + h2][0] "
+                           "+= __uint_as_float(A[0] ^ A[1] ^ A[2] ^ A[3] ^ "
+                           "b[t][p][0]);")),
+        ("no_steps", sub(sub(sub(qm, W8_STEPS, W8_STEPS.replace(
+            "st < n_steps", "st < 0")), W8_FIRST, W8_FIRST.replace(
+                "s < kW8Pre", "s < 0")), W8_TOPUP, W8_TOPUP.replace(
+                    "i < kW8Ring", "i < 0")), None))}
     for src in ("int8_matmul.cu", "chain_linear.cu"):
         text = (plat.CSRC / src).read_text()
         out[src] = {label: {src: text, "imma.cuh": hdr}
@@ -401,6 +444,32 @@ def b12_gemv_cases(dev):
     return cases
 
 
+def b11_gemv_cases(dev):
+    """B11's decode gemv (bf16 x) at Llama-3-8B's four projections at M=4
+    (a call runs all four), its LM head at M=4 and Mixtral-8x7B's expert
+    gate|up and down at M=4, each call on the next of enough weight copies
+    to overflow L2 (``chip_smoke``'s cold weights)."""
+    gen = torch.Generator(device=dev).manual_seed(smoke.SEED + 15)
+    cases, calls = {}, []
+    for name, K, N in (smoke.PROJECTIONS + [smoke.LM_HEAD]
+                       + smoke.MIXTRAL_EXPERTS):
+        w = qt.quantize_per_channel(torch.randn(
+            (K, N), generator=gen, device=dev) * 0.02)
+        copies = max(1, -(-int(smoke.COLD_BYTES) // w.values.numel()))
+        ws = [w] + [qt.QTensor(w.values.clone(), w.scales.clone())
+                    for _ in range(copies - 1)]
+        x = torch.randn((4, K), generator=gen, device=dev).to(
+            torch.bfloat16)
+        call = smoke.cold_calls(lambda q, x=x: i8.w8_matmul(
+            x, q.values, q.scales), ws)
+        if (name, K, N) in smoke.PROJECTIONS:
+            calls.append(call)
+        else:
+            cases[f"{name.replace('lm-head', 'head')} M=4"] = call
+    cases["layer M=4"] = lambda: [c() for c in calls]
+    return cases
+
+
 def b8_cases(dev):
     """B8 at path (g)'s decode shape (bf16 queries) and at dh 32 with a
     window of 40 keys (f32 queries), ``chip_smoke``'s
@@ -437,8 +506,10 @@ KERNELS = {"gmm.cu": ("gmm.cu", gmm.GROUPED_MATMUL, gmm_cases, "gmm::"),
                          "w4::w4_wgmma_kernel<"),
            "w4_gemv": ("int4_matmul.cu", i4.W4_MATMUL, b12_gemv_cases,
                        "qmm::gemv_w4_kernel<"),
-           "packed": ("paged_decode.cu", pa.ATTENTION_DECODE_PACKED, b8_cases,
-                      "decode_packed_split_kernel<")}
+           "packed": ("paged_decode_packed.cu", pa.ATTENTION_DECODE_PACKED,
+                      b8_cases, "decode_packed_split_kernel<"),
+           "w8_gemv": ("int8_matmul.cu", i8.W8_MATMUL, b11_gemv_cases,
+                       "qmm::gemv_w8_kernel<")}
 
 
 def build_variants(names):

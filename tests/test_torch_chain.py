@@ -325,3 +325,90 @@ def test_bridged_dropped_chains_forward_matches_jax(name, quant):
     tl, _ = tm.forward(tp, torch.from_numpy(tok), torch.from_numpy(step),
                        tkv, td.attn_fn)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **tol)
+
+
+def chain_geom(D, I, N3, act, bk, bn, tail=True):
+    """``ops_geom`` as :func:`pack_chain` lays out a chain of these widths
+    (no weights needed)."""
+    ids = [tcl.OP_O] + ([tcl.OP_G] if act == "swiglu" else []) + \
+        [tcl.OP_U, tcl.OP_D] + ([tcl.OP_T] if tail else [])
+    KN = {tcl.OP_O: (D, D), tcl.OP_G: (D, I), tcl.OP_U: (D, I),
+          tcl.OP_D: (I, D), tcl.OP_T: (D, N3)}
+    geom, g0, sb0 = [], 0, 0
+    for op in ids:
+        K, N = KN[op]
+        KB, NB = -(-K // bk), -(-N // bn)
+        geom.append((op, g0, KB, NB, K, N, sb0))
+        g0, sb0 = g0 + KB * NB, sb0 + NB
+    return tuple(geom)
+
+
+#: B14's geometries: Llama-3-8B's chain (bk 1024, bn 2048), the card's edge
+#: chains (GPT-2, TinyLlama's I % bn != 0, D 1280 in square blocks) and the
+#: card tests' small ones
+PLAN_GEOMS = {"llama3-8b": (4096, 14336, 6144, "swiglu", 1024, 2048),
+              "gpt2": (768, 3072, 2304, "gelu", 768, 768),
+              "tinyllama": (2048, 5632, 2560, "swiglu", 1024, 2048),
+              "d1280": (1280, 5120, 3840, "swiglu", 1280, 1280),
+              "small": (256, 512, 384, "swiglu", 128, 256),
+              "relu-ln": (384, 512, 128, "relu", 256, 128)}
+
+
+@pytest.mark.parametrize("w8a8", [False, True])
+@pytest.mark.parametrize("B", [1, 4, 6, 16])
+@pytest.mark.parametrize("name", sorted(PLAN_GEOMS))
+def test_chain_plan(name, B, w8a8):
+    """B14's host table as ``csrc/chain_linear.cu`` checks it: per op a
+    task's rows S a multiple of 128 that divides bk, at most 1024, the
+    largest that still gives a task an SM (else the smallest); the
+    workspace regions (residual, attention input, h, gate, up, act, the
+    row scales, the largest phase's split-K partials) in order, aligned and
+    as large as the kernel reads them; a counter per column tile and row
+    group of four rows."""
+    D, I, N3, act, bk, bn = PLAN_GEOMS[name]
+    geom = chain_geom(D, I, N3, act, bk, bn)
+    table, total, counters = tcl.chain_plan(geom, bk, bn, D, I, D, w8a8, B)
+    v = table.tolist()
+    assert v[0] == len(geom)
+    ops = [v[1 + 8 * i:9 + 8 * i] for i in range(len(geom))]
+    off = v[1 + 8 * len(geom):]
+    Bp = -(-B // 4) * 4
+    rgroups = Bp // 4
+    for (op, g0, KB, NB, K, N, sb0, S), g in zip(ops, geom):
+        assert (op, g0, KB, NB, K, N, sb0) == g
+        assert S % 128 == 0 and bk % S == 0 and S <= 1024
+        work = NB * bn // 128 * rgroups * KB
+        fits = [s for s in range(128, min(bk, 1024) + 1, 128) if bk % s == 0]
+        enough = [s for s in fits if work * (bk // s) >= tcl._TASKS]
+        assert S == (max(enough) if enough else fits[0])
+    assert counters == 1 + sum(NB * bn // 128 * rgroups
+                               for _, _, _, NB, _, _, _ in geom)
+    lcm = np.lcm(bk, bn)
+    Wd, Wi = -(-D // lcm) * lcm, -(-I // lcm) * lcm
+    K0p = -(-D // bk) * bk
+    a8 = 1 if w8a8 else 4
+    sizes = [4 * Bp * Wd, a8 * Bp * K0p, a8 * Bp * Wd, 4 * Bp * Wi,
+             4 * Bp * Wi, a8 * Bp * Wi, 12 * Bp]
+    assert len(off) == 8 and off[0] == 0
+    assert all(o % 256 == 0 for o in off)
+    for r, size in enumerate(sizes):
+        assert off[r + 1] - off[r] >= size
+    phase = {tcl.OP_O: 0, tcl.OP_G: 1, tcl.OP_U: 1, tcl.OP_D: 2,
+             tcl.OP_T: 3}
+    need = {}
+    for op, _, KB, NB, _, _, _, S in ops:
+        if KB * bk // S > 1:
+            need[phase[op]] = need.get(phase[op], 0) + \
+                4 * (KB * bk // S) * Bp * NB * bn
+    assert total - off[7] >= max(need.values(), default=0)
+
+
+def test_chain_plan_llama3_8b_tasks():
+    """At Llama-3-8B's chain and a decode batch of 4, w8a8: the o-projection
+    split in 512-row tasks (32 column tiles x 8 = 256 tasks, at least one an
+    SM), the rest in whole 1024-row blocks (448, 448, 448 and 192 tasks)."""
+    D, I, N3, act, bk, bn = PLAN_GEOMS["llama3-8b"]
+    geom = chain_geom(D, I, N3, act, bk, bn)
+    table, _, _ = tcl.chain_plan(geom, bk, bn, D, I, D, True, 4)
+    v = table.tolist()
+    assert [v[8 + 8 * i] for i in range(5)] == [512, 1024, 1024, 1024, 1024]

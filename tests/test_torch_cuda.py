@@ -16,17 +16,19 @@ of outputs of magnitude ~1); appends are bit-exact, B9's pool too. B10
 is bit-exact (exact s32 sums, the same epilogue), on the matrix-vector
 kernel (M <= 16) and on the INT8 tensor-core kernel (M > 16; every split
 count the planner chooses, ragged K and N the wrapper zero-pads);
-B11/B12 sum f32 in another order (B11 past 16 rows with bf16 x on the
-tensor cores, their accumulation order): f32 outputs within 1e-5 of
+B11/B12 sum f32 in another order (B11's decode gemv on mma.sync, and
+past 16 rows with bf16 x on wgmma, in the tensor cores' accumulation
+order; f32 x as three exact bf16 planes): f32 outputs within 1e-5 of
 max|output|, bf16 outputs within one bf16 step or that (where
-cancellation leaves an output tiny). B2 (split-KV) sums its splits'
+cancellation leaves an output tiny); the gemv's K splits merge in split
+order, so the same bits from run to run. B2 (split-KV) sums its splits'
 partials in a fixed order: the same bits from run to run. B14 against its
 plain version, relative to max|output|: 1e-4 with f32 activations (f32
 sums in another order, through two norms); 2e-2 with bf16 activations
 (h and the activation are rounded to bf16 between the ops, so a sum in
 another order can move one value by a bf16 step) and under w8a8 (an
 f32 norm sum in another order can move one re-quantized activation by
-an INT8 step). B15 as B10 under w8a8 (bit-exact) and as B11 otherwise.
+an INT8 step); the same bits from run to run. B15 as B10 under w8a8 (bit-exact) and as B11 otherwise.
 B13 as B11 (f32 sums in another order: bf16 outputs within one bf16
 step or 1e-5 of max|output|, f32 outputs 1e-5 of max|output|); B12 past
 16 rows with bf16 x on the tensor cores as B11 (its group sums folded
@@ -680,7 +682,7 @@ def test_cuda_split_k_on_two_streams(cuda):
     tile counters, so each sums its own partials."""
     x, w, _ = matmul_inputs(4, 4096, 1024, cuda, seed=3)
     wq = qt.quantize_per_channel(w)
-    assert i8.plan(4, 4096, 1024, True)[1] > 1          # K is split
+    assert i8.w8_gemv_plan(4, 4096, 1024, torch.bfloat16)[0] > 1  # split
     xs = [x, x.flip(0)]
     refs = [i8.w8_matmul_plain(a, wq.values, wq.scales) for a in xs]
     streams = [torch.cuda.Stream(), torch.cuda.Stream()]
@@ -693,6 +695,71 @@ def test_cuda_split_k_on_two_streams(cuda):
     torch.cuda.synchronize()
     for o, ref in zip(outs, refs):
         assert all(within(y, ref, torch.bfloat16) for y in o)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", range(1, 17))
+def test_cuda_w8_gemv_every_row_count(cuda, M):
+    """B11's decode gemv (mma.sync, the INT8 weights widened exactly) at
+    every decode row count, bf16 and f32 x, bf16 and f32 out, with and
+    without a bias and an activation, K split (512) and not, and a ragged
+    K (1000, zero-padded to 16): one launch a call, the same bits from run
+    to run."""
+    for K, N in ((512, 1024), (1000, 256), (4096, 128)):
+        x, w, b = matmul_inputs(M, K, N, cuda, seed=M)
+        wq = qt.quantize_per_channel(w)
+        for x_dtype in (torch.bfloat16, torch.float32):
+            xd = x.to(x_dtype)
+            assert i8.w8_plan(M, -(-K // 16) * 16, N, x_dtype)[0] == "gemv"
+            for out_dtype in (torch.bfloat16, torch.float32):
+                for bias, act in ((None, None), (b, "silu"), (b, "gelu")):
+                    args = (xd, wq.values, wq.scales, bias)
+                    kw = dict(act=act, out_dtype=out_dtype)
+                    i8.W8_MATMUL.launches = 0
+                    out = i8.w8_matmul(*args, **kw)
+                    assert i8.W8_MATMUL.launches == 1
+                    assert torch.equal(out, i8.w8_matmul(*args, **kw))
+                    assert within(out, i8.w8_matmul_plain(*args, **kw),
+                                  out_dtype), (K, N, x_dtype, act)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", range(1, 17))
+def test_cuda_w8_gemv_every_split(cuda, splits):
+    """B11's decode gemv over one column tile split into ``splits`` K
+    ranges (one round of the 8 warps' k-steps each; the last block merges
+    them in split order), M 4 and 12, bf16 and f32 x: the same bits from
+    run to run, within the tolerance of the plain version."""
+    K = 128 * splits
+    for M in (4, 12):
+        x, w, b = matmul_inputs(M, K, 128, cuda, seed=splits)
+        wq = qt.quantize_per_channel(w)
+        for x_dtype in (torch.bfloat16, torch.float32):
+            xd = x.to(x_dtype)
+            plan = i8.w8_gemv_plan(M, K, 128, x_dtype)
+            if x_dtype == torch.bfloat16:
+                assert plan == (splits, 128)
+            args = (xd, wq.values, wq.scales, b)
+            out = i8.w8_matmul(*args, act="silu")
+            assert torch.equal(out, i8.w8_matmul(*args, act="silu"))
+            assert within(out, i8.w8_matmul_plain(*args, act="silu"),
+                          torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_cuda_w8_gemv_swapped_k_steps_leave_the_tolerance(cuda):
+    """The control: two of the gemv's 16-row k-steps read in each other's
+    place move the plain output past the tolerance the kernel is held to,
+    and the kernel stays within it."""
+    x, w, _ = matmul_inputs(4, 1024, 2048, cuda, seed=5)
+    wq = qt.quantize_per_channel(w)
+    x = x.to(torch.bfloat16)
+    v = wq.values
+    swapped = torch.cat([v[16:32], v[:16], v[32:]])
+    ref = i8.w8_matmul_plain(x, v, wq.scales)
+    assert within(i8.w8_matmul(x, v, wq.scales), ref, torch.bfloat16)
+    assert not within(i8.w8_matmul_plain(x, swapped, wq.scales), ref,
+                      torch.bfloat16)
 
 
 # B10 past the matrix-vector rows, on the tensor-core kernel: (K, N)
@@ -998,6 +1065,28 @@ def test_cuda_chain_decode_matches_plain(cuda, shape, kind, B, tail):
     for o, r in pairs:
         scale = r.float().abs().max()
         assert (o.float() - r.float()).abs().max() <= chain_tol(kind) * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(CHAIN_KINDS))
+@pytest.mark.parametrize("shape", sorted(CHAIN_SHAPES))
+def test_cuda_chain_decode_run_to_run(cuda, shape, kind):
+    """B14 gives the same bits from run to run (the splits' partials
+    merged in split order, each block's row statistics in a fixed order),
+    at B 1, 4 and 13 (two row groups of the tasks)."""
+    pc, dt = chain_inputs(shape, kind, cuda)
+    for B in (1, 4, 13):
+        g = torch.Generator(device="cpu").manual_seed(B)
+        ain = torch.randn((B, pc.K0), generator=g).to(cuda, dt)
+        x = torch.randn((B, pc.D), generator=g).to(cuda, dt)
+        out, t = cl.chain_decode(pc, ain, x)
+        out2, t2 = cl.chain_decode(pc, ain, x)
+        assert torch.equal(out, out2) and torch.equal(t, t2)
+        ref, rt = cl.chain_decode_plain(pc, ain, x)
+        for o, r in ((out, ref), (t, rt)):
+            scale = r.float().abs().max()
+            assert (o.float() - r.float()).abs().max() <= \
+                chain_tol(kind) * scale
 
 
 @pytest.mark.cuda

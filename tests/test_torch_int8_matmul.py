@@ -357,7 +357,7 @@ def test_w8_route(M, x_dtype, gemv_ok, route):
     if route == "tiles":
         assert (splits, kps) == (1, 4096)
     if route == "gemv":
-        assert (True, splits, kps) == i8.plan(M, 4096, 6144, True)
+        assert (splits, kps) == i8.w8_gemv_plan(M, 4096, 6144, x_dtype)
 
 
 @pytest.mark.parametrize("M,K,N,splits", [
@@ -474,3 +474,143 @@ def test_swapped_w8_tiles_move_the_plain_output():
             ref.abs().clamp_min(2.0 ** -126))) - 7)
         tol = torch.maximum(step, 1e-5 * ref.abs().max())
         assert ((moved - ref).abs() > tol).float().mean() > 0.3
+
+
+#: B11's decode shapes: Mixtral-8x7B's expert gate|up and down (path (k)),
+#: Llama-3-8B's four projections and LM head, and a K that is no multiple
+#: of a split's rows
+GEMV_SHAPES = [(4096, 28672), (14336, 4096), (4096, 6144), (4096, 4096),
+               (4096, 128256), (4112, 1024), (512, 256)]
+
+
+@pytest.mark.parametrize("x_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("M", range(1, 17))
+def test_w8_gemv_plan(M, x_dtype):
+    """B11's matrix-vector plan at every decode row count: whole 16-row
+    k-steps covering K, each split's rows of x (times x's planes) within
+    the stage, and no more tiles than one wave of blocks unless the stage
+    alone asks for the splits."""
+    planes = 1 if x_dtype == torch.bfloat16 else 3
+    rows = i8.w8_gemv_rows(M)
+    assert rows >= M and rows & (rows - 1) == 0 and rows <= 16
+    for K, N in GEMV_SHAPES:
+        splits, kps = i8.w8_gemv_plan(M, K, N, x_dtype)
+        assert kps % i8.W8_GEMV_K == 0
+        assert splits * kps >= K > (splits - 1) * kps
+        assert planes * kps * rows <= 2 * i8.W8_GEMV_STAGE
+        tiles = -(-N // i8.W8_GEMV_COLS)
+        least = -(-K // (2 * i8.W8_GEMV_STAGE // (planes * rows)
+                         // 16 * 16))
+        if tiles * least >= i8.SMS:
+            assert splits == least
+        else:
+            assert tiles * splits <= i8.SMS
+        assert i8.w8_plan(M, K, N, x_dtype) == ("gemv", splits, kps)
+
+
+@pytest.mark.parametrize("M,K,N,x_dtype,plan", [
+    (4, 4096, 28672, torch.bfloat16, (1, 4096)),    # expert gate|up: 224
+    (4, 14336, 4096, torch.bfloat16, (4, 3584)),    # expert down: 32 tiles
+    (4, 4096, 6144, torch.bfloat16, (2, 2048)),     # qkv: 48 tiles
+    (4, 4096, 4096, torch.bfloat16, (4, 1024)),     # o
+    (4, 4096, 128256, torch.bfloat16, (1, 4096)),   # the head: 1002 tiles
+    (4, 4096, 28672, torch.float32, (2, 2048)),     # three planes: the
+    (16, 14336, 4096, torch.bfloat16, (7, 2048)),   # stage splits K
+    (1, 256, 512, torch.bfloat16, (2, 128))])       # a k-step a warp
+def test_w8_gemv_plan_at_the_paths_shapes(M, K, N, x_dtype, plan):
+    assert i8.w8_gemv_plan(M, K, N, x_dtype) == plan
+
+
+@pytest.mark.parametrize("splits", range(1, 17))
+def test_w8_gemv_plan_reaches_every_split(splits):
+    """One column tile over ``splits`` rounds of the block's 8 warps'
+    k-steps is split once a round: the shapes by which the card's tests
+    reach every split count of B11's matrix-vector kernel."""
+    K = i8.W8_GEMV_K * i8.W8_GEMV_WARPS * splits
+    assert i8.w8_gemv_plan(4, K, 128, torch.bfloat16) == (splits, 128)
+
+
+def test_x_planes_sum_exactly():
+    """f32 x as the kernel stages it: three bf16 planes whose sum is x
+    exactly (f32's 24 significant bits in three bf16 of 8), for values
+    across f32's range (up to bf16's largest finite value, past which the
+    first plane rounds to infinity); bf16 x is one plane, itself."""
+    rng = np.random.default_rng(11)
+    x = (rng.normal(size=(4, 4096)) * np.exp2(
+        rng.integers(-60, 60, size=(4, 4096)))).astype(np.float32)
+    x[0, :4] = [np.float32(1 + 2.0 ** -23), -np.float32(3.38e38),
+                np.float32(1e-30), 0.0]
+    xt = torch.from_numpy(x)
+    planes = i8.x_planes(xt)
+    assert len(planes) == 3
+    assert all(torch.equal(p, p.to(torch.bfloat16).float()) for p in planes)
+    assert torch.equal(planes[0] + planes[1] + planes[2], xt)
+    assert torch.equal((planes[0].double() + planes[1].double()
+                        + planes[2].double()).float(), xt)
+    xb = xt.to(torch.bfloat16)
+    (only,) = i8.x_planes(xb)
+    assert torch.equal(only, xb.float())
+
+
+@pytest.mark.parametrize("x_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("M,K,N,splits", [
+    (4, 512, 384, None), (13, 1000, 256, None), (1, 256, 128, 1),
+    (3, 1024, 128, 8), (16, 4096, 128, 3)])
+def test_w8_gemv_emulation_matches_plain_and_jax(M, K, N, splits, x_dtype):
+    """The matrix-vector kernel's order of work (splits in split order,
+    each over 8 warps' k-steps in warp order, x as its bf16 planes, K
+    padded to 16) against the plain version and the JAX kernel: one bf16
+    step for bf16 out, 1e-5 of max|out| for f32 out."""
+    x, w, b = inputs(M, K, N, seed=12)
+    xj = jnp.asarray(x, JDT[x_dtype])
+    wj = jt.quantize_per_channel(jnp.asarray(w))
+    xt, wq = t(xj), tt.quantize_per_channel(torch.from_numpy(w))
+    assert torch.equal(wq.values, t(wj.values))
+    for out_dtype, act in (("bfloat16", None), ("float32", "gelu")):
+        kw = dict(act=act, out_dtype=TDT[out_dtype])
+        emu = i8.w8_gemv_emulation(xt, wq.values, wq.scales,
+                                   torch.from_numpy(b), splits=splits, **kw)
+        ref = i8.w8_matmul_plain(xt, wq.values, wq.scales,
+                                 torch.from_numpy(b), **kw)
+        jref = jax_w8_matmul(xj, wj.values, wj.scales, jnp.asarray(b),
+                             act=act, out_dtype=JDT[out_dtype],
+                             interpret=True)
+        for r in (ref.float().numpy(), np.asarray(jref, np.float32)):
+            e = emu.float().numpy()
+            if out_dtype == "bfloat16":
+                within_bf16_step(e, r)
+            else:
+                np.testing.assert_allclose(e, r, rtol=0,
+                                           atol=1e-5 * np.abs(r).max())
+
+
+@pytest.mark.parametrize("M,K,N", [(4, 1000, 1024), (16, 70, 128),
+                                   (1, 4096, 256)])
+def test_w8_gemv_operands_padding_keeps_the_product(M, K, N):
+    """K zero-padded to 16 (the gemv's k-step) through the plain version
+    gives the unpadded result bit for bit; K a multiple of 16 passes
+    through untouched."""
+    x, wq, scales, bias = exact_w8_inputs(M, K, N, seed=13)
+    px, pw = i8.w8_gemv_operands(x, wq)
+    assert px.shape == (M, -(-K // 16) * 16) and pw.shape == (px.shape[1],
+                                                              N)
+    for act in (None, "silu"):
+        ref = i8.w8_matmul_plain(x, wq, scales, bias, act=act)
+        assert torch.equal(i8.w8_matmul_plain(px, pw, scales, bias,
+                                              act=act), ref)
+    if K % 16 == 0:
+        assert px is x and pw is wq
+
+
+@pytest.mark.parametrize("name", sorted(PRESETS))
+def test_preset_products_need_no_gemv_padding(name):
+    """Every preset's weight-only INT8 products have K % 16 == 0, so
+    :func:`w8_gemv_operands` hands B11's matrix-vector kernel the weight
+    itself at every decode step."""
+    c = PRESETS[name]
+    q, kv = c.num_heads * c.head_dim, c.num_kv_heads * c.head_dim
+    for K in (c.hidden_size, q, c.intermediate_size):
+        wq = torch.zeros((K, 16), dtype=torch.int8)
+        x = torch.zeros((4, K), dtype=torch.bfloat16)
+        px, pw = i8.w8_gemv_operands(x, wq)
+        assert px is x and pw is wq, (name, K)

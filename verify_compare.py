@@ -14,7 +14,8 @@ weight outside L2):
   M=4 (decode, the gemv), M=36 (a verify chunk of 4 x 9 rows) and M=256
   (a prefill chunk);
 * B11 ``w8_matmul`` with bf16 x, the same layer's four projections at
-  M=256 and the LM head at M=4 (the gemv), M=36 and M=256;
+  M=4 (the decode gemv) and M=256, the LM head at M=4, M=36 and M=256,
+  and Mixtral-8x7B's expert gate|up and down at M=4 (path (k)'s decode);
 * B12 ``w4_matmul`` with bf16 x, the same layer's four projections at
   M=4, 36 and 256 and the LM head at M=4 and 256;
 * the split-KV decode kernels, INT8 pool, bf16 queries (``chip_smoke``'s
@@ -29,6 +30,8 @@ weight outside L2):
 * B13 ``grouped_matmul`` at Mixtral-8x7B's prefill (``chip_smoke``'s
   routing, Npad 4096, ``block_rows``), we_gu and we_down with INT8
   experts, summed;
+* B14 ``chain_decode`` at Llama-3-8B's chain with the next layer's qkv,
+  B=4, w8a8, int8-weight and bf16 blocks;
 * path (e) as ``chip_smoke.py`` runs it (``spec_path``: w8a8
   Llama-3-8B, 32 layers, random weights from seed 0, then the
   token-repeating copy that accepts drafts; each run's launch counts and
@@ -103,10 +106,11 @@ def one(tree: pathlib.Path, mode: str) -> dict:
     b12 = b12_times(torch, cs, qt, dev, gen)
     decode = decode_times(torch, cs, dev, gen)
     b13 = b13_ms(torch, cs, qt, dev, gen)
+    b14 = b14_times(torch, cs, dev, gen)
     kernels = {"tree": str(tree), "card": card,
                "b10_layer_ms": {str(m): v for m, v in layer.items()},
                "b11_ms": b11, "b12_ms": b12, "decode_ms": decode,
-               "b13_ms": b13}
+               "b13_ms": b13, "b14_ms": b14}
     if mode == "kernels":
         return kernels
 
@@ -140,20 +144,26 @@ def one(tree: pathlib.Path, mode: str) -> dict:
                 "int8_matmul", 0.0)}
 
 
+#: Mixtral-8x7B's expert gate|up and down (path (k)'s decode step)
+EXPERTS = [("expert gate-up", 4096, 28672), ("expert down", 14336, 4096)]
+
+
 def b11_times(torch, cs, i8, qt, dev, gen) -> dict:
-    """B11 with bf16 x: a layer's four projections at M=256 and the LM
-    head at M=36 and 256, ms by CUPTI."""
+    """B11 with bf16 x: a layer's four projections at M=4 and M=256, the
+    LM head at M=4, 36 and 256, and Mixtral-8x7B's expert gate|up and down
+    at M=4, ms by CUPTI."""
     import numpy as np
 
-    out = {"layer M=256": 0.0}
-    for name, K, N in cs.PROJECTIONS + [cs.LM_HEAD]:
+    out = {"layer M=4": 0.0, "layer M=256": 0.0}
+    for name, K, N in cs.PROJECTIONS + [cs.LM_HEAD] + EXPERTS:
         wq = qt.quantize_per_channel(
             torch.randn((K, N), generator=gen, device=dev) * 0.02)
         copies = max(1, int(np.ceil(cs.COLD_BYTES / wq.values.numel())))
         wqs = [wq] + [qt.QTensor(wq.values.clone(), wq.scales.clone())
                       for _ in range(copies - 1)]
         head = name == cs.LM_HEAD[0]
-        for M in ((4, 36, 256) if head else (256,)):
+        expert = name.startswith("expert")
+        for M in ((4, 36, 256) if head else (4,) if expert else (4, 256)):
             x = torch.randn((M, K), generator=gen, device=dev).to(
                 torch.bfloat16)
             ms = cs.device_ms(cs.cold_calls(
@@ -161,9 +171,32 @@ def b11_times(torch, cs, i8, qt, dev, gen) -> dict:
                 match=cs.KERNEL_NAMES["w8_matmul"])
             if head:
                 out[f"head M={M}"] = ms
+            elif expert:
+                out[name] = ms
             else:
-                out["layer M=256"] += ms
+                out[f"layer M={M}"] += ms
         del wq, wqs
+        torch.cuda.empty_cache()
+    return out
+
+
+def b14_times(torch, cs, dev, gen) -> dict:
+    """B14 at Llama-3-8B's chain with the next layer's qkv, B=4, each
+    variant, ms by CUPTI."""
+    from importlib import import_module
+
+    cl = import_module(f"{cs.PKG}.ops.chain_linear")
+    ops, lns = cs.chain_ops(torch, gen, dev, cs.CHAIN_MAIN)
+    out = {}
+    for variant in ("w8a8", "int8-weight", "bf16"):
+        pc, _ = cs.chain_variant(torch, ops, lns, cs.CHAIN_MAIN, variant)
+        ain = torch.randn((4, pc.K0), generator=gen, device=dev).to(
+            torch.bfloat16)
+        x = torch.randn((4, pc.D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        out[variant] = cs.device_ms(lambda: cl.chain_decode(pc, ain, x),
+                                    match=cs.KERNEL_NAMES["chain_decode"])
+        del pc
         torch.cuda.empty_cache()
     return out
 
@@ -298,18 +331,23 @@ def main(trees, mode) -> int:
             + f" ({r['card']})")
     if mode == "decode":
         return 0
-    print("tree | B10 layer M=4 / 36 / 256 ms | B11 layer M=256 / head M=4 "
-          "/ 36 / 256 ms | B12 layer M=4 / 36 / 256, head M=4 / 256 ms | "
-          "B13 ms")
+    print("tree | B10 layer M=4 / 36 / 256 ms | B11 layer M=4 / 256, head "
+          "M=4 / 36 / 256, expert gate-up / down M=4 ms | B12 layer M=4 / 36 "
+          "/ 256, head M=4 / 256 ms | B13 ms | B14 w8a8 / int8-weight / "
+          "bf16 ms")
     for r in results:
         b10, b11, b12 = r["b10_layer_ms"], r["b11_ms"], r["b12_ms"]
+        b14 = r["b14_ms"]
         print(f"{r['tree']} | {b10['4']:.4f} / {b10['36']:.4f} / "
-              f"{b10['256']:.4f} | {b11['layer M=256']:.4f} / "
-              f"{b11['head M=4']:.4f} / {b11['head M=36']:.4f} / "
-              f"{b11['head M=256']:.4f} | {b12['layer M=4']:.4f} / "
+              f"{b10['256']:.4f} | {b11['layer M=4']:.4f} / "
+              f"{b11['layer M=256']:.4f}, {b11['head M=4']:.4f} / "
+              f"{b11['head M=36']:.4f} / {b11['head M=256']:.4f}, "
+              f"{b11['expert gate-up']:.4f} / {b11['expert down']:.4f} | "
+              f"{b12['layer M=4']:.4f} / "
               f"{b12['layer M=36']:.4f} / {b12['layer M=256']:.4f}, "
               f"{b12['head M=4']:.4f} / {b12['head M=256']:.4f} | "
-              f"{r['b13_ms']:.4f} ({r['card']})")
+              f"{r['b13_ms']:.4f} | {b14['w8a8']:.4f} / "
+              f"{b14['int8-weight']:.4f} / {b14['bf16']:.4f} ({r['card']})")
     if mode == "kernels":
         return 0
     print("tree | B10 layer M=36 ms | M=256 ms | B11 layer M=256 / head "
