@@ -136,7 +136,21 @@ and nothing of JAX. Phases:
    registers, spills and their HMMA / IMMA, UTMALDG and LDGSTS (cp.async)
    counts. B14's matmul tasks run on mma.sync with the weights through
    TMA rings whose copies run on across the row phases and barriers; it
-   is held as before in every variant and edge chain.
+   is held as before in every variant and edge chain. Slice 13 (B9 and B4
+   redesigned): B9 runs on B2's split-KV body (``decode_append_split_kernel``:
+   B2's grid and plan over the keys already in the pool, the new token
+   folded in the merge, its row stored by the merging block's copy warp),
+   held also at a 512-page table at batch 1 and with a stale row planted
+   in each new token's slot (f32 queries; the plain version reading that
+   slot as a key, at ``seq_len + 1``, must move the output past the
+   tolerance), and timed at the slice and at 512 pages beside B2 alone
+   and B3 then B2 on the same inputs; B4 (``append_prefill_kernel``: a
+   slot's position and pool page read once, every row unit copied
+   independently) is held and timed at paths (i)'s, (h)'s and (k)'s
+   chunks too; B3, B4 and B5 are timed beside their library yardstick,
+   ``index_copy_`` of the rows into the flattened pool (and of the INT8
+   scales into the flat scales). Phase 1 reports B2's, B9's and B4's
+   registers and spills and the split-KV kernels' bulk copies (UBLKCP).
 3. The paths, each ``Engine`` on llama3-8b at full width and full depth
    (32 layers; (a), (c) and (d) cut to 8; weights from a seed, INT8
    paged KV, page 64, prefill chunk 256, the pool ``bench.py`` sizes, for (b),
@@ -371,6 +385,11 @@ TENSOR_CORE_KERNELS = [("gmm.cu", "wgmma_kernel"),
                        ("int8_matmul.cu", "gemv_w8_kernel"),
                        ("int4_matmul.cu", "gemv_w4_kernel"),
                        ("chain_linear.cu", "chain_kernel")]
+#: kernels reported beside them that run no tensor-core product: B2's and
+#: B9's split-KV kernels (pages by bulk copy: UBLKCP) and B4's
+COPY_KERNELS = [("paged_attention.cu", "decode_split_kernel"),
+                ("paged_attention.cu", "decode_append_split_kernel"),
+                ("kv_append.cu", "append_prefill_kernel")]
 
 
 def tensor_core_report(log, built):
@@ -380,13 +399,15 @@ def tensor_core_report(log, built):
     and, where ``cuobjdump`` is found, the count of wgmma (HGMMA for
     bf16, IGMMA for INT8), TMA (UTMALDG) and bulk-copy (UBLKCP)
     instructions in its SASS, and the warp products (HMMA for bf16, IMMA
-    for INT8, from mma.sync) of the gemv kernels and B14. Fails on a wgmma
-    serialization warning (C7510-C7520) in the build log, and where a
-    kernel's SASS holds no tensor-core product."""
+    for INT8, from mma.sync) of the gemv kernels and B14; the same for
+    :data:`COPY_KERNELS`. Fails on a wgmma serialization warning
+    (C7510-C7520) in the build log, where a tensor-core kernel's SASS holds
+    no tensor-core product, and where a split-KV kernel's holds no bulk
+    copy."""
     import re
     import shutil
 
-    symbols = {sym for _, sym in TENSOR_CORE_KERNELS}
+    symbols = {sym for _, sym in TENSOR_CORE_KERNELS + COPY_KERNELS}
     serialized = re.findall(r"[^\n]*C75(?:0\d|1\d|20)[^\n]*", log)
     check(not serialized, "ptxas serialized wgmma: " + "; ".join(serialized))
     for m in re.finditer(r"Compiling entry function '([^']+)'.*?"
@@ -410,7 +431,7 @@ def tensor_core_report(log, built):
               flush=True)
         return
     dumps = {}                       # one disassembly a library
-    for source, symbol in TENSOR_CORE_KERNELS:
+    for source, symbol in TENSOR_CORE_KERNELS + COPY_KERNELS:
         if source not in dumps:
             dumps[source] = subprocess.run(
                 [tool, "-sass", str(built[source])], capture_output=True,
@@ -429,6 +450,10 @@ def tensor_core_report(log, built):
                                  "UTMALDG", "UBLKCP", "LDGSTS")}
             print(f"  SASS {source} {name[name.find(symbol):][:64]}: "
                   f"{counts}", flush=True)
+            if (source, symbol) in COPY_KERNELS:
+                check("decode" not in symbol or counts["UBLKCP"] > 0,
+                      f"{name}: no bulk copy in its SASS")
+                continue
             check(counts["HGMMA"] + counts["IGMMA"] + counts["HMMA"]
                   + counts["IMMA"] > 0,
                   f"{name}: no tensor-core product in its SASS")
@@ -448,8 +473,7 @@ KERNEL_NAMES = {
     "kv_append_decode": ("append_decode_kernel",),
     "kv_append_prefill": ("append_prefill_kernel",),
     "kv_append_tokens": ("append_tokens_kernel",),
-    "paged_attention_decode_append": (
-        "paged_attention_decode_append_kernel<",),
+    "paged_attention_decode_append": ("decode_append_split_kernel<",),
     "paged_attention_decode_grouped": ("decode_grouped_split_kernel<",),
     "paged_attention_decode_packed": ("decode_packed_split_kernel<",),
     "paged_attention_decode_batched": ("decode_batched_split_kernel<",),
@@ -875,7 +899,7 @@ def append_checks(torch, dev, results):
                                       ka.append_prefill_plain),
                 "kv_append_tokens": (ka.append_tokens,
                                      ka.append_tokens_plain)}
-    slice_rows = {}
+    timed = []
     for name, kname, pdt, pos in cases:
         kv, bt = make_pool(torch, gen, pdt, dev)
         kv = tuple(x.zero_() for x in kv)
@@ -883,76 +907,163 @@ def append_checks(torch, dev, results):
         k = torch.randn((B, T, KH, DH), generator=gen, device=dev)
         v = torch.randn((B, T, KH, DH), generator=gen, device=dev)
         news = pool_mod.stack_new_kv(kv, k, v)
-        kern, plain = wrappers[kname]
-        kv_k = tuple(x.clone() for x in kv)
-        kv_p = tuple(x.clone() for x in kv)
-        kern(kv_k, news, layer, pos, bt)
-        plain(kv_p, news, layer, pos, bt)
-        torch.cuda.synchronize()
-        err = max((a.float() - b.float()).abs().max().item()
-                  for a, b in zip(kv_k, kv_p))
-        ok = err == 0.0
-        print(f"  [{kname}] {name}: max|kernel-plain| over the pool = "
-              f"{err:.3e} (tol 0, bit-exact) {'ok' if ok else 'FAIL'}",
-              flush=True)
-        check(ok, f"{kname} {name}: pool differs by {err}")
+        kv_k = append_case(torch, wrappers[kname], kname, name, kv, news,
+                           layer, pos, bt)
         if name.endswith("slice"):
-            slice_rows[kname] = (kern, plain, kv_k, news, pos, bt)
-    for kname, (kern, plain, kv, news, pos, bt) in slice_rows.items():
+            timed.append((kname, "slice", kv_k, news, pos, bt))
+    # B4 at the chunks of paths (i), (h) and (k) (one 256-token chunk of a
+    # prompt, in each lane), each on its path's table
+    for name, batch, kh, dh, pdt, mp, n_pages, c0 in B4_CHUNKS:
+        kv, bt = make_pool(torch, gen, getattr(torch, pdt), dev, batch, kh,
+                           dh, mp, n_pages)
+        k = torch.randn((batch, 256, kh, dh), generator=gen, device=dev)
+        v = torch.randn((batch, 256, kh, dh), generator=gen, device=dev)
+        news = pool_mod.stack_new_kv(kv, k, v)
+        pos = (c0 + torch.arange(256, device=dev, dtype=torch.int32)
+               ).expand(batch, 256).contiguous()
+        kv_k = append_case(torch, wrappers["kv_append_prefill"],
+                           "kv_append_prefill", name, kv, news, layer, pos,
+                           bt)
+        timed.append(("kv_append_prefill", name, kv_k, news, pos, bt))
+    for kname, name, kv, news, pos, bt in timed:
+        kern, plain = wrappers[kname]
         ms = device_ms(lambda: kern(kv, news, layer, pos, bt),
                        match=KERNEL_NAMES[kname])
         call_ms = cuda_ms(lambda: kern(kv, news, layer, pos, bt))
-        plain_ms = device_ms(lambda: plain(kv, news, layer, pos, bt))
+        plain_ms = device_ms(lambda: plain(kv, news, layer, pos, bt), iters=5)
+        lib_ms = device_ms(append_library(torch, kv, news, layer, pos, bt))
         n_valid = int((pos >= 0).sum().item())
-        row = KH * 2 * (DH * kv[0].element_size() + 4)
+        row = kv[0].shape[2] * 2 * (kv[0].shape[5] * kv[0].element_size()
+                                    + 4 * (len(kv) - 1))
         b_ms, b_by = bound(2 * n_valid * row + 4 * (pos.numel() + bt.numel()),
                            0)
-        results[kname].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                              bound_by=b_by, library_ms=None,
-                              max_abs_err=0.0, tol=0.0)
-        print(f"  [{kname}] slice shape, device time: kernel {ms:.4f} ms "
+        out = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=lib_ms)
+        if name == "slice":
+            results[kname].update(max_abs_err=0.0, tol=0.0, **out)
+        else:
+            results[kname].setdefault("shapes", {})[name] = out
+        scales = " + index_copy_ of the INT8 scales" if len(kv) == 2 else ""
+        print(f"  [{kname}] {name} shape, device time: kernel {ms:.4f} ms "
               f"(one wrapper call {call_ms:.4f} ms wall), plain "
-              f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}); no "
-              f"library call writes both leaves", flush=True)
+              f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), library "
+              f"{lib_ms:.4f} ms (index_copy_ of the rows into the "
+              f"flattened pool{scales})", flush=True)
+        del kv, news
+    torch.cuda.empty_cache()
+
+
+#: B4's chunks on the paths past the slice: (name, batch, KV heads, dh,
+#: pool dtype, table width, pool pages, chunk start): (i) Llama-3.1-8B's
+#: 32k prompt (chunk 64 of 128), (h) Phi-3-mini's 2,048-token prompts
+#: (chunk 3 of 8; bf16, dh 96: 192-byte rows) and (k) Mixtral-8x7B's
+#: 256-token prompts
+B4_CHUNKS = [
+    ("(i) chunk: llama3.1-8b, B=1, T=256", 1, 8, 128, "int8", 516, 520,
+     16384),
+    ("(h) chunk: phi3-mini-4k, B=4, T=256, dh 96 bf16", 4, 32, 96,
+     "bfloat16", 36, 150, 768),
+    ("(k) chunk: mixtral-8x7b, B=4, T=256", 4, 8, 128, "int8", 7, 40, 0),
+]
+
+
+def append_case(torch, fns, kname, name, kv, news, layer, pos, bt):
+    """An append kernel against its plain version on copies of ``kv``:
+    the pools must be equal bit for bit. Returns the kernel's pool."""
+    kern, plain = fns
+    kv_k = tuple(x.clone() for x in kv)
+    kv_p = tuple(x.clone() for x in kv)
+    kern(kv_k, news, layer, pos, bt)
+    plain(kv_p, news, layer, pos, bt)
+    torch.cuda.synchronize()
+    err = max((a.float() - b.float()).abs().max().item()
+              for a, b in zip(kv_k, kv_p))
+    ok = err == 0.0
+    print(f"  [{kname}] {name}: max|kernel-plain| over the pool = "
+          f"{err:.3e} (tol 0, bit-exact) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    check(ok, f"{kname} {name}: pool differs by {err}")
+    return kv_k
+
+
+def append_library(torch, kv, news, layer, pos, bt):
+    """The library yardstick of an append: ``index_copy_`` of the valid
+    tokens' rows into the layer's pool flattened to rows, and for an INT8
+    pool a second ``index_copy_`` of their scales into the flat scales
+    (the indices and the rows in their order made here, outside the
+    timed call)."""
+    _, _, kh, n_pages, page, dh = kv[0].shape
+    batch, T = pos.shape
+    valid = pos >= 0
+    p = pos.clamp_min(0).long()
+    flat = bt.long().gather(1, p // page) * page + p % page      # [B, T]
+    keep = valid[:, None, :].expand(batch, 2 * kh, T)
+    heads = torch.arange(2 * kh, device=pos.device)[None, :, None]
+    idx = (heads * n_pages * page + flat[:, None, :])[keep]
+    rows = news[0].reshape(batch, 2 * kh, T, dh)[keep]
+    vals = kv[0][layer].view(-1, dh)
+    if len(kv) == 1:
+        return lambda: vals.index_copy_(0, idx, rows)
+    stride = kv[1].shape[3] * 128
+    sidx = (heads * stride + flat[:, None, :])[keep]
+    srows = news[1].reshape(batch, 2 * kh, T)[keep]
+    scales = kv[1][layer].view(-1)
+    return lambda: (vals.index_copy_(0, idx, rows),
+                    scales.index_copy_(0, sidx, srows))
 
 
 def decode_append_checks(torch, dev, results):
     """B9 against its plain version (the append's plain version, then
     B2's) at B2's shapes: the output within B2's tolerance, the pool
-    bit-exact; timed beside its yardstick, B3 and B2 back to back (the
-    unfused decode step's two launches)."""
+    bit-exact; with a stale row planted in each new token's slot (f32
+    queries), which the plain version at ``seq_len + 1`` (that slot read
+    as a key, the new token one slot on) must move past the tolerance.
+    Timed at the slice and at a 512-page table at batch 1 (32,700 keys)
+    beside its yardsticks on the same inputs: B2 alone, and B3 then B2
+    back to back (the unfused decode step's two launches)."""
     from importlib import import_module
 
     pa = import_module(f"{PKG}.ops.paged_attention")
     ka = import_module(f"{PKG}.ops.kv_append")
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     kname = "paged_attention_decode_append"
-    layer, worst, timed = 1, 0.0, None
+    bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    layer, worst = 1, 0.0
     cases = [
-        # name, q (and new K/V) dtype, pool dtype, seq lens after the
-        # append, window, softcap, tolerance
-        ("decode slice", torch.bfloat16, torch.int8, [65, 90, 128, 101], 0,
-         0.0, 2e-2),
-        ("decode f32", torch.float32, torch.int8, [65, 90, 128, 101], 0, 0.0,
-         1e-4),
-        ("decode window+softcap f32", torch.float32, torch.int8,
-         [65, 90, 128, 300], 40, 30.0, 1e-4),
-        ("decode f32 pool", torch.float32, torch.float32, [1, 64, 200, 320],
-         0, 0.0, 1e-4),
+        # name, q (and new K/V) dtype, pool dtype, batch, table width,
+        # pool pages, seq lens after the append, window, softcap,
+        # tolerance, a stale row planted in each new slot
+        ("slice", bf16, i8, B, MP, NUM_PAGES, [65, 90, 128, 101], 0, 0.0,
+         2e-2, False),
+        ("f32", f32, i8, B, MP, NUM_PAGES, [65, 90, 128, 101], 0, 0.0, 1e-4,
+         False),
+        ("window+softcap f32", f32, i8, B, MP, NUM_PAGES, [65, 90, 128, 300],
+         40, 30.0, 1e-4, False),
+        ("f32 pool", f32, f32, B, MP, NUM_PAGES, [1, 64, 200, 320], 0, 0.0,
+         1e-4, False),
+        ("stale slot sentinel, f32", f32, i8, B, MP, NUM_PAGES,
+         [65, 90, 128, 1], 0, 0.0, 1e-4, True),
+        ("512 pages, B=1", bf16, i8, 1, 512, 520, [32700], 0, 0.0, 2e-2,
+         False),
+        ("512 pages, B=1, stale slot sentinel, f32", f32, i8, 1, 512, 520,
+         [32700], 0, 0.0, 1e-4, True),
     ]
-    for name, qdt, pdt, lens, window, softcap, tol in cases:
-        kv, bt = make_pool(torch, gen, pdt, dev)
-        q = torch.randn((B, 1, H, DH), generator=gen, device=dev).to(qdt)
-        k = torch.randn((B, 1, KH, DH), generator=gen, device=dev).to(qdt)
-        v = torch.randn((B, 1, KH, DH), generator=gen, device=dev).to(qdt)
+    for (name, qdt, pdt, batch, mp, n_pages, lens, window, softcap, tol,
+         stale) in cases:
+        kv, bt = make_pool(torch, gen, pdt, dev, batch, KH, DH, mp, n_pages)
+        q = torch.randn((batch, 1, H, DH), generator=gen, device=dev).to(qdt)
+        k = torch.randn((batch, 1, KH, DH), generator=gen, device=dev).to(qdt)
+        v = torch.randn((batch, 1, KH, DH), generator=gen, device=dev).to(qdt)
         sl = torch.tensor(lens, dtype=torch.int32, device=dev)
         pos = (sl - 1)[:, None]
+        if stale:
+            plant_stale_rows(torch, kv, bt, q, lens, layer)
         common = dict(page_size=PAGE, num_q_heads=H, window=window,
                       softcap=softcap, scale=DH ** -0.5)
         kv_k = tuple(x.clone() for x in kv)
         kv_p = tuple(x.clone() for x in kv)
-        args = (q, kv_k, k, v, bt, sl, pos, layer)
-        out_k, _ = pa.paged_attention_decode_append(*args, **common)
+        out_k, _ = pa.paged_attention_decode_append(q, kv_k, k, v, bt, sl,
+                                                    pos, layer, **common)
         out_p, _ = pa.paged_attention_decode_append_plain(
             q, kv_p, k, v, bt, sl, pos, layer, **common)
         torch.cuda.synchronize()
@@ -965,24 +1076,74 @@ def decode_append_checks(torch, dev, results):
               f"{tol:g}), over the pool {pool_err:.3e} (tol 0, bit-exact) "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"{kname} {name}: error {err}, pool {pool_err}")
-        if qdt == torch.bfloat16:
+        if stale:
+            # the stale rows read as keys: the plain version one slot on
+            moved_kv = tuple(x.clone() for x in kv)
+            moved, _ = pa.paged_attention_decode_append_plain(
+                q, moved_kv, k, v, bt, sl + 1, pos + 1, layer, **common)
+            miss = (moved.float() - out_p.float()).abs().amax(
+                dim=(1, 2, 3)).min().item()
+            print(f"  [{kname}] {name}: the stale slot read as a key moves "
+                  f"every sequence's output by at least {miss:.3e} (tol "
+                  f"{tol:g})", flush=True)
+            check(miss > tol, f"{kname} {name}: the tolerance does not flag "
+                  f"a stale key ({miss})")
+            del moved_kv
+        if qdt == bf16:
             worst = max(worst, err)
-        if name.endswith("slice"):
-            timed = (args, common, kv_k, q, k, v, bt, sl, pos, lens)
-    args, common, kv, q, k, v, bt, sl, pos, lens = timed
-    fused = lambda: pa.paged_attention_decode_append(*args, **common)
+            row = b9_times(torch, pa, ka, q, kv_k, k, v, bt, sl, pos, layer,
+                           common, lens)
+            if name == "slice":
+                results[kname].update(row)
+            else:
+                results[kname].setdefault("shapes", {})[name] = row
+        del kv, kv_k, kv_p
+        torch.cuda.empty_cache()
+    results[kname].update(max_abs_err=worst, tol=2e-2)
+
+
+def plant_stale_rows(torch, kv, bt, q, lens, layer):
+    """Writes into slot ``seq_len - 1`` of each sequence, every KV head, a
+    row that would dominate the output if read as a key: K along the sign
+    of the head's mean query, V large (INT8: 127 at scales 0.05 and 0.1).
+    In place."""
+    vals = kv[0]
+    kh = vals.shape[2]
+    for b, n in enumerate(lens):
+        pid, slot = int(bt[b, (n - 1) // PAGE]), (n - 1) % PAGE
+        sign = torch.sign(q[b, 0].float().reshape(kh, -1, DH).mean(1))
+        if vals.dtype == torch.int8:
+            vals[layer, 0, :, pid, slot] = (sign * 127).to(torch.int8)
+            vals[layer, 1, :, pid, slot] = 127
+            flat = kv[1][layer].view(2, kh, -1)
+            flat[0, :, pid * PAGE + slot] = 0.05
+            flat[1, :, pid * PAGE + slot] = 0.1
+        else:
+            vals[layer, 0, :, pid, slot] = (sign * 4).to(vals.dtype)
+            vals[layer, 1, :, pid, slot] = 8
+
+
+def b9_times(torch, pa, ka, q, kv, k, v, bt, sl, pos, layer, common, lens):
+    """B9's device time beside its plain version, its bound and its
+    yardsticks on the same inputs: B2 alone and B3 then B2 back to back
+    (with their wrappers' wall time, taken in turns)."""
+    kname = "paged_attention_decode_append"
+    batch = q.shape[0]
+    fused = lambda: pa.paged_attention_decode_append(q, kv, k, v, bt, sl,
+                                                     pos, layer, **common)
     plain = lambda: pa.paged_attention_decode_append_plain(
         q, kv, k, v, bt, sl, pos, layer, **common)
+    b2 = lambda: pa.paged_attention_decode(q, kv[0], bt, sl, kv[1], layer,
+                                           **common)
 
     def unfused():                      # B3 then B2, as the decode step
         ka.kv_append(kv, k, v, layer, pos, bt, page_size=PAGE)
-        return pa.paged_attention_decode(q, kv[0], bt, sl, kv[1], layer,
-                                         **common)
+        return b2()
     ms = device_ms(fused, match=KERNEL_NAMES[kname])
-    plain_ms = device_ms(plain)
+    plain_ms = device_ms(plain, iters=5)
+    b2_ms = device_ms(b2, match=KERNEL_NAMES["paged_attention_decode"])
     pair_ms = device_ms(unfused, match=KERNEL_NAMES["kv_append_decode"]
                         + KERNEL_NAMES["paged_attention_decode"])
-    # the wrappers' wall time, host issue included, taken in turns
     walls = {fused: [], unfused: []}
     for fn in (fused, unfused, unfused, fused):
         walls[fn].append(cuda_ms(fn))
@@ -993,18 +1154,18 @@ def decode_append_checks(torch, dev, results):
     row = KH * 2 * (DH * kv[0].element_size() + 4 * (len(kv) - 1))
     b_ms, b_by = bound(2 * q.numel() * q.element_size()
                        + sum(n - 1 for n in lens) * row
-                       + 2 * k.numel() * k.element_size() + B * row
-                       + 4 * (bt.numel() + 2 * B),
+                       + 2 * k.numel() * k.element_size() + batch * row
+                       + 4 * (bt.numel() + 2 * batch),
                        4 * DH * H * sum(lens), "bf16")
-    results[kname].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                          bound_by=b_by, library_ms=None, max_abs_err=worst,
-                          tol=2e-2, unfused_ms=pair_ms)
-    print(f"  [{kname}] slice shape, device time: kernel {ms:.4f} ms (one "
-          f"wrapper call {call_ms:.4f} ms wall), plain {plain_ms:.4f} ms, "
-          f"bound {b_ms:.5f} ms ({b_by}); yardstick B3 + B2 back to back "
-          f"{pair_ms:.4f} ms ({pair_call_ms:.4f} ms wall for the two "
-          f"wrapper calls); no library call appends and attends",
+    print(f"  [{kname}] {batch} x {max(lens)} keys, device time: kernel "
+          f"{ms:.4f} ms (one wrapper call {call_ms:.4f} ms wall), plain "
+          f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); on the same "
+          f"inputs B2 alone {b2_ms:.4f} ms ({ms / b2_ms:.2f}x of it), B3 + "
+          f"B2 back to back {pair_ms:.4f} ms ({pair_call_ms:.4f} ms wall "
+          f"for the two wrapper calls); no library call appends and attends",
           flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, unfused_ms=pair_ms, b2_ms=b2_ms)
 
 
 def decode_bound(torch, q, kv, bt, lens, window):

@@ -148,6 +148,12 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Arrives at named barrier `id` (of `threads` threads) without waiting;
+// what this thread wrote before is seen by the threads that wait there.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // -- the swizzled layout and widening ------------------------------------------
 
 // Byte offset of 16-byte chunk `c` (0..7) of row `r` in a 64-column block.

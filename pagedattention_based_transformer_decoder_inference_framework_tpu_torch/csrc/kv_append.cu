@@ -37,14 +37,30 @@
 //
 // What bounds them on the H100: bytes, and at the slice's shapes very few
 // of them (decode: 4 sequences x 2 x 8 heads x 128 B of INT8 values plus
-// 4 B scales per layer; a verify chunk nine times that), so launch latency
-// is the whole cost. Design: one block per (sequence or chunk page, K/V,
-// KV head), 16-byte vector copies where the row allows, plain byte copies
-// otherwise; no read-modify-write, since a row is a whole number of bytes
-// and each scale its own 4-byte store. The TPU kernels move tile-sized
-// slabs through VMEM and patch them (hence the slab-overlap rules of
-// _rmw_kernel); here each token's row and scale are stored directly, so
-// tokens of one chunk that share a page or a scales row need no care.
+// 4 B scales per layer; a verify chunk nine times that), so latency is the
+// whole cost. B3 and B5: one block per (sequence, K/V, KV head), a warp a
+// token (append_token: its position, then its table entry, then its row
+// copied, then its scale), 16-byte vector copies where the row allows,
+// plain byte copies otherwise; no read-modify-write, since a row is a whole
+// number of bytes and each scale its own 4-byte store. The TPU kernels
+// move tile-sized slabs through VMEM and patch them (hence the slab-overlap
+// rules of _rmw_kernel); here each token's row and scale are stored
+// directly, so tokens of one chunk that share a page or a scales row need
+// no care.
+//
+// B4 (a chunk of whole chunk pages, ~1 MB a layer at the slice) issues all
+// of a block's loads before any store waits: a warp walking its slots one
+// after another through append_token paid two dependent round trips a slot
+// (~16 a warp). Its block, one a (chunk page, K/V, KV head), first loads
+// its first units of the chunk page's rows (16-byte units where the row
+// allows, a few a thread), then reads each slot's position and pool page
+// once (one slot a thread) into shared memory, storing the slot's scale at
+// once (one 4-byte store a thread); then every thread stores its units
+// independently, and loads and stores the rest in batches. Where the chunk
+// page is one pool page from slot 0 with consecutive positions, its [page,
+// D] run is contiguous in `news` and in the pool, and the copy is one
+// straight run; every other case (an off-grid chunk, padding, a position
+// past the table) keeps the skip rules above, slot by slot.
 //
 // Every entry point returns cudaGetLastError() after its launch.
 
@@ -137,20 +153,85 @@ __device__ __forceinline__ void append_token(
     *scale_at(p, kv, h, pid, slot) = new_scales[src_row];
 }
 
-// grid (B * T / page, 2, KH). Block (b, chunk page c) writes tokens
-// c*page .. c*page + page - 1 of sequence b; each warp copies one token
-// row at a time.
+template <int W> struct Unit;
+template <> struct Unit<16> { using T = uint4; };
+template <> struct Unit<8> { using T = uint2; };
+template <> struct Unit<4> { using T = uint32_t; };
+template <> struct Unit<2> { using T = uint16_t; };
+template <> struct Unit<1> { using T = uint8_t; };
+
+// units a thread loads before it stores them: all of a 16-byte-unit chunk
+// page's at dh 128 INT8 (4) and at Phi-3's bf16 dh 96 (6)
+constexpr int kBatch = 8;
+
+// grid (B * T / page, 2, KH); dynamic shared memory page * 8 bytes. Block
+// (b, chunk page c, kv, h) writes tokens c * page .. c * page + page - 1
+// of sequence b for (kv, h) in units of W bytes (W divides row_bytes).
+template <int W>
 __global__ void __launch_bounds__(kThreads)
 append_prefill_kernel(Pool p, const uint8_t* __restrict__ news,
                       const float* __restrict__ new_scales,
                       const int* __restrict__ block_tables,
                       const int* __restrict__ positions, int T, int mp) {
+  using U = typename Unit<W>::T;
+  extern __shared__ long long dst_row[];  // [page]: a slot's pool row, or -1
   const int n_chunk = T / p.page;
   const int b = blockIdx.x / n_chunk, c = blockIdx.x % n_chunk;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int s = warp; s < p.page; s += kThreads / 32)
-    append_token(p, news, new_scales, block_tables, positions, b,
-                 blockIdx.y, blockIdx.z, c * p.page + s, T, mp, lane);
+  const int kv = blockIdx.y, h = blockIdx.z, tid = threadIdx.x;
+  const long long src0 =
+      ((static_cast<long long>(b) * 2 + kv) * p.KH + h) * T + c * p.page;
+  const U* src = reinterpret_cast<const U*>(news + src0 * p.row_bytes);
+  const int units = p.row_bytes / W, total = p.page * units;
+  const int* pos_c = positions + static_cast<long long>(b) * T + c * p.page;
+  const int pos0 = pos_c[0];
+  // slot tid's position (the head of the dependent chain) and new scale
+  const int pos_t = tid < p.page ? pos_c[tid] : -1;
+  const float sc_t =
+      p.scales != nullptr && tid < p.page ? new_scales[src0 + tid] : 0.f;
+
+  // the first batch of units, in flight while the positions are read
+  U v[kBatch];
+#pragma unroll
+  for (int k = 0; k < kBatch; ++k) {
+    const int i = tid + k * kThreads;
+    if (i < total) v[k] = src[i];
+  }
+  // each slot's position and pool row, once; its scale stored at once
+  bool run = pos0 >= 0 && pos0 % p.page == 0;
+  for (int s = tid; s < p.page; s += kThreads) {
+    const int pos = s == tid ? pos_t : pos_c[s];
+    const int pid = pos < 0 ? -1 : page_of(p, block_tables, b, pos, mp);
+    const int slot = pos % p.page;
+    dst_row[s] = pid < 0 ? -1 : pool_row(p, kv, h, pid, slot);
+    run = run && pid >= 0 && pos == pos0 + s;
+    if (pid >= 0 && p.scales != nullptr)
+      *scale_at(p, kv, h, pid, slot) =
+          s == tid ? sc_t : new_scales[src0 + s];
+  }
+  // a contiguous run: one pool page from slot 0 (the same table entry)
+  run = __syncthreads_and(run);
+  U* const pool = reinterpret_cast<U*>(p.vals);
+  const long long run0 = run ? dst_row[0] * units : 0;
+  for (int i0 = tid;; i0 += kBatch * kThreads) {
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int i = i0 + k * kThreads;
+      if (i >= total) continue;
+      if (run) {
+        pool[run0 + i] = v[k];
+      } else {
+        const int s = i / units;
+        const long long row = dst_row[s];
+        if (row >= 0) pool[row * units + i - s * units] = v[k];
+      }
+    }
+    if (i0 + kBatch * kThreads >= total) break;
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int i = i0 + (kBatch + k) * kThreads;
+      if (i < total) v[k] = src[i];
+    }
+  }
 }
 
 // grid (B, 2, KH): block (b, kv, h) writes all T tokens of sequence b's
@@ -197,10 +278,24 @@ extern "C" int pbt_kv_append_prefill(void* pool, float* scales,
   if (T % page != 0) return static_cast<int>(cudaErrorInvalidValue);
   const Pool p{static_cast<uint8_t*>(pool), scales, KH, P, page, row_bytes,
                layer, scale_stride};
-  append_prefill_kernel<<<dim3(B * (T / page), 2, KH), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      p, static_cast<const uint8_t*>(news), new_scales, block_tables,
-      positions, T, mp);
+  const dim3 grid(B * (T / page), 2, KH);
+  const size_t smem = static_cast<size_t>(page) * sizeof(long long);
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  auto run = [&](auto kernel) {
+    kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+        p, static_cast<const uint8_t*>(news), new_scales, block_tables,
+        positions, T, mp);
+  };
+  if (row_bytes % 16 == 0)
+    run(append_prefill_kernel<16>);
+  else if (row_bytes % 8 == 0)
+    run(append_prefill_kernel<8>);
+  else if (row_bytes % 4 == 0)
+    run(append_prefill_kernel<4>);
+  else if (row_bytes % 2 == 0)
+    run(append_prefill_kernel<2>);
+  else
+    run(append_prefill_kernel<1>);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -37,7 +37,7 @@
 // (~33 KB per (sequence, KV head) at the slice, ~2 MB at 32k tokens) and
 // does 4 * D operations per (query head, key): bytes and latency bound
 // it, never arithmetic. It is split-KV in one launch on the body it shares
-// with B6 and B7 (split_decode.cuh: a copy warp bringing pages by bulk
+// with B6-B9 (split_decode.cuh: a copy warp bringing pages by bulk
 // copy into a ring, four compute warps without a block barrier per page,
 // the last part of a (sequence, KV head) merging the parts in order). Its
 // grid is (sequence, KV head, split of the block table): the wrapper picks
@@ -46,16 +46,30 @@
 // (ops/paged_attention.py::decode_split_plan). A split with no visible page
 // still writes (m = -1e30, l = 0, acc = 0) and counts toward the merge.
 //
-// The fused decode append (paged_attention_decode_append_kernel) is one
-// block of 128 threads per (sequence, KV head) walking its pages with the
-// shared page step (attend_page, B2's design before its split-KV
-// redesign), then one more online-softmax step for the new token, whose K/V row comes from the new rows (never read
-// back from the pool) and is stored by the same block after its page
-// reads. Its bound is B2's bytes plus B3's; what it saves is one launch
-// per layer, which is the cost that matters while decode is host-bound.
-// The TPU kernel's tail-slab read-modify-write and its scales-slab
-// patching for every sequence (paged_attention.py:1318-1347) have no
-// counterpart: each row and each scale is a plain store of its own.
+// B9, the fused decode append (decode_append_split_kernel), is B2 on the
+// same body, grid, plan and workspace (split_part with APPEND), in one
+// launch per layer in place of B3's and B2's. Its bound is B2's bytes plus
+// B3's, so it is as latency-bound as B2, and a single block per (sequence,
+// KV head) walking its pages (its earlier design, and B2's before its
+// split) took 2-2.5x the two launches it replaces. Three things differ from
+// B2: (1) the parts read only the keys already in the pool (key < seq_len
+// - 1; the window stays relative to the query at seq_len - 1), since the
+// new token's slot holds a stale row until this kernel stores it; (2) the
+// new token enters once, in the merge, as one more partial (m = its score,
+// l = 1, acc = its V row times its scale) after the parts in part order:
+// its score is the staged q rows against its K row (from the wrapper's
+// `news`, never read back from the pool, loaded while the q rows are
+// staged) with its scale folded in before the dot, then the softcap; (3)
+// the merging block's copy warp, idle once its pages are on their way,
+// stores the new K/V row and its two scales at positions[b] with B3's skip
+// rules. It loads them before its copies and waits at a named barrier for
+// the compute warps: they arrive after their page reads where a (sequence,
+// KV head) has a single part, else once the counter says every part has
+// read its pages, so no part copies a page while its slot is written, and
+// the store drains while the parts merge. The TPU kernel's tail-slab
+// read-modify-write and its scales-slab patching for every sequence
+// (paged_attention.py:1318-1347) have no counterpart: each row and each
+// scale is a plain store of its own.
 //
 // Every entry point returns cudaGetLastError() after its launch.
 
@@ -131,117 +145,39 @@ decode_split_kernel(Args a, const TQ* __restrict__ q, TQ* __restrict__ out,
                                part_ml, counters, scale);
 }
 
-// grid (B * KH); block kThreads; rows = the G query heads of KV head h.
-// The page loop over the keys already cached (key < seq_len - 1, read from
-// the pool), then the new token folded in from `news` (its row in the
-// pool's dtype, [B, 2, KH, 1, D], and for INT8 its scales [B, 2, KH]),
-// then that row and its scales stored at `positions[b]`. The block is the
-// only one that reads or writes (b, h)'s K and V rows, and it stores only
-// after its last page read (attend_page ends in __syncthreads), so the
-// tail page it reads is never torn.
-template <typename TQ, typename TKV>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_decode_append_kernel(Args a, const TQ* __restrict__ q,
-                                     TQ* __restrict__ out,
-                                     const int* __restrict__ seq_lens,
-                                     const int* __restrict__ positions,
-                                     const TKV* __restrict__ news,
-                                     const float* __restrict__ new_scales,
-                                     int H, float scale) {
+// -- B9: B2 with the T=1 KV append fused in (split_part's APPEND) -------
+
+// B2's grid and workspace; split blockIdx.y takes the pages of [split *
+// pps, split * pps + pps) that hold keys already in the pool (key <
+// seq_len - 1, seq_lens being the lengths after the append). The new
+// token (nt: its rows [B, 2, KH, 1, D] in the pool's dtype, INT8 scales
+// [B, 2, KH], targets positions [B]) enters in the merge, and the merging
+// block's copy warp stores it.
+template <typename TQ, typename TKV, int D, int ROWS>
+__global__ void __launch_bounds__(kSplitThreads)
+decode_append_split_kernel(Args a, const TQ* __restrict__ q,
+                           TQ* __restrict__ out,
+                           const int* __restrict__ seq_lens, NewToken nt,
+                           float* __restrict__ part_acc,
+                           float* __restrict__ part_ml,
+                           int* __restrict__ counters, int H, int pps,
+                           int stages, float scale) {
   extern __shared__ __align__(16) uint8_t smem[];
-  constexpr int ROWS = kDecodeRows;
-  const int b = blockIdx.x / a.KH, h = blockIdx.x % a.KH;
-  const int G = H / a.KH, D = a.D;
-  Tile<TKV, ROWS> t(smem, D, a.page);
-  load_rows<TQ, TKV, ROWS>(t, q, b, h, 0, G, 1, H, G, D, scale);
-
-  const int seq_len = seq_lens[b];        // after the append
-  const int old = seq_len - 1;            // keys already in the pool
-  int qpos[ROWS];
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) qpos[r] = seq_len - 1;
-  const int first =
-      a.window > 0 ? max(seq_len - a.window, 0) / a.page : 0;
-  const int n_pages = min((old + a.page - 1) / a.page, a.mp);
-  float acc[ROWS][kMaxDPerThread] = {};
-  for (int i = first; i < n_pages; ++i)
-    attend_page<TKV, ROWS>(a, t, qpos, G, b, h, i, old, acc);
-
-  // the new token's score and value from the row the pool will hold, its
-  // scale folded in before the dot (paged_attention.py:1295-1314); it is
-  // always visible (key == q_pos)
-  const bool quantized = a.scales != nullptr;
-  const long long nk = (static_cast<long long>(b) * 2 + 0) * a.KH + h;
-  const long long nv = (static_cast<long long>(b) * 2 + 1) * a.KH + h;
-  const float sk = quantized ? new_scales[nk] : 1.f;
-  const float sv = quantized ? new_scales[nv] : 1.f;
-  const TKV* kn = news + nk * D;
-  const TKV* vn = news + nv * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < G; r += kWarps) {
-    const float* qr = t.q + r * D;
-    float s = 0.f;
-    for (int d = lane; d < D; d += 32)
-      s = fmaf(qr[d], to_f32(kn[d]) * sk, s);
-    for (int o = 16; o > 0; o >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (a.softcap > 0.f) s = a.softcap * tanhf(s / a.softcap);
-    if (lane == 0) {
-      const float mprev = t.m[r];
-      const float mnew = fmaxf(mprev, s);
-      const float al = expf(mprev - mnew);
-      const float pn = expf(s - mnew);
-      t.alpha[r] = al;
-      t.p[r] = pn;
-      t.l[r] = al * t.l[r] + pn;
-      t.m[r] = mnew;
-    }
-  }
-  __syncthreads();
-  float vv[kMaxDPerThread];
-#pragma unroll
-  for (int c = 0; c < kMaxDPerThread; ++c) {
-    const int d = threadIdx.x + c * kThreads;
-    vv[c] = d < D ? to_f32(vn[d]) * sv : 0.f;
-  }
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    if (r < G) {
-      const float al = t.alpha[r], pn = t.p[r];
-#pragma unroll
-      for (int c = 0; c < kMaxDPerThread; ++c)
-        acc[r][c] = fmaf(pn, vv[c], acc[r][c] * al);
-    }
-  }
-  store_rows<TQ, TKV, ROWS>(t, out, b, h, 0, G, 1, H, G, D, acc);
-
-  // the append (B3's skip rules): pos < 0, a page past the block table or
-  // a table entry outside the pool is not written
-  const int pos = positions[b];
-  if (pos < 0 || pos / a.page >= a.mp) return;
-  const int pid = a.block_tables[static_cast<long long>(b) * a.mp +
-                                 pos / a.page];
-  if (pid >= a.P) return;
-  const int slot = pos % a.page;
-  const int words = D * static_cast<int>(sizeof(TKV)) / 4;
-  uint8_t* pool = const_cast<uint8_t*>(a.pool);
-  for (int kv = 0; kv < 2; ++kv) {
-    const size_t row =
-        (((static_cast<size_t>(a.layer) * 2 + kv) * a.KH + h) * a.P + pid) *
-            a.page + slot;
-    uint32_t* dst =
-        reinterpret_cast<uint32_t*>(pool + row * D * sizeof(TKV));
-    const uint32_t* src =
-        reinterpret_cast<const uint32_t*>(kv == 0 ? kn : vn);
-    for (int w = threadIdx.x; w < words; w += kThreads) dst[w] = src[w];
-  }
-  if (quantized && threadIdx.x < 2) {
-    float* sc = const_cast<float*>(a.scales) +
-                ((static_cast<long long>(a.layer) * 2 + threadIdx.x) * a.KH +
-                 h) * a.scale_stride +
-                static_cast<long long>(pid) * a.page + slot;
-    *sc = threadIdx.x == 0 ? sk : sv;
-  }
+  __shared__ int is_last;
+  const SplitLay lay =
+      split_lay(D, Lanes<TKV, D>::qrow(D), sizeof(TKV), a.page,
+                a.scales != nullptr, ROWS, stages, kMaxSplits);
+  ring_init(smem, lay, stages, true);
+  const int bh = blockIdx.x, b = bh / a.KH, split = blockIdx.y;
+  const int seq_len = seq_lens[b];
+  const int i0 = max(split * pps, first_decode_page(a, seq_len));
+  const int n =
+      max(min(split * pps + pps, decode_pages(a, seq_len - 1)) - i0, 0);
+  const Part w{b, bh % a.KH, i0, n, split, static_cast<int>(gridDim.y),
+               static_cast<long long>(bh) * gridDim.y};
+  split_part<TQ, TKV, D, ROWS, true>(a, smem, lay, is_last, q, out, false,
+                                     w, seq_len, H, stages, 0, true,
+                                     part_acc, part_ml, counters, scale, nt);
 }
 
 template <typename TQ, typename TKV>
@@ -260,11 +196,11 @@ cudaError_t launch_prefill(const Args& a, const void* q, void* out,
   return cudaGetLastError();
 }
 
-template <typename TQ, typename TKV, int D, int ROWS>
+template <typename TQ, typename TKV, int D, int ROWS, bool APPEND>
 cudaError_t launch_split(const Args& a, const void* q, void* out,
-                         const int* seq_lens, float* part_acc,
-                         float* part_ml, int* counters, int B, int H,
-                         int splits, int pps, float scale,
+                         const int* seq_lens, const NewToken& nt,
+                         float* part_acc, float* part_ml, int* counters,
+                         int B, int H, int splits, int pps, float scale,
                          cudaStream_t stream) {
   // the deepest ring (at most kMaxStages pages, no more than a split
   // holds) that fits the block's shared memory
@@ -275,13 +211,42 @@ cudaError_t launch_split(const Args& a, const void* q, void* out,
   if (stages == 0) return cudaErrorInvalidValue;
   const SplitLay lay =
       split_lay(D, qrow, es, a.page, quant, ROWS, stages, kMaxSplits);
-  auto kernel = decode_split_kernel<TQ, TKV, D, ROWS>;
-  cudaError_t err = prepare(kernel, lay.bytes);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(B * a.KH, splits), kSplitThreads, lay.bytes, stream>>>(
-      a, static_cast<const TQ*>(q), static_cast<TQ*>(out), seq_lens,
-      part_acc, part_ml, counters, H, pps, stages, scale);
+  const dim3 grid(B * a.KH, splits);
+  cudaError_t err;
+  if constexpr (APPEND) {
+    auto kernel = decode_append_split_kernel<TQ, TKV, D, ROWS>;
+    err = prepare(kernel, lay.bytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kSplitThreads, lay.bytes, stream>>>(
+        a, static_cast<const TQ*>(q), static_cast<TQ*>(out), seq_lens, nt,
+        part_acc, part_ml, counters, H, pps, stages, scale);
+  } else {
+    auto kernel = decode_split_kernel<TQ, TKV, D, ROWS>;
+    err = prepare(kernel, lay.bytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kSplitThreads, lay.bytes, stream>>>(
+        a, static_cast<const TQ*>(q), static_cast<TQ*>(out), seq_lens,
+        part_acc, part_ml, counters, H, pps, stages, scale);
+  }
   return cudaGetLastError();
+}
+
+// B2's instances (APPEND false) or B9's: dh 128 or 256, rows 4 or 8
+template <typename TQ, typename TKV, bool APPEND>
+cudaError_t launch_split_d(const Args& a, const void* q, void* out,
+                           const int* seq_lens, const NewToken& nt,
+                           float* part_acc, float* part_ml, int* counters,
+                           int B, int H, int splits, int pps, float scale,
+                           cudaStream_t stream) {
+  const bool narrow = H / a.KH <= 4;
+#define PBT_SPLIT(D_, R_)                                                   \
+  launch_split<TQ, TKV, D_, R_, APPEND>(a, q, out, seq_lens, nt, part_acc, \
+                                        part_ml, counters, B, H, splits,   \
+                                        pps, scale, stream)
+  if (a.D == 128) return narrow ? PBT_SPLIT(128, 4) : PBT_SPLIT(128, 8);
+  if (a.D == 256) return narrow ? PBT_SPLIT(256, 4) : PBT_SPLIT(256, 8);
+#undef PBT_SPLIT
+  return cudaErrorInvalidValue;
 }
 
 template <typename TQ, typename TKV>
@@ -290,38 +255,20 @@ cudaError_t launch_decode(const Args& a, const void* q, void* out,
                           float* part_ml, int* counters, int B, int H,
                           int splits, int pps, float scale,
                           cudaStream_t stream) {
-  const bool narrow = H / a.KH <= 4;
-  if (a.D == 128)
-    return narrow ? launch_split<TQ, TKV, 128, 4>(
-                        a, q, out, seq_lens, part_acc, part_ml, counters,
-                        B, H, splits, pps, scale, stream)
-                  : launch_split<TQ, TKV, 128, 8>(
-                        a, q, out, seq_lens, part_acc, part_ml, counters,
-                        B, H, splits, pps, scale, stream);
-  if (a.D == 256)
-    return narrow ? launch_split<TQ, TKV, 256, 4>(
-                        a, q, out, seq_lens, part_acc, part_ml, counters,
-                        B, H, splits, pps, scale, stream)
-                  : launch_split<TQ, TKV, 256, 8>(
-                        a, q, out, seq_lens, part_acc, part_ml, counters,
-                        B, H, splits, pps, scale, stream);
-  return cudaErrorInvalidValue;
+  return launch_split_d<TQ, TKV, false>(a, q, out, seq_lens, NewToken{},
+                                        part_acc, part_ml, counters, B, H,
+                                        splits, pps, scale, stream);
 }
 
 template <typename TQ, typename TKV>
 cudaError_t launch_decode_append(const Args& a, const void* q, void* out,
-                                 const int* seq_lens, const int* positions,
-                                 const void* news, const float* new_scales,
-                                 int B, int H, float scale,
-                                 cudaStream_t stream) {
-  const size_t smem = smem_bytes<TKV, kDecodeRows>(a.D, a.page);
-  auto kernel = paged_attention_decode_append_kernel<TQ, TKV>;
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<B * a.KH, kThreads, smem, stream>>>(
-      a, static_cast<const TQ*>(q), static_cast<TQ*>(out), seq_lens,
-      positions, static_cast<const TKV*>(news), new_scales, H, scale);
-  return cudaGetLastError();
+                                 const int* seq_lens, const NewToken& nt,
+                                 float* part_acc, float* part_ml,
+                                 int* counters, int B, int H, int splits,
+                                 int pps, float scale, cudaStream_t stream) {
+  return launch_split_d<TQ, TKV, true>(a, q, out, seq_lens, nt, part_acc,
+                                       part_ml, counters, B, H, splits, pps,
+                                       scale, stream);
 }
 
 }  // namespace
@@ -348,6 +295,19 @@ extern "C" int pbt_paged_attention(
 // workspace part_acc [B * KH, splits, G, D] and part_ml [.., G, 2] and
 // B * KH zeroed counters where splits > 1; the pool and the scales
 // 16-byte aligned (bulk copies).
+static bool split_args_ok(const void* pool, const float* scales,
+                          const float* part_acc, const float* part_ml,
+                          const int* counters, int H, int KH, int D,
+                          int page, int mp, int splits, int pps) {
+  return (D == 128 || D == 256) && H % KH == 0 && H / KH <= kDecodeRows &&
+         page >= 1 && splits >= 1 && splits <= kMaxSplits && pps >= 1 &&
+         splits * pps >= mp && (splits == 1 || (splits - 1) * pps < mp) &&
+         hop::aligned16(pool) &&
+         (scales == nullptr || hop::aligned16(scales)) &&
+         (splits == 1 ||
+          (part_acc != nullptr && part_ml != nullptr && counters != nullptr));
+}
+
 extern "C" int pbt_paged_attention_decode(
     const void* q, void* out, const void* pool, const float* scales,
     const int* block_tables, const int* seq_lens, float* part_acc,
@@ -355,12 +315,8 @@ extern "C" int pbt_paged_attention_decode(
     int page, int mp, int layer, long long scale_stride, int splits,
     int pps, float scale, float softcap, int window, int q_dtype,
     int kv_dtype, void* stream) {
-  if ((D != 128 && D != 256) || H % KH != 0 || H / KH > kDecodeRows ||
-      page < 1 || splits < 1 || splits > kMaxSplits || pps < 1 ||
-      splits * pps < mp || (splits > 1 && (splits - 1) * pps >= mp) ||
-      !hop::aligned16(pool) || (scales != nullptr && !hop::aligned16(scales)) ||
-      (splits > 1 &&
-       (part_acc == nullptr || part_ml == nullptr || counters == nullptr)))
+  if (!split_args_ok(pool, scales, part_acc, part_ml, counters, H, KH, D,
+                     page, mp, splits, pps))
     return cudaErrorInvalidValue;
   const Args a{static_cast<const uint8_t*>(pool), scales, block_tables, KH,
                D, P, page, mp, layer, scale_stride, softcap, window};
@@ -372,20 +328,30 @@ extern "C" int pbt_paged_attention_decode(
   return static_cast<int>(run());
 }
 
+// B9: B2's arguments and cut, with the new token's rows `news` [B, 2, KH,
+// 1, D] in the pool's dtype (16-byte aligned), their INT8 scales
+// new_scales [B, 2, KH] (null for other pools) and the targets positions
+// [B]; the pool and the scales are written in place.
 extern "C" int pbt_paged_attention_decode_append(
     const void* q, void* out, void* pool, float* scales,
     const int* block_tables, const int* seq_lens, const int* positions,
-    const void* news, const float* new_scales, int B, int H, int KH, int D,
-    int P, int page, int mp, int layer, long long scale_stride, float scale,
-    float softcap, int window, int q_dtype, int kv_dtype, void* stream) {
-  if (D > kThreads * kMaxDPerThread || H % KH != 0 ||
-      H / KH > kDecodeRows)
+    const void* news, const float* new_scales, float* part_acc,
+    float* part_ml, int* counters, int B, int H, int KH, int D, int P,
+    int page, int mp, int layer, long long scale_stride, int splits,
+    int pps, float scale, float softcap, int window, int q_dtype,
+    int kv_dtype, void* stream) {
+  if (!split_args_ok(pool, scales, part_acc, part_ml, counters, H, KH, D,
+                     page, mp, splits, pps) ||
+      !hop::aligned16(news) || (scales != nullptr) != (new_scales != nullptr))
     return cudaErrorInvalidValue;
   const Args a{static_cast<const uint8_t*>(pool), scales, block_tables, KH,
                D, P, page, mp, layer, scale_stride, softcap, window};
+  const NewToken nt{static_cast<const uint8_t*>(news), new_scales,
+                    positions};
   auto run = [&]() -> cudaError_t {
-    PBT_DISPATCH(launch_decode_append, a, q, out, seq_lens, positions, news,
-                 new_scales, B, H, scale, static_cast<cudaStream_t>(stream));
+    PBT_DISPATCH(launch_decode_append, a, q, out, seq_lens, nt, part_acc,
+                 part_ml, counters, B, H, splits, pps, scale,
+                 static_cast<cudaStream_t>(stream));
   };
   return static_cast<int>(run());
 }

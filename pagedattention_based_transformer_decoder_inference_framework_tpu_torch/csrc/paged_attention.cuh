@@ -1,8 +1,8 @@
 // Building blocks of the paged-attention kernels over the
 // [L, 2, KH, P, page, D] KV pool: the geometry (Args) and the decode page
-// range every kernel uses, and the page step of B1's SIMT kernel and B9
-// (paged_attention.cu) and B8 (paged_decode.cu). B2, B6 and B7 run the
-// split-KV body of split_decode.cuh.
+// range every kernel uses, and the page step of B1's SIMT kernel
+// (paged_attention.cu). B2 and B6-B9 run the split-KV body of
+// split_decode.cuh.
 //
 // The fold order is the JAX reference's (paged_attention.py:104-131): per
 // page, scores s = (q * scale) . k in f32; times the page's INT8 K scale;

@@ -1,9 +1,10 @@
-// Split-KV decode attention for Hopper: the device body that B2
-// (paged_attention.cu's decode_split_kernel), B6, B7 and B8 (paged_decode.cu's
-// decode_grouped_split_kernel, decode_batched_split_kernel and
+// Split-KV decode attention for Hopper: the device body that B2 and B9
+// (paged_attention.cu's decode_split_kernel and decode_append_split_kernel),
+// B6, B7 and B8 (paged_decode.cu's decode_grouped_split_kernel and
+// decode_batched_split_kernel, paged_decode_packed.cu's
 // decode_packed_split_kernel) share. Each entry point is its own __global__
-// (so a profile tells the four apart); what differs between them is only
-// how the work is cut into parts:
+// (so a profile tells the five apart); what differs between them is only
+// how the work is cut into parts, and B9's new token:
 //
 //   B2  grid (sequence x KV head, split): split s takes the pages [s * pps,
 //       s * pps + pps) of the block table (the shapes alone fix the
@@ -19,6 +20,14 @@
 //   B8  grid (sequence x KV head, split): as B6 with runs of single pages
 //       (decode_packed_plan); a split past the visible pages exits at once
 //       and only the splits with pages merge.
+//   B9  B2's grid and plan over the keys already in the pool (key <
+//       seq_len - 1: the new token's slot holds a stale row until B9 stores
+//       it); the new token, whose K/V row comes from the wrapper's `news`,
+//       enters once as a last partial (m = its score, l = 1, acc = its V
+//       row) in the merge (the single part's store, or the last part's
+//       merge), and that block's copy warp stores its row and scales in the
+//       pool after every part's reads of the (sequence, KV head)'s pages
+//       (named barrier 2, which the compute warps arrive at).
 //
 // A part is a run of pages of one (sequence, KV head) for the G <= ROWS
 // query heads of that KV head. What bounds it on the H100: bytes and
@@ -307,18 +316,31 @@ struct Part {
   long long base;   // the workspace slot of (b, h)'s part 0
 };
 
+// B9's new token: its K and V rows in the pool's dtype (news [B, 2, KH, 1,
+// D]), their INT8 scales ([B, 2, KH], null for other pools) and the append
+// targets (positions [B]; < 0, a page past the block table or an entry
+// outside the pool: not stored, as B3 skips them).
+struct NewToken {
+  const uint8_t* news;
+  const float* new_scales;
+  const int* positions;
+};
+
 // The body, run by all kSplitThreads threads of the block for each of its
 // parts in turn (uniformly). `it0` counts the pages the block's ring took
 // before this part (its stages and phases run on across parts; every part
 // after the first has pages before it);
 // `is_last` is the block's static shared flag. The partials of slot s are
-// part_acc [s, G, D] and part_ml [s, G, 2]; counters [B * KH].
-template <typename TQ, typename TKV, int DT, int ROWS>
+// part_acc [s, G, D] and part_ml [s, G, 2]; counters [B * KH]. APPEND (B9,
+// dh 128 or 256) masks the key seq_len - 1 too, folds `nt`'s token in the
+// merge and stores it; with APPEND false none of that is compiled.
+template <typename TQ, typename TKV, int DT, int ROWS, bool APPEND = false>
 __device__ __forceinline__ void split_part(
     const Args& a, uint8_t* smem, const SplitLay& lay, int& is_last,
     const void* q, void* out, bool qbf, const Part& w, int seq_len, int H,
     int stages, int it0, bool bulk, float* __restrict__ part_acc,
-    float* __restrict__ part_ml, int* __restrict__ counters, float scale) {
+    float* __restrict__ part_ml, int* __restrict__ counters, float scale,
+    const NewToken& nt = NewToken{}) {
   using L = Lanes<TKV, DT>;
   constexpr int es = L::es, W = L::W, E = L::E, GV = L::GV, F = L::F;
   constexpr int PV = L::PV, RUN = L::RUN, CIM = L::CIM, DCM = L::DCM;
@@ -344,15 +366,42 @@ __device__ __forceinline__ void split_part(
   if (it0 > 0 && warp < kSplitWarps) hop::fence_async_smem();
   __syncthreads();
   constexpr int NT = 32 * kSplitWarps;  // the compute warps
+  // B9: the new token's K row (its V row: + KH rows) and its 16-byte units
+  constexpr int UNITS = APPEND ? DT * es / 16 : 1;
+  [[maybe_unused]] const long long nk =
+      static_cast<long long>(b) * 2 * a.KH + h;
   if (warp == kSplitWarps) {
     // the copy warp: page i0 + it's K and V runs (contiguous [page, D] in
     // the pool) and an aligned run of each one's scales into stage (it0 +
     // it) % stages, the first `stages` pages at once, each later one when
     // the compute warps release the stage it reuses; by bulk copy (lane 0)
-    // or by the 32 lanes' plain copies
-    if (bulk && lane != 0) return;
+    // or by the 32 lanes' plain copies. B9: the copy warp also stores the
+    // new token (its raw row, unit lane + 32 i, the K row's then the V
+    // row's; its two scales by lanes 0 and 1), loaded before the copies,
+    // once the compute warps arrive at barrier 2: after their page reads
+    // with a single part, else once the counter names the last part
+    constexpr int NU = APPEND ? (2 * UNITS + 31) / 32 : 1;
+    [[maybe_unused]] uint4 raw[NU];
+    [[maybe_unused]] float sc_new = 0.f;
+    [[maybe_unused]] int pos_new = -1;
+    if constexpr (APPEND) {
+      static_assert(DT > 0 && DT % NT == 0 && 2 * UNITS <= 4 * 32,
+                    "B9 takes dh 128 or 256");
+      const uint4* src =
+          reinterpret_cast<const uint4*>(nt.news + nk * DT * es);
+#pragma unroll
+      for (int i = 0; i < NU; ++i) {
+        const int u = lane + 32 * i;  // V's units follow K's (row nk + KH)
+        if (u < 2 * UNITS)
+          raw[i] = src[u < UNITS ? u : a.KH * UNITS + u - UNITS];
+      }
+      if (quant && lane < 2) sc_new = nt.new_scales[nk + lane * a.KH];
+      pos_new = nt.positions[b];
+    } else {
+      if (bulk && lane != 0) return;
+    }
     const int row = page * D * es;
-    for (int it = 0; it < n; ++it) {
+    for (int it = 0; it < (!APPEND || !bulk || lane == 0 ? n : 0); ++it) {
       const int g = it0 + it, st = g % stages;
       if (g >= stages) hop::mbar_wait(&empty[st], (g / stages - 1) & 1);
       const int pid = bt[i0 + it];
@@ -389,7 +438,45 @@ __device__ __forceinline__ void split_part(
         hop::mbar_arrive(&full[st]);
       }
     }
+    if constexpr (APPEND) {
+      // the pool page of positions[b] (B3's skip rules: none past the
+      // block table or outside the pool)
+      const int pid =
+          pos_new >= 0 && pos_new / page < a.mp ? bt[pos_new / page] : a.P;
+      __syncwarp();
+      hop::named_sync(2, NT + 32);
+      if ((w.parts == 1 || is_last) && pid < a.P) {
+        const int slot = pos_new % page;
+#pragma unroll
+        for (int i = 0; i < NU; ++i) {
+          const int u = lane + 32 * i, kv = u < UNITS ? 0 : 1;
+          const size_t at =
+              page_offset(a, kv, h, pid) + static_cast<size_t>(slot) * DT;
+          if (u < 2 * UNITS)
+            reinterpret_cast<uint4*>(const_cast<uint8_t*>(a.pool) +
+                                     at * es)[u - kv * UNITS] = raw[i];
+        }
+        if (quant && lane < 2)
+          const_cast<float*>(a.scales)
+              [((static_cast<long long>(a.layer) * 2 + lane) * a.KH + h) *
+                   a.scale_stride +
+               static_cast<long long>(pid) * page + slot] = sc_new;
+      }
+    }
     return;
+  }
+
+  // B9: the new token's K values at this lane's d = lane + 32 j and its K
+  // scale, loaded while the q rows are staged (its score is computed once
+  // they are); its V values only after the pages (load_vnew).
+  constexpr int KJ = APPEND ? DT / 32 : 1, VJ = APPEND ? DT / NT : 1;
+  constexpr int NS = (ROWS + kSplitWarps - 1) / kSplitWarps;
+  [[maybe_unused]] float knew[KJ], vnew[VJ], snew[NS], sk = 1.f, sv = 1.f;
+  if constexpr (APPEND) {
+    if (quant) sk = nt.new_scales[nk];
+    const TKV* kn = reinterpret_cast<const TKV*>(nt.news) + nk * DT;
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) knew[j] = to_f32(kn[lane + 32 * j]);
   }
 
   // The compute warps stage the G query rows while the copy warp's first
@@ -411,6 +498,31 @@ __device__ __forceinline__ void split_part(
     }
   }
   hop::named_sync(1, NT);
+  if constexpr (APPEND) {
+    // the new token's score for rows warp, warp + 4: q (pre-scaled) . its
+    // K row times its scale, then the softcap (it is always visible)
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) knew[j] *= sk;
+#pragma unroll
+    for (int t = 0; t < NS; ++t) {
+      const int r = warp + kSplitWarps * t;
+      float sn = 0.f;
+      if (r < G) {
+#pragma unroll
+        for (int j = 0; j < KJ; ++j) {
+          const int d = lane + 32 * j, c = d / E, e = d % E;
+          sn = fmaf(qs[r * DQ + ((c / 8 * F + e / GV) * 8 + c % 8) * GV +
+                       e % GV],
+                    knew[j], sn);
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        sn += __shfl_xor_sync(0xffffffffu, sn, o);
+      if (a.softcap > 0.f) sn = a.softcap * tanhf(sn / a.softcap);
+      snew[t] = sn;
+    }
+  }
 
   // Compute warp `warp`: in every page, the keys jb + 4 u + kg (u < 4) of
   // each block of 16 at jb = 16 warp + 64 t, key group kg = lane / 8 of 8
@@ -431,6 +543,8 @@ __device__ __forceinline__ void split_part(
     for (int c = 0; c < PV * DCM; ++c) acc[r][c] = 0.f;
   }
   const int last = seq_len - 1;  // the query's position
+  // the last key read from the pool: B9's new token is not there yet
+  const int klast = APPEND ? last - 1 : last;
   for (int it = 0; it < n; ++it) {
     const int g = it0 + it, st = g % stages, i = i0 + it;
     hop::mbar_wait(&full[st], (g / stages) & 1);
@@ -500,7 +614,7 @@ __device__ __forceinline__ void split_part(
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int j = jb + 4 * u + kg, key = i * page + j;
-        vis[u] = j < page && key <= last &&
+        vis[u] = j < page && key <= klast &&
                  (a.window <= 0 || key > last - a.window);
         const float ks = quant && j < page ? sck[j] : 1.f;
 #pragma unroll
@@ -620,9 +734,35 @@ __device__ __forceinline__ void split_part(
         for (int o = LPD; o < 32; o <<= 1)
           acc[r][c] += __shfl_xor_sync(0xffffffffu, acc[r][c], o);
   }
+  // B9: the new token's V values at the d this thread merges (d = tid +
+  // NT j) and its V scale, loaded by the block that merges (none is then
+  // in flight at a part's fence before the counter)
+  [[maybe_unused]] auto load_vnew = [&]() {
+    const long long nv = nk + a.KH;
+    if (quant) sv = nt.new_scales[nv];
+    const TKV* vn = reinterpret_cast<const TKV*>(nt.news) + nv * DT;
+#pragma unroll
+    for (int j = 0; j < VJ; ++j) vnew[j] = to_f32(vn[tid + NT * j]);
+  };
+  if constexpr (APPEND) {
+    if (w.parts == 1) {
+      // a single part's pages are all read: the copy warp may store
+      hop::named_arrive(2, NT + 32);
+      load_vnew();
+    }
+  }
   hop::named_sync(1, NT);
   float* const cacc = reinterpret_cast<float*>(smem + lay.stage_off);
   float* const cml = cacc + kSplitWarps * ROWS * D;  // [warp][r][m, l]
+  // B9: the new token's scores [ROWS], then its merge weights [ROWS], over
+  // the warps' probability buffers (free once every warp is past its pages)
+  float* const pnew = reinterpret_cast<float*>(smem + lay.p_off);
+  if constexpr (APPEND) {
+#pragma unroll
+    for (int t = 0; t < NS; ++t)
+      if (lane == 0 && warp + kSplitWarps * t < G)
+        pnew[warp + kSplitWarps * t] = snew[t];
+  }
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
 #pragma unroll
@@ -654,9 +794,11 @@ __device__ __forceinline__ void split_part(
   const long long slot = w.base + w.part;
   const size_t orow = row0 * D;
   // every (row, d) of the G rows at once, each thread its own outputs
+  // (B9 with a single part: the new token enters here, after the warps)
+  const bool fold = APPEND && w.parts == 1;
   for (int idx = tid; idx < G * D; idx += NT) {
     const int r = idx / D, d = idx - r * D;
-    float mx = kNegBig;
+    float mx = fold ? pnew[r] : kNegBig;
 #pragma unroll
     for (int v = 0; v < kSplitWarps; ++v)
       mx = fmaxf(mx, cml[(v * ROWS + r) * 2]);
@@ -670,6 +812,11 @@ __device__ __forceinline__ void split_part(
 #pragma unroll
     for (int u = 0; u < kSplitWarps; ++u)
       v = fmaf(cacc[(u * ROWS + r) * D + d], wt[u], v);
+    if (fold) {
+      const float wn = expf(pnew[r] - mx);
+      lsum += wn;
+      v = fmaf((VJ > 1 && d >= NT ? vnew[VJ - 1] : vnew[0]) * sv, wn, v);
+    }
     if (w.parts == 1) {
       store_out<TQ>(out, qbf, orow + idx,
                     v * (1.f / (lsum == 0.f ? 1.f : lsum)));
@@ -693,7 +840,11 @@ __device__ __forceinline__ void split_part(
   hop::named_sync(1, NT);
   if (tid == 0) is_last = atomicAdd(&counters[bh], 1) == w.parts - 1;
   hop::named_sync(1, NT);
+  // B9: is_last is known, and with it whether every part has read its
+  // pages: the copy warp may store
+  if constexpr (APPEND) hop::named_arrive(2, NT + 32);
   if (!is_last) return;
+  if constexpr (APPEND) load_vnew();
   float* const wts = reinterpret_cast<float*>(smem + lay.w_off);  // [s][r]
   float* const invs = wts + (lay.bar_off - lay.w_off) / 4 - ROWS;
   const long long p0 = w.base;
@@ -702,11 +853,17 @@ __device__ __forceinline__ void split_part(
     float mx = kNegBig;
     for (int s = 0; s < w.parts; ++s)
       mx = fmaxf(mx, __ldcg(part_ml + ((p0 + s) * G + r) * 2));
+    if constexpr (APPEND) mx = fmaxf(mx, pnew[r]);
     float lsum = 0.f;
     for (int s = 0; s < w.parts; ++s) {
       const float wv = expf(__ldcg(part_ml + ((p0 + s) * G + r) * 2) - mx);
       wts[s * ROWS + r] = wv;
       lsum = fmaf(__ldcg(part_ml + ((p0 + s) * G + r) * 2 + 1), wv, lsum);
+    }
+    if constexpr (APPEND) {  // the new token, the last partial
+      const float wn = expf(pnew[r] - mx);
+      pnew[ROWS + r] = wn;
+      lsum += wn;
     }
     invs[r] = 1.f / (lsum == 0.f ? 1.f : lsum);
   }
@@ -717,6 +874,9 @@ __device__ __forceinline__ void split_part(
     for (int s = 0; s < w.parts; ++s)
       v = fmaf(__ldcg(part_acc + ((p0 + s) * G + r) * D + d),
                wts[s * ROWS + r], v);
+    if constexpr (APPEND)
+      v = fmaf((VJ > 1 && d >= NT ? vnew[VJ - 1] : vnew[0]) * sv,
+               pnew[ROWS + r], v);
     store_out<TQ>(out, qbf, orow + idx, v * invs[r]);
   }
   if (tid == 0) counters[bh] = 0;

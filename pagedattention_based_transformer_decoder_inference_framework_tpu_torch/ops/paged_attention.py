@@ -43,7 +43,11 @@ B9, ``csrc/paged_decode.cu`` B6 and B7, ``csrc/paged_decode_packed.cu`` B8:
   calls it.
 * :func:`paged_attention_decode_append` (B9) replaces
   ``paged_attention_decode_append`` (``_decode_append_kernel``): B2 with
-  the T=1 KV append fused in; :func:`decode_append_supported` gates it.
+  the T=1 KV append fused in, on B2's split-KV body, grid and plan, one
+  launch: the splits read the keys already in the pool (``key < seq_len
+  - 1``), the new token enters the merge as a last partial and the
+  merging block stores it (:func:`decode_append_emulation` in plain
+  PyTorch); :func:`decode_append_supported` gates it.
 
 :func:`decode_route` is the JAX backend's choice between B2, B8 and B6
 for a T=1 call. What bounds the kernels on the H100 and what the designs
@@ -90,7 +94,7 @@ ATTENTION_DECODE = CudaKernel(
 ATTENTION_DECODE_APPEND = CudaKernel(
     "paged_attention_decode_append", "paged_attention.cu",
     "pbt_paged_attention_decode_append",
-    _ATTN_ARGS + [P, P, P] + [I] * 8 + [LL, F, F, I, I, I, P],
+    _ATTN_ARGS + [P] * 6 + [I] * 8 + [LL, I, I, F, F, I, I, I, P],
     "ops/paged_attention.py:1380")
 ATTENTION_DECODE_GROUPED = CudaKernel(
     "paged_attention_decode_grouped", "paged_decode.cu",
@@ -348,14 +352,15 @@ def decode_split_plan(batch: int, kv_heads: int, mp: int):
     return max(1, cdiv(mp, pps)), pps
 
 
-def _merge_parts(s, vis, v, vscale, masks):
+def _merge_parts(s, vis, v, vscale, masks, last=None):
     """The split-KV computation over the reference's fold (:func:`_fold`)
     in plain PyTorch (f32): each part, a bool key mask broadcastable to
     ``s`` (``[B or 1, KH or 1, 1, 1, S]``), folds its keys into a partial
     ``(m, l, acc)`` (a part with no visible key gives ``m = -1e30, l = 0,
-    acc = 0``), and the partials merge in the list's order: ``M = max
-    m``, ``w = e^(m - M)``, ``out = sum acc w / sum l w`` with the ``l ==
-    0 -> 1`` guard. Returns ``[B, KH, T, G, D]``."""
+    acc = 0``), and the partials merge in the list's order, then ``last``
+    (a partial of its own, or None): ``M = max m``, ``w = e^(m - M)``,
+    ``out = sum acc w / sum l w`` with the ``l == 0 -> 1`` guard. Returns
+    ``[B, KH, T, G, D]``."""
     parts = []
     for mask in masks:
         ss = torch.where(mask, s, torch.full_like(s, -1e30))
@@ -365,6 +370,8 @@ def _merge_parts(s, vis, v, vscale, masks):
         if vscale is not None:
             p = p * vscale
         parts.append((m, l, torch.einsum("bktgs,kbsd->bktgd", p, v)))
+    if last is not None:
+        parts.append(last)
     mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
     acc = torch.zeros_like(parts[0][2])
     lsum = torch.zeros_like(parts[0][1])
@@ -618,6 +625,21 @@ def decode_batched_emulation(q, kv_pages, block_tables, seq_lens,
     return _emulation_out(q, _merge_parts(s, vis, v, vscale, list(masks)))
 
 
+def _split_workspace(q, kv_heads: int, splits: int):
+    """The split-KV kernels' workspace for ``splits`` parts of each
+    (sequence, KV head) of ``q [B, 1, H, D]``: the parts' f32 partials
+    ``acc [B * KH, splits, G, D]`` and ``(m, l) [.., G, 2]`` and the
+    stream's counters, or three Nones for a single part (it writes its
+    output directly)."""
+    if splits == 1:
+        return None, None, None
+    B, _, H, D = q.shape
+    rows = (B * kv_heads, splits, H // kv_heads)
+    return (torch.empty(rows + (D,), dtype=torch.float32, device=q.device),
+            torch.empty(rows + (2,), dtype=torch.float32, device=q.device),
+            split_counters(q.device, B * kv_heads))
+
+
 def _decode_inputs(q, kv_pages, block_tables, seq_lens, kv_scales, layer,
                    page_size, num_q_heads, row_multiple=4):
     """The checks every decode kernel needs (T=1, at most 8 query heads
@@ -665,15 +687,8 @@ def paged_attention_decode(q: torch.Tensor, kv_pages: torch.Tensor,
     pool, scales = aligned16(pool), aligned16(scales)
     B, _, H, D = q.shape
     KH, mp = pool.shape[2], bt.shape[1]
-    G = H // KH
     splits, pps = decode_split_plan(B, KH, mp)
-    part_acc = part_ml = counters = None
-    if splits > 1:
-        part_acc = torch.empty((B * KH, splits, G, D), dtype=torch.float32,
-                               device=q.device)
-        part_ml = torch.empty((B * KH, splits, G, 2), dtype=torch.float32,
-                              device=q.device)
-        counters = split_counters(q.device, B * KH)
+    part_acc, part_ml, counters = _split_workspace(q, KH, splits)
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     out = torch.empty_like(q)
     ATTENTION_DECODE.launch(
@@ -791,14 +806,7 @@ def decode_grouped_launch(q, kv_pages, block_tables, seq_lens,
     pool, scales = aligned16(pool), aligned16(scales)
     B, _, H, D = q.shape
     KH, mp = pool.shape[2], bt.shape[1]
-    G = H // KH
-    part_acc = part_ml = counters = None
-    if splits > 1:
-        part_acc = torch.empty((B * KH, splits, G, D), dtype=torch.float32,
-                               device=q.device)
-        part_ml = torch.empty((B * KH, splits, G, 2), dtype=torch.float32,
-                              device=q.device)
-        counters = split_counters(q.device, B * KH)
+    part_acc, part_ml, counters = _split_workspace(q, KH, splits)
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     out = torch.empty_like(q)
     ATTENTION_DECODE_GROUPED.launch(
@@ -862,14 +870,7 @@ def decode_packed_launch(q, kv_pages, block_tables, seq_lens,
     pool, scales = aligned16(pool), aligned16(scales)
     B, _, H, D = q.shape
     KH, mp = pool.shape[2], bt.shape[1]
-    G = H // KH
-    part_acc = part_ml = counters = None
-    if splits > 1:
-        part_acc = torch.empty((B * KH, splits, G, D), dtype=torch.float32,
-                               device=q.device)
-        part_ml = torch.empty((B * KH, splits, G, 2), dtype=torch.float32,
-                              device=q.device)
-        counters = split_counters(q.device, B * KH)
+    part_acc, part_ml, counters = _split_workspace(q, KH, splits)
     scale = 1.0 / math.sqrt(D) if scale is None else scale
     out = torch.empty_like(q)
     ATTENTION_DECODE_PACKED.launch(
@@ -966,6 +967,59 @@ def paged_attention_decode_append_plain(q, kv, k_new, v_new, block_tables,
     return out, kv
 
 
+def decode_append_emulation(q, kv, k_new, v_new, block_tables, seq_lens,
+                            positions, layer: int, *, page_size: int,
+                            num_q_heads: int, window: int = 0,
+                            softcap: float = 0.0,
+                            scale: Optional[float] = None,
+                            pages_per_split: Optional[int] = None):
+    """B9's split computation in plain PyTorch (f32), for tests and
+    checks; same inputs and outputs as
+    :func:`paged_attention_decode_append`. Each run of
+    ``pages_per_split`` pages of the block table
+    (:func:`decode_split_plan`'s by default) folds the keys already in the
+    pool (``key < seq_len - 1``, window relative to the query at ``seq_len
+    - 1``) into a partial, as :func:`decode_split_emulation` does; the
+    partials merge in split order and then the new token, as a last
+    partial: ``m`` its score (q times the scale against
+    its K row in the pool's dtype with its INT8 scale folded in, then the
+    softcap), ``l = 1``, ``acc`` its V row times its scale. Then the
+    append's plain version stores the row (positions ``< 0`` not
+    written). A frozen lane's output folds the new row too, as the
+    kernel's does."""
+    vals, scales, layer = _pooled(kv[0], kv[1] if len(kv) == 2 else None,
+                                  layer)
+    _check(q, vals, block_tables, seq_lens, num_q_heads, page_size)
+    if q.shape[1] != 1:
+        raise ValueError("decode attention takes T=1")
+    B, _, H, D = q.shape
+    KH = vals.shape[2]
+    G = H // KH
+    scale = 1.0 / math.sqrt(D) if scale is None else scale
+    sl = seq_lens.long()
+    s, vis, v, vscale = _fold(q, vals, scales, layer, block_tables, sl - 1,
+                              sl[:, None] - 1, window, softcap, scale)
+    news = stack_new_kv(kv, k_new, v_new)
+    kn, vn = news[0][:, 0, :, 0].float(), news[0][:, 1, :, 0].float()
+    if scales is not None:                           # [B, KH, D] rows
+        kn, vn = kn * news[1][:, 0, :, 0], vn * news[1][:, 1, :, 0]
+    qf = q.float().reshape(B, 1, KH, G, D) * scale
+    sn = torch.einsum("btkgd,bkd->bktg", qf, kn)[..., None]
+    if softcap > 0:
+        sn = softcap * torch.tanh(sn / softcap)
+    new = (sn, torch.ones_like(sn),
+           vn[:, :, None, None, :].expand(B, KH, 1, G, D))
+    mp = block_tables.shape[1]
+    pps = (decode_split_plan(B, KH, mp)[1] if pages_per_split is None
+           else pages_per_split)
+    page = torch.arange(mp * page_size, device=q.device) // page_size
+    masks = [(page >= lo) & (page < lo + pps) for lo in range(0, mp, pps)]
+    out = _emulation_out(q, _merge_parts(s, vis, v, vscale, masks, new))
+    append_plain(kv, news, layer, positions.to(torch.int32),
+                 block_tables.to(torch.int32))
+    return out, kv
+
+
 def paged_attention_decode_append(q: torch.Tensor, kv, k_new: torch.Tensor,
                                   v_new: torch.Tensor,
                                   block_tables: torch.Tensor,
@@ -980,7 +1034,10 @@ def paged_attention_decode_append(q: torch.Tensor, kv, k_new: torch.Tensor,
     (quantized here for an INT8 pool, as ``kv_append`` does);
     ``seq_lens`` the lengths after the append; ``positions [B, 1]`` the
     append targets (``< 0``: not written). Returns ``(out [B, 1, H,
-    dh], kv)``, the pool updated in place.
+    dh], kv)``, the pool updated in place. One launch on B2's split-KV
+    body with :func:`decode_split_plan`'s cut: the splits read the keys
+    already in the pool, the new token is folded in last in the merge,
+    and the merging block stores it (:func:`decode_append_emulation`).
 
     A lane with ``positions < 0`` (a frozen lane) writes nothing, and
     its output is undefined: the kernel folds in the new row as the
@@ -995,26 +1052,25 @@ def paged_attention_decode_append(q: torch.Tensor, kv, k_new: torch.Tensor,
     if not decode_append_supported(kv, D, block_tables.shape[1]):
         raise ValueError("decode_append_supported(kv, dh, mp) is False for "
                          "this pool and block table")
-    pool, scales, layer = _pooled(kv[0], kv[1] if len(kv) == 2 else None,
-                                  layer)
-    _check(q, pool, block_tables, seq_lens, num_q_heads, page_size)
-    qd, kd, sstride = _launch_args(q, pool, scales)
-    if T != 1 or H // pool.shape[2] > 8:
-        raise ValueError("decode kernel takes T=1 and at most 8 query "
-                         "heads per KV head")
+    pool, scales, layer, qd, kd, sstride, q, bt, sl = _decode_inputs(
+        q, kv[0], block_tables, seq_lens, kv[1] if len(kv) == 2 else None,
+        layer, page_size, num_q_heads)
     news = stack_new_kv(kv, k_new, v_new)
     pos = positions.to(torch.int32).contiguous()
-    bt = block_tables.to(torch.int32).contiguous()
     _check_append(kv, news, pos, bt)
+    if scales is not None and scales.data_ptr() % 16:
+        raise ValueError("the INT8 scales must be 16-byte aligned")
+    new_vals = aligned16(news[0].contiguous())
+    new_sc = news[1].contiguous() if scales is not None else None
+    KH, mp = pool.shape[2], bt.shape[1]
+    splits, pps = decode_split_plan(B, KH, mp)
+    part_acc, part_ml, counters = _split_workspace(q, KH, splits)
     scale = 1.0 / math.sqrt(D) if scale is None else scale
-    q = q.contiguous()
-    sl = seq_lens.to(torch.int32).contiguous()
-    new_sc = news[1] if scales is not None else None
     out = torch.empty_like(q)
     ATTENTION_DECODE_APPEND.launch(
         ptr(q), ptr(out), ptr(pool), ptr(scales), ptr(bt), ptr(sl),
-        ptr(pos), ptr(news[0]), ptr(new_sc), B, H, pool.shape[2], D,
-        pool.shape[3], page_size, bt.shape[1], layer, sstride,
-        float(scale), float(softcap), int(window), qd, kd,
-        stream_handle(q))
+        ptr(pos), ptr(new_vals), ptr(new_sc), ptr(part_acc), ptr(part_ml),
+        ptr(counters), B, H, KH, D, pool.shape[3], page_size, mp, layer,
+        sstride, splits, pps, float(scale), float(softcap), int(window), qd,
+        kd, stream_handle(q))
     return out, kv

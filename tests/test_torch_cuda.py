@@ -195,38 +195,142 @@ def test_cuda_append_tokens_matches_plain(cuda, kv_dtype):
             assert torch.equal(a, b)
 
 
+# B4's chunks: (pool dtype, dh, page, T, chunk start, prompt lens or None):
+# one pool page a chunk page from slot 0 (the contiguous run), a chunk off
+# the page grid, prompt padding (pos < 0), Phi-3's bf16 rows of dh 96, a
+# 256-token chunk at page 64, and rows of 24, 36, 18 and 9 bytes (8-, 4-,
+# 2- and 1-byte units)
+PREFILL_CHUNKS = {
+    "aligned": ("int8", 128, PAGE, 2 * PAGE, 2 * PAGE, None),
+    "off the page grid": ("int8", 128, PAGE, 2 * PAGE, 5, None),
+    "padding": ("int8", 128, PAGE, 2 * PAGE, 0, [16, 9, 1]),
+    "bf16 dh 96": ("bfloat16", 96, PAGE, 2 * PAGE, PAGE, [40, 20, 24]),
+    "T=256, page 64": ("int8", 128, 64, 256, 256, [512, 300, 256]),
+    "int8 dh 24": ("int8", 24, PAGE, 2 * PAGE, 0, [16, 9, 1]),
+    "bf16 dh 18": ("bfloat16", 18, PAGE, 2 * PAGE, 3, None),
+    "int8 dh 18": ("int8", 18, PAGE, 2 * PAGE, 0, None),
+    "int8 dh 9": ("int8", 9, PAGE, 2 * PAGE, PAGE, [20, 30, 17]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PREFILL_CHUNKS))
+def test_cuda_append_prefill_matches_plain(cuda, case):
+    """B4 (one pass of independent row copies) against the plain scatter,
+    bit for bit, at every row width and chunk placement it takes."""
+    kv_dtype, dh, page, T, c0, lens = PREFILL_CHUNKS[case]
+    B, KH, n_pages = 3, 2, 32 if page == PAGE else 40
+    rng = np.random.default_rng(10)
+    mp = (c0 + T) // page + 2
+    bt = torch.from_numpy((rng.permutation(n_pages - 1)[:B * mp] + 1)
+                          .reshape(B, mp).astype(np.int32)).to(cuda)
+    ar = c0 + torch.arange(T)[None].expand(B, T)
+    pos = ar if lens is None else torch.where(
+        ar < torch.tensor(lens)[:, None], ar, -1)
+    pos = pos.to(cuda, torch.int32)
+    shape = (L, 2, KH, n_pages, page, dh)
+    if kv_dtype == "int8":
+        kv_k = (torch.zeros(shape, dtype=torch.int8, device=cuda),
+                torch.zeros((L, 2, KH, -(-n_pages * page // 128), 128),
+                            device=cuda))
+    else:
+        kv_k = (torch.zeros(shape, dtype=torch.bfloat16, device=cuda),)
+    kv_p = tuple(x.clone() for x in kv_k)
+    news = tpool.stack_new_kv(kv_k, torch.randn((B, T, KH, dh), device=cuda),
+                              torch.randn((B, T, KH, dh), device=cuda))
+    ka.APPEND_PREFILL.launches = 0
+    ka.append_prefill(kv_k, news, LAYER, pos, bt)
+    assert ka.APPEND_PREFILL.launches == 1
+    ka.append_prefill_plain(kv_p, news, LAYER, pos, bt)
+    for a, b in zip(kv_k, kv_p):
+        assert torch.equal(a, b)
+
+
+def plant_stale_rows(kv, bt, q, seq_lens, lanes):
+    """Writes into slot ``seq_len - 1`` of each of ``lanes``, every KV
+    head, a row that would dominate the output if read as a key: K along
+    the sign of the head's mean query, V large. In place."""
+    vals = kv[0]
+    KH, page = vals.shape[2], vals.shape[4]
+    for b in lanes:
+        n = int(seq_lens[b])
+        pid, slot = int(bt[b, (n - 1) // page]), (n - 1) % page
+        sign = torch.sign(q[b, 0].float().reshape(KH, -1, DH).mean(1))
+        if vals.dtype == torch.int8:
+            vals[LAYER, 0, :, pid, slot] = (sign * 127).to(torch.int8)
+            vals[LAYER, 1, :, pid, slot] = 127
+            flat = kv[1][LAYER].view(2, KH, -1)
+            flat[0, :, pid * page + slot] = 0.05
+            flat[1, :, pid * page + slot] = 0.1
+        else:
+            vals[LAYER, 0, :, pid, slot] = (sign * 4).to(vals.dtype)
+            vals[LAYER, 1, :, pid, slot] = 8
+
+
+# B9's cuts of the key range (block table width, pool pages, seq lens
+# after the append, the last lane frozen): six splits of one page (B=5,
+# KH=2), one part (a one-page table) and a 512-page table at batch 1 (64
+# splits of 8 pages); each lane's new slot holds a stale row
+DECODE_APPEND_LAYOUTS = {
+    "many parts": (MP, P, [1, 17, MP * PAGE, 30, 40]),
+    "one part": (1, P, [1, 8, 5, 3, 6]),
+    "512 pages, B=1": (512, 520, [4000]),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("G,window,softcap", [(1, 0, 0.0), (4, 0, 0.0),
                                               (4, 10, 20.0)])
 @pytest.mark.parametrize("q_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pool_dtype", ["int8", "bfloat16"])
-def test_cuda_decode_append_matches_plain(cuda, pool_dtype, q_dtype, G,
-                                          window, softcap):
-    """B9: the output within B2's tolerance, the pool bit-exact; the
-    first token of a sequence, a new page's first slot, the table's last
-    slot, a lane mid-page, and a frozen lane (``pos = -1``: nothing
-    written, its output undefined and not compared)."""
+@pytest.mark.parametrize("layout", sorted(DECODE_APPEND_LAYOUTS))
+def test_cuda_decode_append_matches_plain(cuda, layout, pool_dtype, q_dtype,
+                                          G, window, softcap):
+    """B9: the output within B2's tolerance, the pool bit-exact, at one
+    part, many parts and a 512-page table; the first token of a sequence,
+    a new page's first slot, the table's last slot, a lane mid-page, a
+    stale row in every new slot (which the kernel must not read as a key)
+    and a frozen lane (``pos = -1``: nothing written, its output undefined
+    and not compared)."""
+    mp, n_pages, lens = DECODE_APPEND_LAYOUTS[layout]
     rng = np.random.default_rng(9)
-    B, KH = 5, 2
+    B, KH = len(lens), 2
     H = KH * G
-    vals, sc = make_pool(rng, KH, pool_dtype, cuda)
-    bt = block_table(rng, B, cuda)
-    kv_k = (vals,) if sc is None else (vals, sc)
-    kv_p = tuple(x.clone() for x in kv_k)
+    shape = (L, 2, KH, n_pages, PAGE, DH)
+    if pool_dtype == "int8":
+        vals = torch.from_numpy(rng.integers(-127, 128, size=shape).astype(
+            np.int8)).to(cuda)
+        sc = torch.from_numpy((rng.random(
+            (L, 2, KH, -(-n_pages * PAGE // 128), 128)) * 0.02 + 0.005)
+            .astype(np.float32)).to(cuda)
+        kv_k = (vals, sc)
+    else:
+        kv_k = (torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+                .to(cuda, torch.bfloat16),)
+    bt = torch.from_numpy((rng.permutation(n_pages - 1)[:B * mp] + 1)
+                          .reshape(B, mp).astype(np.int32)).to(cuda)
     q = torch.randn((B, 1, H, DH), device=cuda).to(q_dtype)
     k = torch.randn((B, 1, KH, DH), device=cuda).to(q_dtype)
     v = torch.randn((B, 1, KH, DH), device=cuda).to(q_dtype)
-    sl = torch.tensor([1, 17, MP * PAGE, 30, 40], device=cuda)
+    sl = torch.tensor(lens, device=cuda)
     pos = (sl - 1).to(torch.int32)[:, None]
-    pos[4] = -1
+    live = B - 1 if B > 1 else B
+    if B > 1:
+        pos[-1] = -1
+    plant_stale_rows(kv_k, bt, q, lens, range(live))
+    kv_p = tuple(x.clone() for x in kv_k)
     kw = dict(page_size=PAGE, num_q_heads=H, window=window, softcap=softcap)
+    splits, _ = pa.decode_split_plan(B, KH, mp)
+    assert (splits == 1) == (layout == "one part")
+    pa.ATTENTION_DECODE_APPEND.launches = 0
     out, _ = pa.paged_attention_decode_append(q, kv_k, k, v, bt, sl, pos,
                                               LAYER, **kw)
+    assert pa.ATTENTION_DECODE_APPEND.launches == 1
     ref, _ = pa.paged_attention_decode_append_plain(q, kv_p, k, v, bt, sl,
                                                     pos, LAYER, **kw)
     tol = 1e-4 if q_dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(out[:4].float(), ref[:4].float(), atol=tol,
-                               rtol=0)
+    torch.testing.assert_close(out[:live].float(), ref[:live].float(),
+                               atol=tol, rtol=0)
     for a, b in zip(kv_k, kv_p):
         assert torch.equal(a, b)
 

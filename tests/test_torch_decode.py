@@ -486,6 +486,162 @@ def test_split_decode_emulation_matches_plain_and_jax(case, pool_dtype, pps):
         assert first >= pps
 
 
+# -- B9 on B2's split-KV body ----------------------------------------------
+
+# (G, window, softcap, seq lens after the append) at B=5 over a 6-page
+# table of 8-key pages: the first token of a sequence (no key in the
+# pool), a new page's first slot, the table's last slot, a lane mid-page
+# and a frozen lane (position -1: nothing stored, its output not
+# compared); with a window of 10 the longer sequences' first splits hold
+# no visible key
+DECODE_APPEND_CASES = {
+    "gqa": (4, 0, 0.0, [1, 17, MP * PAGE, 30, 12]),
+    "window_softcap": (4, 10, 20.0, [1, 33, MP * PAGE, 22, 40]),
+}
+APPEND_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+
+def append_inputs(rng, B, KH, G, pool_dtype, q_dtype, seq_lens):
+    """A pool, a block table, q and the new K/V rows as numpy, and the
+    positions ``seq_len - 1`` (the last lane frozen)."""
+    (jvals, jsc), _ = make_pool(rng, KH, 128, pool_dtype)
+    bt = block_table(rng, B)
+    q, k, v = (rng.normal(size=(B, 1, n, 128)).astype(np.float32)
+               for n in (KH * G, KH, KH))
+    if q_dtype == "bfloat16":       # values a bf16 query can hold
+        q, k, v = (np.array(jnp.asarray(x).astype(jnp.bfloat16)
+                            .astype(jnp.float32)) for x in (q, k, v))
+    pos = np.asarray(seq_lens, np.int32)[:, None] - 1
+    pos[-1] = -1
+    pool = tuple(np.array(x.astype(jnp.float32) if x.dtype == jnp.bfloat16
+                          else x) for x in (jvals, jsc) if x is not None)
+    return pool, bt, q, k, v, pos
+
+
+def torch_pool(pool, pool_dtype):
+    vals = torch.from_numpy(pool[0].copy())
+    if pool_dtype == "bfloat16":
+        vals = vals.to(torch.bfloat16)
+    return (vals,) + tuple(torch.from_numpy(x.copy()) for x in pool[1:])
+
+
+def jax_pool(pool, pool_dtype):
+    vals = jnp.asarray(pool[0])
+    if pool_dtype == "bfloat16":
+        vals = vals.astype(jnp.bfloat16)
+    return (vals,) + tuple(jnp.asarray(x) for x in pool[1:])
+
+
+@pytest.mark.parametrize("q_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("pool_dtype", ["int8", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(DECODE_APPEND_CASES))
+def test_decode_append_emulation_matches_plain_and_jax(case, pool_dtype,
+                                                       q_dtype):
+    """B9's split computation in plain PyTorch
+    (``decode_append_emulation``: the parts over the keys already in the
+    pool, the new token merged last) against its plain version and the
+    JAX ``paged_attention_decode_append`` in interpret mode, at one
+    split, two and the plan's six: the output within 1e-4 (f32 queries)
+    or 2e-2 (bf16), the pool equal to both bit for bit."""
+    G, window, softcap, lens = DECODE_APPEND_CASES[case]
+    B, KH = len(lens), 2
+    H = KH * G
+    rng = np.random.default_rng(12)
+    pool, bt, q, k, v, pos = append_inputs(rng, B, KH, G, pool_dtype,
+                                           q_dtype, lens)
+    tdt = getattr(torch, q_dtype)
+    tq, tk, tv = (torch.from_numpy(x).to(tdt) for x in (q, k, v))
+    sl = np.asarray(lens, np.int32)
+    common = dict(page_size=PAGE, num_q_heads=H, window=window,
+                  softcap=softcap, scale=128 ** -0.5)
+    jdt = getattr(jnp, q_dtype)
+    ref, ref_kv = jpa.paged_attention_decode_append(
+        *(jnp.asarray(x).astype(jdt) for x in (q,)),
+        jax_pool(pool, pool_dtype), *(jnp.asarray(x).astype(jdt)
+                                      for x in (k, v)),
+        jnp.asarray(bt), jnp.asarray(sl), jnp.asarray(pos),
+        jnp.int32(LAYER), interpret=True, **common)
+    ref = np.asarray(ref.astype(jnp.float32))
+    args = (torch.from_numpy(bt), torch.from_numpy(sl),
+            torch.from_numpy(pos), LAYER)
+    plain, plain_kv = pa.paged_attention_decode_append_plain(
+        tq, torch_pool(pool, pool_dtype), tk, tv, *args, **common)
+    plain = plain.float().numpy()
+    tol = APPEND_TOL[q_dtype]
+    np.testing.assert_allclose(plain[:-1], ref[:-1], atol=tol, rtol=0)
+    assert pa.decode_split_plan(B, KH, MP) == (MP, 1)
+    for pps in (MP, 3, None):
+        out, out_kv = pa.decode_append_emulation(
+            tq, torch_pool(pool, pool_dtype), tk, tv, *args,
+            pages_per_split=pps, **common)
+        out = out.float().numpy()
+        np.testing.assert_allclose(out[:-1], plain[:-1], atol=tol, rtol=0)
+        np.testing.assert_allclose(out[:-1], ref[:-1], atol=tol, rtol=0)
+        for a, b, r in zip(out_kv, plain_kv, ref_kv):
+            assert torch.equal(a, b)
+            np.testing.assert_array_equal(a.float().numpy(),
+                                          np.asarray(r.astype(jnp.float32)))
+    # the frozen lane wrote nothing: its slot keeps the pool's old row
+    stale = (LAYER, 0, 0, bt[-1, (lens[-1] - 1) // PAGE],
+             (lens[-1] - 1) % PAGE)
+    assert torch.equal(out_kv[0][stale], torch_pool(pool, pool_dtype)[0][stale])
+
+
+def plant_stale_rows(pool, bt, q, seq_lens, G):
+    """Writes into slot ``seq_len - 1`` of each sequence, every KV head,
+    a row that would dominate the output if read as a key: K along the
+    sign of the head's mean query, V large. In place (numpy)."""
+    vals, KH = pool[0], pool[0].shape[2]
+    int8 = vals.dtype == np.int8
+    for b, n in enumerate(seq_lens):
+        pid, slot = bt[b, (n - 1) // PAGE], (n - 1) % PAGE
+        for h in range(KH):
+            sign = np.sign(q[b, 0, h * G:(h + 1) * G].mean(axis=0))
+            vals[LAYER, 0, h, pid, slot] = sign * (127 if int8 else 4.0)
+            vals[LAYER, 1, h, pid, slot] = 127 if int8 else 8.0
+            if int8:
+                flat = pool[1][LAYER, :, h].reshape(2, -1)
+                flat[:, pid * PAGE + slot] = (0.05, 0.1)
+
+
+@pytest.mark.parametrize("pool_dtype", ["int8", "bfloat16"])
+def test_decode_append_key_limit_is_before_the_new_slot(pool_dtype):
+    """The key limit of B9's parts is ``seq_len - 1``: with a stale row
+    planted in each new token's slot, the emulation still matches the
+    plain version and the JAX kernel (which store the new row first)
+    at 1e-4, while counting that slot as a key (the stale row kept, the
+    new token one slot on: the plain version at ``seq_len + 1``) moves
+    the output past 2e-2."""
+    lens, G, KH = [20, 17, 41, 9], 4, 2
+    B, H = len(lens), KH * G
+    rng = np.random.default_rng(13)
+    pool, bt, q, k, v, pos = append_inputs(rng, B, KH, G, pool_dtype,
+                                           "float32", lens)
+    pos[-1] = lens[-1] - 1                 # every lane appends here
+    plant_stale_rows(pool, bt, q, lens, G)
+    sl = np.asarray(lens, np.int32)
+    common = dict(page_size=PAGE, num_q_heads=H, scale=128 ** -0.5)
+    ref, _ = jpa.paged_attention_decode_append(
+        jnp.asarray(q), jax_pool(pool, pool_dtype), jnp.asarray(k),
+        jnp.asarray(v), jnp.asarray(bt), jnp.asarray(sl), jnp.asarray(pos),
+        jnp.int32(LAYER), interpret=True, **common)
+    tensors = [torch.from_numpy(x) for x in (q, k, v, bt)]
+    tq, tk, tv, tbt = tensors
+    out, _ = pa.decode_append_emulation(
+        tq, torch_pool(pool, pool_dtype), tk, tv, tbt, torch.from_numpy(sl),
+        torch.from_numpy(pos), LAYER, **common)
+    plain, _ = pa.paged_attention_decode_append_plain(
+        tq, torch_pool(pool, pool_dtype), tk, tv, tbt, torch.from_numpy(sl),
+        torch.from_numpy(pos), LAYER, **common)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **CLOSE)
+    np.testing.assert_allclose(out.numpy(), plain.numpy(), **CLOSE)
+    stale, _ = pa.paged_attention_decode_append_plain(
+        tq, torch_pool(pool, pool_dtype), tk, tv, tbt,
+        torch.from_numpy(sl + 1), torch.from_numpy(pos + 1), LAYER, **common)
+    moved = np.abs(stale.numpy() - plain.numpy()).max(axis=(1, 2, 3))
+    assert (moved > 2e-2).all(), moved
+
+
 # -- B6's and B7's cuts (the kernels on B2's split-KV body) ---------------
 
 @pytest.mark.parametrize("B,KH,mp,page,window,J,expect", [

@@ -26,7 +26,15 @@ weight outside L2):
   96, window 2047, B=4) and path (i)'s (516 pages, B=1); B7
   ``paged_attention_decode_batched`` at the slice's shape and the four
   ragged sequences; B8 ``paged_attention_decode_packed`` at path (g)'s
-  shape (tinyllama-1.1b, B=8, dh 64);
+  shape (tinyllama-1.1b, B=8, dh 64); B9 ``paged_attention_decode_append``
+  at the slice's shape and at the 512-page table, each beside B3
+  ``kv_append`` then B2 on the same inputs (the two launches it
+  replaces);
+* the appends (``chip_smoke``'s ``append_checks`` shapes): B3
+  ``append_decode`` at the slice (4 rows), B4 ``append_prefill`` at the
+  slice's chunk (4 x 64 tokens, INT8 dh 128), path (i)'s (1 x 256) and
+  path (h)'s (4 x 256, 32 KV heads, bf16 dh 96), B5 ``append_tokens`` at
+  the verify chunk (4 x 9 tokens, one lane frozen);
 * B13 ``grouped_matmul`` at Mixtral-8x7B's prefill (``chip_smoke``'s
   routing, Npad 4096, ``block_rows``), we_gu and we_down with INT8
   experts, summed;
@@ -39,9 +47,9 @@ weight outside L2):
   run's decode time over its verify forwards, and the device time of the
   profiled spec run.
 
-With ``--decode`` only the split-KV decode kernels are timed (only their
-sources are built); with ``--kernels`` every kernel above but not path
-(e). Prints each checkout's output and results (one JSON line), then a
+With ``--decode`` only the split-KV decode kernels and B9 are timed
+(only their sources are built); with ``--kernels`` every kernel above but
+not path (e). Prints each checkout's output and results (one JSON line), then a
 table. Needs a card; exits 1 without one.
 """
 
@@ -80,7 +88,8 @@ def one(tree: pathlib.Path, mode: str) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 3)
     if mode == "decode":
-        plat.build_kernels(["paged_attention.cu", "paged_decode.cu"])
+        plat.build_kernels(["paged_attention.cu", "paged_decode.cu",
+                            "paged_decode_packed.cu", "kv_append.cu"])
         return {"tree": str(tree), "card": card,
                 "decode_ms": decode_times(torch, cs, dev, gen)}
     plat.build_kernels()
@@ -107,10 +116,11 @@ def one(tree: pathlib.Path, mode: str) -> dict:
     decode = decode_times(torch, cs, dev, gen)
     b13 = b13_ms(torch, cs, qt, dev, gen)
     b14 = b14_times(torch, cs, dev, gen)
+    appends = append_times(torch, cs, dev, gen)
     kernels = {"tree": str(tree), "card": card,
                "b10_layer_ms": {str(m): v for m, v in layer.items()},
                "b11_ms": b11, "b12_ms": b12, "decode_ms": decode,
-               "b13_ms": b13, "b14_ms": b14}
+               "b13_ms": b13, "b14_ms": b14, "append_ms": appends}
     if mode == "kernels":
         return kernels
 
@@ -251,15 +261,23 @@ DECODE_SHAPES = [
      [1, 64 * 7 + 3, 64 * 200, 64 * 512], 0),
     ("B8 (g)", "paged_attention_decode_packed", 8, 4, 8, 64, 5, 96,
      [65, 72, 80, 96, 100, 112, 120, 128], 0),
+    ("B9 slice", "paged_attention_decode_append", 4, 8, 4, 128, 5, 80,
+     [65, 90, 128, 101], 0),
+    ("B3+B2 slice", "unfused", 4, 8, 4, 128, 5, 80, [65, 90, 128, 101], 0),
+    ("B9 512 pages", "paged_attention_decode_append", 1, 8, 4, 128, 512,
+     520, [32700], 0),
+    ("B3+B2 512 pages", "unfused", 1, 8, 4, 128, 512, 520, [32700], 0),
 ]
 
 
 def decode_times(torch, cs, dev, gen) -> dict:
-    """The split-KV decode kernels at :data:`DECODE_SHAPES`, INT8 pool,
-    bf16 queries, ms by CUPTI."""
+    """The split-KV decode kernels and B9 at :data:`DECODE_SHAPES`, INT8
+    pool, bf16 queries, ms by CUPTI; B9's yardstick ``unfused`` is B3
+    (``kv_append``) then B2 on the same inputs, both kernels' time."""
     from importlib import import_module
 
     pa = import_module(f"{cs.PKG}.ops.paged_attention")
+    ka = import_module(f"{cs.PKG}.ops.kv_append")
     out = {}
     for label, kname, batch, kh, g, dh, mp, n_pages, lens, window in \
             DECODE_SHAPES:
@@ -271,10 +289,67 @@ def decode_times(torch, cs, dev, gen) -> dict:
         args = (q, kv[0], bt, sl, kv[1], 1)
         kw = dict(page_size=cs.PAGE, num_q_heads=kh * g, window=window,
                   scale=dh ** -0.5)
-        fn = getattr(pa, kname)
-        out[label] = cs.device_ms(lambda: fn(*args, **kw),
-                                  match=cs.KERNEL_NAMES[kname])
+        k, v = (torch.randn((batch, 1, kh, dh), generator=gen,
+                            device=dev).to(torch.bfloat16) for _ in range(2))
+        pos = (sl - 1)[:, None]
+        if kname == "paged_attention_decode_append":
+            fn = lambda: pa.paged_attention_decode_append(
+                q, kv, k, v, bt, sl, pos, 1, **kw)
+            match = cs.KERNEL_NAMES[kname]
+        elif kname == "unfused":
+            def fn():
+                ka.kv_append(kv, k, v, 1, pos, bt, page_size=cs.PAGE)
+                return pa.paged_attention_decode(*args, **kw)
+            match = (cs.KERNEL_NAMES["kv_append_decode"]
+                     + cs.KERNEL_NAMES["paged_attention_decode"])
+        else:
+            fn = lambda: getattr(pa, kname)(*args, **kw)
+            match = cs.KERNEL_NAMES[kname]
+        out[label] = cs.device_ms(fn, match=match)
         del kv, bt
+        torch.cuda.empty_cache()
+    return out
+
+
+#: the appends' shapes: (label, wrapper, batch, KV heads, dh, pool dtype,
+#: table width, pool pages, T, first position, frozen lane)
+APPEND_SHAPES = [
+    ("B3 slice", "append_decode", 4, 8, 128, "int8", 5, 80, 1, 64, False),
+    ("B4 slice", "append_prefill", 4, 8, 128, "int8", 5, 80, 64, 0, False),
+    ("B4 (i)", "append_prefill", 1, 8, 128, "int8", 516, 520, 256, 16384,
+     False),
+    ("B4 (h)", "append_prefill", 4, 32, 96, "bfloat16", 36, 150, 256, 768,
+     False),
+    ("B5 verify", "append_tokens", 4, 8, 128, "int8", 5, 80, 9, 70, True),
+]
+
+
+def append_times(torch, cs, dev, gen) -> dict:
+    """B3, B4 and B5 at :data:`APPEND_SHAPES`, ms by CUPTI."""
+    from importlib import import_module
+
+    ka = import_module(f"{cs.PKG}.ops.kv_append")
+    pool_mod = import_module(f"{cs.PKG}.kvcache.pool")
+    out = {}
+    for (label, wrapper, batch, kh, dh, pdt, mp, n_pages, T, p0,
+         frozen) in APPEND_SHAPES:
+        kv, bt = cs.make_pool(torch, gen, getattr(torch, pdt), dev, batch,
+                              kh, dh, mp, n_pages)
+        k, v = (torch.randn((batch, T, kh, dh), generator=gen, device=dev)
+                for _ in range(2))
+        news = pool_mod.stack_new_kv(kv, k, v)
+        pos = (p0 + torch.arange(T, device=dev, dtype=torch.int32)).expand(
+            batch, T).contiguous()
+        if frozen:
+            pos[2] = -1
+        fn = getattr(ka, wrapper)
+        out[label] = cs.device_ms(lambda: fn(kv, news, 1, pos, bt),
+                                  match=cs.KERNEL_NAMES[{
+                                      "append_decode": "kv_append_decode",
+                                      "append_prefill": "kv_append_prefill",
+                                      "append_tokens": "kv_append_tokens"}[
+                                          wrapper]])
+        del kv, news
         torch.cuda.empty_cache()
     return out
 
@@ -348,6 +423,12 @@ def main(trees, mode) -> int:
               f"{b12['head M=4']:.4f} / {b12['head M=256']:.4f} | "
               f"{r['b13_ms']:.4f} | {b14['w8a8']:.4f} / "
               f"{b14['int8-weight']:.4f} / {b14['bf16']:.4f} ({r['card']})")
+    print("tree | " + " | ".join(f"{label} ms" for label, *_ in
+                                 APPEND_SHAPES))
+    for r in results:
+        print(f"{r['tree']} | " + " | ".join(
+            f"{r['append_ms'][label]:.4f}" for label, *_ in APPEND_SHAPES)
+            + f" ({r['card']})")
     if mode == "kernels":
         return 0
     print("tree | B10 layer M=36 ms | M=256 ms | B11 layer M=256 / head "
