@@ -39,8 +39,8 @@ and nothing of JAX. Phases:
    library yardstick the port never calls (``scaled_dot_product_attention``
    over a dense gathered copy; ``torch._int_mm``; a bf16 cuBLAS product
    over a pre-widened weight; ``torch._weight_int4pack_mm`` over the same
-   INT4 values repacked with bf16 scales); B9's yardstick is B3 and B2
-   back to back, the launches it replaces. The decode kernels past B2
+   INT4 values repacked with bf16 scales); B9's yardstick is the calls it
+   replaces, ``kv_append`` and B2. The decode kernels past B2
    (slice 4): B8 (``paged_attention_decode_packed``) at path (g)'s shape
    and at dh 32 with a window; B6 (``paged_attention_decode_grouped``) at
    path (h)'s shape and at path (i)'s 516-page shape (B2 timed on the
@@ -144,13 +144,26 @@ and nothing of JAX. Phases:
    in each new token's slot (f32 queries; the plain version reading that
    slot as a key, at ``seq_len + 1``, must move the output past the
    tolerance), and timed at the slice and at 512 pages beside B2 alone
-   and B3 then B2 on the same inputs; B4 (``append_prefill_kernel``: a
+   and the unfused step (``kv_append`` then B2) on the same inputs, both
+   routes as whole calls (every kernel each issues); B4 (``append_prefill_kernel``: a
    slot's position and pool page read once, every row unit copied
    independently) is held and timed at paths (i)'s, (h)'s and (k)'s
    chunks too; B3, B4 and B5 are timed beside their library yardstick,
    ``index_copy_`` of the rows into the flattened pool (and of the INT8
    scales into the flat scales). Phase 1 reports B2's, B9's and B4's
    registers and spills and the split-KV kernels' bulk copies (UBLKCP).
+   Slice 14 (B3 and B5 redesigned as quantize-and-append kernels): B3 and
+   B5 take the model's rows (bf16 views of a fused qkv output, or f32)
+   and quantize in the kernel, a row a warp; each is held bit for bit
+   against its plain version (``stack_new_kv`` then the scatter) on
+   values, scales and untouched slots, with ``tests/_kv_rows.py``'s edge
+   rows planted (exact ties, an all-zero row, a negative absmax, a value
+   a reciprocal multiply would round to another code), with f32 rows and
+   at dh 64, 96 (KV heads 32) and 256; a T=1 and a T=9 ``kv_append`` on
+   the INT8 pool must issue one device kernel each; both are timed alone
+   and as the whole ``kv_append`` call, beside their yardstick
+   ``stack_new_kv`` then ``index_copy_``; path (b)'s profile gives its
+   device kernels a decode step.
 3. The paths, each ``Engine`` on llama3-8b at full width and full depth
    (32 layers; (a), (c) and (d) cut to 8; weights from a seed, INT8
    paged KV, page 64, prefill chunk 256, the pool ``bench.py`` sizes, for (b),
@@ -244,6 +257,7 @@ card, or if the port's package is not beside this script.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
@@ -430,24 +444,22 @@ def tensor_core_report(log, built):
         print("  SASS instruction counts: not available (no cuobjdump)",
               flush=True)
         return
-    dumps = {}                       # one disassembly a library
+    dumps = sass_dumps(tool, built, {src for src, _ in
+                                     TENSOR_CORE_KERNELS + COPY_KERNELS})
     for source, symbol in TENSOR_CORE_KERNELS + COPY_KERNELS:
-        if source not in dumps:
-            dumps[source] = subprocess.run(
-                [tool, "-sass", str(built[source])], capture_output=True,
-                text=True, timeout=300)
-        r = dumps[source]
-        if r.returncode != 0:
-            print(f"  SASS of {source}: not available (cuobjdump "
-                  f"{r.returncode})", flush=True)
+        rc, functions = dumps[source]
+        if rc != 0:
+            print(f"  SASS of {source}: not available (cuobjdump {rc})",
+                  flush=True)
             continue
-        for fn in r.stdout.split("Function : ")[1:]:
+        for fn in functions:
             name = fn.split("\n", 1)[0].strip()
             if symbol not in name:
                 continue
-            counts = {op: len(re.findall(rf"\b{op}\b", fn))
-                      for op in ("HGMMA", "IGMMA", "HMMA", "IMMA",
-                                 "UTMALDG", "UBLKCP", "LDGSTS")}
+            found = collections.Counter(re.findall(SASS_OPS, fn))
+            counts = {op: found[op] for op in ("HGMMA", "IGMMA", "HMMA",
+                                               "IMMA", "UTMALDG", "UBLKCP",
+                                               "LDGSTS")}
             print(f"  SASS {source} {name[name.find(symbol):][:64]}: "
                   f"{counts}", flush=True)
             if (source, symbol) in COPY_KERNELS:
@@ -457,6 +469,32 @@ def tensor_core_report(log, built):
             check(counts["HGMMA"] + counts["IGMMA"] + counts["HMMA"]
                   + counts["IMMA"] > 0,
                   f"{name}: no tensor-core product in its SASS")
+
+
+#: the SASS instructions the report counts, in one pass over a function
+SASS_OPS = r"\b(HGMMA|IGMMA|HMMA|IMMA|UTMALDG|UBLKCP|LDGSTS)\b"
+
+
+def sass_dumps(tool, built, sources):
+    """``{source: (cuobjdump's exit code, the SASS of each function)}``,
+    one disassembly a library, all run at once (each into a file of its
+    own, so that no pipe holds another back)."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for source in sorted(sources):
+            out = open(os.path.join(tmp, source + ".sass"), "w")
+            procs[source] = (out, subprocess.Popen(
+                [tool, "-sass", str(built[source])], stdout=out,
+                stderr=subprocess.DEVNULL))
+        dumps = {}
+        for source, (out, proc) in procs.items():
+            rc = proc.wait(timeout=300)
+            out.close()
+            with open(out.name) as f:
+                dumps[source] = (rc, f.read().split("Function : ")[1:])
+    return dumps
 
 
 # -- phase 2: kernels against their plain versions -------------------------
@@ -849,6 +887,7 @@ def append_checks(torch, dev, results):
     ka = import_module(f"{PKG}.ops.kv_append")
     pool_mod = import_module(f"{PKG}.kvcache.pool")
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    rng = np.random.default_rng(SEED + 2)
     layer = 1
 
     def prompt_chunk(c0, lens):         # prompt padding is -1
@@ -865,34 +904,55 @@ def append_checks(torch, dev, results):
             [[-1] * T if s is None else list(range(s, s + T))
              for s in starts], dtype=torch.int32, device=dev)
 
-    cases = [
-        # name, kernel, pool dtype, positions [B, T]
-        ("prefill slice", "kv_append_prefill", torch.int8,
-         prompt_chunk(0, [64] * 4)),
-        ("prefill ragged", "kv_append_prefill", torch.int8,
-         prompt_chunk(0, [64, 57, 1, 40])),
-        ("prefill 2nd chunk", "kv_append_prefill", torch.int8,
-         prompt_chunk(64, [128, 100, 65, 128])),
-        ("prefill bf16 pool", "kv_append_prefill", torch.bfloat16,
-         prompt_chunk(0, [64, 57, 1, 40])),
+    bf16, f32, i8 = torch.bfloat16, torch.float32, torch.int8
+    prefill_cases = [
+        # name, pool dtype, positions [B, T]
+        ("prefill slice", i8, prompt_chunk(0, [64] * 4)),
+        ("prefill ragged", i8, prompt_chunk(0, [64, 57, 1, 40])),
+        ("prefill 2nd chunk", i8, prompt_chunk(64, [128, 100, 65, 128])),
+        ("prefill bf16 pool", bf16, prompt_chunk(0, [64, 57, 1, 40])),
         # a page-long chunk that starts off the page grid: the TPU's
         # whole-page B4 would write it to the wrong slots (ROADMAP C)
-        ("page-long chunk off the page grid", "kv_append_prefill",
-         torch.int8, verify([5, 70, None, 130], PAGE)),
-        ("decode slice", "kv_append_decode", torch.int8,
-         decode_rows([65, 90, 128, 101])),
-        ("decode invalid lane", "kv_append_decode", torch.int8,
-         decode_rows([65, 0, 128, 101])),
-        ("decode f32 pool", "kv_append_decode", torch.float32,
-         decode_rows([1, 64, 200, 320])),
+        ("page-long chunk off the page grid", i8,
+         verify([5, 70, None, 130], PAGE)),
+    ]
+    # B3 and B5 take the model's rows: bf16 views of the fused qkv output
+    # (the paths' layout), or contiguous f32 rows; every case carries the
+    # edge rows (exact ties, an all-zero row, a negative absmax, the value
+    # a reciprocal multiply would round to another code)
+    row_cases = [
+        # name, kernel, pool dtype, positions, rows dtype, packed, KV
+        # heads, dh
+        ("decode slice", "kv_append_decode", i8,
+         decode_rows([65, 90, 128, 101]), bf16, True, KH, DH),
+        ("decode invalid lane", "kv_append_decode", i8,
+         decode_rows([65, 0, 128, 101]), bf16, True, KH, DH),
+        ("decode f32 pool", "kv_append_decode", f32,
+         decode_rows([1, 64, 200, 320]), f32, False, KH, DH),
+        ("decode f32 rows", "kv_append_decode", i8,
+         decode_rows([65, 90, 128, 101]), f32, False, KH, DH),
+        ("decode dh 64", "kv_append_decode", i8,
+         decode_rows([65, 90, 128, 101]), bf16, True, KH, 64),
+        ("decode dh 96, KH 32", "kv_append_decode", i8,
+         decode_rows([65, 90, 128, 101]), bf16, True, 32, 96),
+        ("decode dh 256", "kv_append_decode", i8,
+         decode_rows([65, 90, 128, 101]), bf16, True, KH, 256),
         # the spec path's verify chunk (T = spec_k + 1) from positions
         # 64-127, one lane frozen; and 5-token chunks across page ends
-        ("verify slice", "kv_append_tokens", torch.int8,
-         verify([70, 93, None, 120])),
-        ("verify bf16 pool", "kv_append_tokens", torch.bfloat16,
-         verify([64, 101, 127, None])),
-        ("verify crossing pages", "kv_append_tokens", torch.int8,
-         verify([62, 127, 190, 255], 5)),
+        ("verify slice", "kv_append_tokens", i8,
+         verify([70, 93, None, 120]), bf16, True, KH, DH),
+        ("verify bf16 pool", "kv_append_tokens", bf16,
+         verify([64, 101, 127, None]), bf16, True, KH, DH),
+        ("verify crossing pages", "kv_append_tokens", i8,
+         verify([62, 127, 190, 255], 5), bf16, True, KH, DH),
+        ("verify f32 rows", "kv_append_tokens", i8,
+         verify([70, 93, None, 120]), f32, False, KH, DH),
+        ("verify dh 64", "kv_append_tokens", i8,
+         verify([70, 93, None, 120]), bf16, True, KH, 64),
+        ("verify dh 96, KH 32", "kv_append_tokens", i8,
+         verify([70, 93, None, 120]), bf16, True, 32, 96),
+        ("verify dh 256", "kv_append_tokens", i8,
+         verify([70, 93, None, 120]), bf16, True, KH, 256),
     ]
     wrappers = {"kv_append_decode": (ka.append_decode, ka.append_decode_plain),
                 "kv_append_prefill": (ka.append_prefill,
@@ -900,17 +960,34 @@ def append_checks(torch, dev, results):
                 "kv_append_tokens": (ka.append_tokens,
                                      ka.append_tokens_plain)}
     timed = []
-    for name, kname, pdt, pos in cases:
+    for name, pdt, pos in prefill_cases:
         kv, bt = make_pool(torch, gen, pdt, dev)
         kv = tuple(x.zero_() for x in kv)
         T = pos.shape[1]
         k = torch.randn((B, T, KH, DH), generator=gen, device=dev)
         v = torch.randn((B, T, KH, DH), generator=gen, device=dev)
         news = pool_mod.stack_new_kv(kv, k, v)
-        kv_k = append_case(torch, wrappers[kname], kname, name, kv, news,
+        kv_k = append_case(torch, wrappers["kv_append_prefill"],
+                           "kv_append_prefill", name, kv, (news,), layer,
+                           pos, bt)
+        if name.endswith("slice"):
+            timed.append(("kv_append_prefill", "slice", kv_k, (news,), pos,
+                          bt))
+    edge = edge_rows_module()
+    for name, kname, pdt, pos, rdt, packed, kh, dh in row_cases:
+        kv, bt = make_pool(torch, gen, pdt, dev, kv_heads=kh, dh=dh)
+        rows = model_rows(torch, rng, pos.shape[1], kh, dh, rdt, packed, dev,
+                          edge)
+        kv_k = append_case(torch, wrappers[kname], kname, name, kv, rows,
                            layer, pos, bt)
         if name.endswith("slice"):
-            timed.append((kname, "slice", kv_k, news, pos, bt))
+            timed.append((kname, "slice", kv_k, rows, pos, bt))
+            n = kernels_in_call(torch, lambda: ka.kv_append(
+                kv_k, *rows, layer, pos, bt, page_size=PAGE))
+            print(f"  [{kname}] one kv_append call (T={pos.shape[1]}, INT8 "
+                  f"pool) issues {n} device kernel(s) (expected 1)",
+                  flush=True)
+            check(n == 1, f"{kname}: kv_append issued {n} kernels")
     # B4 at the chunks of paths (i), (h) and (k) (one 256-token chunk of a
     # prompt, in each lane), each on its path's table
     for name, batch, kh, dh, pdt, mp, n_pages, c0 in B4_CHUNKS:
@@ -922,35 +999,104 @@ def append_checks(torch, dev, results):
         pos = (c0 + torch.arange(256, device=dev, dtype=torch.int32)
                ).expand(batch, 256).contiguous()
         kv_k = append_case(torch, wrappers["kv_append_prefill"],
-                           "kv_append_prefill", name, kv, news, layer, pos,
-                           bt)
-        timed.append(("kv_append_prefill", name, kv_k, news, pos, bt))
-    for kname, name, kv, news, pos, bt in timed:
+                           "kv_append_prefill", name, kv, (news,), layer,
+                           pos, bt)
+        timed.append(("kv_append_prefill", name, kv_k, (news,), pos, bt))
+    for kname, name, kv, args, pos, bt in timed:
         kern, plain = wrappers[kname]
-        ms = device_ms(lambda: kern(kv, news, layer, pos, bt),
+        ms = device_ms(lambda: kern(kv, *args, layer, pos, bt),
                        match=KERNEL_NAMES[kname])
-        call_ms = cuda_ms(lambda: kern(kv, news, layer, pos, bt))
-        plain_ms = device_ms(lambda: plain(kv, news, layer, pos, bt), iters=5)
-        lib_ms = device_ms(append_library(torch, kv, news, layer, pos, bt))
+        call_ms = cuda_ms(lambda: kern(kv, *args, layer, pos, bt))
+        plain_ms = device_ms(lambda: plain(kv, *args, layer, pos, bt),
+                             iters=5)
+        lib_ms = device_ms(append_library(torch, kv, args, layer, pos, bt))
         n_valid = int((pos >= 0).sum().item())
         row = kv[0].shape[2] * 2 * (kv[0].shape[5] * kv[0].element_size()
                                     + 4 * (len(kv) - 1))
-        b_ms, b_by = bound(2 * n_valid * row + 4 * (pos.numel() + bt.numel()),
-                           0)
+        # bytes: the valid tokens' rows in (B3 / B5: their K and V rows in
+        # the rows' dtype; B4: their stacked rows and scales), the same
+        # rows and scales out, the positions and the table; operations:
+        # B3 / B5 quantizing the valid rows into an INT8 pool (absmax,
+        # division, rounding, clamp: 4 a value, f32). A frozen lane's rows
+        # are not needed by the function, whatever the kernel loads.
+        stacked = kname == "kv_append_prefill"
+        values = n_valid * 2 * kv[0].shape[2] * kv[0].shape[5]
+        rows_in = (n_valid * row if stacked else
+                   values * args[0].element_size())
+        quant_ops = 4 * values if not stacked and len(kv) == 2 else 0
+        b_ms, b_by = bound(rows_in + n_valid * row
+                           + 4 * (pos.numel() + bt.numel()), quant_ops)
         out = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                    library_ms=lib_ms)
+        whole = ""
+        if not stacked:
+            out["call_ms"] = device_ms(lambda: ka.kv_append(
+                kv, *args, layer, pos, bt, page_size=PAGE), match=("",))
+            whole = (f"; the whole kv_append call {out['call_ms']:.4f} ms "
+                     "(every kernel it launches)")
         if name == "slice":
             results[kname].update(max_abs_err=0.0, tol=0.0, **out)
         else:
             results[kname].setdefault("shapes", {})[name] = out
-        scales = " + index_copy_ of the INT8 scales" if len(kv) == 2 else ""
+        what = ("index_copy_ of the rows" if stacked else
+                "stack_new_kv, then index_copy_ of the valid rows")
+        scales = " and of their INT8 scales" if len(kv) == 2 else ""
         print(f"  [{kname}] {name} shape, device time: kernel {ms:.4f} ms "
-              f"(one wrapper call {call_ms:.4f} ms wall), plain "
+              f"(one wrapper call {call_ms:.4f} ms wall){whole}, plain "
               f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms ({b_by}), library "
-              f"{lib_ms:.4f} ms (index_copy_ of the rows into the "
-              f"flattened pool{scales})", flush=True)
-        del kv, news
+              f"{lib_ms:.4f} ms ({what} into the flattened pool{scales})",
+              flush=True)
+        del kv, args
     torch.cuda.empty_cache()
+
+
+def edge_rows_module():
+    """``tests/_kv_rows.py``: the rows that pin the quantization."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_kv_rows", os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "tests", "_kv_rows.py"))
+    edge = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(edge)
+    return edge
+
+
+def model_rows(torch, rng, T, kh, dh, dtype, packed, dev, edge, batch=B):
+    """``k, v [batch, T, kh, dh]`` as the model hands them to the append:
+    with ``packed``, views of one fused qkv output ``[batch, T, (H + 2 kh)
+    * dh]`` (H = kh * G); else contiguous. Random from ``rng``, with the
+    edge rows of ``edge`` (:func:`edge_rows_module`) planted."""
+    heads = kh * G
+    qkv = rng.normal(size=(batch, T, (heads + 2 * kh) * dh)).astype(
+        np.float32)
+    k = qkv[..., heads * dh:(heads + kh) * dh].reshape(batch, T, kh, dh)
+    v = qkv[..., (heads + kh) * dh:].reshape(batch, T, kh, dh)
+    edge.plant_edge_rows(rng, k, v)
+    if not packed:
+        return (torch.from_numpy(k.copy()).to(dev, dtype),
+                torch.from_numpy(v.copy()).to(dev, dtype))
+    t = torch.from_numpy(qkv).to(dev, dtype)
+    return (t[..., heads * dh:(heads + kh) * dh].view(batch, T, kh, dh),
+            t[..., (heads + kh) * dh:].view(batch, T, kh, dh))
+
+
+def kernels_in_call(torch, fn) -> int:
+    """The device kernels (and copies) one call of ``fn`` issues, from
+    torch.profiler's device records (after one warm call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+        if n:
+            return n
+    return 0
 
 
 #: B4's chunks on the paths past the slice: (name, batch, KV heads, dh,
@@ -967,14 +1113,15 @@ B4_CHUNKS = [
 ]
 
 
-def append_case(torch, fns, kname, name, kv, news, layer, pos, bt):
-    """An append kernel against its plain version on copies of ``kv``:
-    the pools must be equal bit for bit. Returns the kernel's pool."""
+def append_case(torch, fns, kname, name, kv, args, layer, pos, bt):
+    """An append kernel against its plain version on copies of ``kv``
+    (``args``: B3's and B5's rows ``(k, v)``, B4's ``(news,)``): the
+    pools must be equal bit for bit. Returns the kernel's pool."""
     kern, plain = fns
     kv_k = tuple(x.clone() for x in kv)
     kv_p = tuple(x.clone() for x in kv)
-    kern(kv_k, news, layer, pos, bt)
-    plain(kv_p, news, layer, pos, bt)
+    kern(kv_k, *args, layer, pos, bt)
+    plain(kv_p, *args, layer, pos, bt)
     torch.cuda.synchronize()
     err = max((a.float() - b.float()).abs().max().item()
               for a, b in zip(kv_k, kv_p))
@@ -986,12 +1133,16 @@ def append_case(torch, fns, kname, name, kv, news, layer, pos, bt):
     return kv_k
 
 
-def append_library(torch, kv, news, layer, pos, bt):
-    """The library yardstick of an append: ``index_copy_`` of the valid
-    tokens' rows into the layer's pool flattened to rows, and for an INT8
-    pool a second ``index_copy_`` of their scales into the flat scales
-    (the indices and the rows in their order made here, outside the
-    timed call)."""
+def append_library(torch, kv, args, layer, pos, bt):
+    """The library yardstick of an append, what its kernel replaces: for
+    B3 and B5 (``args`` the rows) ``stack_new_kv`` and then, as for B4
+    (``args`` the stacked news), ``index_copy_`` of the valid tokens' rows
+    into the layer's pool flattened to rows, and for an INT8 pool a second
+    ``index_copy_`` of their scales into the flat scales (the indices made
+    here, outside the timed call; the rows picked by index inside it)."""
+    from importlib import import_module
+
+    pool_mod = import_module(f"{PKG}.kvcache.pool")
     _, _, kh, n_pages, page, dh = kv[0].shape
     batch, T = pos.shape
     valid = pos >= 0
@@ -1000,16 +1151,26 @@ def append_library(torch, kv, news, layer, pos, bt):
     keep = valid[:, None, :].expand(batch, 2 * kh, T)
     heads = torch.arange(2 * kh, device=pos.device)[None, :, None]
     idx = (heads * n_pages * page + flat[:, None, :])[keep]
-    rows = news[0].reshape(batch, 2 * kh, T, dh)[keep]
+    src = torch.arange(keep.numel(), device=pos.device)[keep.reshape(-1)]
     vals = kv[0][layer].view(-1, dh)
-    if len(kv) == 1:
-        return lambda: vals.index_copy_(0, idx, rows)
-    stride = kv[1].shape[3] * 128
+    stride = kv[1].shape[3] * 128 if len(kv) == 2 else 0
     sidx = (heads * stride + flat[:, None, :])[keep]
-    srows = news[1].reshape(batch, 2 * kh, T)[keep]
-    scales = kv[1][layer].view(-1)
-    return lambda: (vals.index_copy_(0, idx, rows),
-                    scales.index_copy_(0, sidx, srows))
+    scales = kv[1][layer].view(-1) if len(kv) == 2 else None
+    if len(args) == 1:              # B4: the rows in their order, made here
+        news = args[0]
+        rows = news[0].reshape(-1, dh)[src]
+        srows = news[1].reshape(-1)[src] if scales is not None else None
+        if scales is None:
+            return lambda: vals.index_copy_(0, idx, rows)
+        return lambda: (vals.index_copy_(0, idx, rows),
+                        scales.index_copy_(0, sidx, srows))
+
+    def call():
+        news = pool_mod.stack_new_kv(kv, *args)
+        vals.index_copy_(0, idx, news[0].reshape(-1, dh)[src])
+        if scales is not None:
+            scales.index_copy_(0, sidx, news[1].reshape(-1)[src])
+    return call
 
 
 def decode_append_checks(torch, dev, results):
@@ -1019,8 +1180,8 @@ def decode_append_checks(torch, dev, results):
     queries), which the plain version at ``seq_len + 1`` (that slot read
     as a key, the new token one slot on) must move past the tolerance.
     Timed at the slice and at a 512-page table at batch 1 (32,700 keys)
-    beside its yardsticks on the same inputs: B2 alone, and B3 then B2
-    back to back (the unfused decode step's two launches)."""
+    beside its yardsticks on the same inputs: B2 alone, and ``kv_append``
+    then B2 (the unfused decode step), both routes as whole calls."""
     from importlib import import_module
 
     pa = import_module(f"{PKG}.ops.paged_attention")
@@ -1125,8 +1286,11 @@ def plant_stale_rows(torch, kv, bt, q, lens, layer):
 
 def b9_times(torch, pa, ka, q, kv, k, v, bt, sl, pos, layer, common, lens):
     """B9's device time beside its plain version, its bound and its
-    yardsticks on the same inputs: B2 alone and B3 then B2 back to back
-    (with their wrappers' wall time, taken in turns)."""
+    yardsticks on the same inputs: B2 alone, and the whole calls of both
+    routes, every kernel each issues (B9's wrapper: ``stack_new_kv``'s
+    glue and B9; the unfused step: ``kv_append``, B3 alone since slice
+    14, and B2), with their kernel counts and wrappers' wall time, taken
+    in turns."""
     kname = "paged_attention_decode_append"
     batch = q.shape[0]
     fused = lambda: pa.paged_attention_decode_append(q, kv, k, v, bt, sl,
@@ -1136,18 +1300,19 @@ def b9_times(torch, pa, ka, q, kv, k, v, bt, sl, pos, layer, common, lens):
     b2 = lambda: pa.paged_attention_decode(q, kv[0], bt, sl, kv[1], layer,
                                            **common)
 
-    def unfused():                      # B3 then B2, as the decode step
+    def unfused():                      # kv_append then B2, as the step
         ka.kv_append(kv, k, v, layer, pos, bt, page_size=PAGE)
         return b2()
     ms = device_ms(fused, match=KERNEL_NAMES[kname])
     plain_ms = device_ms(plain, iters=5)
     b2_ms = device_ms(b2, match=KERNEL_NAMES["paged_attention_decode"])
-    pair_ms = device_ms(unfused, match=KERNEL_NAMES["kv_append_decode"]
-                        + KERNEL_NAMES["paged_attention_decode"])
+    call_ms = device_ms(fused)
+    pair_ms = device_ms(unfused)
+    n_fused, n_pair = (kernels_in_call(torch, fn) for fn in (fused, unfused))
     walls = {fused: [], unfused: []}
     for fn in (fused, unfused, unfused, fused):
         walls[fn].append(cuda_ms(fn))
-    call_ms, pair_call_ms = (sum(walls[fn]) / 2 for fn in (fused, unfused))
+    wall_ms, pair_wall_ms = (sum(walls[fn]) / 2 for fn in (fused, unfused))
     # bytes: q in + out, the old rows B9 reads (keys < seq_len - 1) with
     # their scales, the new K/V in, its pool rows and scales out, the
     # table, positions and lengths; flops: QK and PV over every key
@@ -1158,14 +1323,16 @@ def b9_times(torch, pa, ka, q, kv, k, v, bt, sl, pos, layer, common, lens):
                        + 4 * (bt.numel() + 2 * batch),
                        4 * DH * H * sum(lens), "bf16")
     print(f"  [{kname}] {batch} x {max(lens)} keys, device time: kernel "
-          f"{ms:.4f} ms (one wrapper call {call_ms:.4f} ms wall), plain "
+          f"{ms:.4f} ms, its whole wrapper call {call_ms:.4f} ms in "
+          f"{n_fused} device kernels ({wall_ms:.4f} ms wall), plain "
           f"{plain_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); on the same "
-          f"inputs B2 alone {b2_ms:.4f} ms ({ms / b2_ms:.2f}x of it), B3 + "
-          f"B2 back to back {pair_ms:.4f} ms ({pair_call_ms:.4f} ms wall "
-          f"for the two wrapper calls); no library call appends and attends",
-          flush=True)
+          f"inputs B2 alone {b2_ms:.4f} ms ({ms / b2_ms:.2f}x of it), "
+          f"kv_append + B2 {pair_ms:.4f} ms in {n_pair} device kernels "
+          f"({pair_wall_ms:.4f} ms wall for the two wrapper calls); no "
+          "library call appends and attends", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, unfused_ms=pair_ms, b2_ms=b2_ms)
+                library_ms=None, unfused_ms=pair_ms, call_ms=call_ms,
+                b2_ms=b2_ms)
 
 
 def decode_bound(torch, q, kv, bt, lens, window):
@@ -3216,6 +3383,12 @@ def full_checks(torch, eng, refs, prompts, greedy, steps, tf16,
         prof = profile_run(torch, "prefill", lambda n: (
             eng.generate_batch_fused(prompts, n, greedy)), steps=1)
         info.update({f"prefill_{k}": v for k, v in prof.items()})
+        # the fused run of 16 tokens is the same prefill and 15 decode steps
+        info["decode_step_kernels"] = (
+            info["profile_kernels"] - prof["profile_kernels"]) / 15
+        print(f"  device kernels a decode step: "
+              f"{info['decode_step_kernels']:.2f} ((fused run - prefill "
+              f"run) / 15)", flush=True)
     return info, base
 
 
@@ -4035,9 +4208,11 @@ def profile_run(torch, label, run, steps=16):
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         rows = []
+        kernels = 0                     # every device kernel and copy
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA:  # CPU ops repeat their
                 continue                          # kernels' time
+            kernels += e.count
             dev_us = getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0.0))
             if dev_us > 0:
@@ -4062,7 +4237,8 @@ def profile_run(torch, label, run, steps=16):
           f"({busy_us / wall_us:.3f} of wall), of which cuBLAS GEMMs "
           f"{gemm_us / 1e3:.1f} ms, the port's kernels "
           f"{kernels_us / 1e3:.1f} ms (its quantized products "
-          f"{qmm_us / 1e3:.1f} ms); top device time:", flush=True)
+          f"{qmm_us / 1e3:.1f} ms); {kernels} device kernels "
+          f"({kernels / steps:.1f} a token); top device time:", flush=True)
     for dev_us, count, key in rows[:12]:
         print(f"    {dev_us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}",
               flush=True)
@@ -4072,6 +4248,7 @@ def profile_run(torch, label, run, steps=16):
             "profile_gemm_ms": gemm_us / 1e3,
             "profile_quant_matmul_ms": qmm_us / 1e3,
             "profile_port_kernels_ms": kernels_us / 1e3,
+            "profile_kernels": kernels,
             "profile_kernel_ms": {k: us / 1e3 for k, us in by_kernel.items()
                                   if us > 0}}
 
@@ -4118,7 +4295,9 @@ def main() -> int:
         print(log.getvalue(), end="", flush=True)
         print(f"  kernels built in {time.perf_counter() - t0:.1f} s",
               flush=True)
+        t0 = time.perf_counter()
         tensor_core_report(log.getvalue(), built)
+        print(f"  report in {time.perf_counter() - t0:.1f} s", flush=True)
 
         results = {n: {"name": n, "route": "cuda",
                        "source": f"{PKG}/csrc/{k.source}",
@@ -4152,8 +4331,11 @@ def main() -> int:
         print(f"FAILED: {exc}", file=sys.stderr)
         return 1
 
-    # unfused_ms: the device time of the port's own launches a kernel
-    # fuses (B9: B3 then B2), null for a kernel that fuses none; b2_ms: B2
+    # unfused_ms: the device time of the port's own calls a kernel fuses
+    # (B9: kv_append then B2, every kernel they launch), null for a kernel
+    # that fuses none; call_ms: the device time of the whole wrapper call
+    # (B3, B5: kv_append; B9: its wrapper, stack_new_kv's glue included;
+    # every kernel it launches); b2_ms: B2
     # on the same inputs (B6 at path (i)'s 516 pages, B7 at B2's shape);
     # m36_* / m256_*: B10-B12 over a layer's four projections at a verify
     # chunk (B10) and a prefill chunk, beside their bound and library call;
@@ -4163,7 +4345,8 @@ def main() -> int:
     # times, bound and library call
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "unfused_ms", "b2_ms", "tol", "m36_ms", "m36_bound_ms",
+            "unfused_ms", "call_ms", "b2_ms", "tol", "m36_ms",
+            "m36_bound_ms",
             "m36_library_ms", "m256_ms", "m256_bound_ms", "m256_library_ms",
             "shapes")
     phase("4: summary")

@@ -155,11 +155,13 @@ def test_cuda_append_kernels_match_plain(cuda, kv_dtype, case):
     else:
         kv_k = (torch.zeros(shape, device=cuda),)
     kv_p = tuple(x.clone() for x in kv_k)
-    news = tpool.stack_new_kv(kv_k, k, v)
-    kern = ka.append_decode if T == 1 else ka.append_prefill
-    plain = ka.append_decode_plain if T == 1 else ka.append_prefill_plain
-    kern(kv_k, news, LAYER, pos, bt)
-    plain(kv_p, news, LAYER, pos, bt)
+    if T == 1:              # B3 takes the model's rows
+        ka.append_decode(kv_k, k, v, LAYER, pos, bt)
+        ka.append_decode_plain(kv_p, k, v, LAYER, pos, bt)
+    else:                   # B4 pool-dtype rows from stack_new_kv
+        news = tpool.stack_new_kv(kv_k, k, v)
+        ka.append_prefill(kv_k, news, LAYER, pos, bt)
+        ka.append_prefill_plain(kv_p, news, LAYER, pos, bt)
     for a, b in zip(kv_k, kv_p):
         assert torch.equal(a, b)
 
@@ -189,8 +191,7 @@ def test_cuda_append_tokens_matches_plain(cuda, kv_dtype):
         ka.APPEND_TOKENS.launches = 0
         ka.kv_append(kv_k, k, v, LAYER, pos, bt, page_size=PAGE)
         assert ka.APPEND_TOKENS.launches == 1
-        ka.append_tokens_plain(kv_p, tpool.stack_new_kv(kv_p, k, v), LAYER,
-                               pos, bt)
+        ka.append_tokens_plain(kv_p, k, v, LAYER, pos, bt)
         for a, b in zip(kv_k, kv_p):
             assert torch.equal(a, b)
 
@@ -359,9 +360,11 @@ def test_cuda_append_kernels_skip_out_of_table(cuda, T):
             torch.zeros((L, 2, KH, P * PAGE // 128, 128), device=cuda))
     kv_p = tuple(x.clone() for x in kv_k)
     news = tpool.stack_new_kv(kv_k, k, v)
-    kern = {1: ka.append_decode, 5: ka.append_tokens,
-            2 * PAGE: ka.append_prefill}[T]
-    kern(kv_k, news, LAYER, pos, bt)
+    if T == 2 * PAGE:
+        ka.append_prefill(kv_k, news, LAYER, pos, bt)
+    else:
+        {1: ka.append_decode, 5: ka.append_tokens}[T](kv_k, k, v, LAYER,
+                                                       pos, bt)
     if T == 1:          # B9 skips the same positions when it appends
         kv_f = tuple(x.clone() for x in kv_p)
         q = torch.randn((B, 1, 2 * KH, DH), device=cuda)
@@ -376,6 +379,131 @@ def test_cuda_append_kernels_skip_out_of_table(cuda, T):
     if T == 1:
         for a, b in zip(kv_f, kv_p):
             assert torch.equal(a, b)
+
+
+# B3's and B5's rows (``tests/_kv_rows.py``'s edge rows planted: exact
+# ties, an all-zero row, a negative absmax, the value a reciprocal
+# multiply would round to another code): (dh, KH, pool dtype, rows
+# dtype, layout). ``packed``: views of a [B, T, (H + 2 KH) * dh] qkv
+# output; ``odd``: the same with one more column, so the rows' strides
+# sit on no vector unit (the generic instance)
+ROW_CASES = {
+    "int8 dh 128 bf16": (128, 2, "int8", "bfloat16", "contiguous"),
+    "int8 dh 128 bf16 packed": (128, 2, "int8", "bfloat16", "packed"),
+    "int8 dh 128 f32": (128, 2, "int8", "float32", "contiguous"),
+    "int8 dh 128 f32 packed": (128, 2, "int8", "float32", "packed"),
+    "int8 dh 64 bf16 packed": (64, 2, "int8", "bfloat16", "packed"),
+    "int8 dh 64 f32": (64, 2, "int8", "float32", "contiguous"),
+    "int8 dh 96 bf16 packed, KH 32": (96, 32, "int8", "bfloat16", "packed"),
+    "int8 dh 96 f32": (96, 2, "int8", "float32", "contiguous"),
+    "int8 dh 256 bf16 packed": (256, 2, "int8", "bfloat16", "packed"),
+    "int8 dh 256 f32": (256, 2, "int8", "float32", "contiguous"),
+    "int8 dh 128 bf16 odd strides": (128, 2, "int8", "bfloat16", "odd"),
+    "int8 dh 24 f32": (24, 2, "int8", "float32", "contiguous"),
+    "int8 dh 18 bf16 packed": (18, 2, "int8", "bfloat16", "packed"),
+    "bf16 dh 128 f32 packed": (128, 2, "bfloat16", "float32", "packed"),
+    "bf16 dh 96 bf16": (96, 2, "bfloat16", "bfloat16", "contiguous"),
+    "f32 dh 128 bf16 packed": (128, 2, "float32", "bfloat16", "packed"),
+    "f32 dh 128 f32 odd strides": (128, 2, "float32", "float32", "odd"),
+}
+#: positions a T: the middle lane frozen at T=1; a 9-token verify chunk
+#: crossing a page (PAGE 8) in two lanes, the third frozen
+ROW_POSITIONS = {1: [[12], [-1], [33]],
+                 9: [list(range(3, 12)), list(range(13, 22)), [-1] * 9]}
+
+
+def row_inputs(rng, T, dh, KH, pool_dtype, rows_dtype, layout, device):
+    """A random pool ``[L, 2, KH, P, PAGE, dh]`` (+ scales), its table
+    and positions, and the model's rows ``k, v [3, T, KH, dh]`` (edge
+    rows planted) in ``rows_dtype`` and ``layout``."""
+    from _kv_rows import plant_edge_rows
+
+    B, H = 3, 2 * KH
+    shape = (L, 2, KH, P, PAGE, dh)
+    if pool_dtype == "int8":
+        kv = (torch.from_numpy(rng.integers(-127, 128, size=shape).astype(
+            np.int8)).to(device),
+              torch.from_numpy((rng.random((L, 2, KH, P * PAGE // 128, 128))
+                                * 0.02 + 0.005).astype(np.float32)).to(
+                                    device))
+    else:
+        kv = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+            device, getattr(torch, pool_dtype)),)
+    width = (H + 2 * KH) * dh + (layout == "odd")
+    qkv = rng.normal(size=(B, T, width)).astype(np.float32)
+    k = qkv[..., H * dh:(H + KH) * dh].reshape(B, T, KH, dh)
+    v = qkv[..., (H + KH) * dh:(H + 2 * KH) * dh].reshape(B, T, KH, dh)
+    plant_edge_rows(rng, k, v)
+    dt = getattr(torch, rows_dtype)
+    if layout == "contiguous":
+        tk = torch.from_numpy(k.copy()).to(device, dt)
+        tv = torch.from_numpy(v.copy()).to(device, dt)
+    else:
+        t = torch.from_numpy(qkv).to(device, dt)
+        tk = t[..., H * dh:(H + KH) * dh].view(B, T, KH, dh)
+        tv = t[..., (H + KH) * dh:(H + 2 * KH) * dh].view(B, T, KH, dh)
+    pos = torch.tensor(ROW_POSITIONS[T], dtype=torch.int32, device=device)
+    return kv, block_table(rng, B, device), pos, tk, tv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", sorted(ROW_POSITIONS))
+@pytest.mark.parametrize("case", sorted(ROW_CASES))
+def test_cuda_rows_append_matches_plain(cuda, case, T):
+    """B3 (T=1) and B5 (a verify chunk) quantize or cast the model's rows
+    in one launch, bit-exact with their plain version (``stack_new_kv``
+    then the scatter) on values, scales and every untouched slot."""
+    dh, KH, pool_dtype, rows_dtype, layout = ROW_CASES[case]
+    rng = np.random.default_rng(dh + KH + T)
+    kv_k, bt, pos, k, v = row_inputs(rng, T, dh, KH, pool_dtype, rows_dtype,
+                                     layout, cuda)
+    kv_p = tuple(x.clone() for x in kv_k)
+    kern = ka.APPEND_DECODE if T == 1 else ka.APPEND_TOKENS
+    kern.launches = 0
+    (ka.append_decode if T == 1 else ka.append_tokens)(kv_k, k, v, LAYER,
+                                                        pos, bt)
+    assert kern.launches == 1
+    ka.append_rows_plain(kv_p, k, v, LAYER, pos, bt)
+    for a, b in zip(kv_k, kv_p):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", sorted(ROW_POSITIONS))
+@pytest.mark.parametrize("warps", [1, 2, 3, 8, 16, 32])
+def test_cuda_rows_append_any_cut(cuda, warps, T):
+    """Every cut of the rows (warps, one row each, a block) writes the
+    same pool: the plan's, the sweep's and ragged ones."""
+    rng = np.random.default_rng(5)
+    kv_k, bt, pos, k, v = row_inputs(rng, T, 128, 8, "int8", "bfloat16",
+                                     "packed", cuda)
+    kv_p = tuple(x.clone() for x in kv_k)
+    ka.append_rows_launch(ka.APPEND_DECODE if T == 1 else ka.APPEND_TOKENS,
+                          kv_k, k, v, LAYER, pos, bt, warps)
+    ka.append_rows_plain(kv_p, k, v, LAYER, pos, bt)
+    for a, b in zip(kv_k, kv_p):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_rows_append_runs_one_kernel(cuda):
+    """A T=1 and a T=9 ``kv_append`` on an INT8 pool issue one kernel
+    each, nothing else (the profiler's count of device kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(9)
+    for T in (1, 9):
+        kv, bt, pos, k, v = row_inputs(rng, T, 128, 8, "int8", "bfloat16",
+                                       "packed", cuda)
+        ka.kv_append(kv, k, v, LAYER, pos, bt, page_size=PAGE)   # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ka.kv_append(kv, k, v, LAYER, pos, bt, page_size=PAGE)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        assert len(kernels) == 1, [e.name for e in kernels]
 
 
 @pytest.mark.cuda

@@ -1,7 +1,8 @@
 """Path (e)'s verify forward and the redesigned kernels, compared across
 checkouts of the repo on one card.
 
-    python3 verify_compare.py [--decode | --kernels] [TREE ...]
+    python3 verify_compare.py [--decode | --kernels | --appends | --phase2]
+                              [TREE ...]
 
 Each TREE is the root of a checkout (default: this one); give two
 checkouts in the order ``A B B A`` to compare them on the same card.
@@ -34,7 +35,12 @@ weight outside L2):
   ``append_decode`` at the slice (4 rows), B4 ``append_prefill`` at the
   slice's chunk (4 x 64 tokens, INT8 dh 128), path (i)'s (1 x 256) and
   path (h)'s (4 x 256, 32 KV heads, bf16 dh 96), B5 ``append_tokens`` at
-  the verify chunk (4 x 9 tokens, one lane frozen);
+  the verify chunk (4 x 9 tokens, one lane frozen); B3 and B5 also as the
+  whole ``kv_append`` call (every kernel it launches, summed), on bf16
+  rows viewed in a fused qkv output;
+* the device kernels a decode step of path (b) and a verify iteration of
+  path (e) issue (``step_kernels``: (b)'s engine built, two run lengths
+  profiled, the difference over the steps between them);
 * B13 ``grouped_matmul`` at Mixtral-8x7B's prefill (``chip_smoke``'s
   routing, Npad 4096, ``block_rows``), we_gu and we_down with INT8
   experts, summed;
@@ -49,7 +55,13 @@ weight outside L2):
 
 With ``--decode`` only the split-KV decode kernels and B9 are timed
 (only their sources are built); with ``--kernels`` every kernel above but
-not path (e). Prints each checkout's output and results (one JSON line), then a
+not path (e); with ``--appends`` only the appends above and, at the
+slice, B9's whole wrapper call beside ``kv_append`` then B2, every kernel
+of each call summed, with its kernel count (``b9_calls``; only
+``kv_append.cu`` and ``paged_attention.cu`` are built); with ``--phase2``
+the wall time of each check of ``chip_smoke.py``'s phase 2, as that
+checkout's ``chip_smoke`` runs them (every kernel built first, not
+timed). Prints each checkout's output and results (one JSON line), then a
 table. Needs a card; exits 1 without one.
 """
 
@@ -92,6 +104,15 @@ def one(tree: pathlib.Path, mode: str) -> dict:
                             "paged_decode_packed.cu", "kv_append.cu"])
         return {"tree": str(tree), "card": card,
                 "decode_ms": decode_times(torch, cs, dev, gen)}
+    if mode == "phase2":
+        plat.build_kernels()
+        return {"tree": str(tree), "card": card,
+                "phase2_s": phase2_times(torch, cs, plat, dev)}
+    if mode == "appends":
+        plat.build_kernels(["paged_attention.cu", "kv_append.cu"])
+        return {"tree": str(tree), "card": card,
+                "append_ms": append_times(torch, cs, dev, gen),
+                "b9_calls": b9_calls(torch, cs, dev, gen)}
     plat.build_kernels()
 
     layer = {4: 0.0, 36: 0.0, 256: 0.0}
@@ -120,7 +141,8 @@ def one(tree: pathlib.Path, mode: str) -> dict:
     kernels = {"tree": str(tree), "card": card,
                "b10_layer_ms": {str(m): v for m, v in layer.items()},
                "b11_ms": b11, "b12_ms": b12, "decode_ms": decode,
-               "b13_ms": b13, "b14_ms": b14, "append_ms": appends}
+               "b13_ms": b13, "b14_ms": b14, "append_ms": appends,
+               "step_kernels": step_kernels(torch, cs)}
     if mode == "kernels":
         return kernels
 
@@ -322,10 +344,18 @@ APPEND_SHAPES = [
      False),
     ("B5 verify", "append_tokens", 4, 8, 128, "int8", 5, 80, 9, 70, True),
 ]
+#: the labels of the whole ``kv_append`` calls timed beside B3 and B5
+APPEND_CALLS = ["B3 slice kv_append", "B5 verify kv_append"]
 
 
 def append_times(torch, cs, dev, gen) -> dict:
-    """B3, B4 and B5 at :data:`APPEND_SHAPES`, ms by CUPTI."""
+    """B3, B4 and B5 at :data:`APPEND_SHAPES`, ms by CUPTI; for B3 and B5
+    also the whole ``kv_append`` call (every kernel it launches, summed).
+    B3's and B5's rows are bf16 views of a fused qkv output, as the model
+    hands them over; a checkout whose B3 / B5 take pool-dtype ``news``
+    (before slice 14) gets them from its ``stack_new_kv`` outside the timed
+    kernel, and runs it inside its ``kv_append``."""
+    import inspect
     from importlib import import_module
 
     ka = import_module(f"{cs.PKG}.ops.kv_append")
@@ -335,23 +365,153 @@ def append_times(torch, cs, dev, gen) -> dict:
          frozen) in APPEND_SHAPES:
         kv, bt = cs.make_pool(torch, gen, getattr(torch, pdt), dev, batch,
                               kh, dh, mp, n_pages)
-        k, v = (torch.randn((batch, T, kh, dh), generator=gen, device=dev)
-                for _ in range(2))
-        news = pool_mod.stack_new_kv(kv, k, v)
         pos = (p0 + torch.arange(T, device=dev, dtype=torch.int32)).expand(
             batch, T).contiguous()
         if frozen:
             pos[2] = -1
         fn = getattr(ka, wrapper)
-        out[label] = cs.device_ms(lambda: fn(kv, news, 1, pos, bt),
-                                  match=cs.KERNEL_NAMES[{
-                                      "append_decode": "kv_append_decode",
-                                      "append_prefill": "kv_append_prefill",
-                                      "append_tokens": "kv_append_tokens"}[
-                                          wrapper]])
-        del kv, news
+        kname = {"append_decode": "kv_append_decode",
+                 "append_prefill": "kv_append_prefill",
+                 "append_tokens": "kv_append_tokens"}[wrapper]
+        if wrapper == "append_prefill":
+            k, v = (torch.randn((batch, T, kh, dh), generator=gen,
+                                device=dev) for _ in range(2))
+            args = (pool_mod.stack_new_kv(kv, k, v),)
+        else:
+            heads = 4 * kh
+            qkv = torch.randn((batch, T, (heads + 2 * kh) * dh),
+                              generator=gen, device=dev).to(torch.bfloat16)
+            k = qkv[..., heads * dh:(heads + kh) * dh].view(batch, T, kh, dh)
+            v = qkv[..., (heads + kh) * dh:].view(batch, T, kh, dh)
+            old = "news" in inspect.signature(fn).parameters
+            args = (pool_mod.stack_new_kv(kv, k, v),) if old else (k, v)
+            call = lambda: ka.kv_append(kv, k, v, 1, pos, bt,
+                                        page_size=cs.PAGE)
+            out[f"{label} kv_append"] = cs.device_ms(call, match=("",))
+            out[f"{label} kv_append kernels"] = device_kernels(torch, call)
+        out[label] = cs.device_ms(lambda: fn(kv, *args, 1, pos, bt),
+                                  match=cs.KERNEL_NAMES[kname])
+        del kv, args
         torch.cuda.empty_cache()
     return out
+
+
+#: ``chip_smoke.py``'s phase 2, in its order
+PHASE2 = ("attention_checks", "b1_shape_checks", "append_checks",
+          "decode_append_checks", "decode_variant_checks", "matmul_checks",
+          "chain_checks", "gmm_checks")
+
+
+def phase2_times(torch, cs, plat, dev) -> dict:
+    """Seconds of wall time each of :data:`PHASE2`'s checks takes, run as
+    ``chip_smoke.main`` runs them (the checks' own output printed)."""
+    import time
+
+    import torch.nn.functional as F_
+
+    results = {n: {"name": n} for n in plat.KERNELS}
+    out = {}
+    with torch.inference_mode():
+        for name in PHASE2:
+            fn = getattr(cs, name)
+            args = ((torch, F_, dev, results) if "F_" in
+                    fn.__code__.co_varnames[:fn.__code__.co_argcount]
+                    else (torch, dev, results))
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            out[name] = time.perf_counter() - t0
+    out["phase 2"] = sum(out.values())
+    return out
+
+
+def b9_calls(torch, cs, dev, gen) -> dict:
+    """At the slice's decode shape (INT8 pool, bf16 queries and rows): B9's
+    whole wrapper call (``stack_new_kv``'s glue and B9) and the unfused
+    step's two calls (``kv_append``, then B2), each as the device time of
+    every kernel it launches, summed by CUPTI, and its kernel count."""
+    from importlib import import_module
+
+    pa = import_module(f"{cs.PKG}.ops.paged_attention")
+    ka = import_module(f"{cs.PKG}.ops.kv_append")
+    batch, kh, g, dh, mp, n_pages, lens = 4, 8, 4, 128, 5, 80, [65, 90,
+                                                                128, 101]
+    kv, bt = cs.make_pool(torch, gen, torch.int8, dev, batch, kh, dh, mp,
+                          n_pages)
+    q, k, v = (torch.randn((batch, 1, n, dh), generator=gen,
+                           device=dev).to(torch.bfloat16)
+               for n in (kh * g, kh, kh))
+    sl = torch.tensor(lens, dtype=torch.int32, device=dev)
+    pos = (sl - 1)[:, None]
+    kw = dict(page_size=cs.PAGE, num_q_heads=kh * g, scale=dh ** -0.5)
+    fused = lambda: pa.paged_attention_decode_append(q, kv, k, v, bt, sl,
+                                                     pos, 1, **kw)
+
+    def unfused():
+        ka.kv_append(kv, k, v, 1, pos, bt, page_size=cs.PAGE)
+        return pa.paged_attention_decode(q, kv[0], bt, sl, kv[1], 1, **kw)
+    out = {}
+    for label, fn in (("B9 call", fused), ("kv_append + B2", unfused)):
+        out[label] = cs.device_ms(fn, match=("",))
+        out[f"{label} kernels"] = device_kernels(torch, fn)
+    del kv, bt
+    torch.cuda.empty_cache()
+    return out
+
+
+def device_kernels(torch, fn, warm=True) -> int:
+    """The device kernels (and copies) one call of ``fn`` issues (after a
+    warm call unless ``warm`` is false), from torch.profiler's device
+    records; a trace without them is taken again, up to three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if warm:
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):       # CUPTI now and then returns no device records
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n = sum(1 for e in prof.events()
+                if e.device_type == DeviceType.CUDA)
+        if n:
+            return n
+    return 0
+
+
+def step_kernels(torch, cs) -> dict:
+    """Device kernels a decode step of path (b) (``generate_batch_fused``
+    of 9 tokens less that of 1, over 8) and a verify iteration of path (e)
+    (``generate_batch_spec`` of 10 tokens less that of 2, over the verify
+    forwards between them: the verify forward and the loop's own work), on
+    (b)'s w8a8 Llama-3-8B engine with random weights from the seed (which
+    accept no draft)."""
+    import numpy as np
+    from importlib import import_module
+
+    eng_mod = import_module(f"{cs.PKG}.engine")
+    cfg, batch, _, prompt_len = cs.path_config("int8", spec_k=cs.SPEC_K)
+    eng, _ = cs.build_engine(torch, cfg)
+    prompts = np.random.default_rng(cs.SEED).integers(
+        0, cfg.model.vocab_size, size=(batch, prompt_len)).tolist()
+    greedy = eng_mod.SamplingParams(temperature=0.0, eos_token_id=-1)
+    fused = {n: device_kernels(
+        torch, lambda n=n: eng.generate_batch_fused(prompts, n, greedy))
+        for n in (1, 9)}
+    spec, verifies = {}, {}
+    for n in (2, 10):
+        run = lambda n=n: eng.generate_batch_spec(
+            prompts, n, greedy, spec_k=cs.SPEC_K, ngram=cs.SPEC_NGRAM)
+        run()                                               # warm-up
+        with cs.forward_calls(eng, record=False) as calls:
+            spec[n] = device_kernels(torch, run, warm=False)
+        verifies[n] = len(calls) - 1             # the first is the prefill
+    del eng
+    torch.cuda.empty_cache()
+    return {"decode_step": (fused[9] - fused[1]) / 8,
+            "verify": (spec[10] - spec[2]) / (verifies[10] - verifies[2]),
+            "verify_forwards": verifies}
 
 
 def b13_ms(torch, cs, qt, dev, gen) -> float:
@@ -399,6 +559,28 @@ def main(trees, mode) -> int:
         res["tree"] = tree
         print(json.dumps(res), flush=True)
         results.append(res)
+    if mode == "phase2":
+        names = list(PHASE2) + ["phase 2"]
+        print("tree | " + " | ".join(f"{n} s" for n in names))
+        for r in results:
+            print(f"{r['tree']} | " + " | ".join(
+                f"{r['phase2_s'][n]:.1f}" for n in names)
+                + f" ({r['card']})")
+        return 0
+    labels = [label for label, *_ in APPEND_SHAPES] + APPEND_CALLS
+    if mode == "appends":
+        print("tree | " + " | ".join(f"{label} ms" for label in labels)
+              + " | device kernels a kv_append call, T=1 / T=9 | B9's "
+              "whole call ms (kernels) | kv_append + B2 ms (kernels)")
+        for r in results:
+            a, c = r["append_ms"], r["b9_calls"]
+            print(f"{r['tree']} | " + " | ".join(
+                f"{a[label]:.4f}" for label in labels) + " | " + " / ".join(
+                str(a[f"{call} kernels"]) for call in APPEND_CALLS) + " | "
+                + " | ".join(f"{c[x]:.4f} ({c[x + ' kernels']})"
+                             for x in ("B9 call", "kv_append + B2"))
+                + f" ({r['card']})")
+        return 0
     print("tree | " + " | ".join(f"{label} ms" for label, *_ in DECODE_SHAPES))
     for r in results:
         print(f"{r['tree']} | " + " | ".join(
@@ -423,12 +605,16 @@ def main(trees, mode) -> int:
               f"{b12['head M=4']:.4f} / {b12['head M=256']:.4f} | "
               f"{r['b13_ms']:.4f} | {b14['w8a8']:.4f} / "
               f"{b14['int8-weight']:.4f} / {b14['bf16']:.4f} ({r['card']})")
-    print("tree | " + " | ".join(f"{label} ms" for label, *_ in
-                                 APPEND_SHAPES))
+    print("tree | " + " | ".join(f"{label} ms" for label in labels)
+          + " | device kernels a kv_append call, T=1 / T=9 | a (b) decode "
+          "step | a (e) verify iteration")
     for r in results:
+        n, a = r["step_kernels"], r["append_ms"]
         print(f"{r['tree']} | " + " | ".join(
-            f"{r['append_ms'][label]:.4f}" for label, *_ in APPEND_SHAPES)
-            + f" ({r['card']})")
+            f"{a[label]:.4f}" for label in labels)
+            + " | " + " / ".join(str(a[f"{c} kernels"]) for c in APPEND_CALLS)
+            + f" | {n['decode_step']:.2f} | {n['verify']:.2f} "
+            f"({r['card']})")
     if mode == "kernels":
         return 0
     print("tree | B10 layer M=36 ms | M=256 ms | B11 layer M=256 / head "
@@ -454,9 +640,9 @@ def main(trees, mode) -> int:
 
 
 if __name__ == "__main__":
-    MODE = ("decode" if "--decode" in sys.argv[1:] else
-            "kernels" if "--kernels" in sys.argv[1:] else "all")
-    argv = [a for a in sys.argv[1:] if a not in ("--decode", "--kernels")]
+    MODES = ("decode", "kernels", "appends", "phase2")
+    MODE = next((m for m in MODES if f"--{m}" in sys.argv[1:]), "all")
+    argv = [a for a in sys.argv[1:] if a not in [f"--{m}" for m in MODES]]
     if argv[:1] == ["--one"]:
         print(TAG + json.dumps(one(pathlib.Path(argv[1]), MODE)),
               flush=True)
