@@ -192,6 +192,31 @@ and nothing of JAX. Phases:
    f. fused-append (slice 3), on (b)'s engine: ``generate_batch_fused``
       with ``PBT_FUSED_APPEND=1``, B9 in every decode layer and B2/B3
       never; tokens held against (b)'s by the same fork rule;
+   l. scheduler (slice 15), on (b)'s engine: the continuous-batching
+      ``Scheduler`` (four lanes, bursts of 8 steps, 32 with nothing
+      queued, gangs of 1024 prefill tokens, prefix cache and swap on):
+      eight greedy requests of 40-300 prompt tokens (the two 128-token
+      ones sharing the 64-token one's page) and 32-48 new ones, in three
+      waves (before ticks 0, 2 and 5), the pool shrunk to 7 pages so the
+      first wave's growth swaps the youngest request out, then grown back
+      by ``resize``: every request finished, each stream bit for bit
+      against its prompt as a row of ``generate_batch_fused`` over four
+      prompts (the lanes' row count) and against its ``generate`` alone
+      up to a fork, the fork within (b)'s logit limit and the fork rule;
+      a sentinel run of the first wave whose swap-ins write one page
+      below their pages must fail both; a swap with no chunk forward after the swap-in, a
+      prefix-cache hit, the allocator back where it was, every burst run
+      under ``torch.cuda.set_sync_debug_mode("error")``, and exact launch
+      counts from the forwards it ran (T=1: B3 and B2 a layer; a chunk: B1
+      and B4, or B5); wall, tokens/s, TTFT, ticks, bursts, hits, the
+      allocator's host time and its calls replayed on both allocators; B2
+      at one burst's ragged lengths beside B7 and SDPA, and one burst
+      profiled.
+      Then the spec burst (``spec_k`` 8) on the token-repeating weights,
+      whose streams must equal the plain burst's, with an accepted draft
+      and exact launch counts (B5 for each verify), and a seeded sampled
+      request (T 0.8) alone and beside three joining mid-decode, whose
+      tokens must be identical;
    j. megakernel (slice 5, ``bench.py --megakernel``): (b)'s w8a8
       weights handed to an engine with ``megakernel`` and
       ``megakernel_drop_weights``, which packs each layer's chain and
@@ -214,11 +239,12 @@ and nothing of JAX. Phases:
    i. long-context: ``llama3.1-8b`` (w8a8) at ``bench.py --mode longctx
       --prompt-len 32768``'s table (516 pages: past the INT8 scales
       budget of B2's route, so B6); one 32,768-token random prompt (128
-      prefill chunks), prefilled once: the references teacher-force the
-      decode steps from a copy of the kernels' prefilled pool (the plain
-      run also serves the fork rule), and a profile of
-      ``generate_batch_fused`` of 16 tokens resumed from that copy gives
-      the busy share and B6's time per layer.
+      prefill chunks) and 16 greedy tokens (``LONG_STEPS``, a quarter of
+      the other paths', for the script's time), prefilled once: the
+      references teacher-force the decode steps from a copy of the
+      kernels' prefilled pool (the plain run also serves the fork rule),
+      and a profile of ``generate_batch_fused`` of 16 tokens resumed from
+      that copy gives the busy share and B6's time per layer.
    and last, once every earlier engine is freed, slice 6's MoE path:
    k. moe: ``mixtral-8x7b`` (``bench.py --model mixtral-8x7b --quant
       int8-weight --batch 4 --prompt-len 256``) at full width and depth,
@@ -348,7 +374,8 @@ def device_ms(fn, iters: int = 20, match=("",)) -> float:
     of the GPU kernels whose name contains one of ``match`` (all kernels
     if empty), over ``iters`` calls. CUPTI now and then hands back a
     trace without the kernels' records; such a trace is taken again, up
-    to three times, and then the call is timed by CUDA events
+    to three times, as is one with fewer matching kernel records than
+    calls, and then the call is timed by CUDA events
     (:func:`cuda_ms`, host issue included), which the output says."""
     import torch
     from torch.autograd import DeviceType
@@ -363,16 +390,18 @@ def device_ms(fn, iters: int = 20, match=("",)) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(
-            getattr(e, "self_device_time_total", 0.0)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and any(m in e.key for m in match))
-        if total_us > 0:
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and any(m in e.key for m in match)]
+        total_us = sum(getattr(e, "self_device_time_total", 0.0)
+                       for e in rows)
+        # every call launches at least one matching kernel: a trace with
+        # fewer records than calls lost some
+        if total_us > 0 and sum(e.count for e in rows) >= iters:
             return total_us / iters / 1e3
         what = " / ".join(m for m in match if m) or "the call"
-        print(f"  (trace {attempt + 1} held no device time for {what}; "
-              "tracing again)", flush=True)
+        print(f"  (trace {attempt + 1} held no or too few kernel records "
+              f"for {what}; tracing again)", flush=True)
     ms = cuda_ms(fn, iters)
     print(f"  (no trace held device time for {what}: {ms:.4f} ms a call "
           "by CUDA events, host issue included)", flush=True)
@@ -2715,8 +2744,10 @@ DECODE_PATHS = [
     ("h", "grouped-96", "phi3-mini-4k", 4, 2048,
      "paged_attention_decode_grouped")]
 #: path (i): bench.py --mode longctx --prompt-len 32768 --steps 64
-#: --batch 1 on Llama-3.1-8B, w8a8
-LONG_MODEL, LONG_PROMPT = "llama3.1-8b", 32768
+#: --batch 1 on Llama-3.1-8B, w8a8: its 516-page table, 16 of its 64
+#: tokens generated (the depth cut that keeps the whole script inside its
+#: time limit on a slow host since path (l) came; PERF.md §6)
+LONG_MODEL, LONG_PROMPT, LONG_STEPS = "llama3.1-8b", 32768, 16
 #: path (k): bench.py --model mixtral-8x7b --quant int8-weight --batch 4
 #: --prompt-len 256, whose one 256-token prefill chunk routes 4 * 256 * 2
 #: = 2048 = 8 * 256 slots: the dispatch's threshold, met exactly
@@ -2772,6 +2803,11 @@ def path_config(quant="none", dtype="bfloat16", layers=None, spec_k=0,
         pad_head_dim=pad_head_dim)
     cfg.runtime.prefill_chunk = 256
     cfg.runtime.max_new_tokens = steps
+    # path (l)'s scheduler settings (only the Scheduler reads them)
+    cfg.runtime.max_batch_size = batch
+    cfg.runtime.decode_burst, cfg.runtime.decode_burst_max = 8, 32
+    cfg.runtime.prefill_gang_tokens = 1024
+    cfg.cache.enable_prefix_cache = cfg.cache.enable_swap = True
     return cfg, batch, steps, prompt_len
 
 
@@ -3026,6 +3062,12 @@ def run_paths(torch, dev, results, card):
             out["fused-append"] = fused_append_path(torch, eng, prompts,
                                                     greedy, steps, card, base)
             launches_from("fused-append", out["fused-append"])
+            phase("3l: scheduler (the continuous-batching Scheduler on the "
+                  "w8a8 engine: 8 requests in 3 waves, swap preemption, "
+                  "prefix cache, live resize; spec and seeded passes)")
+            out["scheduler"] = scheduler_path(
+                torch, torch.nn.functional, eng, greedy, spec_prompts, card,
+                tf16["tol"])
             phase("3j: megakernel (bench.py --megakernel: path (b)'s "
                   "weights packed into chains, per-op copies dropped)")
             holder = {"params": eng.params}
@@ -3220,7 +3262,8 @@ def from_prefilled(eng, pool, pages, final):
 def long_context_path(torch, refs, greedy, card):
     """Path (i): Llama-3.1-8B, w8a8, at ``bench.py --mode longctx
     --prompt-len 32768``'s table: one timed ``generate_batch_fused`` of
-    64 tokens (exact launch counts: B6 in every decode layer), its
+    :data:`LONG_STEPS` tokens (exact launch counts: B6 in every decode
+    layer), its
     prefill and decode timed apart (one synchronise at the first decode
     step) and its prefilled pool copied; the teacher-forced logit checks
     and the fork rule run from that copy (no second 32k prefill); a
@@ -3230,8 +3273,9 @@ def long_context_path(torch, refs, greedy, card):
     from importlib import import_module
 
     plat = import_module(f"{PKG}.utils.platform")
-    cfg, batch, steps, prompt_len = path_config(
+    cfg, batch, _, prompt_len = path_config(
         "int8", model=LONG_MODEL, batch=1, prompt_len=LONG_PROMPT)
+    steps = LONG_STEPS
     prompts = np.random.default_rng(SEED).integers(
         0, cfg.model.vocab_size, size=(batch, prompt_len)).tolist()
     eng, held = build_engine(torch, cfg)
@@ -4076,6 +4120,622 @@ def moe_path(torch, refs, greedy, card):
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    return info
+
+
+
+# -- path (l): the continuous-batching scheduler ------------------------------
+
+#: path (l)'s traffic on (b)'s engine: the prompts' lengths in submit
+#: order (the last two share their first page with the 64-token one), the
+#: tick before which each wave is submitted, the page count the pool is
+#: shrunk to before the run (so that the first wave's growth must preempt
+#: the youngest request by swap; grown back to (b)'s once it has), and the
+#: seeded pass's seed
+SCHED_LENS = (40, 64, 100, 192, 256, 300, 128, 128)
+SCHED_WAVES = {0: (0, 1, 2), 2: (3, 4, 5), 5: (6, 7)}
+SCHED_SHRINK = 7
+SCHED_SEED = 20261018
+
+
+def scheduler_traffic(vocab):
+    """Path (l)'s prompts and ``max_new_tokens`` (32-48), made from
+    ``SEED`` with numpy."""
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in SCHED_LENS]
+    for i in (6, 7):
+        prompts[i][:64] = prompts[1]
+    return prompts, rng.integers(32, 49, len(SCHED_LENS)).tolist()
+
+
+#: the allocator calls the scheduler makes (timed and recorded by
+#: :class:`SchedulerWatch`; ``num_free`` is a read)
+ALLOC_CALLS = ("alloc_many", "free", "lookup_freed", "resize",
+               "drop_cached")
+
+
+class SchedulerWatch:
+    """Inside (a context manager over an engine and its scheduler): every
+    ``model.forward`` call's token count is recorded (the launch counts
+    are computed from them), and the logits that chose each generated
+    token are collected per request (``logits[req_id][index]``, f32 on the
+    host) by shadowing the engine's device steps on the instance: the
+    decode burst (its rows are lanes, told apart by their requests'
+    seeds; the burst runs inside ``torch.cuda.set_sync_debug_mode
+    ("error")``, so a synchronizing call between its first forward and its
+    one fetch raises), the fused tick's chunk-and-draw and the spec burst;
+    and the plain finish's draw (the scheduler module's ``sample``). Swap
+    outs and ins, prefill starts and prefix-cache hits are counted, and
+    every allocator call is recorded with its result and timed on the
+    host (``alloc_calls``, ``alloc_s``). Each wrapper reads its inputs on
+    the host before the call, outside the burst's window."""
+
+    def __init__(self, torch, eng, sched, capture=True):
+        self.torch, self.eng, self.sched = torch, eng, sched
+        self.capture = capture
+        self.forwards = []            # T of each forward
+        self.logits = collections.defaultdict(dict)
+        self.events = []              # (kind, req_id)
+        self.hits = 0
+        self.bursts = []              # (seq_lens, block tables, steps)
+        self.spec_advance = []        # (max advance of a lane, iterations)
+        self.alloc_calls = []         # (method, args, kwargs, result)
+        self.alloc_s = 0.0
+        self._sink = None
+
+    def _by_seed(self):
+        return {r.seed: r for r in [l.request for l in self.sched.lanes]
+                if r is not None}
+
+    def __enter__(self):
+        torch, eng, sched = self.torch, self.eng, self.sched
+        from importlib import import_module
+
+        samp = import_module(f"{PKG}.engine.sampling")
+        self.sched_mod = import_module(f"{PKG}.scheduler.scheduler")
+        real = {k: getattr(eng, k) for k in (
+            "_decode_loop_fn", "_prefill_sample_fn", "_decode_spec_loop_fn")}
+        real_sample = self.real_sample = self.sched_mod.sample
+        forward = eng.model.forward
+
+        def counted_forward(params, tokens, positions, kv, attn):
+            logits, kv = forward(params, tokens, positions, kv, attn)
+            self.forwards.append(int(tokens.shape[1]))
+            if self._sink is not None:
+                self._sink(logits)
+            return logits, kv
+
+        eng.model.forward = counted_forward
+
+        def decode_loop(params, tokens, kv, bt, seq_lens, emitted, budgets,
+                        seeds, samp_, counts, *, num_steps, mode):
+            host = [t.cpu().numpy() for t in (seq_lens, emitted, budgets,
+                                               seeds, bt)]
+            rows = []
+            self._sink = ((lambda lg: rows.append(lg[:, 0].float()))
+                          if self.capture else None)
+            mode_before = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = real["_decode_loop_fn"](
+                    params, tokens, kv, bt, seq_lens, emitted, budgets,
+                    seeds, samp_, counts, num_steps=num_steps, mode=mode)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode_before)
+                self._sink = None
+            sl, em, bud, sd, bt_h = host
+            self.bursts.append((sl, bt_h, num_steps, bud))
+            by_seed = self._by_seed()
+            for j, lg in enumerate(rows):
+                lg = lg.cpu().numpy()
+                for b in range(len(sd)):
+                    req = by_seed.get(int(sd[b]))
+                    if bud[b] > 0 and req is not None and em[b] + j < bud[b]:
+                        self.logits[req.req_id][int(em[b]) + j] = lg[b]
+            return out
+
+        def prefill_sample(params, tokens, positions, kv, bt, sl, qo, pl,
+                           smask, seeds, samp_, counts, *, mode):
+            idx = (pl - 1 - qo).cpu().numpy()
+            sd, sm = seeds.cpu().numpy(), smask.cpu().numpy()
+            rows = []
+            T = tokens.shape[1]
+            if self.capture:
+                pick = torch.as_tensor(np.clip(idx, 0, T - 1),
+                                       device=tokens.device)
+                self._sink = lambda lg: rows.append(
+                    lg[torch.arange(lg.shape[0], device=lg.device),
+                       pick].float().cpu().numpy())
+            try:
+                out = real["_prefill_sample_fn"](
+                    params, tokens, positions, kv, bt, sl, qo, pl, smask,
+                    seeds, samp_, counts, mode=mode)
+            finally:
+                self._sink = None
+            by_seed = self._by_seed()
+            for i in range(len(sd)):
+                req = by_seed.get(int(sd[i]))
+                if rows and sm[i] and 0 <= idx[i] < T and req is not None:
+                    self.logits[req.req_id][0] = rows[0][i]
+            return out
+
+        def sample_fn(logits, gen, *, row_keys=None, **kw):
+            if row_keys is not None and self.capture:
+                keys = row_keys.cpu().numpy()
+                by_key = {int(samp.request_key(r.seed, 0)): r
+                          for r in self._by_seed().values()}
+                lg = logits.float().cpu().numpy()
+                for i, k in enumerate(keys):
+                    if int(k) in by_key:
+                        self.logits[by_key[int(k)].req_id][0] = lg[i]
+            return real_sample(logits, gen, row_keys=row_keys, **kw)
+
+        def spec_loop(params, hist, kv, bt, cur, *args, num_iters, **kw):
+            cur0 = cur.cpu().numpy()
+            out = real["_decode_spec_loop_fn"](params, hist, kv, bt, cur,
+                                               *args, num_iters=num_iters,
+                                               **kw)
+            adv = out[1].cpu().numpy() - cur0
+            self.spec_advance.append((int(adv.max()), num_iters))
+            return out
+
+        eng._decode_loop_fn = decode_loop
+        eng._prefill_sample_fn = prefill_sample
+        eng._decode_spec_loop_fn = spec_loop
+        self.sched_mod.sample = sample_fn
+
+        for name in ("_swap_out", "_swap_in", "_start_prefill"):
+            def wrapped(lane, *rest, fn=getattr(sched, name), name=name):
+                req = rest[0] if rest else lane.request
+                self.events.append((name.strip("_"), req.req_id))
+                return fn(lane, *rest)
+
+            setattr(sched, name, wrapped)
+        alloc = eng.allocator
+        for name in ALLOC_CALLS:
+            def timed(*a, fn=getattr(alloc, name), name=name, **k):
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                self.alloc_s += time.perf_counter() - t
+                self.alloc_calls.append((name, a, k, out))
+                if name == "lookup_freed":
+                    self.hits += out is not None
+                return out
+
+            setattr(alloc, name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        eng = self.eng
+        del eng.model.forward
+        for k in ("_decode_loop_fn", "_prefill_sample_fn",
+                  "_decode_spec_loop_fn"):
+            delattr(eng, k)                   # the engine's methods again
+        self.sched_mod.sample = self.real_sample
+        for name in ALLOC_CALLS:
+            delattr(eng.allocator, name)
+        for name in ("_swap_out", "_swap_in", "_start_prefill"):
+            delattr(self.sched, name)
+        return False
+
+
+def allocator_replay(calls, num_pages, reps=200):
+    """Host milliseconds of one replay of a run's allocator ``calls``
+    (:class:`SchedulerWatch`'s ``alloc_calls``) on a fresh allocator of
+    each kind, ``{"python": ms, "native": ms}`` (the median of ``reps``).
+    A first replay maps the run's page ids to the fresh allocator's (the
+    same calls and the same results, in that allocator's ids); the timed
+    ones then make the mapped calls alone."""
+    from importlib import import_module
+
+    native = import_module(f"{PKG}.kvcache.native")
+    out = {}
+    for kind, opt in (("python", "never"), ("native", "always")):
+        alloc = native.make_allocator(num_pages, native=opt)
+        ids, plan = {0: 0}, []
+        for name, a, k, res in calls:
+            if name == "free":
+                a = (ids[a[0]],) + a[1:]
+            got = getattr(alloc, name)(*a, **k)
+            if name == "alloc_many":
+                ids.update(zip(res, got))
+            elif name == "lookup_freed" and res is not None:
+                check(got is not None, f"{kind} allocator: a replayed "
+                      "prefix lookup missed")
+                ids[res] = got
+            plan.append((name, a, k))
+        times = []
+        for _ in range(reps):
+            alloc = native.make_allocator(num_pages, native=opt)
+            bound = [(getattr(alloc, name), a, k) for name, a, k in plan]
+            t = time.perf_counter()
+            for fn, a, k in bound:
+                fn(*a, **k)
+            times.append(time.perf_counter() - t)
+        out[kind] = float(np.median(times)) * 1e3
+    return out
+
+
+def forward_launches(quant, n_layers, page, forwards,
+                     attention="paged_attention_wgmma"):
+    """Exact launch counts of the forwards a run made (their token counts
+    ``forwards``): a T=1 forward runs B3 and B2 in each layer, a chunk B1
+    and the append ``kv_append`` routes it to (B4 where ``T % page ==
+    0``, else B5); the matmuls as :func:`matmul_launches` counts them;
+    every other kernel 0."""
+    from importlib import import_module
+
+    plat = import_module(f"{PKG}.utils.platform")
+    out = dict.fromkeys(plat.KERNELS, 0)
+    steps = sum(t == 1 for t in forwards)
+    pages = sum(t > 1 and t % page == 0 for t in forwards)
+    tokens = sum(t > 1 and t % page != 0 for t in forwards)
+    out.update({"kv_append_decode": n_layers * steps,
+                "paged_attention_decode": n_layers * steps,
+                attention: n_layers * (pages + tokens),
+                "kv_append_prefill": n_layers * pages,
+                "kv_append_tokens": n_layers * tokens})
+    out.update(matmul_launches(quant, n_layers, len(forwards)))
+    return out
+
+
+def reference_streams(torch, eng, prompts, news, greedy, batch=1):
+    """Each prompt through the same engine with the logits that chose
+    each token (the final prompt position of the last chunk, then each
+    decode step's): alone by ``generate``, or with ``batch`` > 1 as one
+    row of ``generate_batch_fused`` over ``batch`` prompts at a time, in
+    order (every forward then has the scheduler's lane count of rows; a
+    row's work depends on the others' only through the shapes).
+    ``[(tokens, logits [n, V])]``."""
+    out = []
+    for g in range(0, len(prompts), batch):
+        group, ns = prompts[g:g + batch], news[g:g + batch]
+        rows = [[] for _ in group]
+        with forward_calls(eng) as calls:
+            if batch == 1:
+                toks = [eng.generate(group[0], ns[0], greedy)]
+            else:
+                group = group + group[-1:] * (batch - len(group))
+                toks = eng.generate_batch_fused(group, max(ns), greedy)
+        for pos, lg in calls:
+            for i, prompt in enumerate(group[:len(ns)]):
+                if pos.shape[1] > 1:
+                    at = np.nonzero(pos[i] == len(prompt) - 1)[0]
+                    if at.size:
+                        rows[i] = [lg[i, at[0]].cpu().numpy()]
+                else:
+                    rows[i].append(lg[i, 0].cpu().numpy())
+        out += [(t[:n], np.stack(r[:n])) for t, r, n in zip(toks, rows, ns)]
+    return out
+
+
+def stream_faults(reqs, logits, alone, batched, tol):
+    """Path (l)'s stream checks as a list of faults (empty: passed), and
+    what they compared. Against ``batched`` (each prompt in a batch of the
+    lanes' size, :func:`reference_streams`) every token and every logit
+    must be equal bit for bit: a decode step's rows go through the same
+    shapes, so only a fault of the scheduler (a wrong page, a stale row, a
+    bad swap) can move them. Against ``alone`` (``generate``) the same
+    holds up to each request's first fork, and at the fork the step's
+    max|dlogit| must be within ``tol`` (path (b)'s logit limit) and the
+    reference's top-1 margin at most twice it (the fork rule): a batch of
+    one reduces some rows' norms in another order (PERF.md §6)."""
+    faults, compared, forks = [], 0, []
+    for r, (tr, lr), (tb, lb) in zip(reqs, alone, batched):
+        got = logits[r.req_id]
+        if sorted(got) != list(range(len(r.tokens))):
+            faults.append(f"request {r.req_id} vs both: logits for "
+                          f"{sorted(got)}")
+            continue
+        lk = np.stack([got[e] for e in range(len(r.tokens))])
+        same = [r.tokens[e] == tb[e] and np.array_equal(lk[e], lb[e])
+                for e in range(len(r.tokens))]
+        if len(tb) != len(r.tokens) or not all(same):
+            e = same.index(False) if not all(same) else len(same)
+            d = float(np.abs(lk[e] - lb[e]).max()) if e < len(lb) else 0.0
+            faults.append(f"request {r.req_id} vs batch: token {e} differs "
+                          f"(max|dlogit| {d:.4g})")
+        for e in range(len(r.tokens)):
+            d = float(np.abs(lk[e] - lr[e]).max())
+            if r.tokens[e] != tr[e]:
+                top2 = np.sort(lr[e])[-2:]
+                margin = float(top2[1] - top2[0])
+                forks.append((r.req_id, e, margin, d))
+                if margin > 2 * d or d > tol:
+                    faults.append(
+                        f"request {r.req_id} vs alone: forks at token {e} "
+                        f"(margin {margin:.4g}, max|dlogit| {d:.4g}, limit "
+                        f"{tol:.4g})")
+                break
+            if d != 0:
+                faults.append(f"request {r.req_id} vs alone: token {e}'s "
+                              f"logits differ by {d:.4g} before any fork")
+                break
+            compared += 1
+    return faults, compared, forks
+
+
+def run_scheduler(torch, eng, submit, watch=True, grow_at=None):
+    """A scheduler on ``eng`` driven tick by tick: ``submit(sched, tick)``
+    submits what arrives before that tick; with ``grow_at`` the pool is
+    grown back to that many pages after the first tick that preempted.
+    Returns the scheduler, its watch, the requests, the ticks and the
+    wall seconds."""
+    from importlib import import_module
+
+    sch = import_module(f"{PKG}.scheduler")
+    sched = sch.Scheduler(eng)
+    reqs, tick, grown = [], 0, False
+    with SchedulerWatch(torch, eng, sched, capture=watch) as w:
+        if grow_at is not None:
+            sched.resize(SCHED_SHRINK)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        while True:
+            reqs += submit(sched, tick)
+            busy = sched.step()
+            tick += 1
+            if grow_at is not None and sched.n_preempted and not grown:
+                sched.resize(grow_at)
+                grown = True
+            if (busy == 0 and sched.waiting.empty()
+                    and tick > max(SCHED_WAVES)):
+                break
+            check(tick < 400, "the scheduler did not drain")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return sched, w, reqs, tick, wall
+
+
+def scheduler_path(torch, F_, eng, greedy, spec_prompts, card, tol):
+    """Path (l): the JAX package's continuous-batching scheduler, ported,
+    on (b)'s w8a8 Llama-3-8B engine (full width and depth, INT8 KV, page
+    64, chunk 256, four lanes, bursts of 8 to 32 steps): eight requests in
+    three waves, the pool shrunk so the first wave's growth swaps the
+    youngest request out, then grown back; checks (the streams by
+    :func:`stream_faults` with (b)'s logit limit ``tol``, and a sentinel
+    run that must fail them), numbers and B2 at a burst's ragged lengths
+    (see the module docstring)."""
+    from importlib import import_module
+
+    plat = import_module(f"{PKG}.utils.platform")
+    pa = import_module(f"{PKG}.ops.paged_attention")
+    sch = import_module(f"{PKG}.scheduler")
+    eng_mod = import_module(f"{PKG}.engine")
+    sampling = import_module(f"{PKG}.engine.sampling")
+    cfg = eng.config
+    L, page = eng.cfg.num_layers, eng.cache.page_size
+    prompts, news = scheduler_traffic(eng.cfg.vocab_size)
+    t0 = time.perf_counter()
+
+    def lap(what):
+        print(f"  ({what}: {time.perf_counter() - t0:.1f} s into (l))",
+              flush=True)
+
+    live0 = eng.allocator.num_live
+    full = eng.cache.num_pages
+    # the bursts' sync check can fail: a read to the host inside the mode
+    # raises
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        torch.zeros(1, device=eng.device).item()
+        raised = False
+    except RuntimeError:
+        raised = True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(raised, "set_sync_debug_mode('error') let .item() through")
+    print(f"  allocator: {type(eng.allocator).__name__}; pool {full} pages, "
+          f"shrunk to {SCHED_SHRINK} for the first wave; prompts "
+          f"{list(SCHED_LENS)}, max_new_tokens {news}", flush=True)
+
+    def submit(sched, tick):
+        return [sched.submit(prompts[i], news[i], greedy)
+                for i in SCHED_WAVES.get(tick, ())]
+
+    plat.reset_launch_counts()
+    sched, w, reqs, ticks, wall = run_scheduler(torch, eng, submit,
+                                                grow_at=full)
+    counts = {n: k.launches for n, k in plat.KERNELS.items()}
+    failed = [(r.req_id, r.error) for r in reqs
+              if r.state != sch.RequestState.FINISHED]
+    check(not failed, f"requests not finished: {failed}")
+    check(eng.cache.num_pages == full, "the pool was not grown back")
+    expect = forward_launches(eng.cfg.quant, L, page, w.forwards,
+                              b1_kernel(eng))
+    print(f"  launches in the scheduler run: {json.dumps(counts)}",
+          flush=True)
+    check(counts == expect,
+          f"scheduler: launches {counts}, expected exactly {expect}")
+    steps = sum(t == 1 for t in w.forwards)
+    chunks = len(w.forwards) - steps
+    tokens = sum(len(r.tokens) for r in reqs)
+    ttft = sorted(r.ttft_s for r in reqs)
+    swapped = {rid for kind, rid in w.events if kind == "swap_out"}
+    swapped_in = {rid: i for i, (kind, rid) in enumerate(w.events)
+                  if kind == "swap_in"}
+    resumed_prefill = [rid for rid in swapped if rid in swapped_in and (
+        "start_prefill", rid) in w.events[swapped_in[rid]:]]
+    print(f"  scheduler run: wall {wall:.3f} s, {tokens} tokens, "
+          f"{tokens / wall:.2f} tok/s, TTFT p50 {np.median(ttft):.3f} s, max "
+          f"{ttft[-1]:.3f} s; {ticks} ticks, {len(w.bursts)} bursts "
+          f"({steps} decode steps), {chunks} chunk forwards, "
+          f"{sched.n_preempted} preemptions (swapped out: "
+          f"{sorted(swapped)}), {w.hits} prefix-cache hits; events "
+          f"{w.events} ({card})", flush=True)
+    check(sched.n_preempted >= 1 and swapped, "no request was swapped out")
+    check(swapped <= set(swapped_in), "a swapped request was not swapped in")
+    check(not resumed_prefill,
+          f"requests {resumed_prefill} were prefilled after their swap-in")
+    check(w.hits >= 1, "no prefix-cache hit")
+    check(eng.allocator.num_live == live0,
+          f"allocator holds {eng.allocator.num_live} pages, had {live0}")
+    alloc_ms = allocator_replay(w.alloc_calls, full)
+    print(f"  allocator host time in the run: {w.alloc_s * 1e3:.3f} ms over "
+          f"{len(w.alloc_calls)} calls ({w.alloc_s * 1e3 / ticks:.4f} ms a "
+          f"tick, {w.alloc_s / wall:.2e} of the wall); the same calls "
+          f"replayed on fresh allocators: Python {alloc_ms['python']:.4f} "
+          f"ms, native {alloc_ms['native']:.4f} ms ({card})", flush=True)
+    lap("the scheduler run and its checks")
+    refs = reference_streams(torch, eng, prompts, news, greedy)
+    batch_refs = reference_streams(torch, eng, prompts, news, greedy,
+                                   batch=cfg.runtime.max_batch_size)
+    lap("the references")
+    faults, compared, forks = stream_faults(reqs, w.logits, refs, batch_refs,
+                                            tol)
+    in_batch = not any(" vs batch" in f for f in faults)
+    print(f"  streams: {len(reqs)} requests equal their batch references "
+          f"token for token and logit for logit: {in_batch}; against "
+          f"generate alone {compared} tokens bit-identical before "
+          f"the forks, forks (request, token, reference margin, "
+          f"max|dlogit|) {json.dumps([(q, e, round(m, 5), round(d, 5)) for q, e, m, d in forks])}"
+          f" (each margin <= 2x its max|dlogit|, each max|dlogit| <= "
+          f"{tol:.4g}); faults {faults}", flush=True)
+    check(not faults, f"scheduler streams: {faults}")
+    info = {"wall_s": wall, "tokens": tokens, "tok_s": tokens / wall,
+            "ttft_p50_s": float(np.median(ttft)), "ttft_max_s": ttft[-1],
+            "ticks": ticks, "bursts": len(w.bursts), "decode_steps": steps,
+            "chunk_forwards": chunks, "preemptions": sched.n_preempted,
+            "prefix_hits": w.hits, "allocator": type(eng.allocator).__name__,
+            "allocator_calls": len(w.alloc_calls),
+            "allocator_ms": w.alloc_s * 1e3,
+            "allocator_replay_python_ms": alloc_ms["python"],
+            "allocator_replay_native_ms": alloc_ms["native"],
+            "pairs_before_fork": compared, "forks": len(forks),
+            "launches": counts}
+
+    # the sentinel: the first wave again (its youngest request is the one
+    # swapped) with each swap-in writing the request's pages one page
+    # below the ones it was given: it must fail the checks
+    sched_mod = import_module(f"{PKG}.scheduler.scheduler")
+    scatter = sched_mod.scatter_pages
+    sched_mod.scatter_pages = lambda kv, blobs, pages: scatter(
+        kv, blobs, [p - 1 for p in pages])
+    try:
+        _, ws, bad_reqs, _, _ = run_scheduler(
+            torch, eng, lambda sched, tick: submit(sched, tick) if tick == 0
+            else [], grow_at=full)
+    finally:
+        sched_mod.scatter_pages = scatter
+    bad, _, _ = stream_faults(bad_reqs, ws.logits, refs, batch_refs, tol)
+    print(f"  sentinel (each swap-in one page below its pages): faults "
+          f"{bad}", flush=True)
+    for rid in sorted(swapped):
+        for kind in ("batch", "alone"):
+            check(any(f.startswith(f"request {rid} vs {kind}:") for f in bad),
+                  f"the sentinel's request {rid} passed the check against "
+                  f"its {kind} reference")
+    check(eng.allocator.num_live == live0, "the sentinel kept pages")
+    info["sentinel_faults"] = len(bad)
+    lap("the sentinel")
+
+    # B2 at one burst's ragged lengths (the first with the most live
+    # lanes), beside B7 and SDPA on the same inputs
+    sl, bt, _, _ = max(w.bursts, key=lambda b: int((b[3] > 0).sum()))
+    dev = eng.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    kv = sched.kv
+    q = torch.randn((len(sl), 1, eng.cfg.num_heads, kv[0].shape[-1]),
+                    generator=gen, device=dev).to(torch.bfloat16)
+    bt_d = torch.as_tensor(bt, device=dev)
+    sl_d = torch.as_tensor(sl + 1, device=dev)
+    common = dict(page_size=page, num_q_heads=eng.cfg.num_heads)
+    args = (q, kv[0], bt_d, sl_d, kv[1], 0)
+    b2 = pa.paged_attention_decode(*args, **common)
+    b7 = pa.paged_attention_decode_batched(*args, **common)
+    err7 = (b7.float() - b2.float()).abs().max().item()
+    b2_ms = device_ms(lambda: pa.paged_attention_decode(*args, **common),
+                      match=KERNEL_NAMES["paged_attention_decode"])
+    b7_ms = device_ms(lambda: pa.paged_attention_decode_batched(
+        *args, **common), match=KERNEL_NAMES["paged_attention_decode_batched"])
+    sdpa_ms = device_ms(sdpa_decode_call(torch, F_, q, kv, bt_d, sl_d, 0, 0),
+                        iters=5)
+    b_ms, b_by = decode_bound(torch, q, kv, bt_d, (sl + 1).tolist(), 0)
+    print(f"  B2 at a burst's ragged lengths {(sl + 1).tolist()} (keys a "
+          f"lane; layer 0 of the scheduler's pool): {b2_ms:.4f} ms, B7 "
+          f"{b7_ms:.4f} ms (max|B7-B2| {err7:.3e}), SDPA {sdpa_ms:.4f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by}) ({card})", flush=True)
+    check(err7 <= 2e-2, "B7 differs from B2 at the burst's lengths")
+    info.update(b2_ragged_lens=(sl + 1).tolist(), b2_ragged_ms=b2_ms,
+                b7_ragged_ms=b7_ms, sdpa_ragged_ms=sdpa_ms,
+                ragged_bound_ms=b_ms)
+    # one burst profiled at those inputs (pages past a lane's content are
+    # free now: the writes land on them or on the dump page)
+    zeros = torch.zeros(len(sl), dtype=torch.int32, device=dev)
+    budgets = torch.full((len(sl),), 1 << 20, dtype=torch.int32, device=dev)
+    samp = sampling.arrays_to(sampling.batch_arrays_np([greedy] * len(sl)),
+                              dev)
+    info.update(profile_run(torch, "scheduler burst", lambda n: (
+        eng._decode_loop_fn(eng.params, zeros, kv, bt_d,
+                            torch.as_tensor(sl, device=dev), zeros, budgets,
+                            zeros, samp, sched._dummy_counts, num_steps=n,
+                            mode=greedy.mode())), steps=4))
+    del sched, kv, q, b2, b7
+    torch.cuda.empty_cache()
+    lap("B2 at the ragged lengths, the burst profile")
+
+    # the spec burst on token-repeating weights against the plain burst
+    with token_repeating(eng):
+        # 48 tokens a request: more than one burst (32 steps) of the
+        # plain burst, so a spec lane that accepts drafts finishes in fewer
+        def spec_submit(sched, tick):
+            return ([sched.submit(p, 48, greedy) for p in spec_prompts]
+                    if tick == 0 else [])
+
+        _, _, plain_reqs, _, _ = run_scheduler(torch, eng, spec_submit,
+                                               watch=False)
+        saved = cfg.runtime.spec_k
+        cfg.runtime.spec_k = SPEC_K
+        try:
+            plat.reset_launch_counts()
+            _, ws, spec_reqs, _, spec_wall = run_scheduler(
+                torch, eng, spec_submit, watch=False)
+            spec_counts = {n: k.launches for n, k in plat.KERNELS.items()}
+        finally:
+            cfg.runtime.spec_k = saved
+    expect = forward_launches(eng.cfg.quant, L, page, ws.forwards,
+                              b1_kernel(eng))
+    check(spec_counts == expect, f"scheduler spec: launches {spec_counts}, "
+          f"expected exactly {expect}")
+    same = [a.tokens == b.tokens for a, b in zip(spec_reqs, plain_reqs)]
+    accepted = any(adv > it for adv, it in ws.spec_advance)
+    verifies = sum(t == SPEC_K + 1 for t in ws.forwards)
+    print(f"  spec burst (spec_k={SPEC_K}, token-repeating weights): "
+          f"streams equal to the plain burst's: {same}; {verifies} verify "
+          f"forwards for {sum(len(r.tokens) for r in spec_reqs)} tokens "
+          f"(lane advance a burst, iterations: {ws.spec_advance}); wall "
+          f"{spec_wall:.3f} s; launches {json.dumps(spec_counts)}",
+          flush=True)
+    check(all(same), "the spec burst's streams differ from the plain burst's")
+    check(accepted, "the spec burst accepted no draft")
+    info.update(spec_verify_forwards=verifies, spec_wall_s=spec_wall,
+                spec_launches=spec_counts)
+    lap("the spec pass")
+
+    # a seeded sampled request alone, then beside three joining mid-decode
+    sampled = eng_mod.SamplingParams(temperature=0.8, eos_token_id=-1)
+    runs = []
+    for others in (False, True):
+        def seeded_submit(sched, tick, others=others):
+            if tick == 0:
+                return [sched.submit(prompts[0], 48, sampled,
+                                     seed=SCHED_SEED)]
+            if tick == 1 and others:
+                return [sched.submit(prompts[i], 40, sampled, seed=i)
+                        for i in (1, 2, 6)]
+            return []
+
+        _, _, rs, _, _ = run_scheduler(torch, eng, seeded_submit,
+                                       watch=False)
+        runs.append(rs)
+    same_seeded = runs[0][0].tokens == runs[1][0].tokens
+    print(f"  seeded request (T=0.8, seed {SCHED_SEED}) alone and beside "
+          f"three joining mid-decode: {'identical' if same_seeded else 'DIFFERENT'}"
+          f" ({len(runs[0][0].tokens)} tokens)", flush=True)
+    check(same_seeded, "the seeded request's tokens depend on its batch")
+    check(eng.allocator.num_live == live0, "the passes kept pages")
+    info["seeded_identical"] = same_seeded
+    lap("the seeded pass")
     return info
 
 

@@ -9,6 +9,16 @@ eagerly, so what JAX compiles into one program per step (or, for
 Python loop here with the same semantics; the pool is updated in place.
 Sampling stays on the device; the fused loop reads tokens back to the
 host once, at its end, and the speculative loop one flag per iteration.
+
+The scheduler's device steps (``scheduler/scheduler.py``) are methods
+under the JAX engine's names, so that a test can shadow one on an
+instance (fault injection): ``_prefill_fn`` (one chunk),
+``_prefill_sample_fn`` (a chunk and its first tokens),
+``_scatter_tokens_fn`` / ``_scatter_hist_fn`` (merging those tokens into
+the burst's inputs on the device), ``_decode_loop_fn`` (the decode burst)
+and ``_decode_spec_loop_fn`` (the speculative burst). None reads the
+device from the host: a burst is ``num_steps`` forwards issued back to
+back with one fetch after it, by the caller.
 """
 
 from __future__ import annotations
@@ -20,7 +30,7 @@ import numpy as np
 import torch
 
 from ..config import FrameworkConfig
-from ..kvcache.allocator import PageAllocator
+from ..kvcache.native import make_allocator
 from ..models.chained import build_decode_chains, chains_supported
 from ..models.model import (DecoderModel, Params, fuse_projections,
                             init_params, init_params_quantized,
@@ -29,9 +39,10 @@ from ..models.model import (DecoderModel, Params, fuse_projections,
 from ..utils.common import cdiv
 from ..utils.platform import resolve_device
 from .paged_backend import PagedKVBackend
-from .sampling import SamplingParams, bump_counts, hit_stop, sample, \
-    token_counts
-from .spec import accept_counts, draft_ngram, gather_rows, write_rows
+from .sampling import (SamplingParams, bump_counts, fold_key, hit_stop,
+                       prepare_logits, request_key, sample, token_counts)
+from .spec import (accept_counts, draft_ngram, gather_rows,
+                   stochastic_accept, write_rows)
 
 
 @dataclasses.dataclass
@@ -85,7 +96,10 @@ class Engine:
                     self.cache.max_pages_per_seq * self.cache.page_size)
         self.model = DecoderModel(self.cfg, rope_len=rope_len)
         self.backend = PagedKVBackend(self.cfg, self.cache)
-        self.allocator = PageAllocator(self.cache.num_pages)
+        # one device, so one allocator (data-parallel shards, each with
+        # its own: ROADMAP queue A, item 7)
+        self.allocator = make_allocator(self.cache.num_pages,
+                                        native=self.cache.native_allocator)
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             init = init_params if quant == "none" else init_params_quantized
@@ -186,6 +200,200 @@ class Engine:
         page = self.cache.page_size
         return min(cdiv(max(self.runtime.prefill_chunk, 1), page) * page,
                    max_len)
+
+    def _init_cache(self):
+        """A fresh zeroed page pool on the engine's device."""
+        return self.backend.init_cache(self.device)
+
+    # -- the scheduler's device steps --------------------------------------
+
+    def _chunk_logits(self, params, tokens, positions, kv, block_tables,
+                      seq_lens, q_offsets, prompt_lens):
+        """One prefill chunk at the given positions (``-1``: padding),
+        block tables and ``q_offsets``. Returns each row's f32 logits at
+        its last prompt token where that falls inside the chunk (else
+        zeros), the ``inside`` flags, and the pool."""
+        attn = self.backend.make_attn_fn(block_tables, seq_lens, q_offsets)
+        logits, kv = self.model.forward(params, tokens.long(),
+                                        positions.long(), kv, attn)
+        B, T, _ = logits.shape
+        idx = prompt_lens - 1 - q_offsets
+        inside = (idx >= 0) & (idx < T)
+        safe = idx.clamp(0, T - 1).long()
+        last = logits[torch.arange(B, device=logits.device), safe,
+                      :self.cfg.vocab_size].float()
+        return torch.where(inside[:, None], last, 0.0), inside, kv
+
+    @torch.inference_mode()
+    def _prefill_fn(self, params, tokens, positions, kv, block_tables,
+                    seq_lens, q_offsets, prompt_lens):
+        """One prefill chunk; ``(logits [B, V], kv)`` with each row's
+        logits at its final prompt token if that falls inside this chunk,
+        else zeros."""
+        final, _, kv = self._chunk_logits(
+            params, tokens, positions, kv, block_tables, seq_lens,
+            q_offsets, prompt_lens)
+        return final, kv
+
+    @torch.inference_mode()
+    def _prefill_sample_fn(self, params, tokens, positions, kv,
+                           block_tables, seq_lens, q_offsets, prompt_lens,
+                           sample_mask, seeds, samp, counts, *, mode):
+        """A prefill chunk and its first-token draws: row ``i`` draws with
+        ``request_key(seeds[i], 0)`` where ``sample_mask`` is set and its
+        last prompt token is inside the chunk; other rows give ``-1``.
+        Returns ``(first [n] int32, kv)``."""
+        final, inside, kv = self._chunk_logits(
+            params, tokens, positions, kv, block_tables, seq_lens,
+            q_offsets, prompt_lens)
+        keys = None if mode.greedy else request_key(
+            seeds, torch.zeros_like(seeds))
+        tok = sample(final, None, row_keys=keys, mode=mode,
+                     counts=counts if mode.use_penalties else None, **samp)
+        return torch.where(sample_mask & inside, tok, -1), kv
+
+    @torch.inference_mode()
+    def _scatter_tokens_fn(self, dec_tokens, first, rows, counts, *,
+                           bump: bool):
+        """The gang's first tokens ``first [n]`` into the burst's seed
+        tokens at ``rows [n]`` (a row >= B is dropped); with ``bump`` also
+        counted into the penalty histogram rows. A new seed vector and
+        histogram; no host read."""
+        B = dec_tokens.shape[0]
+        r = rows.long().clamp(0, B)                # row B: the dropped one
+        out = torch.cat([dec_tokens, dec_tokens.new_zeros(1)])
+        out = out.index_copy(0, r, first.to(out.dtype))[:B]
+        if bump:
+            pad = torch.cat([counts, counts.new_zeros(1, counts.shape[1])])
+            pad.index_put_((r, first.clamp_min(0).long()),
+                           (first >= 0).to(pad.dtype), accumulate=True)
+            counts = pad[:B]
+        return out, counts
+
+    @torch.inference_mode()
+    def _scatter_hist_fn(self, hist, cur, first, rows):
+        """The spec burst's form of :meth:`_scatter_tokens_fn`: the first
+        tokens into the history at each row's pending slot ``cur[row] -
+        1`` (a row >= B is dropped)."""
+        B = cur.shape[0]
+        r = rows.long().clamp(0, B)
+        pos = (cur.long() - 1).gather(0, r.clamp(max=B - 1))
+        pad = torch.cat([hist, hist.new_zeros(1, hist.shape[1])])
+        pad.index_put_((r, pos), first.to(pad.dtype))
+        return pad[:B]
+
+    @torch.inference_mode()
+    def _decode_loop_fn(self, params, tokens, kv, block_tables, seq_lens,
+                        emitted, budgets, seeds, samp, counts, *,
+                        num_steps: int, mode):
+        """The scheduler's decode burst: ``num_steps`` T=1 forwards issued
+        back to back on the device, with no host read.
+
+        ``emitted [B]``: tokens each lane has generated (the prefill's
+        first counts); ``budgets [B]``: each lane's ``max_new_tokens``. A
+        lane freezes on the device once ``emitted >= budget``, or at its
+        EOS or a stop id: it stops advancing ``seq_lens`` (its write lands
+        one slot past its live content, or on the dump page) and emits
+        ``max(eos, 0)``, which the host discards. Idle lanes enter with
+        ``budget = 0``. ``seeds [B]``: token ``i`` of a request draws with
+        ``request_key(seed, i)``. Pages for every step must be in
+        ``block_tables``. ``counts`` (the ``[B, V]`` penalty histogram, or
+        a ``[B, 1]`` dummy) is threaded through. Returns ``(tokens [B,
+        num_steps], kv, counts)``."""
+        V = self.cfg.vocab_size
+        eos = samp["eos_token_id"]
+        stops = samp.get("stop_ids")
+        finished = emitted >= budgets
+        out = []
+        for _ in range(num_steps):
+            attn = self.backend.make_attn_fn(block_tables, seq_lens + 1,
+                                             seq_lens)
+            logits, kv = self.model.forward(
+                params, tokens.long()[:, None], seq_lens.long()[:, None],
+                kv, attn)
+            keys = None if mode.greedy else request_key(seeds, emitted)
+            nxt = sample(logits[:, 0, :V], None, row_keys=keys, mode=mode,
+                         counts=counts if mode.use_penalties else None,
+                         **samp)
+            nxt = torch.where(finished, eos.clamp_min(0), nxt)
+            live = (~finished).to(torch.int32)
+            if mode.use_penalties:
+                bump_counts(counts, nxt, live)
+            emitted = emitted + live
+            finished = (finished | hit_stop(nxt, eos, stops)
+                        | (emitted >= budgets))
+            seq_lens = seq_lens + live
+            out.append(nxt)
+            tokens = nxt
+        return torch.stack(out, dim=1), kv, counts
+
+    @torch.inference_mode()
+    def _decode_spec_loop_fn(self, params, hist, kv, block_tables, cur,
+                             emitted, budgets, seeds, kv_limits, samp, *,
+                             num_iters: int, spec_k: int, ngram: int, mode,
+                             stochastic: bool = False):
+        """The scheduler's speculative burst: ``num_iters`` draft ->
+        verify forwards over the fixed lanes, no host read. Greedy lanes
+        accept drafts (up to ``spec_k + 1`` tokens an iteration,
+        greedy-exact); sampled lanes draw one token an iteration with
+        ``request_key(seed, emitted)``, as the plain burst does, or with
+        ``stochastic`` accept drafts by :func:`~.spec.stochastic_accept` on
+        keys folded from the same. Lanes freeze at EOS or their budget
+        (idle lanes enter with ``budgets == 0``). ``hist [B, M]`` holds
+        each lane's tokens (``hist[b, :cur[b]]``, the last one's KV not
+        yet written); ``kv_limits [B]`` bounds KV writes to each request's
+        page budget (slots past it go to the dump page). Returns ``(hist,
+        cur, emitted, kv)``."""
+        V = self.cfg.vocab_size
+        K = spec_k
+        eos = samp["eos_token_id"]
+        idxs = torch.arange(K + 1, dtype=torch.int32, device=hist.device)
+        B = hist.shape[0]
+        samp_rep = {k: v.repeat_interleave(K + 1, dim=0)
+                    for k, v in samp.items()}
+        greedy_lane = samp["temperature"] <= 0.0
+        finished = emitted >= budgets
+        for _ in range(num_iters):
+            drafts = draft_ngram(hist, cur, k=K, n=ngram)
+            inp = torch.cat([gather_rows(hist, cur - 1, 1), drafts], dim=1)
+            pos = (cur - 1)[:, None] + idxs[None, :]
+            pos = torch.where(finished[:, None], -1, pos)
+            pos = torch.where(pos < kv_limits[:, None], pos, -1)
+            attn = self.backend.make_attn_fn(block_tables, cur + K, cur - 1)
+            logits, kv = self.model.forward(params, inp.long(), pos.long(),
+                                            kv, attn)
+            flat = logits[..., :V].reshape(B * (K + 1), V)
+            base = request_key(seeds[:, None].expand(B, K + 1),
+                               emitted[:, None] + idxs[None, :])
+            y = sample(flat, None,
+                       row_keys=None if mode.greedy else base.reshape(-1),
+                       mode=mode, **samp_rep).reshape(B, K + 1)
+            a = torch.where(greedy_lane, accept_counts(drafts, y[:, :K]), 0)
+            if stochastic and not mode.greedy:
+                _, scaled = prepare_logits(flat, mode=mode, **samp_rep)
+                a_s, fix = stochastic_accept(
+                    scaled.reshape(B, K + 1, V), drafts,
+                    keys_u=fold_key(base[:, :K], 1),
+                    keys_re=fold_key(base, 2))
+                y_s = torch.where(
+                    idxs[None, :] < a_s[:, None],
+                    torch.cat([drafts, drafts[:, -1:]], dim=1).to(y.dtype),
+                    fix[:, None].to(y.dtype))
+                a = torch.where(greedy_lane, a, a_s)
+                y = torch.where(greedy_lane[:, None], y, y_s)
+            ok = idxs[None, :] <= a[:, None]
+            ok &= (emitted[:, None] + idxs[None, :]) < budgets[:, None]
+            iseos = (eos[:, None] >= 0) & (y == eos[:, None])
+            eos_i = iseos.to(torch.int32)
+            ok &= ~((torch.cumsum(eos_i, dim=1) - eos_i) > 0)
+            ok &= ~finished[:, None]
+            cnt = ok.sum(dim=1, dtype=torch.int32)
+            hist = write_rows(hist, cur, y)
+            emitted = emitted + cnt
+            finished = (finished | (emitted >= budgets)
+                        | (iseos & ok).any(dim=1))
+            cur = cur + cnt
+        return hist, cur, emitted, kv
 
     # -- steps ------------------------------------------------------------
 

@@ -6,6 +6,18 @@ draws. The masks (:func:`filter_logits`, :func:`prepare_logits`) are the
 same functions of the logits; the draws differ from JAX's threefry
 streams, so sampled tokens agree with the JAX package in distribution,
 not token by token. Greedy picks are identical.
+
+Per-request draws (the scheduler's bursts; JAX's ``row_keys``): a row's
+key is :func:`request_key` ``(seed, index)``, a 32-bit integer that is a
+pure function of the request's seed and the index of the token it draws,
+so a request's sampled stream does not depend on batch composition,
+burst boundaries or preemption. The draw is Gumbel-max on the device in
+one pass: column ``j`` of the row gets the uniform of the counter-based
+hash of ``(key, j)`` (:func:`key_uniforms`: ``lowbias32`` rounds, 24
+bits), and the token is ``argmax(scaled + gumbel)`` over the masked
+scaled logits, which draws from ``softmax(scaled)``. No per-row
+``torch.Generator`` and no host work a step: a burst's draws are a few
+elementwise kernels over ``[B, V]``.
 """
 
 from __future__ import annotations
@@ -13,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 #: stop-token set width: ``stop_token_ids`` pads to this many slots
@@ -93,6 +106,16 @@ class SamplingParams:
             "bias_vals": rows(bias_vals, torch.float32),
         }
 
+    def value_key(self) -> tuple:
+        """Hashable tuple of every knob value: the batched sampling
+        arrays are a pure function of the rows' value keys, so callers
+        cache uploaded batches on ``tuple(s.value_key() for s in rows)``."""
+        return (self.temperature, self.top_k, self.top_p, self.min_p,
+                self.eos_token_id, self.eos_threshold,
+                tuple(self.stop_token_ids), self.repetition_penalty,
+                self.presence_penalty, self.frequency_penalty,
+                tuple(self.logit_bias))
+
     @property
     def has_penalties(self) -> bool:
         return (self.repetition_penalty != 1.0
@@ -110,6 +133,107 @@ class SamplingParams:
             use_penalties=self.has_penalties,
             use_logit_bias=bool(self.logit_bias),
         )
+
+
+def batch_arrays_np(samplings) -> dict:
+    """NumPy layout of per-row sampling knobs for a batch whose rows
+    differ: the keys and shapes of :meth:`SamplingParams.as_arrays`, built
+    on the host with no device work. Callers upload once per distinct
+    ``tuple(s.value_key() for s in samplings)`` and cache."""
+    n = len(samplings)
+    vals = {k: [] for k in ("temperature", "top_k", "top_p", "min_p",
+                            "eos_token_id", "eos_threshold",
+                            "rep_pen", "presence_pen", "freq_pen")}
+    stop_ids = np.full((n, STOP_SLOTS), -1, np.int32)
+    bias_ids = np.full((n, BIAS_SLOTS), -1, np.int32)
+    bias_vals = np.zeros((n, BIAS_SLOTS), np.float32)
+    for i, s in enumerate(samplings):
+        vals["temperature"].append(s.temperature)
+        vals["top_k"].append(s.top_k)
+        vals["top_p"].append(s.top_p)
+        vals["min_p"].append(s.min_p)
+        vals["eos_token_id"].append(s.eos_token_id)
+        vals["eos_threshold"].append(s.eos_threshold)
+        vals["rep_pen"].append(s.repetition_penalty)
+        vals["presence_pen"].append(s.presence_penalty)
+        vals["freq_pen"].append(s.frequency_penalty)
+        sids = tuple(s.stop_token_ids)[:STOP_SLOTS]
+        stop_ids[i, :len(sids)] = sids
+        lb = tuple(s.logit_bias)[:BIAS_SLOTS]
+        if lb:
+            bias_ids[i, :len(lb)] = [t for t, _ in lb]
+            bias_vals[i, :len(lb)] = [v for _, v in lb]
+    ints = {"top_k", "eos_token_id"}
+    out = {k: np.asarray(v, np.int32 if k in ints else np.float32)
+           for k, v in vals.items()}
+    out["stop_ids"] = stop_ids
+    out["bias_ids"] = bias_ids
+    out["bias_vals"] = bias_vals
+    return out
+
+
+def arrays_to(arrays: dict, device) -> dict:
+    """:func:`batch_arrays_np`'s arrays as tensors on ``device``."""
+    return {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
+
+
+# -- per-request keys -------------------------------------------------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c: int):
+    """``x * c mod 2**32`` for ``x`` in ``[0, 2**32)`` (an int or an int64
+    tensor), in products that stay below ``2**49``."""
+    lo, hi = x & 0xFFFF, x >> 16
+    return (lo * c + ((hi * (c & 0xFFFF)) << 16)) & _M32
+
+
+def _mix32(x):
+    """``lowbias32``: a bijective 32-bit finalizer (ints or int64
+    tensors holding 32-bit values)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _as_key_input(v):
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.int64) & _M32
+    return int(v) & _M32
+
+
+def request_key(seed, index):
+    """Sampling key of generated token ``index`` of the request seeded
+    ``seed``: a 32-bit integer, a pure function of ``(seed, index)``
+    (ints, or int tensors of one shape; returns the same kind, int64)."""
+    k = _mix32(_as_key_input(seed) ^ 0x9E3779B9)
+    return _mix32(k ^ _mix32((_as_key_input(index) + 0x632BE5AB) & _M32))
+
+
+def fold_key(key, data: int):
+    """A key derived from ``key`` and ``data`` (JAX's ``fold_in``)."""
+    return _mix32(_as_key_input(key)
+                  ^ _mix32((int(data) * 0x85EBCA6B + 0x27D4EB2F) & _M32))
+
+
+def key_uniforms(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``[*keys.shape, n]`` f32 uniforms in (0, 1): column ``j`` of a key
+    is the 24 high bits of the hash of ``(key, j)``, plus one half."""
+    keys = keys.to(torch.int64)
+    cols = _mix32((torch.arange(n, device=keys.device, dtype=torch.int64)
+                   * 0x9E3779B1 + 0x165667B1) & _M32)
+    h = _mix32(_mix32(keys[..., None] ^ cols) ^ (keys[..., None] >> 7))
+    return ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+
+
+def gumbel_argmax(scaled: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:
+    """One draw a row from ``softmax(scaled [B, V])`` with the row's key
+    (``keys [B]``): ``argmax(scaled - log(-log(u)))``."""
+    u = key_uniforms(keys, scaled.shape[-1])
+    return torch.argmax(scaled - torch.log(-torch.log(u)), dim=-1)
 
 
 def filter_logits(logits: torch.Tensor, top_k: torch.Tensor,
@@ -234,11 +358,15 @@ def sample(logits: torch.Tensor, generator: Optional[torch.Generator], *,
            temperature, top_k, top_p, eos_token_id=None, eos_threshold=None,
            min_p=None, stop_ids=None, rep_pen=None, presence_pen=None,
            freq_pen=None, counts=None, bias_ids=None, bias_vals=None,
+           row_keys: Optional[torch.Tensor] = None,
            mode: Optional[SampleMode] = None) -> torch.Tensor:
     """Draw next tokens from ``logits [B, V]``; returns ``[B]`` int32.
-    ``temperature <= 0`` rows are greedy. ``stop_ids`` is accepted so
-    callers can splat the whole sampling dict; termination is the
-    caller's job (:func:`hit_stop`)."""
+    ``temperature <= 0`` rows are greedy. ``row_keys [B]``
+    (:func:`request_key`) draws each row with its own key by
+    :func:`gumbel_argmax` (the scheduler's per-request seeds; then
+    ``generator`` is not read). ``stop_ids`` is accepted so callers can
+    splat the whole sampling dict; termination is the caller's job
+    (:func:`hit_stop`)."""
     del stop_ids
     mode = mode or SampleMode()
     B, V = logits.shape
@@ -251,8 +379,11 @@ def sample(logits: torch.Tensor, generator: Optional[torch.Generator], *,
     if mode.greedy:
         tok = greedy_tok
     else:
-        probs = torch.softmax(scaled, dim=-1)
-        sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        if row_keys is not None:
+            sampled = gumbel_argmax(scaled, row_keys)
+        else:
+            probs = torch.softmax(scaled, dim=-1)
+            sampled = torch.multinomial(probs, 1, generator=generator)[:, 0]
         tok = torch.where(temperature <= 0.0, greedy_tok,
                           sampled.to(torch.int32))
     if (mode.use_eos_threshold and eos_token_id is not None

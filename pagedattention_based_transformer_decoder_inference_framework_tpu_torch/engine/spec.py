@@ -20,6 +20,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from .sampling import gumbel_argmax, key_uniforms
+
 
 def _clamped_starts(starts: torch.Tensor, width: int,
                     M: int) -> torch.Tensor:
@@ -64,7 +66,9 @@ def accept_counts(drafts: torch.Tensor, targets: torch.Tensor
 
 
 def stochastic_accept(scaled: torch.Tensor, drafts: torch.Tensor,
-                      generator: Optional[torch.Generator] = None
+                      generator: Optional[torch.Generator] = None, *,
+                      keys_u: Optional[torch.Tensor] = None,
+                      keys_re: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Speculative acceptance for sampled requests (temperature > 0)
     with a deterministic (prompt-lookup) draft: draft ``d_i`` is
@@ -77,14 +81,21 @@ def stochastic_accept(scaled: torch.Tensor, drafts: torch.Tensor,
     scaled: ``[B, K+1, V]`` masked scaled logits (what ``sample`` draws
     from, ``engine.sampling.prepare_logits``); drafts: ``[B, K]``;
     generator: the draws' source (the JAX version takes threefry keys;
-    the two agree in distribution, not draw for draw).
+    the two agree in distribution, not draw for draw); or, as the JAX
+    version takes them, per-row keys (``engine.sampling.request_key``):
+    ``keys_u [B, K]`` for the accept coin at each position and ``keys_re
+    [B, K+1]`` for the draw at the emit position (the scheduler's spec
+    burst, whose draws must not depend on the batch).
     Returns ``(a [B], fix [B])`` int32: the accepted-prefix length and
     the token emitted at position ``a``."""
     B, K1, V = scaled.shape
     K = K1 - 1
     logp = torch.log_softmax(scaled.float(), dim=-1)
     p_draft = logp[:, :K].gather(2, drafts.long()[..., None])[..., 0]
-    u = torch.rand((B, K), generator=generator, device=scaled.device)
+    if keys_u is not None:
+        u = key_uniforms(keys_u, 1)[..., 0]
+    else:
+        u = torch.rand((B, K), generator=generator, device=scaled.device)
     accept = torch.log(u.clamp_min(1e-30)) < p_draft
     a = torch.cumprod(accept.to(torch.int32), dim=1).sum(dim=1)
     pos = a.clamp(max=K)
@@ -94,8 +105,11 @@ def stochastic_accept(scaled: torch.Tensor, drafts: torch.Tensor,
     drop = (pos < K)[:, None] & (torch.arange(V, device=scaled.device)
                                  == rej)
     row = row.masked_fill(drop, float("-inf"))
-    fix = torch.multinomial(torch.softmax(row, dim=-1), 1,
-                            generator=generator)[:, 0]
+    if keys_re is not None:
+        fix = gumbel_argmax(row, keys_re.gather(1, pos.long()[:, None])[:, 0])
+    else:
+        fix = torch.multinomial(torch.softmax(row, dim=-1), 1,
+                                generator=generator)[:, 0]
     return a.to(torch.int32), fix.to(torch.int32)
 
 

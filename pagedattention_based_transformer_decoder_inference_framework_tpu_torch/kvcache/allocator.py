@@ -25,12 +25,11 @@ from typing import Dict, List, Optional, Tuple
 
 
 def tag64(tag: object) -> int:
-    """Canonical tag domain: a signed 64-bit digest. The JAX package's
-    two allocators (its Python twin of this one and its C++
-    ``csrc/page_allocator.cpp``) compare prefix-cache tags in this
-    space; the port has the Python one only (the C++ one waits for ROADMAP
-    queue A, scheduler). Callers must treat tags as content digests (hash
-    equality), not identity objects."""
+    """Canonical tag domain: a signed 64-bit digest. Both allocators
+    (this one and the native ``csrc/page_allocator.cpp``,
+    ``kvcache/native.py``) compare prefix-cache tags in this space, so
+    callers must treat tags as content digests (hash equality), not
+    identity objects."""
     h = tag if isinstance(tag, int) else hash(tag)
     return ctypes.c_int64(h).value
 

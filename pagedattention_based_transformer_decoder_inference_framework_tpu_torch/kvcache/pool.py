@@ -68,6 +68,34 @@ class PagePool:
                             device=device),)
 
 
+def resize_pool(kv, new_num_pages: int):
+    """Grow (or shrink) the pool's pages axis, keeping page contents.
+    Growing pads zero pages after the existing ones (page ids stay
+    valid); shrinking truncates the tail (the caller guarantees no live
+    page id >= ``new_num_pages``). The flat INT8 scales resize at row
+    granularity, ``R_new = cdiv(new_num_pages * page, 128)``. Returns NEW
+    tensors (the old ones are not referenced, so they are freed once the
+    caller drops them); a leaf already at its size is returned as it
+    is."""
+    page_size = kv[0].shape[4]
+
+    def one(leaf):
+        if leaf.ndim == 5 and leaf.shape[-1] == 128:
+            n_new, n = cdiv(new_num_pages * page_size, 128), leaf.shape[3]
+        else:
+            n_new, n = new_num_pages, leaf.shape[PAGES_AXIS]
+        if n_new == n:
+            return leaf
+        shape = list(leaf.shape)
+        shape[3] = n_new
+        out = torch.zeros(shape, dtype=leaf.dtype, device=leaf.device)
+        keep = min(n, n_new)
+        out[:, :, :, :keep] = leaf[:, :, :, :keep]
+        return out
+
+    return tuple(one(leaf) for leaf in kv)
+
+
 #: the JAX package's ``absmax / 127.0`` compiles (under ``jit``, as its
 #: engine runs it) to a multiply by the f32 reciprocal of 127; a Python
 #: scalar times an f32 tensor multiplies in f32 by that same value

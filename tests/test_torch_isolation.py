@@ -27,6 +27,8 @@ MODULES = [
     "cli.cli_app",
     "quant", "quant.tensor", "quant.eval", "ops.int8_matmul",
     "ops.int4_matmul", "ops.chain_linear", "models.chained", "ops.gmm",
+    "utils.logging", "kvcache.swap", "kvcache.native", "kvcache.snapshot",
+    "scheduler", "scheduler.scheduler",
 ]
 
 
