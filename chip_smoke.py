@@ -163,7 +163,14 @@ and nothing of JAX. Phases:
    the INT8 pool must issue one device kernel each; both are timed alone
    and as the whole ``kv_append`` call, beside their yardstick
    ``stack_new_kv`` then ``index_copy_``; path (b)'s profile gives its
-   device kernels a decode step.
+   device kernels a decode step. Slice 16 (B1's per-page score export,
+   ``b1_score_checks``): both B1 kernels with ``return_scores`` at the
+   decode_scored shape (T=1, seq lens 65-128 over 5-page tables), the
+   verify chunk, a window with a softcap (f32 queries, the SIMT kernel)
+   and a page-16 pool: scores within 1e-4 of max|score| of the plain
+   version's, the dead pages (``-1e30``) identical, the output the same
+   bits as the launch without the export; B1 timed with and without it
+   beside its bound and SDPA.
 3. The paths, each ``Engine`` on llama3-8b at full width and full depth
    (32 layers; (a), (c) and (d) cut to 8; weights from a seed, INT8
    paged KV, page 64, prefill chunk 256, the pool ``bench.py`` sizes, for (b),
@@ -217,6 +224,29 @@ and nothing of JAX. Phases:
       and exact launch counts (B5 for each verify), and a seeded sampled
       request (T 0.8) alone and beside three joining mid-decode, whose
       tokens must be identical;
+   m. beam (slice 16, ``bench.py --mode beam``), on (b)'s weights (an
+      engine with the beam pool, ``beam_burst_max * W`` more pages, built
+      on (b)'s params: no second copy, memory printed before and after):
+      ``BeamSearcher`` of width 4 on a 64-token prompt, 32 tokens, in
+      device bursts (no host read inside, ``.item()`` raising) and per
+      step, token for token equal; width 1 against ``generate``; every
+      row's cumulative log-prob after each token against the replay of
+      its tokens through the same route (the prompt prefilled once and
+      copied into the rows, decode steps at batch 4) within 1e-3, for the
+      search on the kernels and the same search through the plain
+      versions; every token's log-prob against the plain versions'
+      teacher-forced one within (b)'s logit limit; a sentinel run with
+      the copy-on-write copies skipped must fail the first; each
+      hypothesis's cumulative log-prob against ``score_candidates_nll``
+      of its tokens through the plain versions, and the kernels' mean
+      signed log-prob difference from the plain versions' on both
+      searches' tokens, printed; every page back; exact launch counts a beam step (B3 and B2
+      32, B10 128, the head's B11 1, B1 0); ``LogProbScorer`` over the
+      hypotheses, batch against one at a time; tokens/s, the bursts'
+      lengths and one burst's busy share; then 8 ``decode_scored`` steps
+      at B=4 (32 B1 score launches a step; logits against
+      ``decode_forced`` on a twin state within (b)'s limit; every layer's
+      scores against the plain version on the same inputs);
    j. megakernel (slice 5, ``bench.py --megakernel``): (b)'s w8a8
       weights handed to an engine with ``megakernel`` and
       ``megakernel_drop_weights``, which packs each layer's chain and
@@ -224,11 +254,13 @@ and nothing of JAX. Phases:
       every decode layer (with B10 for layer 0's qkv and B11 for the head)
       and B15 for every prefill projection but layer 0's qkv; the checks
       of (b) (teacher-forced logits within (b)'s limit, the fused loop,
-      ``generate_stream``, ``score_nll``, a profile), and its tokens
-      against (b)'s run by the fork rule;
+      ``generate_stream``, ``score_nll``, a profile) over 32 tokens
+      (``MEGAKERNEL_STEPS``), and its tokens against (b)'s run by the
+      fork rule;
    and slice 4's decode routes past B2, each at its preset's full width
    and depth, random bf16 or w8a8 weights from the seed, INT8 KV, page
-   64, the pool ``bench.py`` sizes, 64 greedy tokens:
+   64, the pool ``bench.py`` sizes for 64 greedy tokens, of which (g) and
+   (h) decode 32 (``DECODE_STEPS``):
    g. packed: ``tinyllama-1.1b`` (bf16 weights) on an unpadded pool
       (``pad_head_dim=False``, dh 64): B8 in every decode layer; batch 8,
       64-token random prompts;
@@ -248,7 +280,8 @@ and nothing of JAX. Phases:
    and last, once every earlier engine is freed, slice 6's MoE path:
    k. moe: ``mixtral-8x7b`` (``bench.py --model mixtral-8x7b --quant
       int8-weight --batch 4 --prompt-len 256``) at full width and depth,
-      32 greedy tokens (half the other paths', for the script's time),
+      16 greedy tokens (a quarter of the other paths', for the script's
+      time),
       INT8 experts: the 256-token prefill chunk routes 4 x 256 x 2 = 2048
       = 8 x 256 slots, so it takes the sorted dispatch (B13 twice a
       layer, on the fused ``we_gu`` and on ``we_down``) and each decode
@@ -808,8 +841,8 @@ def b1_simt(torch, pa, args, kw):
     out = torch.empty_like(q)
     pa.ATTENTION.launch(
         plat.ptr(q), plat.ptr(out), plat.ptr(pool), plat.ptr(scales),
-        plat.ptr(bt), plat.ptr(sl), plat.ptr(qo), B, T, H, pool.shape[2], D,
-        pool.shape[3], pool.shape[4], bt.shape[1], layer,
+        plat.ptr(bt), plat.ptr(sl), plat.ptr(qo), None, 0, B, T, H,
+        pool.shape[2], D, pool.shape[3], pool.shape[4], bt.shape[1], layer,
         scales.shape[3] * 128, kw["scale"], kw["softcap"], kw["window"],
         plat.DTYPE_CODES[q.dtype], plat.DTYPE_CODES[pool.dtype],
         plat.stream_handle(q))
@@ -908,6 +941,116 @@ def b1_shape_checks(torch, F_, dev, results):
           f"by linear interpolation between chunks {xs}: "
           f"{B1_LONG['ms'] / 1e3:.3f} s (the SIMT kernel: "
           f"{B1_LONG['simt_ms'] / 1e3:.3f} s)", flush=True)
+
+
+#: B1's per-page score export against its plain version: scores within
+#: this fraction of max|score| (f32 sums of the same terms in another
+#: order; the dead pages are compared exactly)
+TOL_B1_SCORES = 1e-4
+#: the shapes: (label, q dtype, page, T, seq_lens, q_offsets, window,
+#: softcap); INT8 pools of B=4, KH=8, G=4, dh=128 over 320-key tables
+B1_SCORE_CASES = [
+    ("decode_scored", "bfloat16", 64, 1, [65, 90, 128, 101],
+     [64, 89, 127, 100], 0, 0.0),
+    ("verify chunk", "bfloat16", 64, SPEC_K + 1, [79, 102, 120, 136],
+     [70, 93, 111, 127], 0, 0.0),
+    ("window+softcap f32", "float32", 64, 3, [128, 100, 65, 300],
+     [125, 97, 62, 297], 40, 30.0),
+    ("page 16", "bfloat16", 16, 1, [65, 90, 128, 101], [64, 89, 127, 100],
+     0, 0.0)]
+
+
+def b1_score_checks(torch, F_, dev, results):
+    """B1's per-page score export (``return_scores``) on both of its
+    kernels against its plain version: slice 1's decode_scored shape (T=1,
+    seq lens 65-128 over 5-page tables, so pages 2-4 are dead), the verify
+    chunk (T=9 off the page grid), a window with a softcap on the SIMT
+    kernel (f32 queries) and a page-16 pool: the scores within
+    ``TOL_B1_SCORES`` of max|score|, the dead pages (``-1e30``) identical,
+    the output the same bits as the same launch without the export, one
+    score launch each. At the decode_scored shape B1 is timed with and
+    without the export beside its bound and SDPA on the same inputs."""
+    from importlib import import_module
+
+    pa = import_module(f"{PKG}.ops.paged_attention")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    layer = 1
+    for label, qd, page, T, lens, qo, window, softcap in B1_SCORE_CASES:
+        mp = 320 // page
+        n_pages = B * mp + 1
+        shape = (L, 2, KH, n_pages, page, DH)
+        pool = torch.randint(-127, 128, shape, generator=gen, device=dev,
+                             dtype=torch.int8)
+        scales = torch.rand((L, 2, KH, -(-n_pages * page // 128), 128),
+                            generator=gen, device=dev) * 0.02 + 0.005
+        bt = (torch.randperm(n_pages - 1, generator=gen, device=dev)[
+            :B * mp] + 1).reshape(B, mp).to(torch.int32)
+        q = torch.randn((B, T, H, DH), generator=gen, device=dev).to(
+            getattr(torch, qd))
+        args = (q, pool, bt, torch.tensor(lens, dtype=torch.int32,
+                                          device=dev),
+                torch.tensor(qo, dtype=torch.int32, device=dev), scales,
+                layer)
+        kw = dict(page_size=page, num_q_heads=H, window=window,
+                  softcap=softcap, scale=DH ** -0.5)
+        kname = {"wgmma": "paged_attention_wgmma", "simt": "paged_attention"}[
+            pa.prefill_route(q.dtype, pool.dtype, DH, page)]
+        kern = pa.ATTENTION_WGMMA if kname.endswith("wgmma") else pa.ATTENTION
+        bare = pa.paged_attention(*args, **kw)
+        before = (kern.launches, kern.score_launches)
+        out, scores = pa.paged_attention(*args, return_scores=True, **kw)
+        _, ref = pa.paged_attention_plain(*args, return_scores=True, **kw)
+        torch.cuda.synchronize()
+        dead = ref <= -1e29
+        live = ~dead
+        top = ref[live].abs().max().item()
+        err = (scores[live] - ref[live]).abs().max().item()
+        same = torch.equal(out, bare)
+        dead_ok = (torch.equal(scores <= -1e29, dead)
+                   and bool((scores[dead] == -1e30).all()))
+        ok = (same and dead_ok and err <= TOL_B1_SCORES * top
+              and (kern.launches, kern.score_launches) == (before[0] + 1,
+                                                          before[1] + 1))
+        print(f"  [{kname}] scores, {label} (T={T}, page {page}, "
+              f"{int(dead.sum())} of {dead.numel()} pages dead): "
+              f"max|kernel-plain| {err:.3e} (tol {TOL_B1_SCORES:g} of "
+              f"max|score| {top:.3f}), dead pages "
+              f"{'identical' if dead_ok else 'DIFFERENT'}, output "
+              f"{'the same bits' if same else 'CHANGED'} without the export "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"{kname} score export, {label}: error {err}, dead pages "
+              f"{dead_ok}, output unchanged {same}")
+        row = results[kname].setdefault("scores", {"tol": TOL_B1_SCORES})
+        row["max_abs_err"] = max(row.get("max_abs_err", 0.0), err)
+        if label != "decode_scored":
+            continue
+        match = KERNEL_NAMES[kname]
+        ms = device_ms(lambda: pa.paged_attention(
+            *args, return_scores=True, **kw), match=match)
+        ms_off = device_ms(lambda: pa.paged_attention(*args, **kw),
+                           match=match)
+        call_ms = device_ms(lambda: pa.paged_attention(
+            *args, return_scores=True, **kw))
+        plain_ms = device_ms(lambda: pa.paged_attention_plain(
+            *args, return_scores=True, **kw))
+        # bytes: q in, out, the visible K/V rows and their scales, the
+        # table and lengths, the scores out; operations: QK and PV over
+        # the visible pairs
+        seen = sum(lens)
+        bytes_moved = (2 * q.numel() * q.element_size()
+                       + seen * KH * 2 * (DH + 4) + 4 * (bt.numel() + 2 * B)
+                       + 4 * scores.numel())
+        b_ms, b_by = bound(bytes_moved, 4 * DH * seen * H, "bf16")
+        lib = sdpa_chunk(torch, F_, args, kw)
+        lib_ms = device_ms(lib)
+        row.update(ms=ms, ms_without=ms_off, call_ms=call_ms,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=lib_ms)
+        print(f"  [{kname}] scores, {label} device time: kernel with the "
+              f"export {ms:.4f} ms, without {ms_off:.4f} ms, the wrapper's "
+              f"whole call {call_ms:.4f} ms (the partial rows' max "
+              f"included), plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}), sdpa {lib_ms:.4f} ms", flush=True)
 
 
 def append_checks(torch, dev, results):
@@ -2752,9 +2895,15 @@ LONG_MODEL, LONG_PROMPT, LONG_STEPS = "llama3.1-8b", 32768, 16
 #: --prompt-len 256, whose one 256-token prefill chunk routes 4 * 256 * 2
 #: = 2048 = 8 * 256 slots: the dispatch's threshold, met exactly
 MOE_MODEL, MOE_BATCH, MOE_PROMPT = "mixtral-8x7b", 4, 256
-#: its greedy tokens: 32 of the other paths' 64 (each (k) decode step is
-#: ~200 ms of host issue, and the script's whole run has 1200 s)
-MOE_STEPS = 32
+#: its greedy tokens: 16 of the other paths' 64 (each (k) decode step is
+#: ~200 ms of host issue, and the script's whole run has 1200 s: 32 since
+#: slice 12, 16 since path (m) came)
+MOE_STEPS = 16
+#: paths (j), (g) and (h): 32 greedy tokens of (b)'s 64 on the same
+#: pools, their checks on each (the depth cut that keeps the whole script
+#: inside its time limit on a slow host since path (m)'s replays came;
+#: PERF.md §6)
+MEGAKERNEL_STEPS = DECODE_STEPS = 32
 #: the path each kernel's launch count in the kernels line comes from:
 #: slice 2's main path (w8a8); B12 the INT4 path, B5 the spec path, B9
 #: the fused-append path, B8 the packed path, B6 the long-context path,
@@ -3068,13 +3217,18 @@ def run_paths(torch, dev, results, card):
             out["scheduler"] = scheduler_path(
                 torch, torch.nn.functional, eng, greedy, spec_prompts, card,
                 tf16["tol"])
+            phase("3m: beam (bench.py --mode beam: width 4 on (b)'s w8a8 "
+                  "weights, a log-prob rerank; decode_scored with B1's "
+                  "per-page scores)")
+            out["beam"] = beam_path(torch, eng, refs, prompts, greedy, card,
+                                    tf16["tol"], results)
             phase("3j: megakernel (bench.py --megakernel: path (b)'s "
                   "weights packed into chains, per-op copies dropped)")
             holder = {"params": eng.params}
             eng = None                  # (j) takes over (b)'s weights
             out["megakernel"] = megakernel_path(
-                torch, holder, held, refs, prompts, greedy, steps, card,
-                base)
+                torch, holder, held, refs, prompts, greedy,
+                MEGAKERNEL_STEPS, card, base)
             launches_from("megakernel", out["megakernel"])
         del eng
         torch.cuda.empty_cache()
@@ -3137,11 +3291,13 @@ def run_paths(torch, dev, results, card):
 def decode_path(torch, refs, greedy, name, model, batch, prompt_len,
                 decode):
     """Paths (g) and (h): ``model`` with bf16 weights at its full width
-    and depth on an unpadded INT8 pool; the timed run with exact launch
+    and depth on an unpadded INT8 pool (``bench.py``'s for 64 tokens,
+    :data:`DECODE_STEPS` of them decoded); the timed run with exact launch
     counts (``decode`` in every decode layer), the teacher-forced logit
     checks and :func:`full_checks`."""
-    cfg, batch, steps, prompt_len = path_config(
+    cfg, batch, _, prompt_len = path_config(
         model=model, batch=batch, prompt_len=prompt_len, pad_head_dim=False)
+    steps = DECODE_STEPS
     prompts = np.random.default_rng(SEED).integers(
         0, cfg.model.vocab_size, size=(batch, prompt_len)).tolist()
     eng, held = build_engine(torch, cfg)
@@ -4124,6 +4280,444 @@ def moe_path(torch, refs, greedy, card):
 
 
 
+# -- path (m): beam search and the reranker ---------------------------------
+
+#: path (m): bench.py --mode beam --batch 4 (the beam width) on (b)'s w8a8
+#: Llama-3-8B, its 64-token prompt, 32 of bench.py's 64 tokens (the
+#: script's time), and 8 decode_scored steps at B=4
+BEAM_W, BEAM_STEPS, SCORED_STEPS = 4, 32, 8
+#: a search's cumulative log-probs against the replay of its tokens
+#: through the same route (:func:`replay_logprobs`): the same arithmetic
+#: row by row, so only f32 rounding of sums near 256 (an ulp 1.5e-5) over
+#: 32 additions, with margin
+TOL_BEAM_SUM = 1e-3
+
+
+def beam_config():
+    """``bench.py --mode beam``'s configuration: (b)'s pool with
+    ``beam_burst_max * W`` more pages for the bursts' fresh pages
+    (bench.py:318-321)."""
+    cfg = path_config("int8")[0]
+    cfg.cache.num_pages += cfg.runtime.beam_burst_max * BEAM_W
+    return cfg
+
+
+class BeamWatch:
+    """Inside: a searcher's device steps counted and checked. Each burst
+    (``_beam_burst``) runs under ``torch.cuda.set_sync_debug_mode
+    ("error")``, so a read to the host inside it raises, with every
+    launch count set to 0 just before and held after to ``num_steps``
+    decode steps' exact counts (B3 and B2 a layer, B10 four a layer, the
+    head's B11; no B1); each fused step (``_beam_step``) to one step's.
+    ``bursts`` records the lengths, ``burst_args`` the first burst's
+    inputs (for a profile) and ``traces`` its first tokens, first scores,
+    parents, tokens and scores (host). ``count=False`` (a search through
+    the plain versions) records without counting or the sync check."""
+
+    def __init__(self, torch, eng, searcher, count=True):
+        self.torch, self.eng, self.searcher = torch, eng, searcher
+        self.count = count
+        self.bursts, self.steps, self.burst_args = [], 0, None
+        self.traces = None
+
+    def expect(self, steps):
+        from importlib import import_module
+
+        plat = import_module(f"{PKG}.utils.platform")
+        L = self.eng.cfg.num_layers
+        out = dict.fromkeys(plat.KERNELS, 0)
+        out.update(kv_append_decode=L * steps,
+                   paged_attention_decode=L * steps)
+        out.update(matmul_launches("int8", L, steps))
+        return out
+
+    def counted(self, fn, steps, what):
+        from importlib import import_module
+
+        if not self.count:
+            return fn()
+        torch = self.torch
+        plat = import_module(f"{PKG}.utils.platform")
+        plat.reset_launch_counts()
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        counts = {n: k.launches for n, k in plat.KERNELS.items()}
+        check(counts == self.expect(steps), f"(m) {what}: launches "
+              f"{counts}, expected exactly {self.expect(steps)}")
+        return out
+
+    def __enter__(self):
+        s = self.searcher
+        burst, step = self.saved = s._beam_burst, s._beam_step
+
+        def watched_burst(*args, num_steps):
+            first = self.burst_args is None
+            if first:
+                self.burst_args = args
+            self.bursts.append(num_steps)
+            out = self.counted(lambda: burst(*args, num_steps=num_steps),
+                               num_steps, f"a burst of {num_steps} steps")
+            if first:
+                self.traces = [t.cpu().numpy() for t in (
+                    args[1], args[5], out[0], out[1], out[2])]
+            return out
+
+        def watched_step(*args):
+            self.steps += 1
+            return self.counted(lambda: step(*args), 1, "a fused step")
+
+        if burst is not None:
+            s._beam_burst = watched_burst
+        s._beam_step = watched_step
+        return self
+
+    def __exit__(self, *exc):
+        self.searcher._beam_burst, self.searcher._beam_step = self.saved
+
+
+def burst_rows(traces, steps):
+    """Each row of a search's one burst, from its traces: its tokens and
+    its cumulative log-prob after each (the first from the burst's entry
+    scores, then the burst's f32 scores along its parents), over the
+    first ``steps`` steps: ``(tokens [W, steps + 1], cum [W, steps + 1])``
+    (host)."""
+    tok0, score0, pars, toks, vals = traces
+    tokens, cums = [], []
+    for w in range(pars.shape[1]):
+        chain = [w]
+        for k in range(steps - 1, 0, -1):
+            chain.insert(0, int(pars[k][chain[0]]))
+        root = int(pars[0][chain[0]])
+        cums.append([float(score0[root])] + [float(vals[k][chain[k]])
+                                             for k in range(steps)])
+        tokens.append([int(tok0[root])] + [int(toks[k][chain[k]])
+                                           for k in range(steps)])
+    return np.asarray(tokens, np.int64), np.asarray(cums, np.float64)
+
+
+def replay_logprobs(torch, eng, ref, prompt, tokens, greedy):
+    """The log-prob of each of ``tokens [W, n]`` after ``prompt`` and the
+    tokens before it, teacher-forced through ``ref`` (``None``: the
+    kernels) the way a beam search computes it: the prompt prefilled once
+    (batch 1) and its pages copied into W rows, ``n - 1`` decode steps at
+    batch W, the first log-prob in f64 on the host, the others by the
+    f32 log-softmax on the card, summed in f32 (``engine/beam.py``). Each
+    row is the search's own arithmetic on the same inputs, so a search
+    whose copy-on-write pages are right has these cumulative log-probs to
+    f32 rounding. Returns ``(lp [W, n], cum [W, n])`` (host)."""
+    from importlib import import_module
+
+    kvp = import_module(f"{PKG}.kvcache.pool")
+    beam = import_module(f"{PKG}.engine.beam")
+    W, n = tokens.shape
+    V = eng.cfg.vocab_size
+
+    def ids(a):
+        return torch.tensor(a, dtype=torch.int32, device=eng.device)
+
+    with recording(eng, ref) as rows, torch.inference_mode():
+        state = eng.prefill([prompt], sampling=greedy)
+        src = state.pages[0]
+        pages = [eng.allocator.alloc_many(len(src)) for _ in range(W)]
+        kvp.copy_pages_tree(state.kv, ids(src * W), ids(sum(pages, [])))
+        eng.free(state)
+        state.pages = pages
+        state.seq_lens = np.full((W,), len(prompt), np.int32)
+        state.finished = np.zeros((W,), bool)
+        for s in range(n - 1):
+            eng.decode_forced(state, tokens[:, s].astype(np.int32))
+        eng.free(state)
+        lp0 = beam._log_softmax(state.prefill_logits[0])[tokens[:, 0]]
+        cum = torch.tensor(lp0, dtype=torch.float32, device=eng.device)
+        tok = torch.tensor(tokens, dtype=torch.long, device=eng.device)
+        cums = [cum]
+        for s in range(1, n):
+            lp = torch.log_softmax(rows[s][:, :V], dim=-1)
+            cum = cum + lp.gather(1, tok[:, s:s + 1])[:, 0]
+            cums.append(cum)
+        cum = torch.stack(cums, dim=1).double().cpu().numpy()
+    check(np.isfinite(cum).all(), "(m) non-finite replayed log-probs")
+    lp = np.diff(cum, axis=1, prepend=0.0)
+    lp[:, 0] = lp0
+    return lp, cum
+
+
+def beam_path(torch, eng_b, refs, prompts, greedy, card, tol, results):
+    """Path (m), ``bench.py --mode beam``: an engine with the beam pool on
+    (b)'s w8a8 weights (no second copy), beam search of width 4 on a
+    64-token prompt and a log-prob rerank of its hypotheses; the checks
+    (bursts against the per-step search token for token, width 1 against
+    ``generate``; every prefix's cumulative log-prob of every beam row
+    (from the burst's traces) against the replay of its tokens through
+    the same route (:func:`replay_logprobs`) within ``TOL_BEAM_SUM``, for
+    the search on the kernels and the same search through the plain
+    versions; every token's log-prob against the plain versions'
+    teacher-forced one within (b)'s logit limit ``tol``; a sentinel run
+    with the copy-on-write copies skipped that must fail the first; every
+    page back, no host read inside a burst, exact launch counts,
+    ``LogProbScorer`` batch against single). Printed beside them: each
+    hypothesis's cumulative score against ``score_candidates_nll`` of its
+    tokens through the plain versions, and the kernels' mean signed
+    log-prob difference from the plain versions' on each search's tokens
+    (selection bias and a bias of the kernels told apart). Then
+    ``decode_scored``:
+    B1 with the score export in every layer, its logits against
+    ``decode_forced`` on a twin state and every layer's scores against the
+    plain version on the same inputs."""
+    from importlib import import_module
+
+    plat = import_module(f"{PKG}.utils.platform")
+    pa = import_module(f"{PKG}.ops.paged_attention")
+    eng_mod = import_module(f"{PKG}.engine")
+    kvp = import_module(f"{PKG}.kvcache.pool")
+    rerank = import_module(f"{PKG}.reranker")
+    t0 = time.perf_counter()
+
+    def lap(what):
+        print(f"  ({what}: {time.perf_counter() - t0:.1f} s into (m))",
+              flush=True)
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    cfg = beam_config()
+    eng = eng_mod.Engine(cfg, params=eng_b.params)
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    print(f"  engine on path (b)'s weights: torch.cuda.memory_allocated "
+          f"{before / 1e9:.3f} GB before, {after / 1e9:.3f} GB after "
+          f"({cfg.cache.num_pages} pages, {cfg.cache.max_pages_per_seq} a "
+          f"sequence)", flush=True)
+    check(after - before < 1e8, "(m) built a second copy of the weights")
+    prompt = prompts[0]
+    live0 = eng.allocator.num_live
+
+    def search(burst=None, width=BEAM_W, steps=BEAM_STEPS):
+        searcher = eng_mod.BeamSearcher(eng, beam_width=width, burst=burst)
+        with BeamWatch(torch, eng, searcher) as watch:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            hyps = searcher.search(prompt, steps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        check(searcher.allocator.num_live == 0
+              and eng.allocator.num_live == live0,
+              "(m) a search kept pages")
+        return hyps, wall, watch
+
+    per_step, step_wall, w1 = search(burst=1)
+    hyps, wall, watch = search()
+    lap("per-step and burst searches")
+    tps = BEAM_W * BEAM_STEPS / wall
+    same = [h.tokens for h in hyps] == [h.tokens for h in per_step]
+    dscore = max(abs(a.score - b.score) for a, b in zip(hyps, per_step))
+    print(f"  beam search, width {BEAM_W}, {BEAM_STEPS} tokens: bursts of "
+          f"{watch.bursts} steps ({watch.steps} fused steps after): wall "
+          f"{wall * 1e3:.1f} ms, {tps:.1f} tokens/s (W rows' tokens over "
+          f"the wall, prefill included; {card}); per step ({w1.steps} fused "
+          f"steps) {step_wall * 1e3:.1f} ms; hypotheses "
+          f"{'identical' if same else 'DIFFERENT'} token for token, "
+          f"max|dscore| {dscore:.3e}", flush=True)
+    check(same, "(m) the burst search differs from the per-step search")
+    check(watch.bursts and w1.steps == BEAM_STEPS - 1,
+          "(m) the searches did not take their routes")
+    step_counts = {k: v for k, v in watch.expect(1).items() if v}
+    print(f"  launches a beam step, exact in every burst and fused step: "
+          f"{json.dumps(step_counts)} (B1 0)", flush=True)
+    one, _, _ = search(width=1, steps=16)
+    alone = eng.generate(prompt, 16, greedy)
+    print(f"  width 1 against generate, 16 tokens: "
+          f"{'identical' if one[0].tokens == alone else 'DIFFERENT'}",
+          flush=True)
+    check(one[0].tokens == alone, f"(m) width 1 {one[0].tokens} != "
+          f"generate {alone}")
+
+    check(len(watch.bursts) == 1, "(m) the search took more than one burst")
+
+    def replayed(w, route, what):
+        """A search's rows (its one burst's traces) against the replay of
+        their tokens through ``route`` (``None``: the kernels): every
+        prefix's cumulative log-prob, max|d|."""
+        toks, cum = burst_rows(w.traces, BEAM_STEPS - 1)
+        lp, rcum = replay_logprobs(torch, eng, route, prompt, toks, greedy)
+        d = float(np.abs(cum - rcum).max())
+        print(f"  {what}: every prefix's cumulative log-prob ({toks.shape[0]}"
+              f" rows x {toks.shape[1]}) against the replay of its tokens "
+              f"through the {'plain versions' if route else 'kernels'}: "
+              f"max|d| {d:.3e} (limit {TOL_BEAM_SUM:g})", flush=True)
+        return d, toks, cum, lp, rcum
+
+    # the search against its own route's replay: the beam's copy-on-write
+    # pages, log-softmax and f32 sums, to rounding
+    d_kern, toks_k, cum_k, _, kk = replayed(watch, None, "hypotheses")
+    with recording(eng, refs["plain"]):
+        plain_searcher = eng_mod.BeamSearcher(eng, beam_width=BEAM_W)
+        with BeamWatch(torch, eng, plain_searcher, count=False) as pw:
+            plain_hyps = plain_searcher.search(prompt, BEAM_STEPS)
+    check(len(pw.bursts) == 1 and plain_searcher.allocator.num_live == 0,
+          "(m) the plain search took more than one burst or kept pages")
+    d_plain, toks_p, _, _, pp = replayed(
+        pw, refs["plain"], "the same search through the plain versions")
+    # the kernels' hypotheses against the plain versions' log-probs
+    lp_kp, cum_kp = replay_logprobs(torch, eng, refs["plain"], prompt,
+                                    toks_k, greedy)
+    d_ok = float(np.abs(np.diff(cum_k, axis=1, prepend=0.0) - lp_kp).max())
+    print(f"  hypotheses: every token's log-prob against the plain versions' "
+          f"teacher-forced one: max|d| {d_ok:.4f} (limit {tol:.4f}, (b)'s "
+          f"logit limit)", flush=True)
+    # the cause of the sums' drift: each route's tokens scored by both;
+    # selection moves the two signed differences apart, a bias of the
+    # kernels moves them together
+    _, cum_pk = replay_logprobs(torch, eng, None, prompt, toks_p, greedy)
+    n_tok = BEAM_STEPS
+    sel_k = float((kk[:, -1] - cum_kp[:, -1]).mean()) / n_tok
+    sel_p = float((cum_pk[:, -1] - pp[:, -1]).mean()) / n_tok
+    print(f"  kernels minus plain, mean signed log-prob a token: "
+          f"{sel_k:+.4f} on the kernels' hypotheses, {sel_p:+.4f} on the "
+          f"plain search's; half their sum (the kernels' own bias) "
+          f"{(sel_k + sel_p) / 2:+.4f}, half their difference (selection) "
+          f"{(sel_k - sel_p) / 2:+.4f}", flush=True)
+    hyp_toks = [h.tokens for h in hyps]
+    with recording(eng, refs["plain"]):
+        plain_nll = eng.score_candidates_nll(prompt, hyp_toks, mean=False)
+        plain_nll_p = eng.score_candidates_nll(
+            prompt, [h.tokens for h in plain_hyps], mean=False)
+    d_sum = max(abs(h.score + v) for h, v in zip(hyps, plain_nll))
+    d_sum_p = max(abs(h.score + v) for h, v in zip(plain_hyps, plain_nll_p))
+    print(f"  cumulative log-probs against score_candidates_nll of their "
+          f"tokens through the plain versions (sums over {BEAM_STEPS} "
+          f"tokens): the kernels' search {[round(h.score, 4) for h in hyps]}"
+          f" against {[round(-float(v), 4) for v in plain_nll]}, max|d| "
+          f"{d_sum:.4f}; the plain search's max|d| {d_sum_p:.4f}", flush=True)
+    check(np.isfinite(plain_nll).all() and np.isfinite(plain_nll_p).all(),
+          "(m) score_candidates_nll is not finite")
+    check(d_kern <= TOL_BEAM_SUM and d_plain <= TOL_BEAM_SUM,
+          f"(m) a search's cumulative log-probs are {d_kern} (kernels) / "
+          f"{d_plain} (plain) from the replay of its tokens (limit "
+          f"{TOL_BEAM_SUM})")
+    check(d_ok <= tol, f"(m) a token's log-prob is {d_ok} from the plain "
+          f"path's (limit {tol})")
+    real_copy = kvp.copy_pages_tree
+    kvp.copy_pages_tree = lambda kv, src, dst: kv
+    try:
+        _, _, bad = search()
+    finally:
+        kvp.copy_pages_tree = real_copy
+    d_bad = replayed(bad, None, "sentinel (copy-on-write copies skipped)")[0]
+    check(d_bad > TOL_BEAM_SUM, "(m) the sentinel with no copy-on-write "
+          "copies passed the replay check")
+    lap("checks against the replays, the plain path and the sentinel")
+
+    scorer = rerank.LogProbScorer(eng)
+    toks = [h.tokens for h in hyps]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    batch = rerank.Reranker(scorer).rerank_scores(prompt, toks)
+    torch.cuda.synchronize()
+    rerank_ms = (time.perf_counter() - t) * 1e3
+    single = [scorer.score(prompt, c) for c in toks]
+    rel = max(abs(a - b) for a, b in zip(batch, single)) / max(
+        abs(b) for b in single)
+    print(f"  LogProbScorer over the hypotheses: batch {np.round(batch, 5)}"
+          f" ({rerank_ms:.1f} ms), one at a time {np.round(single, 5)}: "
+          f"max relative difference {rel:.3e} (tol {TOL_SCORE:g})",
+          flush=True)
+    check(rel <= TOL_SCORE and scorer._allocator.num_live == 0,
+          "(m) LogProbScorer's batch differs from its single scores")
+
+    burst_fn = eng._decode_beam_burst
+    prof = profile_run(torch, "beam burst", lambda n: burst_fn(
+        *watch.burst_args, num_steps=n), steps=8)
+    print(f"  one burst of 8 steps: busy share "
+          f"{prof['profile_busy_share']:.3f} ({card})", flush=True)
+    lap("rerank and the profile")
+
+    # decode_scored: every layer's B1 with the export, held against the
+    # plain version on the same inputs
+    kname = "paged_attention_wgmma"
+    real_attend = eng.backend.attend
+    errs = {"max": 0.0, "top": 0.0, "dead_ok": True, "calls": 0}
+
+    def checked_attend(*args, return_scores=False, **kw):
+        out = real_attend(*args, return_scores=return_scores, **kw)
+        if return_scores:
+            _, ref = pa.paged_attention_plain(*args, return_scores=True, **kw)
+            dead = ref <= -1e29
+            errs["dead_ok"] &= bool(torch.equal(out[1] <= -1e29, dead))
+            errs["max"] = max(errs["max"], (out[1][~dead] - ref[~dead]).abs(
+            ).max().item())
+            errs["top"] = max(errs["top"], ref[~dead].abs().max().item())
+            errs["calls"] += 1
+        return out
+
+    twin = eng.prefill(prompts, sampling=greedy)
+    st = eng.prefill(prompts, sampling=greedy)
+    tok = st.last_tokens
+    worst = 0.0
+    per_step = []
+    eng.backend.attend = checked_attend
+    try:
+        for _ in range(SCORED_STEPS):
+            plat.reset_launch_counts()
+            logits, scores = eng.decode_scored(st, tok)
+            counts = {n: k.launches for n, k in plat.KERNELS.items()}
+            per_step.append(plat.KERNELS[kname].score_launches)
+            want = dict.fromkeys(plat.KERNELS, 0)
+            want.update(kv_append_decode=eng.cfg.num_layers,
+                        paged_attention_wgmma=eng.cfg.num_layers)
+            want.update(matmul_launches("int8", eng.cfg.num_layers, 1))
+            check(counts == want, f"(m) decode_scored: launches {counts}, "
+                  f"expected exactly {want}")
+            forced = eng.decode_forced(twin, tok)
+            worst = max(worst, float(np.abs(logits - forced).max()))
+            check(scores.shape == (eng.cfg.num_layers, len(prompts),
+                                   cfg.cache.max_pages_per_seq)
+                  and np.isfinite(logits).all(), "(m) decode_scored shapes")
+            tok = logits.argmax(-1).astype(np.int32)
+    finally:
+        del eng.backend.attend
+    eng.free(st)
+    eng.free(twin)
+    ok = (errs["dead_ok"] and errs["max"] <= TOL_B1_SCORES * errs["top"]
+          and worst <= tol and per_step == [eng.cfg.num_layers] * len(
+              per_step))
+    print(f"  decode_scored, {SCORED_STEPS} steps at B={len(prompts)}: "
+          f"{per_step[0]} B1 score launches a step; logits against "
+          f"decode_forced on a twin state max|d| {worst:.4f} (limit "
+          f"{tol:.4f}); {errs['calls']} layers' scores against the plain "
+          f"version on the same inputs: max|d| {errs['max']:.3e} (tol "
+          f"{TOL_B1_SCORES:g} of {errs['top']:.3f}), dead pages "
+          f"{'identical' if errs['dead_ok'] else 'DIFFERENT'} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    check(ok, "(m) decode_scored failed its checks")
+    row = results[kname].setdefault("scores", {})
+    row.update(launches=sum(per_step), launches_per_step=per_step[0],
+               path_max_abs_err=errs["max"])
+    lap("decode_scored")
+    info = {"beam_tok_s": tps, "beam_wall_ms": wall * 1e3,
+            "per_step_wall_ms": step_wall * 1e3, "bursts": watch.bursts,
+            "burst_vs_step_max_dscore": dscore,
+            "vs_replay_max_dcum": d_kern, "plain_vs_replay_max_dcum": d_plain,
+            "sentinel_vs_replay_max_dcum": d_bad,
+            "vs_plain_max_dlogprob": d_ok,
+            "kernels_minus_plain_on_kernel_hyps": sel_k,
+            "kernels_minus_plain_on_plain_hyps": sel_p,
+            "sum_vs_plain_max_d": d_sum, "plain_sum_vs_plain_max_d": d_sum_p,
+            "rerank_ms": rerank_ms,
+            "scorer_batch_rel_diff": rel,
+            "decode_scored_vs_forced_max_dlogit": worst,
+            "decode_scored_score_err": errs["max"],
+            "engine_gb": after / 1e9, "engine_gb_before": before / 1e9,
+            "seconds": time.perf_counter() - t0}
+    info.update({f"burst_{k}": v for k, v in prof.items()})
+    del eng
+    torch.cuda.empty_cache()
+    return info
+
+
 # -- path (l): the continuous-batching scheduler ------------------------------
 
 #: path (l)'s traffic on (b)'s engine: the prompts' lengths in submit
@@ -4967,6 +5561,7 @@ def main() -> int:
         with torch.inference_mode():
             attention_checks(torch, F_, dev, results)
             b1_shape_checks(torch, F_, dev, results)
+            b1_score_checks(torch, F_, dev, results)
             append_checks(torch, dev, results)
             decode_append_checks(torch, dev, results)
             decode_variant_checks(torch, F_, dev, results)
@@ -5008,7 +5603,7 @@ def main() -> int:
             "unfused_ms", "call_ms", "b2_ms", "tol", "m36_ms",
             "m36_bound_ms",
             "m36_library_ms", "m256_ms", "m256_bound_ms", "m256_library_ms",
-            "shapes")
+            "shapes", "scores")
     phase("4: summary")
     print(json.dumps({"paths": e2e}), flush=True)
     print(json.dumps({"kernels": [{k: r.get(k) for k in keys}

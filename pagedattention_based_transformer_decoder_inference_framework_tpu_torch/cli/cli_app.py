@@ -1,19 +1,25 @@
-"""Command line of the PyTorch port: ``generate``, ``stream`` and
-``batch``.
+"""Command line of the PyTorch port: ``generate``, ``stream``, ``batch``,
+``rerank`` and ``build_jsonl``.
 
     python -m pagedattention_based_transformer_decoder_inference_framework_tpu_torch.cli.cli_app \\
         generate --model llama-tiny --prompt "hello" --max-new-tokens 8
     python -m ...cli.cli_app batch --input prompts.txt --output out.jsonl \\
         --temperature 0 --spec-k 4
+    python -m ...cli.cli_app rerank --context "..." --candidates a b c
+    python -m ...cli.cli_app build_jsonl --prompts p.txt --out train.jsonl
 
 Runs on ``cuda`` by default and raises without a card; ``--device cpu``
 runs the kernels' plain PyTorch versions. Weights are a random init
 from ``--seed`` (checkpoint import is a later slice). ``batch`` takes
 the speculative path (``Engine.generate_batch_spec``) when
 ``runtime.spec_k > 0`` (``--spec-k``) and the request is greedy with no
-penalties or stop ids. The JAX package's other subcommands (chat, log,
-rerank, build_jsonl, serve) wait for the slices that port what they
-drive.
+penalties or stop ids. ``rerank`` scores each candidate's log-probability
+given the context (``reranker.LogProbScorer``; ``--scorer
+cross-encoder`` reads a local sequence-classification model instead);
+``build_jsonl`` runs beam search on each prompt of a file and writes every
+hypothesis as a JSONL row, labelled 1 for the one the reranker ranks
+best. The JAX package's other subcommands (chat, log, serve) wait for the
+slice that ports the server.
 """
 
 from __future__ import annotations
@@ -127,6 +133,60 @@ def cmd_stream(args) -> int:
     return 0
 
 
+def cmd_rerank(args) -> int:
+    from ..reranker import LogProbScorer, Reranker
+
+    cfg = build_config(args)
+    tok = get_tokenizer(cfg.tokenizer)
+    if args.scorer == "cross-encoder":
+        from ..reranker import CrossEncoderScorer
+
+        path = args.reranker_model or cfg.runtime.reranker_model
+        if not path:
+            print("--reranker-model (or runtime.reranker_model) required "
+                  "for --scorer cross-encoder")
+            return 2
+        rr = Reranker(CrossEncoderScorer(path, id_tokenizer=tok,
+                                          device=args.device))
+    else:
+        eng = Engine(cfg, device=args.device, seed=args.seed or 0)
+        rr = Reranker(LogProbScorer(eng))
+    ctx = tok.encode(args.context)
+    cands = [tok.encode(c) for c in args.candidates]
+    scores = rr.rerank_scores(ctx, cands)
+    best = int(max(range(len(scores)), key=lambda i: scores[i]))
+    for i, (c, s) in enumerate(zip(args.candidates, scores)):
+        mark = "*" if i == best else " "
+        print(f"{mark} [{s:9.4f}] {c}")
+    return 0
+
+
+def cmd_build_jsonl(args) -> int:
+    """Beam search -> a labelled reranker dataset: each prompt's
+    hypotheses, the best-reranked one labelled 1."""
+    from ..engine.beam import BeamSearcher
+    from ..reranker import LogProbScorer, Reranker
+    from ..reranker.export_jsonl import export_jsonl
+
+    cfg, tok, eng = _setup(args)
+    rr = Reranker(LogProbScorer(eng))
+    rows = []
+    with open(args.prompts) as f:
+        prompts = [line.strip() for line in f if line.strip()]
+    for prompt in prompts:
+        ids = tok.encode(prompt)
+        beams = BeamSearcher(eng, beam_width=args.beam_width).search(
+            ids, cfg.runtime.max_new_tokens, eos_token_id=tok.eos_token_id)
+        cands = [b.tokens for b in beams]
+        best = rr.select_best(ids, cands)
+        for i, c in enumerate(cands):
+            rows.append({"context": prompt, "candidate": tok.decode(c),
+                         "label": int(i == best)})
+    n = export_jsonl(rows, args.out)
+    print(f"wrote {n} rows to {args.out}")
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="pagedattention-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -146,6 +206,22 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="runtime.spec_k: draft tokens per speculative "
                         "step (0 = plain decode)")
     p.set_defaults(fn=cmd_batch)
+    p = sub.add_parser("rerank", help="score candidates for a context")
+    add_common(p)
+    p.add_argument("--context", required=True)
+    p.add_argument("--candidates", nargs="+", required=True)
+    p.add_argument("--scorer", default="logprob",
+                   choices=("logprob", "cross-encoder"))
+    p.add_argument("--reranker-model", default="",
+                   help="local cross-encoder path")
+    p.set_defaults(fn=cmd_rerank)
+    p = sub.add_parser("build_jsonl",
+                       help="beam search -> labelled reranker dataset")
+    add_common(p)
+    p.add_argument("--prompts", required=True)
+    p.add_argument("--out", required=True)
+    p.add_argument("--beam-width", type=int, default=4)
+    p.set_defaults(fn=cmd_build_jsonl)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -5,7 +5,8 @@
 //   pbt_paged_attention         <- ops/paged_attention.py::paged_attention
 //                                  (_kernel / _attend): a T >= 1 query chunk
 //                                  (chunked prefill, the speculative verify
-//                                  chunk), causal by absolute position.
+//                                  chunk), causal by absolute position, with
+//                                  the per-page score export as an option.
 //   pbt_paged_attention_decode  <- ops/paged_attention.py::
 //                                  paged_attention_decode (_decode_kernel,
 //                                  pallas_call :750): T = 1, mask key <
@@ -79,19 +80,31 @@
 
 namespace {
 
-// grid (B * KH, cdiv(T * G, kPrefillRows)); block kThreads
+// grid (B * KH, cdiv(T * G, kPrefillRows)); block kThreads. score_part:
+// null, or the per-page score export's partial rows [B * KH, gridDim.y, mp]:
+// the block's row is -1e30 for every page, then each page it attends
+// holds the largest masked score of the block's rows over its keys (the
+// page step's softmax_page computes it per row as its m_blk); the wrapper
+// reduces the rows by max.
 template <typename TQ, typename TKV>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(Args a, const TQ* __restrict__ q, TQ* __restrict__ out,
                        const int* __restrict__ seq_lens,
                        const int* __restrict__ q_offsets, int T, int H,
-                       float scale) {
+                       float scale, float* __restrict__ score_part) {
   extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ float wmax[kWarps];
   constexpr int ROWS = kPrefillRows;
   const int b = blockIdx.x / a.KH, h = blockIdx.x % a.KH;
   const int G = H / a.KH;
   const int r0 = blockIdx.y * ROWS;
   const int nrows = min(ROWS, T * G - r0);
+  float* srow = nullptr;
+  if (score_part != nullptr) {   // ordered before its page stores by the
+    srow = score_part +          // barrier in load_rows
+           (static_cast<size_t>(blockIdx.x) * gridDim.y + blockIdx.y) * a.mp;
+    for (int i = threadIdx.x; i < a.mp; i += kThreads) srow[i] = kNegBig;
+  }
   Tile<TKV, ROWS> t(smem, a.D, a.page);
   load_rows<TQ, TKV, ROWS>(t, q, b, h, r0, nrows, T, H, G, a.D, scale);
 
@@ -109,7 +122,8 @@ paged_attention_kernel(Args a, const TQ* __restrict__ q, TQ* __restrict__ out,
     const int start = i * a.page;
     if (start > qmax) break;                                  // causal
     if (a.window > 0 && start + a.page <= qmin - a.window + 1) continue;
-    attend_page<TKV, ROWS>(a, t, qpos, nrows, b, h, i, seq_len, acc);
+    attend_page<TKV, ROWS>(a, t, qpos, nrows, b, h, i, seq_len, acc, srow,
+                           wmax);
   }
   store_rows<TQ, TKV, ROWS>(t, out, b, h, r0, nrows, T, H, G, a.D, acc);
 }
@@ -182,8 +196,9 @@ decode_append_split_kernel(Args a, const TQ* __restrict__ q,
 
 template <typename TQ, typename TKV>
 cudaError_t launch_prefill(const Args& a, const void* q, void* out,
-                           const int* seq_lens, const int* q_offsets, int B,
-                           int T, int H, float scale, cudaStream_t stream) {
+                           const int* seq_lens, const int* q_offsets,
+                           float* score_part, int B, int T, int H,
+                           float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<TKV, kPrefillRows>(a.D, a.page);
   auto kernel = paged_attention_kernel<TQ, TKV>;
   cudaError_t err = prepare(kernel, smem);
@@ -192,7 +207,7 @@ cudaError_t launch_prefill(const Args& a, const void* q, void* out,
   dim3 grid(B * a.KH, (T * G + kPrefillRows - 1) / kPrefillRows);
   kernel<<<grid, kThreads, smem, stream>>>(
       a, static_cast<const TQ*>(q), static_cast<TQ*>(out), seq_lens,
-      q_offsets, T, H, scale);
+      q_offsets, T, H, scale, score_part);
   return cudaGetLastError();
 }
 
@@ -273,18 +288,30 @@ cudaError_t launch_decode_append(const Args& a, const void* q, void* out,
 
 }  // namespace
 
+// Query rows a block of B1 on the CUDA cores takes: the per-page score
+// export's partial rows are cdiv(T * H / KH, this) a (sequence, KV head).
+extern "C" int pbt_paged_attention_block_rows() { return kPrefillRows; }
+
+// B1 on the CUDA cores; score_part: null, or the per-page score export's
+// partial rows [B * KH, score_blocks, mp], score_blocks = cdiv(T * H / KH,
+// kPrefillRows) (else the launch is refused).
 extern "C" int pbt_paged_attention(
     const void* q, void* out, const void* pool, const float* scales,
     const int* block_tables, const int* seq_lens, const int* q_offsets,
-    int B, int T, int H, int KH, int D, int P, int page, int mp, int layer,
+    float* score_part, int score_blocks, int B, int T, int H, int KH, int D,
+    int P, int page, int mp, int layer,
     long long scale_stride, float scale, float softcap, int window,
     int q_dtype, int kv_dtype, void* stream) {
-  if (D > kThreads * kMaxDPerThread || H % KH != 0) return cudaErrorInvalidValue;
+  if (D > kThreads * kMaxDPerThread || KH <= 0 || H % KH != 0)
+    return cudaErrorInvalidValue;
+  if (score_part != nullptr &&
+      score_blocks != (T * (H / KH) + kPrefillRows - 1) / kPrefillRows)
+    return cudaErrorInvalidValue;
   const Args a{static_cast<const uint8_t*>(pool), scales, block_tables, KH,
                D, P, page, mp, layer, scale_stride, softcap, window};
   auto run = [&]() -> cudaError_t {
-    PBT_DISPATCH(launch_prefill, a, q, out, seq_lens, q_offsets, B, T, H,
-                 scale, static_cast<cudaStream_t>(stream));
+    PBT_DISPATCH(launch_prefill, a, q, out, seq_lens, q_offsets, score_part,
+                 B, T, H, scale, static_cast<cudaStream_t>(stream));
   };
   return static_cast<int>(run());
 }

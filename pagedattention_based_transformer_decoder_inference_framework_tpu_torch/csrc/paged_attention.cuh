@@ -151,13 +151,16 @@ __device__ __forceinline__ void stage_scales(const Args& a, int h, int pid,
 // The online-softmax step over one page's scores p [nrows, page] (keys
 // start .. start + page - 1), one warp per row: K scale, softcap and mask
 // on the scores, m and l updated, alpha = exp(m_old - m_new) for the
-// accumulator, and p turned into probabilities times the V scale.
+// accumulator, and p turned into probabilities times the V scale. With
+// `wmax` (the per-page score export), each warp's largest masked score over
+// its rows goes to wmax[warp] (-1e30 for a warp without a row).
 __device__ void softmax_page(const Args& a, float* p, const float* sck,
                              const float* scv, float* m, float* l,
                              float* alpha, const int* qpos, int nrows,
-                             int start, int seq_len) {
+                             int start, int seq_len, float* wmax = nullptr) {
   const bool quantized = a.scales != nullptr;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  float wm = kNegBig;
   for (int r = warp; r < nrows; r += kWarps) {
     const int qp = qpos[r];
     float* pr = p + r * a.page;
@@ -175,6 +178,7 @@ __device__ void softmax_page(const Args& a, float* p, const float* sck,
     }
     for (int o = 16; o > 0; o >>= 1)
       mblk = fmaxf(mblk, __shfl_xor_sync(0xffffffffu, mblk, o));
+    wm = fmaxf(wm, mblk);
     const float mprev = m[r];
     const float mnew = fmaxf(mprev, mblk);
     float sum = 0.f;
@@ -196,14 +200,18 @@ __device__ void softmax_page(const Args& a, float* p, const float* sck,
       m[r] = mnew;
     }
   }
+  if (wmax != nullptr && lane == 0) wmax[warp] = wm;
 }
 
 // One online-softmax step of `nrows` query rows over page `i` of
 // sequence `b`, KV head `h`. Row r sits at absolute position qpos[r].
+// `srow` (the per-page score export; null for none): page i's largest
+// masked score over the rows goes to srow[i], through wmax [kWarps].
 template <typename TKV, int ROWS>
 __device__ void attend_page(const Args& a, Tile<TKV, ROWS>& t,
                             const int* qpos, int nrows, int b, int h, int i,
-                            int seq_len, float (&acc)[ROWS][kMaxDPerThread]) {
+                            int seq_len, float (&acc)[ROWS][kMaxDPerThread],
+                            float* srow = nullptr, float* wmax = nullptr) {
   const int D = a.D, page = a.page;
   const int pid = a.block_tables[static_cast<long long>(b) * a.mp + i];
   stage_page<TKV>(t.k, a.pool + page_offset(a, 0, h, pid) * sizeof(TKV), D,
@@ -226,8 +234,10 @@ __device__ void attend_page(const Args& a, Tile<TKV, ROWS>& t,
   }
   __syncthreads();
   softmax_page(a, t.p, t.sck, t.scv, t.m, t.l, t.alpha, qpos, nrows,
-               i * page, seq_len);
+               i * page, seq_len, srow != nullptr ? wmax : nullptr);
   __syncthreads();
+  if (srow != nullptr && threadIdx.x == 0)
+    srow[i] = fmaxf(fmaxf(wmax[0], wmax[1]), fmaxf(wmax[2], wmax[3]));
 
   // acc = acc * alpha + p . v, one thread per output lane d
 #pragma unroll

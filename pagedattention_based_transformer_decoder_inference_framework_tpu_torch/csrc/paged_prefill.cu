@@ -68,6 +68,26 @@
 // from L2, take most of the time; the products and the fold hide under
 // them, so a second consumer warpgroup gains little.
 //
+// The per-page score export (return_scores; JAX paged_attention.py:142-160,
+// 197-206, 331-343, 369-374) is the same kernel with SCORES set and one more
+// output: for every page of the block table, the largest masked logit of
+// the block's live rows (row < T*G; the padded rows of the last 64-row block
+// hold zeros and do not count) over the page's keys, in the units the fold
+// holds (scale * q . k, times the K scale, softcapped, -1e30 where not
+// visible: the natural-log units of the softmax, before any exp). Each
+// consumer thread reduces its two rows a key, the warp its 16 rows by
+// shuffles, and the four warps meet in a double-buffered [4][64] shared
+// array behind one named barrier a tile; warp 0 then folds the keys of
+// each page (a page below 64 keys is a run of lanes; one of 64 or more takes
+// the tile's maximum, several tiles combined by max). The block writes its
+// own row of the partial output [B * KH, cdiv(T * G, 64), mp]: -1e30 for
+// every page first, then the pages of its tile range, so pages it skips (the
+// causal, seq_len and window limits) read -1e30; the wrapper reduces the
+// rows by max, as the JAX package reduces its row blocks outside its
+// kernel. Partial rows, not an atomic max into [B, mp]: no fill pass, no
+// ordered-int encoding, and the same bits run after run. With SCORES unset
+// the kernel is the one it was, instruction for instruction.
+//
 // The entry point returns cudaGetLastError() after its launch.
 
 #include <cuda_bf16.h>
@@ -80,6 +100,7 @@
 namespace {
 
 constexpr int kKT = 64;           // keys a tile
+constexpr int kRows = 64;         // query rows a block: one m64 wgmma tile
 constexpr int kS = 2;             // converted stages (the consumer's ring)
 constexpr int kSmemMax = 232448;  // a block's shared memory on the H100
 
@@ -89,10 +110,11 @@ struct Lay {
   int DC, R;
   int tile;      // one swizzled [64, 64 * DC] bf16 tile: DC * 8192
   int raw_kv;    // one raw [64, D] tile of the pool's type
-  int q_off, k_off, v_off, raw_off, sc_off, rsc_off, bar_off, bytes;
+  int q_off, k_off, v_off, raw_off, sc_off, rsc_off, bar_off, pm_off, bytes;
 };
 
-Lay make_lay(int D, int es, int R) {
+// scores: room for the export's [2][4][64] f32 page maxima
+Lay make_lay(int D, int es, int R, bool scores) {
   constexpr int S = kS;
   Lay l;
   l.DC = (D + 63) / 64;
@@ -106,31 +128,34 @@ Lay make_lay(int D, int es, int R) {
   l.sc_off = l.raw_off + R * 2 * l.raw_kv;     // [S][2][64] f32
   l.rsc_off = l.sc_off + S * 2 * kKT * 4;      // [R][2][64] f32
   l.bar_off = l.rsc_off + R * 2 * kKT * 4;
-  l.bytes = l.bar_off + 8 * (2 * S + R) + 1024;
+  l.pm_off = (l.bar_off + 8 * (2 * S + R) + 15) / 16 * 16;
+  l.bytes = (scores ? l.pm_off + 2 * 4 * kKT * 4
+                    : l.bar_off + 8 * (2 * S + R)) + 1024;
   return l;
 }
 
 // The deepest raw ring that fits beside the two converted stages: four
 // raw stages at dh <= 128 over INT8, one at dh 256.
-Lay choose_lay(int D, int es) {
+Lay choose_lay(int D, int es, bool scores) {
   for (int R = 4; R > 1; --R) {
-    const Lay l = make_lay(D, es, R);
+    const Lay l = make_lay(D, es, R, scores);
     if (l.bytes <= kSmemMax) return l;
   }
-  return make_lay(D, es, 1);
+  return make_lay(D, es, 1, scores);
 }
 
 // grid (B * KH, cdiv(T * G, 64)); block 256: warpgroup 0 consumes,
 // warpgroup 1 converts (its first thread also issues the copies). DC: the
-// head dim's 64-column blocks.
-template <typename TKV, int DC>
+// head dim's 64-column blocks. SCORES: the per-page score export into
+// score_part [B * KH, gridDim.y, mp] (the header's note).
+template <typename TKV, int DC, bool SCORES>
 __global__ void __launch_bounds__(256, 1)
     attention_wgmma_kernel(Args a, Lay lay,
                            const __nv_bfloat16* __restrict__ q,
                            __nv_bfloat16* __restrict__ out,
                            const int* __restrict__ seq_lens,
                            const int* __restrict__ q_offsets, int T, int H,
-                           float scale) {
+                           float scale, float* __restrict__ score_part) {
   extern __shared__ uint8_t smem_dyn[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_dyn) + 1023) & ~uintptr_t(1023));
@@ -138,7 +163,7 @@ __global__ void __launch_bounds__(256, 1)
   const int tid = threadIdx.x;
   const int b = blockIdx.x / a.KH, h = blockIdx.x % a.KH;
   const int G = H / a.KH, D = a.D, TG = T * G;
-  const int r0 = blockIdx.y * 64;
+  const int r0 = blockIdx.y * kRows;
   const int nrows = min(64, TG - r0);
   const int seq_len = seq_lens[b], qo = q_offsets[b];
   const int qmin = qo + r0 / G, qmax = qo + (r0 + nrows - 1) / G;
@@ -268,7 +293,15 @@ __global__ void __launch_bounds__(256, 1)
     return;
   }
 
-  // consumer warpgroup: its 64 query rows, swizzled, as loaded
+  // consumer warpgroup: its row of the score export set to -1e30 (before
+  // the barrier below, so warp 0's later stores come after it)
+  float* srow = nullptr;
+  if constexpr (SCORES) {
+    srow = score_part +
+           (static_cast<size_t>(blockIdx.x) * gridDim.y + blockIdx.y) * a.mp;
+    for (int i = tid; i < a.mp; i += 128) srow[i] = kNegBig;
+  }
+  // its 64 query rows, swizzled, as loaded
   uint8_t* qs = smem + lay.q_off;
   for (int u = tid; u < kKT * DC * 8; u += 128) {
     const int j = u / (DC * 8), c = (u / 8) % DC, c8 = u % 8;
@@ -311,6 +344,53 @@ __global__ void __launch_bounds__(256, 1)
     hop::wgmma_commit();
   };
 
+  // The score export of tile `it` from its masked logits `sacc` (the
+  // header's note): each key's maximum over this thread's live rows, then
+  // over the warp's 16 rows (lanes with the same lane % 4 hold the same
+  // keys), into pm[warp][key]; after the barrier warp 0 folds the four
+  // warps and each page's keys and stores the page's maximum.
+  auto export_scores = [&](const float (&sacc)[32], int it) {
+    float* pm = reinterpret_cast<float*>(smem + lay.pm_off) + (it % 2) * 4 * kKT;
+    const bool live0 = row0 < TG, live1 = row0 + 8 < TG;
+#pragma unroll
+    for (int kg = 0; kg < 8; ++kg) {
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        float v = fmaxf(live0 ? sacc[4 * kg + x] : kNegBig,
+                        live1 ? sacc[4 * kg + 2 + x] : kNegBig);
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 8));
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 16));
+        if (lane < 4) pm[warp * kKT + 8 * kg + 2 * lane + x] = v;
+      }
+    }
+    hop::named_sync(3, 128);
+    if (warp == 0) {
+      const int key0 = (t0 + it) * kKT, pg = a.page;
+      float lo = fmaxf(fmaxf(pm[lane], pm[kKT + lane]),
+                       fmaxf(pm[2 * kKT + lane], pm[3 * kKT + lane]));
+      float hi = fmaxf(fmaxf(pm[32 + lane], pm[kKT + 32 + lane]),
+                       fmaxf(pm[2 * kKT + 32 + lane], pm[3 * kKT + 32 + lane]));
+      if (pg >= kKT) {
+        // the tile lies in one page, which earlier tiles may have begun
+        float v = fmaxf(lo, hi);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+        if (lane == 0) srow[key0 / pg] = fmaxf(srow[key0 / pg], v);
+      } else {
+        // 64 / pg whole pages, each a run of pg lanes in lo or in hi
+        for (int o = 1; o < pg; o <<= 1) {
+          lo = fmaxf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+          hi = fmaxf(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+        }
+        const int p0 = (key0 + lane) / pg, p1 = (key0 + 32 + lane) / pg;
+        if (lane % pg == 0 && p0 < a.mp) srow[p0] = lo;
+        if (lane % pg == 0 && p1 < a.mp) srow[p1] = hi;
+      }
+    }
+  };
+
   // The fold of tile `it` on its complete scores `sacc`, up to the
   // probabilities (left in `sacc`) and the rows' alpha. sacc[4i + 2e + x]
   // is row row0 + 8e, key key0 + 8i + 2 (lane % 4) + x. A tile every key
@@ -347,6 +427,7 @@ __global__ void __launch_bounds__(256, 1)
         sacc[i] = vis ? sacc[i] : kNegBig;
       }
     }
+    if constexpr (SCORES) export_scores(sacc, it);
     float mblk[2] = {kNegBig, kNegBig};
 #pragma unroll
     for (int i = 0; i < 32; ++i)
@@ -474,34 +555,50 @@ __global__ void __launch_bounds__(256, 1)
   }
 }
 
-template <typename TKV, int DC>
+template <typename TKV, int DC, bool SCORES>
 cudaError_t launch_wgmma(const Args& a, const void* q, void* out,
-                         const int* seq_lens, const int* q_offsets, int B,
-                         int T, int H, float scale, cudaStream_t stream) {
-  const Lay lay = choose_lay(a.D, sizeof(TKV));
-  auto kernel = attention_wgmma_kernel<TKV, DC>;
+                         const int* seq_lens, const int* q_offsets,
+                         float* score_part, int B, int T, int H, float scale,
+                         cudaStream_t stream) {
+  const Lay lay = choose_lay(a.D, sizeof(TKV), SCORES);
+  auto kernel = attention_wgmma_kernel<TKV, DC, SCORES>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
   if (err != cudaSuccess) return err;
   const int G = H / a.KH;
-  kernel<<<dim3(B * a.KH, (T * G + 63) / 64), 256, lay.bytes, stream>>>(
+  kernel<<<dim3(B * a.KH, (T * G + kRows - 1) / kRows), 256, lay.bytes,
+               stream>>>(
       a, lay, static_cast<const __nv_bfloat16*>(q),
-      static_cast<__nv_bfloat16*>(out), seq_lens, q_offsets, T, H, scale);
+      static_cast<__nv_bfloat16*>(out), seq_lens, q_offsets, T, H, scale,
+      score_part);
   return cudaGetLastError();
+}
+
+template <typename TKV, int DC>
+cudaError_t launch_scores(const Args& a, const void* q, void* out,
+                          const int* seq_lens, const int* q_offsets,
+                          float* score_part, int B, int T, int H,
+                          float scale, cudaStream_t stream) {
+  if (score_part != nullptr)
+    return launch_wgmma<TKV, DC, true>(a, q, out, seq_lens, q_offsets,
+                                       score_part, B, T, H, scale, stream);
+  return launch_wgmma<TKV, DC, false>(a, q, out, seq_lens, q_offsets,
+                                      nullptr, B, T, H, scale, stream);
 }
 
 template <typename TKV>
 cudaError_t launch_by_dh(const Args& a, const void* q, void* out,
-                         const int* seq_lens, const int* q_offsets, int B,
-                         int T, int H, float scale, cudaStream_t stream) {
+                         const int* seq_lens, const int* q_offsets,
+                         float* score_part, int B, int T, int H, float scale,
+                         cudaStream_t stream) {
   if (a.D <= 64)
-    return launch_wgmma<TKV, 1>(a, q, out, seq_lens, q_offsets, B, T, H,
-                                scale, stream);
+    return launch_scores<TKV, 1>(a, q, out, seq_lens, q_offsets, score_part,
+                                 B, T, H, scale, stream);
   if (a.D <= 128)
-    return launch_wgmma<TKV, 2>(a, q, out, seq_lens, q_offsets, B, T, H,
-                                scale, stream);
-  return launch_wgmma<TKV, 4>(a, q, out, seq_lens, q_offsets, B, T, H, scale,
-                              stream);
+    return launch_scores<TKV, 2>(a, q, out, seq_lens, q_offsets, score_part,
+                                 B, T, H, scale, stream);
+  return launch_scores<TKV, 4>(a, q, out, seq_lens, q_offsets, score_part, B,
+                               T, H, scale, stream);
 }
 
 bool aligned16(const void* p) {
@@ -510,23 +607,32 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
+// Query rows a block of B1 on wgmma takes: the per-page score export's
+// partial rows are cdiv(T * H / KH, this) a (sequence, KV head).
+extern "C" int pbt_paged_attention_wgmma_block_rows() { return kRows; }
+
 // B1 on wgmma: bf16 q (q_dtype 1) over an INT8 (kv_dtype 2, with scales) or
 // bf16 (1) pool; D a multiple of 16 up to 256; a page of 64 or a multiple
 // of it, or a divisor of 64 that is a multiple of 4; every pointer 16-byte
-// aligned (ops/paged_attention.py::prefill_route).
+// aligned (ops/paged_attention.py::prefill_route). score_part: null, or the
+// per-page score export's partial rows [B * KH, score_blocks, mp],
+// score_blocks = cdiv(T * H / KH, kRows) (else the launch is refused).
 extern "C" int pbt_paged_attention_wgmma(
     const void* q, void* out, const void* pool, const float* scales,
     const int* block_tables, const int* seq_lens, const int* q_offsets,
+    float* score_part, int score_blocks,
     int B, int T, int H, int KH, int D, int P, int page, int mp, int layer,
     long long scale_stride, float scale, float softcap, int window,
     int q_dtype, int kv_dtype, void* stream) {
   const bool page_ok =
       page > 0 && (page % kKT == 0 || (kKT % page == 0 && page % 4 == 0));
   if (q_dtype != 1 || (kv_dtype != 1 && kv_dtype != 2) || D % 16 != 0 ||
-      D > 256 || H % KH != 0 || !page_ok || !aligned16(q) ||
+      D > 256 || KH <= 0 || H % KH != 0 || !page_ok || !aligned16(q) ||
       !aligned16(out) || !aligned16(pool) ||
       (scales != nullptr && !aligned16(scales)) ||
-      (kv_dtype == 2) != (scales != nullptr))
+      (kv_dtype == 2) != (scales != nullptr) ||
+      (score_part != nullptr &&
+       score_blocks != (T * (H / KH) + kRows - 1) / kRows))
     return cudaErrorInvalidValue;
   if (B == 0 || T == 0) return cudaSuccess;
   const Args a{static_cast<const uint8_t*>(pool), scales, block_tables, KH,
@@ -534,9 +640,9 @@ extern "C" int pbt_paged_attention_wgmma(
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       kv_dtype == 2
-          ? launch_by_dh<int8_t>(a, q, out, seq_lens, q_offsets, B, T, H,
-                                 scale, st)
-          : launch_by_dh<__nv_bfloat16>(a, q, out, seq_lens, q_offsets, B, T,
-                                        H, scale, st);
+          ? launch_by_dh<int8_t>(a, q, out, seq_lens, q_offsets, score_part,
+                                 B, T, H, scale, st)
+          : launch_by_dh<__nv_bfloat16>(a, q, out, seq_lens, q_offsets,
+                                        score_part, B, T, H, scale, st);
   return static_cast<int>(err);
 }

@@ -19,6 +19,14 @@ the burst's inputs on the device), ``_decode_loop_fn`` (the decode burst)
 and ``_decode_spec_loop_fn`` (the speculative burst). None reads the
 device from the host: a burst is ``num_steps`` forwards issued back to
 back with one fetch after it, by the caller.
+
+Beam search (``engine/beam.py``) and the reranker read
+:meth:`Engine.decode_forced`, :meth:`Engine.decode_scored` (B1's per-page
+score export), :meth:`Engine.score_candidates_nll`, ``prefill``'s
+private ``allocator`` and ``EngineState.prefill_logits``, and the beam
+steps :meth:`Engine._decode_beam` (one expansion) and
+:meth:`Engine._decode_beam_burst` (``num_steps`` expansions with the
+block tables rewired on the device, no host read).
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import numpy as np
 import torch
 
 from ..config import FrameworkConfig
+from ..kvcache import pool as kv_pool
 from ..kvcache.native import make_allocator
 from ..models.chained import build_decode_chains, chains_supported
 from ..models.model import (DecoderModel, Params, fuse_projections,
@@ -58,6 +67,15 @@ class EngineState:
     finished: np.ndarray            # [B] bool
     #: [B, V] int32 penalty histogram, or a [B, 1] dummy without penalties
     counts: Optional[torch.Tensor] = None
+    #: [B, V] f32 logits at each prompt's last token (host)
+    prefill_logits: Optional[np.ndarray] = None
+    #: the allocator owning this state's page ids; None = the engine's
+    #: own. A private allocator gives a state (a beam search, a scorer) its
+    #: own page-id space over its own pool, so it can run beside the
+    #: scheduler with no shared host bookkeeping. One device, so one
+    #: allocator (data-parallel shards, each with its own: ROADMAP queue
+    #: A, item 7)
+    allocator: Optional[object] = None
 
     @property
     def batch(self) -> int:
@@ -133,10 +151,16 @@ class Engine:
     def _t(self, a, dtype=torch.int32) -> torch.Tensor:
         return torch.tensor(np.asarray(a), dtype=dtype, device=self.device)
 
+    def _allocator_of(self, allocator):
+        """The allocator of a state or call: ``allocator``, else the
+        engine's own."""
+        return self.allocator if allocator is None else allocator
+
     def _alloc_pages(self, state: EngineState, b: int, new_len: int) -> None:
         need = cdiv(new_len, self.cache.page_size) - len(state.pages[b])
         if need > 0:
-            state.pages[b].extend(self.allocator.alloc_many(need))
+            state.pages[b].extend(
+                self._allocator_of(state.allocator).alloc_many(need))
 
     def _block_tables(self, pages: List[List[int]]) -> np.ndarray:
         bt = np.zeros((len(pages), self.cache.max_pages_per_seq), np.int32)
@@ -400,16 +424,19 @@ class Engine:
     @torch.inference_mode()
     def prefill(self, prompts: Sequence[Sequence[int]],
                 seed: Optional[int] = None,
-                sampling: Optional[SamplingParams] = None) -> EngineState:
+                sampling: Optional[SamplingParams] = None,
+                allocator=None) -> EngineState:
         """Chunked prefill of a batch of prompts; samples the first
-        generated token."""
+        generated token. ``allocator`` gives the returned state a private
+        page-id space (:class:`EngineState`)."""
         B = len(prompts)
         lens = np.array([len(p) for p in prompts], np.int32)
         if lens.min() < 1:
             raise ValueError("every prompt needs at least one token")
+        alloc = self._allocator_of(allocator)
         page = self.cache.page_size
         max_len = cdiv(int(lens.max()), page) * page
-        pages = [self.allocator.alloc_many(cdiv(int(L), page)) for L in lens]
+        pages = [alloc.alloc_many(cdiv(int(L), page)) for L in lens]
         bt_np = self._block_tables(pages)
         kv = self.backend.init_cache(self.device)
         tokens = self._prompt_tokens(prompts, max_len)
@@ -435,27 +462,137 @@ class Engine:
         state = EngineState(
             kv=kv, block_tables=bt_np, seq_lens=lens.copy(), pages=pages,
             generator=gen, last_tokens=first_np,
-            finished=np.zeros((B,), bool), counts=counts)
+            finished=np.zeros((B,), bool), counts=counts,
+            prefill_logits=final.cpu().numpy(), allocator=allocator)
         self._mark_finished(state, first_np, sampling)
         return state
 
-    def _step_logits(self, state: EngineState,
-                     tokens: np.ndarray) -> torch.Tensor:
+    def _step_logits(self, state: EngineState, tokens: np.ndarray,
+                     score_sink: Optional[list] = None) -> torch.Tensor:
         """Feed one token per sequence; return next-token logits
-        ``[B, V]`` (device) and advance the state."""
+        ``[B, V]`` (device) and advance the state. ``score_sink``: see
+        ``PagedKVBackend.make_attn_fn``."""
         B = state.batch
         for b in range(B):
             self._alloc_pages(state, b, int(state.seq_lens[b]) + 1)
         state.block_tables = self._block_tables(state.pages)
         sl = self._t(state.seq_lens)
         attn = self.backend.make_attn_fn(self._t(state.block_tables),
-                                         sl + 1, sl)
+                                         sl + 1, sl, score_sink=score_sink)
         logits, state.kv = self.model.forward(
             self.params, self._t(tokens, torch.long)[:, None],
             sl.long()[:, None], state.kv, attn)
         state.seq_lens += 1
         state.last_tokens = np.asarray(tokens, np.int32)
         return logits[:, 0]
+
+    @torch.inference_mode()
+    def decode_forced(self, state: EngineState,
+                      tokens: np.ndarray) -> np.ndarray:
+        """Teacher-forced decode step: feed ``tokens [B]``, return the
+        next-token logits ``[B, V]`` (f32, host). Advances the state."""
+        logits = self._step_logits(state, tokens)
+        return logits[:, :self.cfg.vocab_size].float().cpu().numpy()
+
+    @torch.inference_mode()
+    def decode_scored(self, state: EngineState, tokens: np.ndarray):
+        """Teacher-forced decode step that also returns B1's per-page
+        score export: ``(logits [B, V], scores [L, B, max_pages])`` on the
+        host, ``scores[l, b, p]`` the largest masked, scaled QK logit of
+        page ``p`` at layer ``l`` over every head (``-1e30`` for a dead
+        page). Every layer's attention takes B1 (T=1 included), with the
+        export riding its pass; the state advances as under
+        :meth:`decode_forced`."""
+        if self.runtime.scan_layers:
+            raise ValueError("score export needs the unrolled layer loop "
+                             "(scan_layers=False)")
+        sink: list = []
+        logits = self._step_logits(state, tokens, score_sink=sink)
+        return (logits[:, :self.cfg.vocab_size].float().cpu().numpy(),
+                torch.stack(sink).cpu().numpy())
+
+    @torch.inference_mode()
+    def _decode_beam(self, params, tokens, kv, block_tables, seq_lens,
+                     beam_scores, alive, copies_src, copies_dst):
+        """The fused beam-expansion step: runs the previous selection's
+        copy-on-write page copies (``copy_pages_tree``; dump-page
+        self-copies pad them), one forward of a token a beam row
+        (``tokens [W]``), the f32 log-softmax with dead rows at ``-inf``,
+        and a flat top-``2W`` of the cumulative scores (``beam_scores [W]``
+        f32 plus the log-probs, over ``[W, V]``; :func:`top_k`:
+        ``lax.top_k``'s order, ties by index). Returns ``(parents, tokens,
+        scores, kv)`` of the ``2W`` candidates, on the device."""
+        V = self.cfg.vocab_size
+        kv = kv_pool.copy_pages_tree(kv, copies_src, copies_dst)
+        attn = self.backend.make_attn_fn(block_tables, seq_lens + 1,
+                                         seq_lens)
+        logits, kv = self.model.forward(
+            params, tokens.long()[:, None], seq_lens.long()[:, None], kv,
+            attn)
+        lp = torch.log_softmax(logits[:, 0, :V].float(), dim=-1)
+        lp = torch.where(alive[:, None], lp, -torch.inf)
+        vals, idx = top_k((beam_scores[:, None] + lp).reshape(-1),
+                          2 * tokens.shape[0])
+        return idx // V, idx % V, vals, kv
+
+    @torch.inference_mode()
+    def _decode_beam_burst(self, params, tokens, kv, bt, seq_lens, scores,
+                           alive, csrc, cdst, fresh, eos, *,
+                           num_steps: int):
+        """``num_steps`` beam expansions on the device, from ``tokens
+        [W]``, tables ``bt [W, mp]``, ``seq_lens [W]``, ``scores [W]``,
+        ``alive [W]``, the pending copies ``csrc, cdst [W]`` and the
+        host-allocated ``fresh [num_steps, W]`` pages. Each step applies
+        the pending copy-on-write copies, forwards one token a row, takes
+        the top ``W`` (parent, token) pairs by cumulative log-probability,
+        and rewires the block tables: each row takes its parent's table,
+        and the page the next append writes becomes the step's fresh page
+        ``fresh[k, w]`` where the rows cross into a new page or the row is
+        not its parent's first chooser (then the old tail's data copy rides
+        the next step's copies). Nothing is read back to the host inside:
+        no ``.item()``, no Python branch on a device value; the host
+        replays the same page arithmetic afterwards
+        (``BeamSearcher._replay_burst``). Returns the per-step ``(parents,
+        tokens, scores, alive)`` traces ``[num_steps, W]``, the last step's
+        ``(tokens, scores, csrc, cdst)`` and the pool."""
+        V = self.cfg.vocab_size
+        page = self.cache.page_size
+        W = tokens.shape[0]
+        earlier = torch.tril(torch.ones((W, W), dtype=torch.bool,
+                                        device=tokens.device), diagonal=-1)
+        sl = seq_lens
+        traces = []
+        for k in range(num_steps):
+            kv = kv_pool.copy_pages_tree(kv, csrc, cdst)
+            attn = self.backend.make_attn_fn(bt, sl + 1, sl)
+            logits, kv = self.model.forward(
+                params, tokens.long()[:, None], sl.long()[:, None], kv, attn)
+            lp = torch.log_softmax(logits[:, 0, :V].float(), dim=-1)
+            lp = torch.where(alive[:, None], lp, -torch.inf)
+            vals, idx = top_k((scores[:, None] + lp).reshape(-1), W)
+            par = (idx // V).to(torch.int32)
+            tok = (idx % V).to(torch.int32)
+            new_bt = bt[par.long()]
+            sl = sl + 1
+            # the table column of the next append, as a [W, 1] index (beam
+            # rows are uniform; a 0-d index tensor would be read back to
+            # the host)
+            tidx = (sl[:1] // page).long().expand(W)[:, None]
+            crossing = (sl[:1] % page) == 0
+            taken = ((par[:, None] == par[None, :]) & earlier).any(dim=1)
+            old_tail = new_bt.gather(1, tidx)[:, 0]
+            new_bt.scatter_(1, tidx, torch.where(
+                crossing | taken, fresh[k], old_tail)[:, None])
+            # a data copy only for copy-on-write: a crossed page starts
+            # empty
+            cow = taken & ~crossing
+            csrc = torch.where(cow, old_tail, 0)
+            cdst = torch.where(cow, fresh[k], 0)
+            alive = (vals > -1e29) & ~((eos >= 0) & (tok == eos))
+            traces.append((par, tok, vals, alive))
+            tokens, bt, scores = tok, new_bt, vals
+        pars, toks, vals, alives = (torch.stack(t) for t in zip(*traces))
+        return pars, toks, vals, alives, tokens, scores, csrc, cdst, kv
 
     @torch.inference_mode()
     def decode(self, state: EngineState,
@@ -480,16 +617,52 @@ class Engine:
         self._mark_finished(state, toks, sampling)
         return toks
 
+    def _nll_chunks(self, kv, bt: torch.Tensor, tokens: np.ndarray,
+                    lens: np.ndarray, first: np.ndarray, c_from: int,
+                    chunk: int):
+        """The teacher-forced NLL of ``tokens[b, t + 1]`` at every
+        position ``t`` with ``first[b] <= t + 1 < lens[b]``, over the
+        page-aligned chunks from ``c_from`` on: ``(sums [B] f64, counts
+        [B])``. Only one chunk of logits exists at a time, each reduced on
+        the device to a per-sequence sum."""
+        B, max_len = tokens.shape
+        # targets[t] = token t + 1 (the last column is masked off)
+        targets = np.zeros_like(tokens)
+        targets[:, :-1] = tokens[:, 1:]
+        nll_sum = np.zeros((B,), np.float64)
+        cnt = np.zeros((B,), np.int64)
+        for c0 in range(c_from, max_len, chunk):
+            c1 = min(c0 + chunk, max_len)
+            pos = c0 + np.broadcast_to(np.arange(c1 - c0), (B, c1 - c0))
+            valid = ((pos + 1 < lens[:, None])
+                     & (pos + 1 >= first[:, None]))
+            attn = self.backend.make_attn_fn(
+                bt, self._t(np.clip(lens, 0, c1)),
+                self._t(np.full((B,), c0)))
+            logits, kv = self.model.forward(
+                self.params, self._t(tokens[:, c0:c1], torch.long),
+                self._t(np.where(pos < lens[:, None], pos, -1),
+                        torch.long), kv, attn)
+            logp = torch.log_softmax(
+                logits[..., :self.cfg.vocab_size].float(), dim=-1)
+            nll = -logp.gather(-1, self._t(targets[:, c0:c1],
+                                           torch.long)[..., None])[..., 0]
+            nll = torch.where(self._t(valid, torch.bool), nll, 0.0)
+            nll_sum += nll.sum(dim=1).cpu().numpy().astype(np.float64)
+            cnt += valid.sum(axis=1)
+        return nll_sum, cnt
+
     @torch.inference_mode()
     def score_nll(self, prompts: Sequence[Sequence[int]],
                   starts: Optional[Sequence[int]] = None,
-                  mean: bool = True) -> np.ndarray:
+                  mean: bool = True,
+                  allocator=None) -> np.ndarray:
         """Per-sequence NLL of ``tokens[start:]`` given their prefixes,
         teacher-forced through the paged chunked-prefill path (``starts``
         defaults to 1, every target); ``mean=False`` gives the sum. Only
         one page-aligned chunk of logits exists at a time, each reduced
-        on the device to a per-sequence sum; pages are freed on
-        return."""
+        on the device to a per-sequence sum; pages (from ``allocator``, else
+        the engine's) are freed on return."""
         B = len(prompts)
         lens = np.array([len(p) for p in prompts], np.int32)
         start_arr = (np.ones((B,), np.int32) if starts is None
@@ -499,50 +672,90 @@ class Engine:
         if not ((start_arr >= 1).all() and (start_arr < lens).all()):
             raise ValueError("starts must leave at least one target per "
                              "sequence")
+        alloc = self._allocator_of(allocator)
         page = self.cache.page_size
         max_len = cdiv(int(lens.max()), page) * page
-        chunk = self._chunk(max_len)
-        pages = [self.allocator.alloc_many(cdiv(int(L), page)) for L in lens]
+        pages = [alloc.alloc_many(cdiv(int(L), page)) for L in lens]
         try:
-            bt = self._t(self._block_tables(pages))
-            kv = self.backend.init_cache(self.device)
-            tokens = self._prompt_tokens(prompts, max_len)
-            # targets[t] = token t + 1 (the last column is masked off)
-            targets = np.zeros_like(tokens)
-            targets[:, :-1] = tokens[:, 1:]
-            nll_sum = np.zeros((B,), np.float64)
-            cnt = np.zeros((B,), np.int64)
-            for c0 in range(0, max_len, chunk):
-                c1 = min(c0 + chunk, max_len)
-                pos = c0 + np.broadcast_to(np.arange(c1 - c0), (B, c1 - c0))
-                valid = ((pos + 1 < lens[:, None])
-                         & (pos + 1 >= start_arr[:, None]))
-                attn = self.backend.make_attn_fn(
-                    bt, self._t(np.clip(lens, 0, c1)),
-                    self._t(np.full((B,), c0)))
-                logits, kv = self.model.forward(
-                    self.params, self._t(tokens[:, c0:c1], torch.long),
-                    self._t(np.where(pos < lens[:, None], pos, -1),
-                            torch.long), kv, attn)
-                logp = torch.log_softmax(
-                    logits[..., :self.cfg.vocab_size].float(), dim=-1)
-                nll = -logp.gather(-1, self._t(targets[:, c0:c1],
-                                               torch.long)[..., None])[..., 0]
-                nll = torch.where(self._t(valid, torch.bool), nll, 0.0)
-                nll_sum += nll.sum(dim=1).cpu().numpy().astype(np.float64)
-                cnt += valid.sum(axis=1)
+            nll_sum, cnt = self._nll_chunks(
+                self.backend.init_cache(self.device),
+                self._t(self._block_tables(pages)),
+                self._prompt_tokens(prompts, max_len), lens, start_arr, 0,
+                self._chunk(max_len))
         finally:
             for ps in pages:
                 for p in ps:
-                    self.allocator.free(p)
+                    alloc.free(p)
+        if not mean:
+            return nll_sum
+        return nll_sum / np.maximum(cnt, 1)
+
+    @torch.inference_mode()
+    def score_candidates_nll(self, context_ids: Sequence[int],
+                             candidates: Sequence[Sequence[int]],
+                             mean: bool = True,
+                             allocator=None) -> np.ndarray:
+        """NLL of each candidate continuation given ONE shared context.
+        The context is prefilled once (batch 1); the candidate rows share
+        its pages below the last chunk boundary before its end by refcount
+        (``PageAllocator.fork``) and re-run from that chunk into pages of
+        their own, which hold the context's tail and the candidate. Every
+        page taken is freed on every exit path. ``mean=False`` gives the
+        sums (the candidates' log-probabilities, negated)."""
+        alloc = self._allocator_of(allocator)
+        W, L = len(candidates), len(context_ids)
+        if L < 1 or W < 1 or any(len(c) < 1 for c in candidates):
+            raise ValueError("a context and candidates of at least one "
+                             "token each")
+        page = self.cache.page_size
+        chunk = cdiv(max(self.runtime.prefill_chunk, 1), page) * page
+        lens = np.array([L + len(c) for c in candidates], np.int32)
+        max_len = cdiv(int(lens.max()), page) * page
+        if cdiv(int(lens.max()), page) > self.cache.max_pages_per_seq:
+            raise ValueError("context + candidate exceed max_pages_per_seq")
+        state = self.prefill([list(context_ids)], allocator=alloc)
+        ctx_pages = state.pages[0]
+        c0 = ((L - 1) // chunk) * chunk    # the first chunk scored again
+        n_shared = c0 // page              # pages wholly below it
+        rows_pages: List[List[int]] = []
+        try:
+            for c in candidates:
+                shared = alloc.fork(ctx_pages[:n_shared])
+                try:
+                    fresh = alloc.alloc_many(cdiv(L + len(c), page)
+                                             - n_shared)
+                except Exception:
+                    for p in shared:
+                        alloc.free(p)
+                    raise
+                rows_pages.append(shared + fresh)
+        except Exception:
+            for ps in rows_pages:
+                for p in ps:
+                    alloc.free(p)
+            raise
+        finally:
+            for p in ctx_pages:            # the context row's references
+                alloc.free(p)
+        try:
+            tokens = self._prompt_tokens(
+                [list(context_ids) + list(c) for c in candidates], max_len)
+            nll_sum, cnt = self._nll_chunks(
+                state.kv, self._t(self._block_tables(rows_pages)), tokens,
+                lens, np.full((W,), L), c0, chunk)
+        finally:
+            for ps in rows_pages:
+                for p in ps:
+                    alloc.free(p)
         if not mean:
             return nll_sum
         return nll_sum / np.maximum(cnt, 1)
 
     def free(self, state: EngineState) -> None:
+        alloc = self._allocator_of(state.allocator)
         for ps in state.pages:
             for p in ps:
-                self.allocator.free(p)
+                alloc.free(p)
         state.pages = [[] for _ in state.pages]
 
     # -- user-facing generation -------------------------------------------
@@ -787,6 +1000,22 @@ class Engine:
             return outs
         finally:
             self.free(state)
+
+
+def top_k(x: torch.Tensor, k: int):
+    """The ``k`` largest of a flat f32 ``x`` in ``lax.top_k``'s order:
+    descending, equal values by index (the lower first). bf16 logits tie
+    exactly often enough over a 128k vocabulary, and ``torch.topk`` orders
+    (and, at the k-th place, picks) equal values by its own rule, which
+    differs between k = W and k = 2W; so each value is made unique by its
+    index: its f32 bits in an order-preserving int32 form, times 2^32,
+    plus ``2^32 - 1 - index``. Returns ``(values, indices)``."""
+    bits = x.contiguous().view(torch.int32)
+    key = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).long()
+    key = key * (1 << 32) + ((1 << 32) - 1 - torch.arange(
+        x.numel(), device=x.device))
+    idx = torch.topk(key, k, sorted=True).indices
+    return x[idx], idx
 
 
 def _to_device(params, device):

@@ -10,7 +10,9 @@ B8 for an unpadded dh 16/32/64 pool, B6 otherwise and for every INT8
 table too wide for the JAX B2's scales budget (a 32k context at Llama-3
 geometry). With ``PBT_FUSED_APPEND=1`` in the environment (the JAX
 package's switch, off by default) T=1 takes the fused append + decode
-kernel (B9) where its gate allows, which is where the route is B2.
+kernel (B9) where its gate allows, which is where the route is B2. With
+a ``score_sink`` every call, T=1 included, takes B1 with its per-page
+score export, as the JAX backend routes it.
 """
 
 from __future__ import annotations
@@ -60,11 +62,10 @@ class PagedKVBackend:
                      score_sink=None, gather_axis=None):
         """Bind this step's batch plan. ``seq_lens`` already include the
         tokens appended in this call; ``q_offsets[b]`` is the absolute
-        position of the first q token."""
-        if score_sink is not None:
-            raise NotImplementedError(
-                "score_sink (per-page score export): ROADMAP queue A, "
-                "beam search")
+        position of the first q token. ``score_sink``: a list to which
+        every call appends B1's per-page scores ``[B, max_pages]`` (one
+        array a layer, in layer order); every call then takes B1, T=1
+        included."""
         if gather_axis is not None:
             raise NotImplementedError(
                 "gather_axis (sequence-parallel prefill): ROADMAP queue A, "
@@ -88,7 +89,7 @@ class PagedKVBackend:
                           window=self.cfg.window_for_layer(layer),
                           softcap=self.cfg.attn_logit_softcap,
                           scale=self.cfg.attn_scale)
-            if (q.shape[1] == 1
+            if (q.shape[1] == 1 and score_sink is None
                     and os.environ.get("PBT_FUSED_APPEND") == "1"
                     and decode_append_supported(kv, dh_pool, mp)):
                 out, kv = self.attend_decode_append(
@@ -98,7 +99,12 @@ class PagedKVBackend:
             kv = self.append(kv, k, v, layer, positions, block_tables,
                              page_size=page)
             scales = kv[1] if len(kv) == 2 else None
-            if q.shape[1] == 1:
+            if score_sink is not None:
+                out, scores = self.attend(
+                    q, kv[0], block_tables, seq_lens, q_offsets, scales,
+                    layer, return_scores=True, **common)
+                score_sink.append(scores)
+            elif q.shape[1] == 1:
                 attend = getattr(self, _DECODE_ATTR[decode_route(
                     mp, kv[0].shape[2], page, dh_pool, scales is not None)])
                 out = attend(q, kv[0], block_tables, seq_lens, scales, layer,

@@ -165,6 +165,30 @@ def append_to_pages_at_layer(kv, k_new: torch.Tensor, v_new: torch.Tensor,
                       flat_slots(positions, block_tables, page))
 
 
+def copy_pages_tree(kv, src: torch.Tensor, dst: torch.Tensor):
+    """Copy pool pages ``src[i] -> dst[i]`` on every leaf, in place (the
+    beam search's copy-on-write); returns ``kv``. Values move whole pages
+    along the pages axis; the flat INT8 scales move slot by slot
+    (``kvcache/swap.py``'s arithmetic), so a page below 128 keys leaves the
+    other lanes of its 128-lane row as they were. Every page is read
+    before any is written (the destinations are fresh pages, never
+    sources); dump-page self-copies (``0 -> 0``) pad the lists and change
+    nothing. ``src`` / ``dst``: int tensors ``[n]`` on the pool's device
+    (no host read)."""
+    from .swap import _flat, _is_scales, _slots
+
+    page_size = kv[0].shape[4]
+    src, dst = src.long(), dst.long()
+    for leaf in kv:
+        if _is_scales(leaf):
+            flat = _flat(leaf)
+            flat.index_copy_(3, _slots(dst, page_size),
+                             flat.index_select(3, _slots(src, page_size)))
+        else:
+            leaf.index_copy_(3, dst, leaf.index_select(3, src))
+    return kv
+
+
 def gather_kv_dense(kv_layer, block_tables: torch.Tensor, max_len: int):
     """Oracle helper: dense ``[B, max_len, KH, D]`` K/V (dequantized f32
     for INT8) from one layer's pages ``[2, KH, P, page, d]`` (+ its flat

@@ -13,7 +13,10 @@ B9, ``csrc/paged_decode.cu`` B6 and B7, ``csrc/paged_decode_packed.cu`` B8:
   ``ATTENTION_WGMMA`` (wgmma, bulk copies; bf16 queries, the one new
   rounding P to bf16) for every bf16 chunk of the card paths, and
   ``ATTENTION`` (f32 on the CUDA cores) for f32 queries and other head
-  dims or pages.
+  dims or pages. Both have the per-page score export (``return_scores``:
+  each page's largest masked, scaled logit over every head and live query
+  row, ``-1e30`` for a page no row sees) as one more output, partial rows a
+  block that the wrapper reduces by max.
 * :func:`paged_attention_decode` (B2) replaces ``paged_attention_decode``
   (``_decode_kernel``): T=1, mask ``key < seq_len`` (+ window),
   ``dh % 128 == 0``. Split-KV in one launch: :func:`decode_split_plan`
@@ -58,13 +61,11 @@ the block table and run a masked f32 softmax with the same fold order;
 :func:`paged_attention_decode_append_plain` is the append's plain
 version followed by B2's. The wrappers take them for CPU tensors only
 and launch the kernel (or raise) for CUDA tensors.
-
-The per-page score export (``return_scores``, the beam slice) is not
-ported yet and raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional
 
@@ -73,19 +74,31 @@ import torch
 from ..kvcache.pool import stack_new_kv
 from ..utils.common import cdiv
 from ..utils.platform import (DTYPE_CODES, SMS, CudaKernel, F, I, LL, P,
-                              aligned16, ptr, split_counters, stream_handle)
+                              aligned16, load_library, ptr, split_counters,
+                              stream_handle)
 from .kv_append import append_plain
 from .kv_append import _check as _check_append
 
 _ATTN_ARGS = [P, P, P, P, P, P]        # q, out, pool, scales, bt, seq_lens
+# B1's two kernels: + q_offsets, the score export's partial rows (or null)
+# and their block count
 ATTENTION = CudaKernel(
     "paged_attention", "paged_attention.cu", "pbt_paged_attention",
-    _ATTN_ARGS + [P] + [I] * 9 + [LL, F, F, I, I, I, P],
+    _ATTN_ARGS + [P, P] + [I] * 10 + [LL, F, F, I, I, I, P],
     "ops/paged_attention.py:219")
 ATTENTION_WGMMA = CudaKernel(
     "paged_attention_wgmma", "paged_prefill.cu", "pbt_paged_attention_wgmma",
-    _ATTN_ARGS + [P] + [I] * 9 + [LL, F, F, I, I, I, P],
+    _ATTN_ARGS + [P, P] + [I] * 10 + [LL, F, F, I, I, I, P],
     "ops/paged_attention.py:219")
+
+
+def block_rows(kernel: CudaKernel) -> int:
+    """Query rows a block of B1's ``kernel`` takes (its grid's second
+    axis), as its C library defines them; the entry point refuses a
+    score buffer of another block count."""
+    fn = getattr(load_library(kernel.source), kernel.symbol + "_block_rows")
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn()
 ATTENTION_DECODE = CudaKernel(
     "paged_attention_decode", "paged_attention.cu",
     "pbt_paged_attention_decode",
@@ -260,17 +273,19 @@ def paged_attention_plain(q, kv_pages, block_tables, seq_lens, q_offsets,
                           scale: Optional[float] = None,
                           return_scores: bool = False):
     """Plain version of :func:`paged_attention` (same signature)."""
-    if return_scores:
-        raise NotImplementedError(
-            "return_scores (per-page score export): ROADMAP queue A, "
-            "beam search")
     pool, scales, layer = _pooled(kv_pages, kv_scales, layer)
     _check(q, pool, block_tables, seq_lens, num_q_heads, page_size)
     B, T = q.shape[:2]
     scale = 1.0 / math.sqrt(q.shape[3]) if scale is None else scale
     q_pos = q_offsets.long()[:, None] + torch.arange(T, device=q.device)
-    return _attend_plain(q, pool, scales, layer, block_tables, seq_lens,
-                         q_pos, window, softcap, scale)
+    out = _attend_plain(q, pool, scales, layer, block_tables, seq_lens,
+                        q_pos, window, softcap, scale)
+    if not return_scores:
+        return out
+    s = _fold(q, pool, scales, layer, block_tables, seq_lens, q_pos, window,
+              softcap, scale)[0]                     # [B, KH, T, G, S]
+    scores = s.amax(dim=(1, 2, 3)).reshape(B, block_tables.shape[1], -1)
+    return out, scores.amax(dim=-1)
 
 
 def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
@@ -280,7 +295,7 @@ def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
                     layer: Optional[int] = None, *, page_size: int,
                     num_q_heads: int, window: int = 0, softcap: float = 0.0,
                     scale: Optional[float] = None,
-                    return_scores: bool = False) -> torch.Tensor:
+                    return_scores: bool = False):
     """B1: paged attention of a chunk of queries over the pool.
 
     q ``[B, T, H, dh]`` (bf16/f32); kv_pages ``[L, 2, KH, P, page, dh]``
@@ -292,8 +307,14 @@ def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
     picks the kernel: the tensor-core one for bf16 queries over an INT8
     or bf16 pool at a head dim that is a multiple of 16 (it rounds the
     probabilities to bf16 for the P.V product), the f32 one otherwise;
-    each counts its own launches."""
-    if return_scores or not q.is_cuda:
+    each counts its own launches. ``return_scores`` also returns ``[B,
+    max_pages]`` f32, each page's largest masked, scaled logit (the
+    softcap's output, in the softmax's units) over every head and query
+    row, ``-1e30`` for a page no row sees; on CUDA tensors the same launch
+    writes it (a partial row a block, reduced here by max), and its launch
+    counts as a score launch too. The output is the same bits with the
+    export on or off."""
+    if not q.is_cuda:
         return paged_attention_plain(
             q, kv_pages, block_tables, seq_lens, q_offsets, kv_scales, layer,
             page_size=page_size, num_q_heads=num_q_heads, window=window,
@@ -314,11 +335,18 @@ def paged_attention(q: torch.Tensor, kv_pages: torch.Tensor,
         kernel = ATTENTION_WGMMA
         q, pool, scales = aligned16(q), aligned16(pool), aligned16(scales)
     out = torch.empty_like(q)
+    part, blocks = None, 0
+    if return_scores:
+        blocks = cdiv(T * (H // pool.shape[2]), block_rows(kernel))
+        part = torch.empty((B, pool.shape[2] * blocks, bt.shape[1]),
+                           dtype=torch.float32, device=q.device)
     kernel.launch(
         ptr(q), ptr(out), ptr(pool), ptr(scales), ptr(bt), ptr(sl), ptr(qo),
-        B, T, H, pool.shape[2], D, pool.shape[3], page_size, bt.shape[1],
-        layer, sstride, float(scale), float(softcap), int(window), qd, kd,
-        stream_handle(q))
+        ptr(part), blocks, B, T, H, pool.shape[2], D, pool.shape[3], page_size,
+        bt.shape[1], layer, sstride, float(scale), float(softcap),
+        int(window), qd, kd, stream_handle(q), scores=return_scores)
+    if return_scores:
+        return out, part.amax(dim=1)
     return out
 
 

@@ -120,7 +120,8 @@ def load_library(source: str) -> ctypes.CDLL:
 
 class CudaKernel:
     """One hand-written kernel: its C entry point in ``csrc/<source>``,
-    the TPU kernel it replaces, and the count of its launches."""
+    the TPU kernel it replaces, and the count of its launches
+    (``score_launches``: those of them with B1's per-page score export)."""
 
     def __init__(self, name: str, source: str, symbol: str,
                  argtypes: Sequence, replaces: str):
@@ -130,10 +131,11 @@ class CudaKernel:
         self.argtypes = list(argtypes)
         self.replaces = replaces
         self.launches = 0
+        self.score_launches = 0
         self._fn = None
         KERNELS[name] = self
 
-    def launch(self, *args) -> None:
+    def launch(self, *args, scores: bool = False) -> None:
         if self._fn is None:
             fn = getattr(load_library(self.source), self.symbol)
             fn.argtypes = self.argtypes
@@ -145,6 +147,7 @@ class CudaKernel:
                 f"kernel {self.name} ({self.symbol}) failed to launch: "
                 f"cudaError {err}")
         self.launches += 1
+        self.score_launches += scores
 
 
 #: every kernel of the package, by name (filled as the ops modules load)
@@ -153,7 +156,7 @@ KERNELS: Dict[str, CudaKernel] = {}
 
 def reset_launch_counts() -> None:
     for k in KERNELS.values():
-        k.launches = 0
+        k.launches = k.score_launches = 0
 
 
 #: streaming multiprocessors of the H100, which the kernels' grids are

@@ -1593,6 +1593,90 @@ def test_cuda_attention_wgmma_matches_plain(cuda, dh, pool_dtype, page):
         assert bool(torch.isfinite(out).all()) and err <= tol, (T, err, tol)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [4, 16, 64, 128])
+@pytest.mark.parametrize("q_dtype", ["bfloat16", "float32"])
+def test_cuda_attention_scores_match_plain(cuda, q_dtype, page):
+    """B1's per-page score export on both of its kernels (bf16 queries on
+    the tensor cores, f32 on the SIMT kernel), pages that divide a 64-key
+    tile, fill it and span two, against the plain version: scores within
+    1e-4 of max|score|, the ``-1e30`` pages identical, the output the same
+    bits as the launch without the export, one score launch each."""
+    rng = np.random.default_rng(page + (q_dtype == "float32"))
+    B, KH, G, dh, MPg = 3, 2, 4, 128, max(320 // page, 3)
+    H, n_pages = KH * G, B * MPg + 1
+    vals, sc = wgmma_pool(rng, KH, dh, page, n_pages, "int8", cuda)
+    bt = torch.from_numpy((rng.permutation(n_pages - 1)[:B * MPg] + 1)
+                          .reshape(B, MPg).astype(np.int32)).to(cuda)
+    bt[0, 2:] = 0                                   # dead entries
+    qdt = getattr(torch, q_dtype)
+    kernel = (pa.ATTENTION_WGMMA if pa.prefill_route(qdt, torch.int8, dh,
+                                                     page) == "wgmma"
+              else pa.ATTENTION)
+    cases = [(1, [2, 200, 300], [1, 199, 299], 0, 0.0)] + WGMMA_CASES
+    for T, lens, offs, window, softcap in cases:
+        lens = [min(n, 2 * page) if b == 0 else n
+                for b, n in enumerate(lens)]
+        offs = [max(0, min(o, n - T)) if b == 0 else o
+                for b, (o, n) in enumerate(zip(offs, lens))]
+        q = torch.from_numpy(rng.normal(size=(B, T, H, dh)).astype(
+            np.float32)).to(cuda, qdt)
+        args = (q, vals, bt, torch.tensor(lens, device=cuda),
+                torch.tensor(offs, device=cuda), sc, LAYER)
+        kw = dict(page_size=page, num_q_heads=H, window=window,
+                  softcap=softcap)
+        bare = pa.paged_attention(*args, **kw)
+        pa.ATTENTION_WGMMA.launches = pa.ATTENTION.launches = 0
+        pa.ATTENTION_WGMMA.score_launches = pa.ATTENTION.score_launches = 0
+        out, scores = pa.paged_attention(*args, return_scores=True, **kw)
+        _, ref = pa.paged_attention_plain(*args, return_scores=True, **kw)
+        torch.cuda.synchronize()
+        assert kernel.launches == kernel.score_launches == 1
+        assert torch.equal(out, bare)
+        dead = ref <= -1e29
+        assert torch.equal(scores <= -1e29, dead)
+        assert bool((scores[dead] == -1e30).all())
+        tol = 1e-4 * ref[~dead].abs().max().item()
+        err = (scores[~dead] - ref[~dead]).abs().max().item()
+        assert err <= tol, (T, page, err, tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_dtype", ["bfloat16", "float32"])
+def test_cuda_attention_scores_refuse_another_block_count(cuda, q_dtype):
+    """B1's rows a block come from its C library (16 on the SIMT kernel,
+    64 on the tensor cores), and a launch whose score buffer holds another
+    block count than the grid is refused before it runs."""
+    from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.utils import (
+        platform as plat,
+    )
+
+    rng = np.random.default_rng(5)
+    B, KH, G, dh, page, MPg, T = 2, 2, 4, 128, 64, 3, 9
+    H, n_pages = KH * G, B * MPg + 1
+    vals, sc = wgmma_pool(rng, KH, dh, page, n_pages, "int8", cuda)
+    bt = torch.arange(1, n_pages, dtype=torch.int32, device=cuda).view(B, MPg)
+    qdt = getattr(torch, q_dtype)
+    q = torch.from_numpy(rng.normal(size=(B, T, H, dh)).astype(
+        np.float32)).to(cuda, qdt)
+    kernel = pa.ATTENTION_WGMMA if q_dtype == "bfloat16" else pa.ATTENTION
+    assert pa.block_rows(kernel) == (64 if q_dtype == "bfloat16" else 16)
+    blocks = -(-T * G // pa.block_rows(kernel))
+    sl = torch.tensor([150, 40], dtype=torch.int32, device=cuda)
+    qo = sl - T
+    out = torch.empty_like(q)
+    for n in (blocks - 1, blocks + 1):
+        part = torch.empty((B, KH * max(n, 1), MPg), device=cuda)
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            kernel.launch(
+                plat.ptr(q), plat.ptr(out), plat.ptr(vals), plat.ptr(sc),
+                plat.ptr(bt), plat.ptr(sl), plat.ptr(qo), plat.ptr(part), n,
+                B, T, H, KH, dh, vals.shape[3], page, MPg, LAYER,
+                sc.shape[3] * 128, 1.0 / dh ** 0.5, 0.0, 0,
+                plat.DTYPE_CODES[qdt], plat.DTYPE_CODES[vals.dtype],
+                plat.stream_handle(q), scores=True)
+
+
 def misaligned(t):
     """``t``'s values in a view whose data starts 2 bytes past a 16-byte
     boundary."""

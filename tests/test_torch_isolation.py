@@ -28,7 +28,8 @@ MODULES = [
     "quant", "quant.tensor", "quant.eval", "ops.int8_matmul",
     "ops.int4_matmul", "ops.chain_linear", "models.chained", "ops.gmm",
     "utils.logging", "kvcache.swap", "kvcache.native", "kvcache.snapshot",
-    "scheduler", "scheduler.scheduler",
+    "scheduler", "scheduler.scheduler", "engine.beam", "reranker",
+    "reranker.api", "reranker.export_jsonl", "reranker.plot_tree",
 ]
 
 

@@ -1,13 +1,16 @@
-"""Paged attention of the PyTorch port (B1 ``paged_attention``, B2
-``paged_attention_decode``, B9 ``paged_attention_decode_append``)
-against the JAX package's Pallas kernels.
+"""Paged attention of the PyTorch port (B1 ``paged_attention`` with and
+without its per-page score export, B2 ``paged_attention_decode``, B9
+``paged_attention_decode_append``) and the pool's ``copy_pages_tree``
+against the JAX package's Pallas kernels and pool function.
 
 On the CPU the port's wrappers run their plain PyTorch versions; the JAX
 kernels run in interpret mode, as ``tests/test_paged_attention.py`` runs
 them. Inputs come from one numpy seed and go through both. Tolerance:
 f32 atol/rtol 1e-5 (the two sum the same terms in another order); B9's
 output 2e-6 and its pool bit-exact (the JAX wrapper in interpret mode
-runs the append's scatter and then B2, as the port's plain version does).
+runs the append's scatter and then B2, as the port's plain version does);
+B1's scores within the JAX package's own 2e-5 with the ``-1e30`` pages
+identical; ``copy_pages_tree`` bit-exact.
 
 ``tests/test_torch_cuda.py`` holds the hand-written CUDA kernels
 against the plain versions on a card.
@@ -20,10 +23,16 @@ import jax
 import jax.numpy as jnp
 import torch
 
+from pagedattention_based_transformer_decoder_inference_framework_tpu.kvcache.pool import (
+    copy_pages_tree as jax_copy_pages_tree,
+)
 from pagedattention_based_transformer_decoder_inference_framework_tpu.ops.paged_attention import (
     paged_attention as jax_paged_attention,
     paged_attention_decode as jax_paged_attention_decode,
     paged_attention_decode_append as jax_paged_attention_decode_append,
+)
+from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.kvcache.pool import (
+    copy_pages_tree,
 )
 from pagedattention_based_transformer_decoder_inference_framework_tpu_torch.ops import (
     paged_attention as pa,
@@ -189,8 +198,7 @@ def test_decode_append_gate():
 
 def test_unported_variants_raise():
     """B2 keeps the JAX kernel's lane-aligned head dim and names the
-    kernels of a sub-128 pool; the per-page score export is not
-    ported."""
+    kernels of a sub-128 pool."""
     q = torch.zeros((1, 1, 2, 64))
     kv = torch.zeros((1, 2, 1, 4, PAGE, 64))
     bt = torch.ones((1, 2), dtype=torch.int32)
@@ -198,9 +206,107 @@ def test_unported_variants_raise():
     with pytest.raises(ValueError, match="B6/B8"):
         pa.paged_attention_decode(q, kv, bt, sl, None, 0, page_size=PAGE,
                                   num_q_heads=2)
-    with pytest.raises(NotImplementedError, match="beam"):
-        pa.paged_attention(q, kv, bt, sl, sl - 1, None, 0, page_size=PAGE,
-                           num_q_heads=2, return_scores=True)
+
+
+# (page, T, seq_lens, q_offsets, window, softcap) for B=3; the block
+# table's last entries are dead past the shortest sequences; T=3 sits off
+# the page grid
+SCORE_CASES = {
+    "decode_p16": (16, 1, [1, 33, 80], [0, 32, 79], 0, 0.0),
+    "verify_p16_window_softcap": (16, 3, [20, 51, 90], [17, 48, 87], 24,
+                                  30.0),
+    "decode_p64": (64, 1, [5, 64, 129], [4, 63, 128], 0, 0.0),
+    "verify_p64_softcap": (64, 3, [9, 70, 190], [6, 67, 187], 0, 20.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SCORE_CASES))
+@pytest.mark.parametrize("pool_dtype", ["int8", "float32"])
+def test_paged_attention_scores_match_jax(pool_dtype, case):
+    """B1's per-page score export (``return_scores``): the largest masked,
+    scaled logit of each page over every head and query row, ``-1e30``
+    for a page no row sees; within the JAX package's own 2e-5
+    (``tests/test_paged_attention.py``), the dead pages identical, and the
+    output unchanged by the export."""
+    page, T, seq_lens, q_offsets, window, softcap = SCORE_CASES[case]
+    rng = np.random.default_rng(11)
+    B, KH, G, mp, P_ = 3, 2, 4, 4, 16
+    H = KH * G
+    shape = (L, 2, KH, P_, page, DH)
+    if pool_dtype == "int8":
+        kv = (rng.integers(-127, 128, size=shape).astype(np.int8),
+              (rng.random((L, 2, KH, P_ * page // 128, 128)) * 0.02
+               + 0.005).astype(np.float32))
+    else:
+        kv = (rng.normal(size=shape).astype(np.float32),)
+    bt = (rng.permutation(P_ - 1)[:B * mp] + 1).reshape(B, mp).astype(
+        np.int32)
+    bt[0, 1:] = 0                                   # dead entries
+    q = rng.normal(size=(B, T, H, DH)).astype(np.float32)
+    sl = np.asarray(seq_lens, np.int32)
+    qo = np.asarray(q_offsets, np.int32)
+    kw = dict(page_size=page, num_q_heads=H, window=window, softcap=softcap,
+              scale=DH ** -0.5)
+    jvals, jsc = to_jax(kv, pool_dtype)
+    ref_out, ref_sc = jax_paged_attention(
+        jnp.asarray(q), jvals, jnp.asarray(bt), jnp.asarray(sl),
+        jnp.asarray(qo), jsc, jnp.int32(LAYER), return_scores=True,
+        interpret=True, **kw)
+    ref_sc = np.asarray(ref_sc)
+    args = (torch.from_numpy(q), *to_torch(kv, pool_dtype)[:1],
+            torch.from_numpy(bt), torch.from_numpy(sl), torch.from_numpy(qo),
+            to_torch(kv, pool_dtype)[1], LAYER)
+    out, sc = pa.paged_attention(*args, return_scores=True, **kw)
+    dead = ref_sc <= -1e29
+    assert dead.any() and (~dead).any()
+    np.testing.assert_array_equal(sc.numpy() <= -1e29, dead)
+    assert (sc.numpy()[dead] == np.float32(-1e30)).all()
+    np.testing.assert_allclose(sc.numpy()[~dead], ref_sc[~dead], atol=2e-5,
+                               rtol=2e-5)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out), atol=1e-5,
+                               rtol=1e-5)
+    assert torch.equal(out, pa.paged_attention(*args, **kw))
+
+
+@pytest.mark.parametrize("page", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("pool_dtype", ["int8", "float32"])
+def test_copy_pages_tree_matches_jax(pool_dtype, page):
+    """The beam search's copy-on-write copies, bit for bit with the JAX
+    package's on values and flat scales; dump-page self-copies change
+    nothing, and a page's neighbour in a shared 128-lane scales row keeps
+    its lanes."""
+    rng = np.random.default_rng(page)
+    P_, KH, D = 8, 2, 16
+    shape = (L, 2, KH, P_, page, D)
+    if pool_dtype == "int8":
+        kv = (rng.integers(-127, 128, size=shape).astype(np.int8),
+              rng.random((L, 2, KH, -(-P_ * page // 128), 128)).astype(
+                  np.float32))
+    else:
+        kv = (rng.normal(size=shape).astype(np.float32),)
+    src = np.asarray([3, 5, 0, 0], np.int32)
+    dst = np.asarray([6, 2, 0, 0], np.int32)
+    ref = jax_copy_pages_tree(tuple(jnp.asarray(a) for a in kv),
+                              jnp.asarray(src), jnp.asarray(dst))
+    got = copy_pages_tree(tuple(torch.from_numpy(a.copy()) for a in kv),
+                          torch.from_numpy(src), torch.from_numpy(dst))
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    vals = got[0].numpy()
+    np.testing.assert_array_equal(vals[:, :, :, 6], kv[0][:, :, :, 3])
+    np.testing.assert_array_equal(vals[:, :, :, 2], kv[0][:, :, :, 5])
+    keep = [p for p in range(P_) if p not in (2, 6)]
+    np.testing.assert_array_equal(vals[:, :, :, keep], kv[0][:, :, :, keep])
+    if pool_dtype == "int8":
+        flat, old = got[1].reshape(L, 2, KH, -1).numpy(), kv[1].reshape(
+            L, 2, KH, -1)
+        for s_, d_ in ((3, 6), (5, 2)):
+            np.testing.assert_array_equal(
+                flat[..., d_ * page:(d_ + 1) * page],
+                old[..., s_ * page:(s_ + 1) * page])
+        moved = np.zeros(flat.shape[-1], bool)
+        moved[2 * page:3 * page] = moved[6 * page:7 * page] = True
+        np.testing.assert_array_equal(flat[..., ~moved], old[..., ~moved])
 
 
 @pytest.mark.parametrize("fault", ["scales_dtype", "scales_heads",

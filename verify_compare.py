@@ -396,10 +396,11 @@ def append_times(torch, cs, dev, gen) -> dict:
     return out
 
 
-#: ``chip_smoke.py``'s phase 2, in its order
-PHASE2 = ("attention_checks", "b1_shape_checks", "append_checks",
-          "decode_append_checks", "decode_variant_checks", "matmul_checks",
-          "chain_checks", "gmm_checks")
+#: ``chip_smoke.py``'s phase 2, in its order (a checkout without one of
+#: them, an older parent, skips it)
+PHASE2 = ("attention_checks", "b1_shape_checks", "b1_score_checks",
+          "append_checks", "decode_append_checks", "decode_variant_checks",
+          "matmul_checks", "chain_checks", "gmm_checks")
 
 
 def phase2_times(torch, cs, plat, dev) -> dict:
@@ -413,7 +414,9 @@ def phase2_times(torch, cs, plat, dev) -> dict:
     out = {}
     with torch.inference_mode():
         for name in PHASE2:
-            fn = getattr(cs, name)
+            fn = getattr(cs, name, None)
+            if fn is None:
+                continue
             args = ((torch, F_, dev, results) if "F_" in
                     fn.__code__.co_varnames[:fn.__code__.co_argcount]
                     else (torch, dev, results))
