@@ -247,6 +247,27 @@ and nothing of JAX. Phases:
       at B=4 (32 B1 score launches a step; logits against
       ``decode_forced`` on a twin state within (b)'s limit; every layer's
       scores against the plain version on the same inputs);
+   n. server (slice 17), on (b)'s engine once (l)'s schedulers and (m)'s
+      searchers are released: ``BasicServer(core=ServerCore(cfg,
+      engine=eng))`` on loopback, driven with ``http.client``: ``GET
+      /healthz``; a lone greedy ``POST /generate`` (a 64-byte prompt made
+      from the seed, 32 tokens, EOS 257), its tokens bit for bit those of
+      the same ids alone on a ``Scheduler`` with the same
+      ``SamplingParams``, its device busy time by
+      ``utils/profiling.traced_device_s`` above 0 and at most its wall;
+      four concurrent ``POST /stream_generate`` (40-192 bytes, one with
+      ``?sse=1``) and a ``POST /generate_batch`` of the same four: every
+      frame parsed, each stream ended by its ``finish_reason`` frame (SSE
+      by ``event: done``), each request against ``generate`` alone by
+      (l)'s fork rule within (b)'s limit, and the same check with two
+      requests' references swapped failing; ``POST /stream_chat_beam``
+      (width 4, 16 tokens, rerank) equal to ``BeamSearcher`` plus
+      ``Reranker(LogProbScorer)`` run directly, then again beside the four
+      streams with every answer unchanged; 422 for ``max_new_tokens`` 0,
+      404 for an unknown path; ``GET /metrics`` counting what the clients
+      received, no failure and no live page; exact launch counts from
+      the forwards the scheduler ran (the lone request and the concurrent
+      ones) and those the beam request ran; tokens/s and TTFT;
    j. megakernel (slice 5, ``bench.py --megakernel``): (b)'s w8a8
       weights handed to an engine with ``megakernel`` and
       ``megakernel_drop_weights``, which packs each layer's chain and
@@ -3222,6 +3243,11 @@ def run_paths(torch, dev, results, card):
                   "per-page scores)")
             out["beam"] = beam_path(torch, eng, refs, prompts, greedy, card,
                                     tf16["tol"], results)
+            phase("3n: server (BasicServer over ServerCore on the w8a8 "
+                  "engine: a lone request, 4 concurrent streams and a "
+                  "batch, a beam request, errors, metrics)")
+            out["server"] = server_path(torch, eng, greedy, card,
+                                        tf16["tol"])
             phase("3j: megakernel (bench.py --megakernel: path (b)'s "
                   "weights packed into chains, per-op copies dropped)")
             holder = {"params": eng.params}
@@ -5006,7 +5032,8 @@ def reference_streams(torch, eng, prompts, news, greedy, batch=1):
 def stream_faults(reqs, logits, alone, batched, tol):
     """Path (l)'s stream checks as a list of faults (empty: passed), and
     what they compared. Against ``batched`` (each prompt in a batch of the
-    lanes' size, :func:`reference_streams`) every token and every logit
+    lanes' size, :func:`reference_streams`; ``None`` skips this check)
+    every token and every logit
     must be equal bit for bit: a decode step's rows go through the same
     shapes, so only a fault of the scheduler (a wrong page, a stale row, a
     bad swap) can move them. Against ``alone`` (``generate``) the same
@@ -5015,21 +5042,23 @@ def stream_faults(reqs, logits, alone, batched, tol):
     reference's top-1 margin at most twice it (the fork rule): a batch of
     one reduces some rows' norms in another order (PERF.md §6)."""
     faults, compared, forks = [], 0, []
-    for r, (tr, lr), (tb, lb) in zip(reqs, alone, batched):
+    for r, (tr, lr), (tb, lb) in zip(reqs, alone,
+                                     batched or [(None, None)] * len(reqs)):
         got = logits[r.req_id]
         if sorted(got) != list(range(len(r.tokens))):
             faults.append(f"request {r.req_id} vs both: logits for "
                           f"{sorted(got)}")
             continue
         lk = np.stack([got[e] for e in range(len(r.tokens))])
-        same = [r.tokens[e] == tb[e] and np.array_equal(lk[e], lb[e])
+        same = [tb is None or (r.tokens[e] == tb[e]
+                               and np.array_equal(lk[e], lb[e]))
                 for e in range(len(r.tokens))]
-        if len(tb) != len(r.tokens) or not all(same):
+        if tb is not None and (len(tb) != len(r.tokens) or not all(same)):
             e = same.index(False) if not all(same) else len(same)
             d = float(np.abs(lk[e] - lb[e]).max()) if e < len(lb) else 0.0
             faults.append(f"request {r.req_id} vs batch: token {e} differs "
                           f"(max|dlogit| {d:.4g})")
-        for e in range(len(r.tokens)):
+        for e in range(min(len(r.tokens), len(tr))):
             d = float(np.abs(lk[e] - lr[e]).max())
             if r.tokens[e] != tr[e]:
                 top2 = np.sort(lr[e])[-2:]
@@ -5046,6 +5075,10 @@ def stream_faults(reqs, logits, alone, batched, tol):
                               f"logits differ by {d:.4g} before any fork")
                 break
             compared += 1
+        else:
+            if len(tr) != len(r.tokens):
+                faults.append(f"request {r.req_id} vs alone: {len(r.tokens)}"
+                              f" tokens, alone {len(tr)}")
     return faults, compared, forks
 
 
@@ -5331,6 +5364,411 @@ def scheduler_path(torch, F_, eng, greedy, spec_prompts, card, tol):
     info["seeded_identical"] = same_seeded
     lap("the seeded pass")
     return info
+
+
+# -- path (n): the frontends --------------------------------------------------
+
+#: path (n)'s traffic on (b)'s engine: the lone greedy request's prompt
+#: bytes and new tokens, the concurrent streams' prompt bytes ((l)'s first
+#: four lengths), and the beam request's width and new tokens
+SERVER_LONE, SERVER_NEW = 64, 32
+SERVER_LENS = SCHED_LENS[:4]
+SERVER_BEAM_W, SERVER_BEAM_NEW = 4, 16
+#: the byte tokenizer's EOS, which the server's requests stop on
+SERVER_EOS = 257
+
+
+def server_texts():
+    """Path (n)'s prompts: lower-case ASCII text made from ``SEED`` with
+    numpy, one byte a token under the byte tokenizer: the lone request's,
+    the four streams', and the beam request's chat message."""
+    rng = np.random.default_rng(SEED)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz ", np.uint8)
+
+    def text(n):
+        return bytes(rng.choice(letters, n)).decode()
+
+    return (text(SERVER_LONE), [text(n) for n in SERVER_LENS],
+            text(SERVER_LONE))
+
+
+def http_call(port, method, path, body=None, timeout=600):
+    """One request to the server on loopback: ``(status, body bytes)``
+    (``http.client`` undoes the chunked framing)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path,
+                     body=json.dumps(body) if body is not None else None,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def stream_frames(raw, sse):
+    """A streaming answer's frames, each parsed (a frame that does not
+    parse raises), and whether it ended as its framing must: SSE in
+    ``event: done``, both with a last frame that carries
+    ``finish_reason``."""
+    text = raw.decode()
+    if sse:
+        done = "event: done\ndata: {}\n\n"
+        ended = text.endswith(done)
+        body = text[: -len(done)] if ended else text
+        parts = [p for p in body.split("\n\n") if p]
+        check(all(p.startswith("data: ") for p in parts),
+              f"(n) an SSE frame without 'data: ': {parts[:2]}")
+        frames = [json.loads(p[len("data: "):]) for p in parts]
+    else:
+        ended = True
+        frames = [json.loads(line) for line in text.splitlines() if line]
+    ended = ended and bool(frames) and frames[-1].get("token") is None \
+        and "finish_reason" in frames[-1]
+    return frames, ended
+
+
+def server_path(torch, eng, greedy, card, tol):
+    """Path (n): the frontends. ``BasicServer(core=ServerCore(cfg,
+    engine=eng))`` on loopback over (b)'s w8a8 engine, its scheduler's
+    pump and the beam searcher on the card; driven with ``http.client``
+    (see the module docstring for the requests and checks)."""
+    import gc
+    import threading
+    from importlib import import_module
+
+    plat = import_module(f"{PKG}.utils.platform")
+    srv_mod = import_module(f"{PKG}.server")
+    prof = import_module(f"{PKG}.utils.profiling")
+    sch = import_module(f"{PKG}.scheduler")
+    eng_mod = import_module(f"{PKG}.engine")
+    rerank = import_module(f"{PKG}.reranker")
+    tok_mod = import_module(f"{PKG}.utils.tokenizer")
+    t0 = time.perf_counter()
+
+    def lap(what):
+        print(f"  ({what}: {time.perf_counter() - t0:.1f} s into (n))",
+              flush=True)
+
+    # (l)'s schedulers and (m)'s searchers and engine are gone by now
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    print(f"  before the server: {torch.cuda.memory_allocated() / 1e9:.3f} "
+          f"GB held on the card; runtime.spec_k "
+          f"{eng.config.runtime.spec_k} (no spec burst unless > 0)",
+          flush=True)
+    L, page = eng.cfg.num_layers, eng.cache.page_size
+    tok = tok_mod.get_tokenizer("byte")
+    check(tok.eos_token_id == SERVER_EOS, "the byte tokenizer's EOS moved")
+    lone, texts, chat = server_texts()
+    live0 = eng.allocator.num_live
+    cfg = eng.config
+    core = srv_mod.ServerCore(cfg, engine=eng)
+    srv = srv_mod.BasicServer(core=core, host="127.0.0.1", port=0)
+    server_thread = srv.start_background()
+    port = srv.port
+    submitted = []
+    submit = core.scheduler.submit
+
+    def recorded_submit(*a, **k):
+        req = submit(*a, **k)
+        submitted.append(req)
+        return req
+
+    core.scheduler.submit = recorded_submit
+    try:
+        code, body = http_call(port, "GET", "/healthz")
+        check(code == 200 and json.loads(body) == {
+            "status": "ok", "model": cfg.model.name},
+            f"(n) /healthz answered {code} {body[:200]}")
+        gen = {"temperature": 0.0, "max_new_tokens": SERVER_NEW}
+        received = 0                  # tokens the clients received
+
+        # 2 and 3 under one watch: the scheduler's forwards (its launch
+        # counts follow from them) and the logits that chose each token
+        with SchedulerWatch(torch, eng, core.scheduler) as w:
+            torch.cuda.synchronize()
+            plat.reset_launch_counts()
+            lone_out = {}
+
+            def lone_call():
+                lone_out["t0"] = time.perf_counter()
+                lone_out["ans"] = http_call(port, "POST", "/generate",
+                                            dict(gen, prompt=lone))
+                lone_out["wall"] = time.perf_counter() - lone_out["t0"]
+
+            busy_s = prof.traced_device_s(lone_call)
+            code, body = lone_out["ans"]
+            check(code == 200, f"(n) /generate answered {code} {body[:300]}")
+            lone_tokens = json.loads(body)["tokens"]
+            received += len(lone_tokens)
+            share = (busy_s or 0.0) / lone_out["wall"]
+            print(f"  lone /generate: {len(lone_tokens)} tokens in "
+                  f"{lone_out['wall'] * 1e3:.1f} ms; device busy "
+                  f"{(busy_s or 0.0) * 1e3:.2f} ms by "
+                  f"utils/profiling.traced_device_s: busy share "
+                  f"{share:.4f} ({card})", flush=True)
+            check(busy_s is not None and 0 < busy_s <= lone_out["wall"],
+                  f"(n) traced_device_s gave {busy_s} for a "
+                  f"{lone_out['wall']:.3f} s request")
+            lap("health and the lone request")
+
+            answers = {}
+
+            def post(key, path, payload):
+                answers[key] = http_call(port, "POST", path, payload)
+
+            calls = [(("stream", i), "/stream_generate"
+                      + ("?sse=1" if i == 1 else ""), dict(gen, prompt=t))
+                     for i, t in enumerate(texts)]
+            calls.append((("batch", 0), "/generate_batch",
+                          dict(gen, prompts=texts)))
+            threads = [threading.Thread(target=post, args=c) for c in calls]
+            t_conc = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            conc_wall = time.perf_counter() - t_conc
+            torch.cuda.synchronize()
+        counts = {n: k.launches for n, k in plat.KERNELS.items()}
+        sched_forwards = list(w.forwards)
+        watched = list(submitted)     # the requests whose logits it holds
+        got = {}                      # prompt text -> [token lists]
+        for i, t in enumerate(texts):
+            code, raw = answers[("stream", i)]
+            check(code == 200, f"(n) stream {i} answered {code}")
+            frames, ended = stream_frames(raw, sse=i == 1)
+            check(ended, f"(n) stream {i} ({'SSE' if i == 1 else 'ndjson'})"
+                  f" did not end as its framing must: {raw[-200:]!r}")
+            toks = [f["token"] for f in frames[:-1]]
+            check(all(isinstance(x, int) for x in toks)
+                  and frames[-1]["finish_reason"] in ("eos", "length"),
+                  f"(n) stream {i}'s frames: {frames[-3:]}")
+            got.setdefault(t, []).append(toks)
+        code, body = answers[("batch", 0)]
+        check(code == 200, f"(n) /generate_batch answered {code}")
+        results = json.loads(body)["results"]
+        check(len(results) == len(texts) and not any(
+            "error" in r for r in results), f"(n) batch results {results}")
+        for t, r in zip(texts, results):
+            got[t].append(r["tokens"])
+        conc_tokens = sum(len(x) for v in got.values() for x in v)
+        received += conc_tokens
+        lap("the concurrent streams and the batch")
+
+        # 4: beam search and rerank on the handler's thread, alone
+        msgs = [{"role": "user", "content": chat}]
+        beam_ids = tok.encode(cfg.chat.render(msgs))
+        widths = []
+        forward = eng.model.forward
+
+        def counted_forward(params, tokens, *rest, **kw):
+            out = forward(params, tokens, *rest, **kw)
+            widths.append(int(tokens.shape[1]))
+            return out
+
+        eng.model.forward = counted_forward
+        try:
+            torch.cuda.synchronize()
+            plat.reset_launch_counts()
+            tb = time.perf_counter()
+            code, raw = http_call(port, "POST", "/stream_chat_beam", {
+                "messages": msgs, "beam_width": SERVER_BEAM_W,
+                "max_new_tokens": SERVER_BEAM_NEW, "use_rerank": True})
+            beam_wall = time.perf_counter() - tb
+            torch.cuda.synchronize()
+            beam_counts = {n: k.launches for n, k in plat.KERNELS.items()}
+        finally:
+            del eng.model.forward
+        check(code == 200, f"(n) /stream_chat_beam answered {code} "
+              f"{raw[:300]}")
+        frames, ended = stream_frames(raw, sse=False)
+        check(ended and frames[-1]["finish_reason"] == "stop",
+              f"(n) the beam stream's last frame {frames[-1:]}")
+        winner = [f["token"] for f in frames[:-1]]
+        beam_idx = {f["beam"] for f in frames[:-1]}
+        received += len(winner)
+        lap("the beam request")
+
+        # 4b: the beam request again, beside the four streams: the
+        # handler's thread and the pump launch on one stream at once
+        # (the split counters and workspaces are shared); every answer
+        # must equal its earlier one
+        answers.clear()
+        calls = [(("beam", 0), "/stream_chat_beam", {
+            "messages": msgs, "beam_width": SERVER_BEAM_W,
+            "max_new_tokens": SERVER_BEAM_NEW, "use_rerank": True})]
+        calls += [(("stream", i), "/stream_generate", dict(gen, prompt=t))
+                  for i, t in enumerate(texts)]
+        threads = [threading.Thread(target=post, args=c) for c in calls]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        code, raw = answers[("beam", 0)]
+        again, _ = stream_frames(raw, sse=False)
+        same_beam = code == 200 and again == frames
+        received += len(again) - 1
+        same_streams = []
+        for i, t in enumerate(texts):
+            code, raw = answers[("stream", i)]
+            toks = [f["token"] for f in stream_frames(raw, sse=False)[0][:-1]]
+            same_streams.append(code == 200 and toks == got[t][0])
+            received += len(toks)
+        print(f"  the beam request beside the four streams: beam "
+              f"{'identical' if same_beam else 'DIFFERENT'}, streams "
+              f"identical to their first answers: {same_streams}",
+              flush=True)
+        check(same_beam and all(same_streams), "(n) a request beside the "
+              "beam search answered otherwise than before")
+        lap("the beam beside the streams")
+
+        # 5: errors
+        bad_code, bad = http_call(port, "POST", "/generate",
+                                  {"prompt": lone, "max_new_tokens": 0})
+        miss_code, _ = http_call(port, "GET", "/nope")
+        miss_post, _ = http_call(port, "POST", "/nope", {})
+        print(f"  max_new_tokens 0: {bad_code} ({bad[:100]!r}); unknown "
+              f"paths: GET {miss_code}, POST {miss_post}", flush=True)
+        check(bad_code == 422 and miss_code == 404 and miss_post == 404,
+              "(n) the error answers are not 422 / 404")
+
+        # 6: metrics
+        code, body = http_call(port, "GET", "/metrics")
+        check(code == 200, f"(n) /metrics answered {code}")
+        metrics = json.loads(body)
+    finally:
+        del core.scheduler.submit
+        srv.shutdown()
+    server_thread.join(timeout=30)
+    check(not server_thread.is_alive() and core.scheduler._thread is None,
+          "(n) the server or its pump thread did not stop")
+    # lone, streams, batch, beam, then the beam and the streams again
+    n_requests = 1 + len(texts) + 1 + 1 + 1 + len(texts)
+    print(f"  /metrics: {json.dumps(metrics)}", flush=True)
+    check(metrics["requests_total"] == n_requests
+          and metrics["tokens_out"] == received
+          and metrics["requests_failed"] == 0
+          and metrics["kv_pages"]["live"] == live0,
+          f"(n) metrics {metrics}: expected {n_requests} requests, "
+          f"{received} tokens out, none failed, {live0} live pages")
+    check(eng.allocator.num_live == live0, "(n) the server kept pages")
+
+    # the launches of 2 and 3: exactly what the scheduler's forwards imply
+    expect = forward_launches(eng.cfg.quant, L, page, sched_forwards,
+                              b1_kernel(eng))
+    spec_ran = any(t > 1 and t % page for t in sched_forwards)
+    print(f"  launches in the lone request and the concurrent ones: "
+          f"{json.dumps(counts)} ({sum(t == 1 for t in sched_forwards)} "
+          f"decode steps, {sum(t > 1 for t in sched_forwards)} chunk "
+          f"forwards; spec ran: {spec_ran})", flush=True)
+    check(counts == expect,
+          f"(n) scheduler: launches {counts}, expected exactly {expect}")
+    beam_expect = forward_launches(eng.cfg.quant, L, page, widths,
+                                   b1_kernel(eng))
+    print(f"  launches in the beam request: {json.dumps(beam_counts)} "
+          f"(forwards' widths {widths}: the prompt's chunk, "
+          f"{sum(t == 1 for t in widths)} beam steps, the rerank's "
+          f"chunks)", flush=True)
+    check(beam_counts == beam_expect,
+          f"(n) beam: launches {beam_counts}, expected exactly "
+          f"{beam_expect}")
+    check(sum(t == 1 for t in widths) >= SERVER_BEAM_NEW - 1,
+          f"(n) the beam request ran {widths}")
+
+    # the references, with the server stopped: the lone request's ids
+    # submitted alone to a Scheduler on the same engine with the same
+    # SamplingParams; each concurrent request against generate alone
+    sp = core._sampling(srv_mod.schema.GenerateRequest(prompt=lone, **gen))
+    lone_ids = tok.encode(lone)
+    _, _, (ref_req,), _, _ = run_scheduler(
+        torch, eng, lambda s, tick: [s.submit(lone_ids, SERVER_NEW, sp)]
+        if tick == 0 else [], watch=False)
+    print(f"  lone request: {len(lone_tokens)} tokens; alone on a "
+          f"Scheduler: {'identical' if lone_tokens == ref_req.tokens else 'DIFFERENT'}",
+          flush=True)
+    check(ref_req.state == sch.RequestState.FINISHED
+          and lone_tokens == ref_req.tokens,
+          f"(n) the lone request {lone_tokens} != alone {ref_req.tokens}")
+    by_prompt = {tuple(tok.encode(t)): t for t in texts}
+    reqs = [r for r in watched if tuple(r.prompt) in by_prompt]
+    check(len(reqs) == 2 * len(texts), f"(n) {len(reqs)} concurrent "
+          "requests reached the scheduler")
+    for t in texts:
+        mine = sorted(r.tokens for r in reqs
+                      if by_prompt[tuple(r.prompt)] == t)
+        check(mine == sorted(got[t]), f"(n) the clients received other "
+              f"tokens than the scheduler made for a {len(t)}-byte prompt")
+    uniq = [tok.encode(t) for t in texts]
+    alone_of = dict(zip(map(tuple, uniq), reference_streams(
+        torch, eng, uniq, [SERVER_NEW] * len(uniq), sp)))
+    alone = [alone_of[tuple(r.prompt)] for r in reqs]
+    faults, compared, forks = stream_faults(reqs, w.logits, alone, None, tol)
+    print(f"  concurrent streams: {len(reqs)} requests against generate "
+          f"alone: {compared} tokens bit-identical before the forks, forks "
+          f"(request, token, reference margin, max|dlogit|) "
+          f"{json.dumps([(q, e, round(m, 5), round(d, 5)) for q, e, m, d in forks])}"
+          f" (each margin <= 2x its max|dlogit|, each max|dlogit| <= "
+          f"{tol:.4g}); faults {faults}", flush=True)
+    check(not faults, f"(n) streams: {faults}")
+    # 9: the sentinel: the same check with two requests' references
+    # swapped must fail
+    swapped = list(alone)
+    i, j = 0, next(k for k, r in enumerate(reqs)
+                   if r.prompt != reqs[0].prompt)
+    swapped[i], swapped[j] = swapped[j], swapped[i]
+    bad_faults, _, _ = stream_faults(reqs, w.logits, swapped, None, tol)
+    print(f"  sentinel (requests {reqs[i].req_id} and {reqs[j].req_id}'s "
+          f"references swapped): faults {bad_faults}", flush=True)
+    check(any(f.startswith(f"request {reqs[i].req_id} vs alone")
+              for f in bad_faults)
+          and any(f.startswith(f"request {reqs[j].req_id} vs alone")
+                  for f in bad_faults),
+          "(n) the sentinel with swapped references passed")
+    lap("the references and the sentinel")
+
+    # 4's reference: the same search and rerank run directly
+    with torch.inference_mode():
+        hyps = eng_mod.BeamSearcher(eng, beam_width=SERVER_BEAM_W).search(
+            beam_ids, SERVER_BEAM_NEW, eos_token_id=SERVER_EOS)
+        cands = [h.tokens for h in hyps]
+        best = rerank.Reranker(rerank.LogProbScorer(eng)).select_best(
+            beam_ids, cands)
+    print(f"  beam: the server's winner {winner} (beam {sorted(beam_idx)}, "
+          f"{frames[-1]['num_beams']} beams, {beam_wall * 1e3:.1f} ms); "
+          f"direct search + rerank: beam {best} {cands[best]}", flush=True)
+    check(winner == cands[best] and beam_idx == {best}
+          and frames[-1]["num_beams"] == SERVER_BEAM_W == len(cands),
+          "(n) the server's beam winner differs from the direct search")
+    check(eng.allocator.num_live == live0, "(n) the references kept pages")
+
+    # the server's objects hold the engine in reference cycles (the
+    # handler class, the pump's closure): freed here, before (j) takes
+    # over the weights
+    del srv, core, w
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    ttft = metrics["ttft_s"]
+    tps = conc_tokens / conc_wall
+    print(f"  server: {conc_tokens} tokens to 8 concurrent requests in "
+          f"{conc_wall:.3f} s = {tps:.2f} tok/s; TTFT from /metrics p50 "
+          f"{ttft['p50']:.4f} s, p99 (the max of its {2 * len(texts)} streams) "
+          f"{ttft['p99']:.4f} s; (n) took {wall:.1f} s ({card})", flush=True)
+    return {"wall_s": wall, "lone_wall_s": lone_out["wall"],
+            "lone_busy_s": busy_s, "lone_busy_share": share,
+            "concurrent_wall_s": conc_wall, "concurrent_tokens": conc_tokens,
+            "tok_s": tps, "ttft_p50_s": ttft["p50"],
+            "ttft_max_s": ttft["p99"], "beam_wall_s": beam_wall,
+            "requests_total": metrics["requests_total"],
+            "tokens_out": metrics["tokens_out"],
+            "pairs_before_fork": compared, "forks": len(forks),
+            "sentinel_faults": len(bad_faults), "launches": counts,
+            "beam_launches": beam_counts}
 
 
 def sdpa_paged(q, kv_pages, block_tables, seq_lens, q_offsets,

@@ -1,25 +1,35 @@
-"""Command line of the PyTorch port: ``generate``, ``stream``, ``batch``,
-``rerank`` and ``build_jsonl``.
+"""Command line of the PyTorch port: ``generate``, ``stream``, ``chat``,
+``log``, ``batch``, ``rerank``, ``build_jsonl`` and ``serve``.
 
     python -m pagedattention_based_transformer_decoder_inference_framework_tpu_torch.cli.cli_app \\
         generate --model llama-tiny --prompt "hello" --max-new-tokens 8
+    python -m ...cli.cli_app chat --model llama-tiny
+    python -m ...cli.cli_app log --session chat.jsonl
     python -m ...cli.cli_app batch --input prompts.txt --output out.jsonl \\
         --temperature 0 --spec-k 4
     python -m ...cli.cli_app rerank --context "..." --candidates a b c
     python -m ...cli.cli_app build_jsonl --prompts p.txt --out train.jsonl
+    python -m ...cli.cli_app serve --model llama3-8b --config cfg.yaml
 
 Runs on ``cuda`` by default and raises without a card; ``--device cpu``
-runs the kernels' plain PyTorch versions. Weights are a random init
-from ``--seed`` (checkpoint import is a later slice). ``batch`` takes
-the speculative path (``Engine.generate_batch_spec``) when
-``runtime.spec_k > 0`` (``--spec-k``) and the request is greedy with no
-penalties or stop ids. ``rerank`` scores each candidate's log-probability
-given the context (``reranker.LogProbScorer``; ``--scorer
-cross-encoder`` reads a local sequence-classification model instead);
-``build_jsonl`` runs beam search on each prompt of a file and writes every
-hypothesis as a JSONL row, labelled 1 for the one the reranker ranks
-best. The JAX package's other subcommands (chat, log, serve) wait for the
-slice that ports the server.
+runs the kernels' plain PyTorch versions. Every subcommand builds its
+engine through ``engine/router.py::build_engine``: ``--device`` wins over
+``server.backend``, and ``weights_path`` in the config (a native ``.npz``
+checkpoint, ``models/checkpoint.py``) loads the weights, else they are a
+random init from ``--seed``; HF checkpoint import waits for ROADMAP A6.
+``chat`` is an interactive multi-turn loop (an empty line or end of input
+ends it) and ``log`` the same with each turn appended to a JSONL
+session file. ``batch`` takes the speculative path
+(``Engine.generate_batch_spec``) when ``runtime.spec_k > 0``
+(``--spec-k``) and the request is greedy with no penalties or stop ids.
+``rerank`` scores each candidate's log-probability given the context
+(``reranker.LogProbScorer``; ``--scorer cross-encoder`` reads a local
+sequence-classification model instead); ``build_jsonl`` runs beam search
+on each prompt of a file and writes every hypothesis as a JSONL row,
+labelled 1 for the one the reranker ranks best. ``serve`` starts the REST
+and streaming server (FastAPI under uvicorn where both are installed,
+else the stdlib ``BasicServer``) over the continuous-batching scheduler;
+multi-host serving (``--coordinator``) waits for ROADMAP A7.
 """
 
 from __future__ import annotations
@@ -27,10 +37,11 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 from typing import List, Optional
 
 from ..config import FrameworkConfig, load_config, preset
-from ..engine.engine import Engine
+from ..engine.router import build_engine
 from ..engine.sampling import SamplingParams
 from ..utils.tokenizer import get_tokenizer
 
@@ -83,11 +94,14 @@ def sampling(cfg: FrameworkConfig, tok, stop_token_ids=None) -> SamplingParams:
                           eos_threshold=r.eos_threshold)
 
 
+def _engine(cfg: FrameworkConfig, args):
+    return build_engine(cfg, device=args.device, seed=args.seed or 0)
+
+
 def _setup(args):
     cfg = build_config(args)
     tok = get_tokenizer(cfg.tokenizer)
-    eng = Engine(cfg, device=args.device, seed=args.seed or 0)
-    return cfg, tok, eng
+    return cfg, tok, _engine(cfg, args)
 
 
 def cmd_generate(args) -> int:
@@ -133,6 +147,48 @@ def cmd_stream(args) -> int:
     return 0
 
 
+def _chat_loop(args, log_path: Optional[str]) -> int:
+    cfg, tok, eng = _setup(args)
+    messages: List[dict] = []
+    log_f = open(log_path, "a") if log_path else None
+    print("(interactive chat; empty line or Ctrl-D to exit)")
+    try:
+        while True:
+            try:
+                user = input("you> ").strip()
+            except EOFError:
+                break
+            if not user:
+                break
+            messages.append({"role": "user", "content": user})
+            prompt = cfg.chat.render(messages)
+            out = eng.generate(tok.encode(prompt),
+                               cfg.runtime.max_new_tokens,
+                               sampling(cfg, tok, args.stop_token_ids),
+                               seed=args.seed)
+            reply = tok.decode(out)
+            print(f"bot> {reply}")
+            messages.append({"role": "assistant", "content": reply})
+            if log_f:
+                log_f.write(json.dumps(
+                    {"ts": time.time(), "user": user, "assistant": reply})
+                    + "\n")
+                log_f.flush()
+    finally:
+        if log_f:
+            log_f.close()
+    return 0
+
+
+def cmd_chat(args) -> int:
+    return _chat_loop(args, None)
+
+
+def cmd_log(args) -> int:
+    """Chat with JSONL session logging."""
+    return _chat_loop(args, args.session)
+
+
 def cmd_rerank(args) -> int:
     from ..reranker import LogProbScorer, Reranker
 
@@ -149,8 +205,7 @@ def cmd_rerank(args) -> int:
         rr = Reranker(CrossEncoderScorer(path, id_tokenizer=tok,
                                           device=args.device))
     else:
-        eng = Engine(cfg, device=args.device, seed=args.seed or 0)
-        rr = Reranker(LogProbScorer(eng))
+        rr = Reranker(LogProbScorer(_engine(cfg, args)))
     ctx = tok.encode(args.context)
     cands = [tok.encode(c) for c in args.candidates]
     scores = rr.rerank_scores(ctx, cands)
@@ -187,6 +242,43 @@ def cmd_build_jsonl(args) -> int:
     return 0
 
 
+def cmd_serve(args) -> int:
+    if args.coordinator:
+        raise NotImplementedError(
+            "multi-host serving (--coordinator) waits for the parallelism "
+            "port (ROADMAP A7)")
+    from ..server.core import ServerCore
+
+    cfg = build_config(args)
+    if args.port is not None:
+        cfg.server.port = args.port
+    if args.host:
+        cfg.server.host = args.host
+    core = ServerCore(cfg, engine=_engine(cfg, args))
+    try:
+        import uvicorn
+
+        from ..server.app import create_app
+
+        app = create_app(cfg, core=core)
+    except ImportError:
+        from ..server.basic import BasicServer
+
+        srv = BasicServer(cfg, core=core)
+        print(f"serving (stdlib) on {cfg.server.host}:{srv.port}",
+              flush=True)
+        try:
+            srv.serve_forever()
+        finally:
+            srv.shutdown()
+        return 0
+    try:
+        uvicorn.run(app, host=cfg.server.host, port=cfg.server.port)
+    finally:
+        core.close()
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser(prog="pagedattention-torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
@@ -198,6 +290,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     add_common(p)
     p.add_argument("--prompt", required=True)
     p.set_defaults(fn=cmd_stream)
+    p = sub.add_parser("chat", help="interactive multi-turn chat")
+    add_common(p)
+    p.set_defaults(fn=cmd_chat)
+    p = sub.add_parser("log", help="chat with JSONL session logging")
+    add_common(p)
+    p.add_argument("--session", default="chat_session.jsonl")
+    p.set_defaults(fn=cmd_log)
     p = sub.add_parser("batch", help="file of prompts -> JSONL")
     add_common(p)
     p.add_argument("--input", required=True)
@@ -222,6 +321,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--out", required=True)
     p.add_argument("--beam-width", type=int, default=4)
     p.set_defaults(fn=cmd_build_jsonl)
+    p = sub.add_parser("serve", help="start the REST/SSE server")
+    add_common(p)
+    p.add_argument("--host", default=None)
+    p.add_argument("--port", type=int, default=None,
+                   help="0 picks a free port")
+    p.add_argument("--coordinator", default=None,
+                   help="multi-host coordinator address host:port (not "
+                        "ported: ROADMAP A7)")
+    p.set_defaults(fn=cmd_serve)
     args = ap.parse_args(argv)
     return args.fn(args)
 

@@ -1,0 +1,59 @@
+"""Backend routing and the engine factory (the JAX package's
+``engine/router.py``, on one device).
+
+``server.backend`` names where the engine runs: ``"cpu"`` the kernels'
+plain PyTorch versions on the CPU; ``"tpu"`` and ``"auto"`` the card
+(``cuda``), which must be present: the port never drops to the CPU
+quietly, where the JAX router's ``"auto"`` does.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from ..config import FrameworkConfig
+
+
+def resolve_backend(mode: str) -> torch.device:
+    """The device of ``server.backend`` ``mode``; raises for the card
+    when there is none."""
+    if mode not in ("auto", "tpu", "cpu"):
+        raise ValueError(f"unknown backend {mode!r}")
+    if mode == "cpu":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"backend {mode!r} runs on the card and no CUDA device is "
+            "available; set server.backend='cpu' (or pass device='cpu') to "
+            "run the plain PyTorch versions of the kernels")
+    return torch.device("cuda")
+
+
+def build_engine(config: FrameworkConfig, params=None, device=None,
+                 seed: int = 0):
+    """Engine factory honouring ``config.server.backend`` (an explicit
+    ``device`` wins over it) and ``config.weights_path``: a native
+    ``.npz`` checkpoint (``models/checkpoint.py``, either package's),
+    loaded onto the engine's device. Data, tensor and sequence parallelism
+    and HF checkpoint directories are not ported yet and raise."""
+    from .engine import Engine
+
+    p = config.parallel
+    if p.dp != 1 or p.tp != 1 or p.sp != 1:
+        raise NotImplementedError(
+            f"parallel dp={p.dp} tp={p.tp} sp={p.sp}: the port runs on one "
+            "device; meshes wait for the parallelism port (ROADMAP A7)")
+    dev = (torch.device(device) if device is not None
+           else resolve_backend(config.server.backend))
+    if params is None and config.weights_path:
+        if os.path.isdir(config.weights_path):
+            raise NotImplementedError(
+                f"{config.weights_path} is a directory: importing an HF "
+                "checkpoint waits for the import port (ROADMAP A6); "
+                "convert it to a native .npz checkpoint first")
+        from ..models.checkpoint import load_params
+
+        params = load_params(config.weights_path, device=dev)
+    return Engine(config, params=params, device=dev, seed=seed)

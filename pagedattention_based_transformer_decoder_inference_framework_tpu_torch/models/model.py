@@ -175,6 +175,8 @@ def init_params_quantized(cfg: ModelConfig, generator: torch.Generator,
 
 
 def _to_tensor(a, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):       # a checkpoint's leaves
+        return a.to(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":        # ml_dtypes bfloat16 from JAX
         t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
@@ -188,8 +190,9 @@ def params_from_jax(np_params: Params, cfg: ModelConfig,
     """The weight bridge: the JAX package's params pytree with numpy
     leaves (``jax.tree_util.tree_map(np.asarray, params)``) to the port's
     params on ``device``: stacked layers from ``init_params``, or the JAX
-    engine's unstacked, fused tuple of layer dicts. Quantized leaves are
-    recognised by their attributes (the port cannot import the JAX
+    engine's unstacked, fused tuple of layer dicts; tensor leaves (as
+    ``models/checkpoint.py`` reads them) are moved as they are. Quantized
+    leaves are recognised by their attributes (the port cannot import the JAX
     classes): ``packed``/``scales``/``group``/``bn`` make a
     :class:`Q4Tensor`, ``values``/``scales`` a :class:`QTensor`, and
     ``w``/``sb``/``meta``/``ln``/``ops_geom`` a

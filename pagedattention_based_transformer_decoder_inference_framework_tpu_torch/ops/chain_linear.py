@@ -69,10 +69,10 @@ OP_T = 4        # tail: h @ Wqkv_next -> tail output
 CHAIN_DECODE = CudaKernel(
     "chain_decode", "chain_linear.cu", "pbt_chain_decode",
     [P] * 10 + [LL] + [I] * 8 + [F] + [I] * 4 + [P],
-    "ops/chain_linear.py:403")
+    "ops/chain_linear.py:329")
 PACKED_LINEAR = CudaKernel(
     "packed_linear", "chain_linear.cu", "pbt_packed_linear",
-    [P] * 8 + [I] * 14 + [P], "ops/chain_linear.py:636")
+    [P] * 8 + [I] * 14 + [P], "ops/chain_linear.py:593")
 
 #: act / norm codes of csrc/chain_linear.cu
 _ACT_KINDS = {"swiglu": 0, "gelu": 1, "relu": 2}

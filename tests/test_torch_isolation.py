@@ -30,7 +30,13 @@ MODULES = [
     "utils.logging", "kvcache.swap", "kvcache.native", "kvcache.snapshot",
     "scheduler", "scheduler.scheduler", "engine.beam", "reranker",
     "reranker.api", "reranker.export_jsonl", "reranker.plot_tree",
+    "server", "server.metrics", "server.schema", "server.core",
+    "server.basic", "server.app", "engine.router", "models.checkpoint",
+    "utils.profiling", "utils.debug",
 ]
+#: packages the card's machine does not have
+ABSENT_ON_THE_CARD = ("pydantic", "fastapi", "uvicorn", "ml_dtypes",
+                      "safetensors")
 
 
 def test_port_imports_without_jax():
@@ -45,6 +51,41 @@ def test_port_imports_without_jax():
         "assert not any(k == 'jax' or k.startswith('jax.') or "
         f"k.startswith('{JAX_PKG}.') for k in sys.modules "
         "if sys.modules[k] is not None)\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_frontends_import_without_optional_packages(tmp_path):
+    """As on the card's machine: with pydantic, fastapi, uvicorn,
+    ml_dtypes and safetensors (and JAX) blocked, the server, router,
+    checkpoint and CLI modules import, the schema validates and a bf16
+    checkpoint round-trips bit for bit."""
+    blocked = ("jax", JAX_PKG) + ABSENT_ON_THE_CARD
+    code = (
+        "import sys\n"
+        f"for m in {blocked!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import torch\n"
+        f"from {port.__name__}.server import BasicServer, ServerCore\n"
+        f"from {port.__name__}.server import schema\n"
+        f"from {port.__name__}.engine.router import build_engine\n"
+        f"from {port.__name__}.models import checkpoint\n"
+        f"from {port.__name__}.cli import cli_app\n"
+        "req = schema.GenerateRequest(prompt='x', logit_bias={'5': 2})\n"
+        "assert req.logit_bias == {5: 2.0}\n"
+        "try:\n"
+        "    schema.GenerateRequest(prompt='x', max_new_tokens=0)\n"
+        "    raise SystemExit('accepted')\n"
+        "except schema.ValidationError:\n"
+        "    pass\n"
+        "w = torch.randn(4, 6).to(torch.bfloat16)\n"
+        f"checkpoint.save_params({{'w': w}}, {str(tmp_path / 'w.npz')!r})\n"
+        f"back = checkpoint.load_params({str(tmp_path / 'w.npz')!r})['w']\n"
+        "assert back.dtype == torch.bfloat16 and torch.equal(back, w)\n"
+        "assert not any(k.split('.')[0] in "
+        f"{blocked!r} for k in sys.modules if sys.modules[k] is not None)\n"
         "print('ok')\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
