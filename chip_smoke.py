@@ -176,7 +176,8 @@ and nothing of JAX. Phases:
    paged KV, page 64, prefill chunk 256, the pool ``bench.py`` sizes, for (b),
    (e) and (f) the one it sizes for ``--mode spec``) running
    ``generate_batch_fused`` on 4
-   random 64-token prompts for 64 greedy tokens, with every kernel's
+   random 64-token prompts for 32 greedy tokens (``MAIN_STEPS``, half of
+   bench's 64, for the script's time since path (o)), with every kernel's
    launch count reset just before and checked just after against the
    exact count the loop implies:
    a. bf16 weights (``quant="none"``, slice 1);
@@ -279,7 +280,8 @@ and nothing of JAX. Phases:
       (``MEGAKERNEL_STEPS``), and its tokens against (b)'s run by the
       fork rule;
    and slice 4's decode routes past B2, each at its preset's full width
-   and depth, random bf16 or w8a8 weights from the seed, INT8 KV, page
+   and depth ((h) cut to 16 layers since path (o)), random bf16 or w8a8
+   weights from the seed, INT8 KV, page
    64, the pool ``bench.py`` sizes for 64 greedy tokens, of which (g) and
    (h) decode 32 (``DECODE_STEPS``):
    g. packed: ``tinyllama-1.1b`` (bf16 weights) on an unpadded pool
@@ -298,11 +300,32 @@ and nothing of JAX. Phases:
       kernels' prefilled pool (the plain run also serves the fork rule),
       and a profile of ``generate_batch_fused`` of 16 tokens resumed from
       that copy gives the busy share and B6's time per layer.
+   o. hf-import (slice 18): ``gemma3-1b`` at full width and depth (26
+      layers, D 1152, 4 q / 1 KV heads, dh 256, vocabulary 262144, a
+      512-token window on five layers of six, dual-theta RoPE, qk-norm,
+      GeGLU, a tied head) written from the seed as an HF checkpoint
+      directory (``config.json``, two bf16 safetensors shards by this
+      script's own writer, their index; weights drawn on the card at
+      ``init_params``'s scales, norms zero-centred) and served from it:
+      ``config_from_hf`` equal to the preset but for its name and EOS id,
+      ``router.build_engine`` with ``weights_path`` the directory (the
+      port's stream import, INT8 at import, w8a8), INT8 KV, page 64; one
+      600-token prompt (3 chunks of 256, past the window) and three of
+      64, 32 greedy tokens; exact launch counts (B1 and B4 26 a chunk, B2
+      and B3 26 a decode step, B10 104 a forward, B6-B9 and B11 none: the
+      tied head is a dense f32 product over the table widened to f32),
+      tokens/s and TTFT p50, a profile of a 16-token fused run;
+      teacher-forced logits within the path's limit, the SDPA reference
+      passing, the FP8-q control and a second control, the same weights
+      with every layer on the global RoPE table, failing. Phase 2 holds
+      B1 at its last chunk and B2 at its decode step, each on a local
+      and a global layer. ``hf_import_probe.py`` splits the kernels'
+      logit gap by kernel and with activations left unquantized.
    and last, once every earlier engine is freed, slice 6's MoE path:
    k. moe: ``mixtral-8x7b`` (``bench.py --model mixtral-8x7b --quant
-      int8-weight --batch 4 --prompt-len 256``) at full width and depth,
-      16 greedy tokens (a quarter of the other paths', for the script's
-      time),
+      int8-weight --batch 4 --prompt-len 256``) at full width, 16 of its
+      32 layers and 8 greedy tokens (``MOE_LAYERS``, ``MOE_STEPS``, for
+      the script's time),
       INT8 experts: the 256-token prefill chunk routes 4 x 256 x 2 = 2048
       = 8 x 256 slots, so it takes the sorted dispatch (B13 twice a
       layer, on the fused ``we_gu`` and on ``we_down``) and each decode
@@ -372,7 +395,15 @@ TOL = {("none", "bf16"): 0.06, ("none", "f32"): 0.005,
        ("packed", "bf16"): 0.05, ("grouped-96", "bf16"): 0.10,
        ("long-context", "bf16"): 0.25,
        # slice 6's MoE path (its references follow the kernels' routing)
-       ("moe", "bf16"): 0.25}
+       ("moe", "bf16"): 0.25,
+       # slice 18's imported Gemma-3-1B (w8a8): its kernels read 4.35% of
+       # max|logit| and its FP8-q control 5.26%; on this model any
+       # rounding is amplified to ~3% (SDPA 3.17%, B2's reordered sums
+       # alone 2.93%), B1's bf16 P adds the rest, and an FP8 query clears
+       # that floor only just (hf_import_probe.py; PERF.md §6), so the
+       # global-table control and phase 2's rows at (o)'s shapes are its
+       # discriminating checks
+       ("hf-import", "bf16"): 0.048}
 LOWP_NAME = {"bf16": "fp8-q", "f32": "bf16-attention"}
 #: ``score_nll`` of the kernels against the plain path, relative
 TOL_SCORE = 1e-2
@@ -778,15 +809,23 @@ B1_H = dict(batch=4, kv_heads=32, G=1, dh=96, mp=34, T=256, offset=1792,
             window=2047)
 B1_I = dict(batch=1, kv_heads=8, G=4, dh=128, mp=516, T=256, window=0)
 B1_I_CHUNKS = (0, 32, 64, 127)
+#: path (o)'s last prefill chunk (Gemma-3-1B: KH 1, G 4, dh 256): 4 x 256
+#: queries at offset 512 over 600 keys (10 pages), on a local layer's
+#: 512-token window and on a global layer's full context
+B1_O = dict(batch=4, kv_heads=1, G=4, dh=256, mp=10, T=256, offset=512,
+            keys=600)
 #: path (i)'s B1 time, estimated from the four chunks (filled by
 #: :func:`b1_shape_checks`, printed beside the measured prefill)
 B1_LONG = {}
 
 
-def b1_case(torch, gen, dev, batch, kv_heads, G, dh, mp, T, offset, window):
+def b1_case(torch, gen, dev, batch, kv_heads, G, dh, mp, T, offset, window,
+            keys=None):
     """A one-layer INT8 pool [1, 2, KH, batch * mp + 1, 64, dh], its
     tables (distinct random pages) and bf16 queries of a chunk of T at
-    ``offset``, every sequence ``offset + T`` long."""
+    ``offset``, every sequence ``keys`` long (default ``offset + T``; a
+    shorter one leaves the chunk's last queries past its end, as a
+    prompt's last chunk does)."""
     n_pages = batch * mp + 1
     vals = torch.randint(-127, 128, (1, 2, kv_heads, n_pages, PAGE, dh),
                          generator=gen, device=dev, dtype=torch.int8)
@@ -797,7 +836,8 @@ def b1_case(torch, gen, dev, batch, kv_heads, G, dh, mp, T, offset, window):
     bt = perm[:batch * mp].reshape(batch, mp).to(torch.int32)
     q = torch.randn((batch, T, kv_heads * G, dh), generator=gen,
                     device=dev).to(torch.bfloat16)
-    sl = torch.full((batch,), offset + T, dtype=torch.int32, device=dev)
+    sl = torch.full((batch,), offset + T if keys is None else keys,
+                    dtype=torch.int32, device=dev)
     qo = torch.full((batch,), offset, dtype=torch.int32, device=dev)
     kw = dict(page_size=PAGE, num_q_heads=kv_heads * G, window=window,
               softcap=0.0, scale=dh ** -0.5)
@@ -871,20 +911,27 @@ def b1_simt(torch, pa, args, kw):
 
 
 def b1_shape_checks(torch, F_, dev, results):
-    """B1's tensor-core kernel at path (h)'s last chunk and path (i)'s
-    chunks 0, 32, 64 and 127, each against its plain version at 2e-2 of
-    max|plain|, with device time, bound and SDPA time; path (i)'s B1
-    time over its 128 chunks and 32 layers by linear interpolation
-    between the four; and the misread control: two page ids of one
-    sequence's table swapped must move the plain output past 2e-2 of
-    max|plain| (at chunk 0, where a page is a quarter of the keys)."""
+    """B1's tensor-core kernel at path (h)'s last chunk, path (i)'s
+    chunks 0, 32, 64 and 127 and path (o)'s last chunk (window 512 and
+    none), each against its plain version at 2e-2 of max|plain|, with
+    device time, bound and SDPA time; path (i)'s B1 time over its 128
+    chunks and 32 layers by linear interpolation between the four; and
+    the misread control: two page ids of one sequence's table swapped
+    must move the plain output past 2e-2 of max|plain| (at (i)'s chunk
+    0, where a page is a quarter of the keys, and at each of (o)'s
+    chunks, pages 8 and 9 of 10)."""
     from importlib import import_module
 
     pa = import_module(f"{PKG}.ops.paged_attention")
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     kname = "paged_attention_wgmma"
     shapes = [("(h) last chunk", B1_H)] + [
-        (f"(i) chunk {c}", dict(B1_I, offset=256 * c)) for c in B1_I_CHUNKS]
+        (f"(i) chunk {c}", dict(B1_I, offset=256 * c)) for c in B1_I_CHUNKS
+    ] + [("(o) last chunk, window 512", dict(B1_O, window=512)),
+         ("(o) last chunk, global layer", dict(B1_O, window=0))]
+    # the misread controls: two page ids of sequence 0's table swapped
+    swaps = {"(i) chunk 0": [0, 3], "(o) last chunk, window 512": [8, 9],
+             "(o) last chunk, global layer": [8, 9]}
     times, old_times = {}, {}
     for label, shape in shapes:
         args, kw = b1_case(torch, gen, dev, **shape)
@@ -910,14 +957,15 @@ def b1_shape_checks(torch, F_, dev, results):
         check(ok, f"{kname} {label}: error {err} > {tol}")
         results[kname]["max_abs_err"] = max(
             results[kname].get("max_abs_err") or 0.0, err)
-        if label == "(i) chunk 0":
+        swap = swaps.get(label)
+        if swap:
             moved_bt = args[2].clone()
-            moved_bt[0, [0, 3]] = args[2][0, [3, 0]]
+            moved_bt[0, swap] = args[2][0, swap[::-1]]
             moved = pa.paged_attention_plain(
                 *((args[0], args[1], moved_bt) + args[3:]), **kw)
             d = (moved.float() - ref.float()).abs().max().item()
-            print(f"  [{kname}] {label}: pages 0 and 3 of the table "
-                  f"swapped move the plain output by {d:.3e} "
+            print(f"  [{kname}] {label}: pages {swap[0]} and {swap[1]} of "
+                  f"the table swapped move the plain output by {d:.3e} "
                   f"({'beyond' if d > tol else 'WITHIN'} the tolerance)",
                   flush=True)
             check(d > tol, f"B1 {label}: a misread table stays within "
@@ -1675,7 +1723,9 @@ def decode_variant_checks(torch, F_, dev, results):
     B7, B8) with f32 queries: their parts merged in reverse order (in
     plain PyTorch) must stay within 1e-4 and one misread page must not.
     B6's cut (splits, ring stages, rows) swept at (h)'s and (i)'s shapes
-    (:func:`b6_sweep`), B8's at (g)'s (:func:`b8_sweep`)."""
+    (:func:`b6_sweep`), B8's at (g)'s (:func:`b8_sweep`). B2 at path
+    (o)'s decode shapes, at 2e-2 of max|plain| with a page misread that
+    must leave it (B6 timed beside)."""
     from importlib import import_module
 
     pa = import_module(f"{PKG}.ops.paged_attention")
@@ -1732,8 +1782,17 @@ def decode_variant_checks(torch, F_, dev, results):
          i8, 4, 8, 4, 128, 512, 2060, [1, 64 * 7 + 3, 64 * 200, 64 * 512],
          0, 0.0, 2e-2),
     ]
+    # path (o)'s decode step on B2 (Gemma-3-1B: KH 1, G 4, dh 256; the
+    # 600-token prompt at 631 keys over 10 pages beside three of 64), on
+    # a local layer (window 512) and a global one: held as B1 is, at 2e-2
+    # of max|plain|, which one page misread must leave
+    relative = [
+        ("(o) shape: gemma3-1b, window 512, B=4", "paged_attention_decode",
+         bf16, i8, 4, 1, 4, 256, 10, 48, [631, 72, 88, 95], 512, 0.0, 2e-2),
+        ("(o) shape, global layer", "paged_attention_decode", bf16, i8, 4, 1,
+         4, 256, 10, 48, [631, 72, 88, 95], 0, 0.0, 2e-2)]
     for (name, kname, qdt, pdt, batch, kh, g, dh, mp, n_pages, lens, window,
-         softcap, tol) in cases:
+         softcap, tol) in cases + relative:
         kv, bt = make_pool(torch, gen, pdt, dev, batch, kh, dh, mp, n_pages)
         scales = kv[1] if len(kv) == 2 else None
         q = torch.randn((batch, 1, kh * g, dh), generator=gen,
@@ -1747,12 +1806,24 @@ def decode_variant_checks(torch, F_, dev, results):
         out_k = kern(*args, **common)
         out_p = plain(*args, **common)
         torch.cuda.synchronize()
+        rel = any(name == c[0] for c in relative)
+        if rel:
+            tol *= out_p.float().abs().max().item()
         err = (out_k.float() - out_p.float()).abs().max().item()
         ok = err <= tol and bool(torch.isfinite(out_k).all())
         print(f"  [{kname}] {name}: max|kernel-plain| = {err:.3e} "
-              f"(tol {tol:g}; max|plain| {out_p.float().abs().max().item():.3e})"
+              f"(tol {tol:g}{' = 2e-2 of max|plain|' if rel else ''}; "
+              f"max|plain| {out_p.float().abs().max().item():.3e})"
               f" {'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"{kname} {name}: error {err} > {tol}")
+        if rel:
+            wrong = plain(q, kv[0], misread_group(bt, lens, window, J=1), sl,
+                          scales, layer, **common)
+            miss = (wrong.float() - out_p.float()).abs().max().item()
+            print(f"  [{kname}] {name}: one page misread moves the output "
+                  f"by {miss:.3e} (tol {tol:g})", flush=True)
+            check(miss > tol, f"{kname} {name}: the tolerance {tol} does not "
+                  f"flag a misread page ({miss})")
         if kname == "paged_attention_decode_grouped" and mp >= 8:
             # what a B6 that read one group of 4 pages wrong would give:
             # the plain version with that group's table entries pointing at
@@ -2901,12 +2972,15 @@ def gmm_checks(torch, dev, results):
 PATHS = [("bf16", "none", 8), ("w8a8", "int8", None),
          ("int8-weight", "int8-weight", 8), ("int4", "int4", 8)]
 #: slice 4's paths (g) and (h): (letter, name, preset, batch, prompt
-#: length, the decode kernel every decode layer must launch), bf16
-#: weights on an unpadded pool; path (i) is :func:`long_context_path`
+#: length, the decode kernel every decode layer must launch, layers: None
+#: the preset's depth), bf16 weights on an unpadded pool; (h)'s depth cut
+#: to 16 of 32 since path (o) came, for the script's time (PERF.md §6);
+#: path (i) is :func:`long_context_path`
 DECODE_PATHS = [
-    ("g", "packed", "tinyllama-1.1b", 8, 64, "paged_attention_decode_packed"),
+    ("g", "packed", "tinyllama-1.1b", 8, 64, "paged_attention_decode_packed",
+     None),
     ("h", "grouped-96", "phi3-mini-4k", 4, 2048,
-     "paged_attention_decode_grouped")]
+     "paged_attention_decode_grouped", 16)]
 #: path (i): bench.py --mode longctx --prompt-len 32768 --steps 64
 #: --batch 1 on Llama-3.1-8B, w8a8: its 516-page table, 16 of its 64
 #: tokens generated (the depth cut that keeps the whole script inside its
@@ -2916,15 +2990,16 @@ LONG_MODEL, LONG_PROMPT, LONG_STEPS = "llama3.1-8b", 32768, 16
 #: --prompt-len 256, whose one 256-token prefill chunk routes 4 * 256 * 2
 #: = 2048 = 8 * 256 slots: the dispatch's threshold, met exactly
 MOE_MODEL, MOE_BATCH, MOE_PROMPT = "mixtral-8x7b", 4, 256
-#: its greedy tokens: 16 of the other paths' 64 (each (k) decode step is
-#: ~200 ms of host issue, and the script's whole run has 1200 s: 32 since
-#: slice 12, 16 since path (m) came)
-MOE_STEPS = 16
-#: paths (j), (g) and (h): 32 greedy tokens of (b)'s 64 on the same
-#: pools, their checks on each (the depth cut that keeps the whole script
-#: inside its time limit on a slow host since path (m)'s replays came;
-#: PERF.md §6)
-MEGAKERNEL_STEPS = DECODE_STEPS = 32
+#: its greedy tokens and depth (each (k) decode step is ~200 ms of host
+#: issue at 32 layers, and the script's whole run has 1200 s: 32 tokens
+#: since slice 12, 16 since path (m) came, 8 tokens and 16 of its 32
+#: layers since path (o) came; PERF.md §6)
+MOE_STEPS, MOE_LAYERS = 8, 16
+#: paths (a)-(f), (j), (g) and (h): 32 greedy tokens of bench's 64 on
+#: bench's pools, their checks on each (the cut that keeps the whole
+#: script inside its time limit on a slow host: (j), (g) and (h) since
+#: path (m)'s replays came, (a)-(f) since path (o) came; PERF.md §6)
+MAIN_STEPS = MEGAKERNEL_STEPS = DECODE_STEPS = 32
 #: the path each kernel's launch count in the kernels line comes from:
 #: slice 2's main path (w8a8); B12 the INT4 path, B5 the spec path, B9
 #: the fused-append path, B8 the packed path, B6 the long-context path,
@@ -3003,7 +3078,7 @@ def b1_kernel(eng):
 def expected_launches(quant, n_layers, steps, fused_append=False, chunks=1,
                       decode="paged_attention_decode", chained=False,
                       experts=0, dispatch_chunks=0,
-                      attention="paged_attention_wgmma"):
+                      attention="paged_attention_wgmma", head=True):
     """Exact launch counts of one ``generate_batch_fused`` run: ``chunks``
     page-aligned prefill chunks (B1 and B4 in each layer) and ``steps -
     1`` decode steps (B3 and the ``decode`` kernel in each layer), each
@@ -3020,7 +3095,8 @@ def expected_launches(quant, n_layers, steps, fused_append=False, chunks=1,
     prefill chunks that reach the dispatch run B13 on we_gu and we_down
     in each layer, every other forward (the decode steps, other chunks)
     the masked loop's two B11 per expert and layer. ``attention``: the B1
-    kernel of the chunks (:func:`b1_kernel`)."""
+    kernel of the chunks (:func:`b1_kernel`); ``head`` False: a tied LM
+    head (:func:`matmul_launches`)."""
     from importlib import import_module
 
     plat = import_module(f"{PKG}.utils.platform")
@@ -3044,21 +3120,27 @@ def expected_launches(quant, n_layers, steps, fused_append=False, chunks=1,
                    w8_matmul=chunks + steps - 1, chain_decode=per_step,
                    packed_linear=(4 * n_layers - 1) * chunks)
     else:
-        out.update(matmul_launches(quant, n_layers, chunks + steps - 1))
+        out.update(matmul_launches(quant, n_layers, chunks + steps - 1,
+                                   head))
     return out
 
 
-def matmul_launches(quant, n_layers, forwards):
+def matmul_launches(quant, n_layers, forwards, head=True):
     """B10-B12 launches of ``forwards`` forwards over ``n_layers`` layers
-    (four projections each, then the LM head)."""
+    (four projections each, then the LM head; ``head`` False for a tied
+    head, which launches none of them: the port widens the embedding
+    table to f32 on every forward and multiplies in f32, where the JAX
+    model contracts the stored table with f32 accumulation and makes no
+    copy; ROADMAP C)."""
     out = {"int8_matmul": 0, "w8_matmul": 0, "w4_matmul": 0}
+    h = forwards if head else 0
     if quant == "int8":                   # w8a8; the head is weight-only
         out["int8_matmul"] = 4 * n_layers * forwards
-        out["w8_matmul"] = forwards
+        out["w8_matmul"] = h
     elif quant == "int8-weight":
-        out["w8_matmul"] = (4 * n_layers + 1) * forwards
+        out["w8_matmul"] = 4 * n_layers * forwards + h
     elif quant == "int4":
-        out["w4_matmul"] = (4 * n_layers + 1) * forwards
+        out["w4_matmul"] = 4 * n_layers * forwards + h
     return out
 
 
@@ -3112,7 +3194,8 @@ def drive(torch, eng, prompts, greedy, steps, name, fused_append=False,
                                decode, chained="chains" in eng.params,
                                experts=eng.cfg.num_experts,
                                dispatch_chunks=dispatch_chunks(eng, prompts),
-                               attention=b1_kernel(eng))
+                               attention=b1_kernel(eng),
+                               head=not eng.cfg.tie_embeddings)
     check(counts == expect,
           f"{name}: launches {counts}, expected exactly {expect}")
     arr = np.asarray(toks)
@@ -3131,11 +3214,12 @@ def drive(torch, eng, prompts, greedy, steps, name, fused_append=False,
 
 def weight_stream(eng):
     """A decode step reads every weight but the embedding table (of which
-    it gathers B rows) once: its bytes (GB) and their time at the card's
-    rate, the end-to-end floor of a step (ms)."""
+    it gathers B rows; a tied LM head reads all of it) once: its bytes
+    (GB) and their time at the card's rate, the end-to-end floor of a
+    step (ms)."""
     stream_bytes = sum(t.numel() * t.element_size()
                        for key, t in _leaves(eng.params)
-                       if key != "embedding")
+                       if key != "embedding" or eng.cfg.tie_embeddings)
     return stream_bytes / 1e9, stream_bytes / HBM_BYTES_PER_S * 1e3
 
 
@@ -3188,7 +3272,8 @@ def run_paths(torch, dev, results, card):
 
     eng_mod = import_module(f"{PKG}.engine")
     plat = import_module(f"{PKG}.utils.platform")
-    cfg, batch, steps, prompt_len = path_config()
+    cfg, batch, _, prompt_len = path_config()
+    steps = MAIN_STEPS
     rng = np.random.default_rng(SEED)
     prompts = rng.integers(0, cfg.model.vocab_size,
                            size=(batch, prompt_len)).tolist()
@@ -3290,21 +3375,26 @@ def run_paths(torch, dev, results, card):
             check(expect["paged_attention"] > 0,
                   "f32 chunks do not take B1's SIMT kernel")
             launches_from("f32", {"launches": counts32})
-            del eng32
+            del eng32, run32          # run32 holds eng32 as a default
             torch.cuda.empty_cache()
             info.update(limit_readings(tf32, "f32"))
         out[name] = info
-    for letter, name, model, batch_, prompt_len_, decode in DECODE_PATHS:
+    for letter, name, model, batch_, prompt_len_, decode, layers in \
+            DECODE_PATHS:
         phase(f"3{letter}: {name} ({model}, bf16 weights, INT8 KV on an "
               f"unpadded pool, B={batch_}, {prompt_len_}-token prompts: "
               f"{decode} in every decode layer)")
         out[name] = decode_path(torch, refs, greedy, name, model, batch_,
-                                prompt_len_, decode)
+                                prompt_len_, decode, layers)
         launches_from(name, out[name])
     phase(f"3i: long-context ({LONG_MODEL}, w8a8, INT8 KV, one "
           f"{LONG_PROMPT}-token prompt, bench.py --mode longctx's table)")
     out["long-context"] = long_context_path(torch, refs, greedy, card)
     launches_from("long-context", out["long-context"])
+    phase(f"3o: hf-import ({HF_MODEL} written as an HF checkpoint "
+          "directory and served from it: w8a8 at import, INT8 KV, 600 + "
+          "3 x 64-token prompts, dual-theta RoPE)")
+    out["hf-import"] = hf_import_path(torch, refs, greedy, card)
     phase(f"3k: moe ({MOE_MODEL}, int8-weight, INT8 KV, B={MOE_BATCH}, "
           f"{MOE_PROMPT}-token prompts: B13 in the prefill chunk, the masked "
           "expert loop at decode)")
@@ -3315,14 +3405,16 @@ def run_paths(torch, dev, results, card):
 
 
 def decode_path(torch, refs, greedy, name, model, batch, prompt_len,
-                decode):
+                decode, layers=None):
     """Paths (g) and (h): ``model`` with bf16 weights at its full width
-    and depth on an unpadded INT8 pool (``bench.py``'s for 64 tokens,
-    :data:`DECODE_STEPS` of them decoded); the timed run with exact launch
-    counts (``decode`` in every decode layer), the teacher-forced logit
-    checks and :func:`full_checks`."""
+    and at ``layers`` of depth (None: the preset's) on an unpadded INT8
+    pool (``bench.py``'s for 64 tokens, :data:`DECODE_STEPS` of them
+    decoded); the timed run with exact launch counts (``decode`` in every
+    decode layer), the teacher-forced logit checks and
+    :func:`full_checks`."""
     cfg, batch, _, prompt_len = path_config(
-        model=model, batch=batch, prompt_len=prompt_len, pad_head_dim=False)
+        model=model, layers=layers, batch=batch, prompt_len=prompt_len,
+        pad_head_dim=False)
     steps = DECODE_STEPS
     prompts = np.random.default_rng(SEED).integers(
         0, cfg.model.vocab_size, size=(batch, prompt_len)).tolist()
@@ -3724,16 +3816,19 @@ def forced_run(torch, eng, prompts, greedy, steps):
 def forced_logits(torch, eng, ref, prompts, greedy, steps, feed=None):
     """Prefill + ``steps - 1`` decode steps through the reference ``ref``
     (``None``: the kernels), step ``s`` fed ``feed[:, s]``, else its own
-    greedy token. Returns the logits ``[steps, B, V]`` (f32, host) and the
-    tokens fed ``[B, steps - 1]``."""
-    with recording(eng, ref) as rows, torch.inference_mode():
+    greedy token. The prefill's logits are ``EngineState.prefill_logits``
+    (each prompt's last position, whatever its length), then each step's
+    from ``_step_logits``. Returns the logits ``[steps, B, V]`` (f32,
+    host) and the tokens fed ``[B, steps - 1]``."""
+    with recording(eng, ref), torch.inference_mode():
         state = eng.prefill(prompts, sampling=greedy)
+        rows = [torch.from_numpy(state.prefill_logits).to(eng.device)]
         fed = []
         for s in range(steps - 1):
             tok = (rows[-1].argmax(-1).to(torch.int32).cpu().numpy()
                    if feed is None else feed[:, s])
             fed.append(tok)
-            eng._step_logits(state, tok)
+            rows.append(eng._step_logits(state, tok).float())
         eng.free(state)
         logits = torch.stack(rows).cpu().numpy()
     check(np.isfinite(logits).all(), "non-finite logits")
@@ -3756,13 +3851,15 @@ def compare(lk, lp):
                               if dec.any() else 1.0)}
 
 
-def logit_checks(torch, eng, refs, run, frac, tag):
+def logit_checks(torch, eng, refs, run, frac, tag, keep=False):
     """Teacher-forced logits of the kernel path and of two references,
     each against the plain path fed the same tokens: the SDPA path (a
     sound independent implementation; it must pass) and the
     lower-precision control (it must fail, or the limit could not tell a
     kernel computing at the control's precision from a right one). The
-    limit is ``frac`` of max|logit|. ``run(ref, feed)`` gives the logits
+    limit is ``frac`` of max|logit|. With ``keep`` the readings also hold
+    the plain path's logits (``"plain_logits"``) and the tokens fed
+    (``"fed"``), for another control. ``run(ref, feed)`` gives the logits
     ``[steps, B, V]`` and the tokens fed of the kernels (``ref`` None,
     fed their own greedy tokens) or of a reference fed ``feed``."""
     lk, fed = run(None, None)
@@ -3795,6 +3892,8 @@ def logit_checks(torch, eng, refs, run, frac, tag):
     # the kernel path's greedy tokens: the prefill's, then each step's
     res["tokens"] = lk.argmax(-1).T.astype(np.int32)          # [B, steps]
     res["tol"] = tol
+    if keep:
+        res["plain_logits"], res["fed"] = lp, fed
     return res
 
 
@@ -4107,7 +4206,7 @@ def routing(eng, record, force=None):
     call ``i``, its gates the softmax of its own logits there: a
     reference then follows the kernels' routing, so that a router
     near-tie that rounding decides the other way (which random weights
-    amplify into a cascade of other decisions over 32 layers) does not
+    amplify into a cascade of other decisions over the layers) does not
     fork it; :func:`routing_flips` holds its own decisions to the fork
     rule."""
     from importlib import import_module
@@ -4185,7 +4284,8 @@ def routing_flips(kern, ref, what):
 
 def moe_path(torch, refs, greedy, card):
     """Path (k): Mixtral-8x7B with INT8 experts (``int8-weight``) at full
-    width and depth, built after every earlier engine is freed (the
+    width and :data:`MOE_LAYERS` of depth, built after every earlier
+    engine is freed (the
     memory in use printed first, then the build's and its peak). The
     timed run with exact launch counts, and a prefill chunk alone (B13
     twice a layer, no expert B11); the dispatch held against the masked
@@ -4204,7 +4304,7 @@ def moe_path(torch, refs, greedy, card):
           f"allocated, {torch.cuda.memory_reserved() / 1e9:.2f} GB reserved",
           flush=True)
     cfg, batch, steps, prompt_len = path_config(
-        "int8-weight", model=MOE_MODEL, batch=MOE_BATCH,
+        "int8-weight", model=MOE_MODEL, layers=MOE_LAYERS, batch=MOE_BATCH,
         prompt_len=MOE_PROMPT, steps=MOE_STEPS)
     prompts = np.random.default_rng(SEED).integers(
         0, cfg.model.vocab_size, size=(batch, prompt_len)).tolist()
@@ -5770,6 +5870,261 @@ def server_path(torch, eng, greedy, card, tol):
             "sentinel_faults": len(bad_faults), "launches": counts,
             "beam_launches": beam_counts}
 
+
+# -- path (o): an imported HF checkpoint --------------------------------------
+
+#: path (o): the repo's Gemma-3-1B preset at full width and depth, written
+#: as an HF checkpoint directory (``config.json``, shards of at most
+#: ``HF_SHARD_BYTES`` and their index) and served from it through
+#: ``router.build_engine``: w8a8 (INT8 at import), INT8 KV, page 64; one
+#: prompt of 600 tokens (past the 512-token window: 3 chunks of 256) and
+#: three of 64, :data:`HF_STEPS` greedy tokens each
+HF_MODEL, HF_LENS, HF_STEPS = "gemma3-1b", (600, 64, 64, 64), 32
+HF_SHARD_BYTES = 1 << 30
+#: prefill-only runs whose median wall is the TTFT
+HF_TTFT_REPS = 5
+
+
+def write_safetensors(path, tensors):
+    """Write ``tensors`` (name -> CPU tensor, in order) as one
+    ``.safetensors`` file: an 8-byte little-endian header length, the
+    JSON header (``dtype``, ``shape``, ``data_offsets`` a tensor; padded
+    with spaces to 8 bytes), then the raw bytes. A writer for this script
+    only; the port reads the format with its own reader."""
+    import struct
+
+    import torch
+
+    names = {torch.bfloat16: "BF16", torch.float16: "F16",
+             torch.float32: "F32", torch.float64: "F64", torch.int8: "I8",
+             torch.uint8: "U8", torch.int16: "I16", torch.int32: "I32",
+             torch.int64: "I64", torch.bool: "BOOL"}
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for t in tensors.values():
+            if t.numel():
+                f.write(t.contiguous().reshape(-1).view(torch.uint8)
+                        .numpy().data)
+
+
+def write_hf_checkpoint(directory, tensors, config, shard_bytes):
+    """Write ``tensors`` (name -> CPU tensor) into ``directory`` as HF
+    writes a sharded checkpoint: ``model-0000i-of-0000n.safetensors`` of
+    at most ``shard_bytes`` each (a larger tensor alone in its shard),
+    ``model.safetensors.index.json`` and ``config.json``. Returns the
+    number of shards."""
+    shards, cur, size = [], {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        if cur and size + n > shard_bytes:
+            shards.append(cur)
+            cur, size = {}, 0
+        cur[name] = t
+        size += n
+    if cur:
+        shards.append(cur)
+    weight_map = {}
+    for i, shard in enumerate(shards):
+        fname = f"model-{i + 1:05d}-of-{len(shards):05d}.safetensors"
+        write_safetensors(os.path.join(directory, fname), shard)
+        weight_map.update(dict.fromkeys(shard, fname))
+    total = sum(t.numel() * t.element_size() for t in tensors.values())
+    with open(os.path.join(directory, "model.safetensors.index.json"),
+              "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f)
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump(config, f)
+    return len(shards)
+
+
+def hf_config(m):
+    """The HF ``config.json`` of a Gemma-3 text preset ``m``: its values
+    under the names of Gemma-3's published configs."""
+    return {"architectures": ["Gemma3ForCausalLM"],
+            "model_type": "gemma3_text", "vocab_size": m.vocab_size,
+            "hidden_size": m.hidden_size, "num_hidden_layers": m.num_layers,
+            "num_attention_heads": m.num_heads,
+            "num_key_value_heads": m.num_kv_heads, "head_dim": m.head_dim,
+            "intermediate_size": m.intermediate_size,
+            "max_position_embeddings": m.max_seq_len,
+            "rms_norm_eps": m.norm_eps, "rope_theta": m.rope_theta,
+            "rope_local_base_freq": m.rope_local_theta,
+            "rope_scaling": m.rope_scaling,
+            "attention_bias": m.use_qkv_bias,
+            "sliding_window": m.sliding_window,
+            "sliding_window_pattern": m.sliding_window_pattern,
+            "tie_word_embeddings": m.tie_embeddings,
+            "query_pre_attn_scalar": m.query_pre_attn_scalar,
+            "attn_logit_softcapping": m.attn_logit_softcap or None,
+            "final_logit_softcapping": m.final_logit_softcap or None,
+            "hidden_activation": "gelu_pytorch_tanh",
+            "eos_token_id": m.eos_token_id, "torch_dtype": "bfloat16"}
+
+
+def gemma_tensors(torch, m, seed=SEED):
+    """A Gemma-3 state dict for the preset ``m`` under HF's names and
+    layout (``[out, in]`` projections), bf16 on the host: every matmul
+    weight and the embedding ``0.02 * N(0, 1)``, drawn in f32 on the card
+    from ``seed`` as ``init_params`` draws them; every norm weight 0 (Gemma
+    stores its norms zero-centred, so each scales by 1)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def normal(*shape):
+        t = torch.empty(shape, dtype=torch.float32, device="cuda")
+        t.normal_(generator=gen).mul_(0.02)
+        return t.to(torch.bfloat16).cpu()
+
+    def zeros(n):
+        return torch.zeros(n, dtype=torch.bfloat16)
+
+    D, dh, I_ = m.hidden_size, m.head_dim, m.intermediate_size
+    out = {"model.embed_tokens.weight": normal(m.vocab_size, D)}
+    for i in range(m.num_layers):
+        p = f"model.layers.{i}."
+        out.update({
+            p + "input_layernorm.weight": zeros(D),
+            p + "post_attention_layernorm.weight": zeros(D),
+            p + "pre_feedforward_layernorm.weight": zeros(D),
+            p + "post_feedforward_layernorm.weight": zeros(D),
+            p + "self_attn.q_proj.weight": normal(m.num_heads * dh, D),
+            p + "self_attn.k_proj.weight": normal(m.num_kv_heads * dh, D),
+            p + "self_attn.v_proj.weight": normal(m.num_kv_heads * dh, D),
+            p + "self_attn.o_proj.weight": normal(D, m.num_heads * dh),
+            p + "self_attn.q_norm.weight": zeros(dh),
+            p + "self_attn.k_norm.weight": zeros(dh),
+            p + "mlp.gate_proj.weight": normal(I_, D),
+            p + "mlp.up_proj.weight": normal(I_, D),
+            p + "mlp.down_proj.weight": normal(D, I_)})
+    out["model.norm.weight"] = zeros(D)
+    return out
+
+
+def hf_import_path(torch, refs, greedy, card):
+    """Path (o): :data:`HF_MODEL` written as an HF directory from the
+    seed and served from it (``router.build_engine`` with ``weights_path``
+    the directory, ``quant="int8"``: the stream import quantizes at
+    import and the engine fuses the codes as they are): its
+    ``config_from_hf`` against the preset, the timed run with exact
+    launch counts, TTFT, teacher-forced logits against the plain versions
+    (limit, SDPA reference, FP8-q control) and a second control, the same
+    weights served with the local layers rotated by the global table,
+    which must fail the limit."""
+    import copy
+    import tempfile
+    from importlib import import_module
+
+    cfgmod = import_module(f"{PKG}.config")
+    eng_mod = import_module(f"{PKG}.engine")
+    hs = import_module(f"{PKG}.models.hf_stream")
+    qt = import_module(f"{PKG}.quant.tensor")
+    router = import_module(f"{PKG}.engine.router")
+    pre = cfgmod.preset(HF_MODEL)
+    t_path = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="hf-gemma3-") as hf_dir:
+        t0 = time.perf_counter()
+        tensors = gemma_tensors(torch, pre)
+        nbytes = sum(t.numel() * t.element_size() for t in tensors.values())
+        shards = write_hf_checkpoint(hf_dir, tensors, hf_config(pre),
+                                     HF_SHARD_BYTES)
+        del tensors
+        print(f"  wrote an HF directory: {nbytes / 1e9:.3f} GB of bf16 in "
+              f"{shards} shards + index + config.json "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        check(shards >= 2, "(o) the checkpoint is not sharded")
+        got = hs.config_from_hf(hf_dir)
+        want, have = dataclasses.asdict(pre), dataclasses.asdict(got)
+        differ = sorted(k for k in want if have[k] != want[k])
+        print(f"  config_from_hf against the {HF_MODEL} preset: differs in "
+              f"{differ} (name, and the EOS id config_from_hf leaves at the "
+              "config default in both packages)", flush=True)
+        check(differ == ["eos_token_id", "name"],
+              f"(o) config_from_hf differs from the preset in {differ}")
+        cfg, batch, _, _ = path_config("int8", model=HF_MODEL,
+                                       batch=len(HF_LENS),
+                                       prompt_len=max(HF_LENS))
+        got.quant = "int8"
+        cfg.model, cfg.weights_path = got, hf_dir
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        eng = router.build_engine(cfg, device="cuda", seed=SEED)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+    held = (torch.cuda.memory_allocated() - before) / 1e9
+    print(f"  router.build_engine on the directory (stream import, INT8 at "
+          f"import, fused on the card) in {build_s:.1f} s; holds "
+          f"{held:.2f} GB on the card (peak while building +"
+          f"{(torch.cuda.max_memory_allocated() - before) / 1e9:.2f} GB; "
+          f"{before / 1e9:.2f} GB held before)", flush=True)
+    lp0 = eng.params["layers"][0]
+    check(isinstance(lp0["w_qkv"], qt.QTensor) and "wq" not in lp0,
+          "(o) the engine did not fuse the imported INT8 projections")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, pre.vocab_size, n).tolist() for n in HF_LENS]
+    check(prefill_chunks(eng, prompts) == 3, "(o) not 3 prefill chunks")
+    info = drive(torch, eng, prompts, greedy, HF_STEPS, "hf-import")
+    counts = info["launches"]
+    off = {k: counts[k] for k in ("paged_attention_decode_grouped",
+                                  "paged_attention_decode_batched",
+                                  "paged_attention_decode_packed",
+                                  "paged_attention_decode_append")}
+    print(f"  B6-B9 launches (must be 0): {json.dumps(off)}", flush=True)
+    check(not any(off.values()), "(o) B6-B9 were launched")
+    ttft = []
+    for _ in range(HF_TTFT_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.generate_batch_fused(prompts, 1, greedy)
+        torch.cuda.synchronize()
+        ttft.append(time.perf_counter() - t0)
+    info["ttft_p50_s"] = float(np.median(ttft))
+    info.update(profile_run(torch, "fused", lambda n: (
+        eng.generate_batch_fused(prompts, n, greedy))))
+
+    tf = logit_checks(torch, eng, refs, forced_run(
+        torch, eng, prompts, greedy, HF_STEPS), TOL[("hf-import", "bf16")],
+        "bf16", keep=True)
+    info.update(limit_readings(tf, "bf16"))
+    # the second control: the same weights, every layer rotated by the
+    # global table (a model that ignores rope_local_theta)
+    ctrl_cfg = copy.deepcopy(cfg)
+    ctrl_cfg.model.rope_local_theta = 0.0
+    ctrl_cfg.weights_path = None
+    ctrl = eng_mod.Engine(ctrl_cfg, params=eng.params, device="cuda")
+    lc, _ = forced_logits(torch, ctrl, None, prompts, greedy, HF_STEPS,
+                          tf["fed"])
+    rope = compare(lc, tf["plain_logits"])
+    print(f"  global-table control (local layers rotated at rope_theta "
+          f"{pre.rope_theta:g}, not {pre.rope_local_theta:g}): max|dlogit| "
+          f"vs plain {rope['max']:.4e} (must fail the limit "
+          f"{tf['tol']:.4e}); its greedy agreement {rope['agree']:.3f}",
+          flush=True)
+    check_limit(rope["max"] > tf["tol"], "(o) the limit does not flag the "
+                "local layers rotated by the global table")
+    info["rope_control_max_dlogit"] = rope["max"]
+    del ctrl
+    info.update(engine_gb=held, build_s=build_s, shards=shards,
+                checkpoint_gb=nbytes / 1e9,
+                wall_s=time.perf_counter() - t_path)
+    print(f"  (o): decode {info['decode_tok_s']:.1f} tok/s (B={batch}, "
+          f"{HF_STEPS} tokens), TTFT p50 {info['ttft_p50_s'] * 1e3:.2f} ms "
+          f"(prefill of prompts of {list(HF_LENS)} tokens, {HF_TTFT_REPS} "
+          f"runs); (o) took "
+          f"{info['wall_s']:.1f} s ({card})", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return info
 
 def sdpa_paged(q, kv_pages, block_tables, seq_lens, q_offsets,
                kv_scales=None, layer=None, *, page_size, num_q_heads,

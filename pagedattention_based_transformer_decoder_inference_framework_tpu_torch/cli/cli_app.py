@@ -15,8 +15,11 @@ Runs on ``cuda`` by default and raises without a card; ``--device cpu``
 runs the kernels' plain PyTorch versions. Every subcommand builds its
 engine through ``engine/router.py::build_engine``: ``--device`` wins over
 ``server.backend``, and ``weights_path`` in the config (a native ``.npz``
-checkpoint, ``models/checkpoint.py``) loads the weights, else they are a
-random init from ``--seed``; HF checkpoint import waits for ROADMAP A6.
+checkpoint, ``models/checkpoint.py``, or an HF checkpoint directory,
+stream-imported) loads the weights, else they are a random init from
+``--seed``. ``--model`` takes a preset name or an HF checkpoint
+directory: its ``config.json`` gives the model, the directory the weights
+and, unless ``--tokenizer`` or the config names one, the tokenizer.
 ``chat`` is an interactive multi-turn loop (an empty line or end of input
 ends it) and ``log`` the same with each turn appended to a JSONL
 session file. ``batch`` takes the speculative path
@@ -36,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from typing import List, Optional
@@ -48,7 +52,8 @@ from ..utils.tokenizer import get_tokenizer
 
 def add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("--config", default=None, help="YAML/JSON config path")
-    p.add_argument("--model", default=None, help="model preset name")
+    p.add_argument("--model", default=None,
+                   help="model preset name or HF checkpoint directory")
     p.add_argument("--tokenizer", default=None,
                    help="'byte' or HF tokenizer path")
     p.add_argument("--device", default=None,
@@ -69,7 +74,17 @@ def add_common(p: argparse.ArgumentParser) -> None:
 
 def build_config(args) -> FrameworkConfig:
     cfg = load_config(args.config)
-    if args.model:
+    if args.model and os.path.isdir(args.model):
+        # an HF checkpoint directory: the geometry from its config.json,
+        # the weights stream-imported by the engine factory
+        from ..models.hf_stream import config_from_hf
+
+        cfg.model = config_from_hf(args.model)
+        if not cfg.weights_path:
+            cfg.weights_path = args.model
+        if args.tokenizer is None and cfg.tokenizer == "byte":
+            cfg.tokenizer = args.model   # the checkpoint's tokenizer
+    elif args.model:
         cfg.model = preset(args.model)
     if args.tokenizer:
         cfg.tokenizer = args.tokenizer

@@ -34,10 +34,13 @@ def resolve_backend(mode: str) -> torch.device:
 def build_engine(config: FrameworkConfig, params=None, device=None,
                  seed: int = 0):
     """Engine factory honouring ``config.server.backend`` (an explicit
-    ``device`` wins over it) and ``config.weights_path``: a native
-    ``.npz`` checkpoint (``models/checkpoint.py``, either package's),
-    loaded onto the engine's device. Data, tensor and sequence parallelism
-    and HF checkpoint directories are not ported yet and raise."""
+    ``device`` wins over it) and ``config.weights_path``: an HF checkpoint
+    directory, stream-imported in place (``models/hf_stream.py``; INT8 at
+    import when ``config.model.quant`` is ``int8`` or ``int8-weight``, and
+    ``config.model`` should be :func:`~..models.hf_stream.config_from_hf`
+    of it), or a native ``.npz`` checkpoint (``models/checkpoint.py``,
+    either package's), either loaded onto the engine's device. Data,
+    tensor and sequence parallelism are not ported yet and raise."""
     from .engine import Engine
 
     p = config.parallel
@@ -49,11 +52,16 @@ def build_engine(config: FrameworkConfig, params=None, device=None,
            else resolve_backend(config.server.backend))
     if params is None and config.weights_path:
         if os.path.isdir(config.weights_path):
-            raise NotImplementedError(
-                f"{config.weights_path} is a directory: importing an HF "
-                "checkpoint waits for the import port (ROADMAP A6); "
-                "convert it to a native .npz checkpoint first")
-        from ..models.checkpoint import load_params
+            from ..models.hf_stream import (import_hf_streaming,
+                                            load_flat_params)
 
-        params = load_params(config.weights_path, device=dev)
+            q = (config.model.quant
+                 if config.model.quant in ("int8", "int8-weight") else None)
+            params = load_flat_params(
+                import_hf_streaming(config.weights_path, config.model,
+                                    quant=q), device=dev)
+        else:
+            from ..models.checkpoint import load_params
+
+            params = load_params(config.weights_path, device=dev)
     return Engine(config, params=params, device=dev, seed=seed)

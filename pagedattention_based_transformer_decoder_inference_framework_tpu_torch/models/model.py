@@ -29,9 +29,10 @@ take a masked loop over the experts (every expert sees every token,
 gated); a prefill chunk whose routed slots reach ``S = B*T*k >= E*256``
 (and is not w8a8) takes the exact sorted dispatch through the grouped
 matmul (B13 ``grouped_matmul``), as the JAX package's ``_moe`` does, on
-one device. Gemma-3's dual-theta RoPE (ROADMAP queue A, other model
-families) and tensor and expert parallelism (ROADMAP queue A,
-parallelism) are later slices.
+one device. Gemma-3's dual-theta RoPE rotates the sliding-window layers
+with a second, never scaled table at ``rope_local_theta``
+(:meth:`DecoderModel.rope_local`). Tensor and expert parallelism
+(ROADMAP queue A, parallelism) are a later slice.
 """
 
 from __future__ import annotations
@@ -407,36 +408,54 @@ def _expert(w, e: int):
 class DecoderModel:
     """Stateless model: ``forward(params, tokens, positions, kv, attn_fn)``.
 
-    ``rope_len`` caps the RoPE table (the engine passes its serveable
-    length, pages x page size). The table is built once per device."""
+    ``rope_len`` caps the RoPE tables (the engine passes its serveable
+    length, pages x page size). Each table is built once per device."""
 
     def __init__(self, cfg: ModelConfig, rope_len: Optional[int] = None):
-        if cfg.rope_local_theta > 0:
-            raise NotImplementedError(
-                "dual-theta RoPE (Gemma-3): ROADMAP queue A, other model "
-                "families")
         self.cfg = cfg
         self.rope_len = rope_len
-        self._rope: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._rope: Dict[Tuple[str, torch.device],
+                         Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def _table(self, kind: str, device, theta: float, scaling):
+        key = (kind, torch.device(device))
+        if key not in self._rope:
+            length = min(self.rope_len or self.cfg.max_seq_len,
+                         self.cfg.max_seq_len)
+            self._rope[key] = rope_table(length, self.cfg.head_dim, theta,
+                                         scaling=scaling, device=key[1])
+        return self._rope[key]
 
     def rope(self, device) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
         if self.cfg.position != "rope":
             return None
-        device = torch.device(device)
-        if device not in self._rope:
-            length = min(self.rope_len or self.cfg.max_seq_len,
-                         self.cfg.max_seq_len)
-            self._rope[device] = rope_table(
-                length, self.cfg.head_dim, self.cfg.rope_theta,
-                scaling=self.cfg.rope_scaling, device=device)
-        return self._rope[device]
+        return self._table("global", device, self.cfg.rope_theta,
+                           self.cfg.rope_scaling)
+
+    def rope_local(self, device) -> Optional[Tuple[torch.Tensor,
+                                                   torch.Tensor]]:
+        """Gemma-3 dual RoPE: the table the sliding-window layers rotate
+        with (``rope_local_theta``, never scaled); None when the model
+        uses one theta everywhere."""
+        if self.cfg.position != "rope" or self.cfg.rope_local_theta <= 0:
+            return None
+        return self._table("local", device, self.cfg.rope_local_theta, None)
+
+    def _rope_for_layer(self, layer: int, rope_cs, rope_loc):
+        if rope_loc is not None and self.cfg.window_for_layer(layer) > 0:
+            return rope_loc
+        return rope_cs
 
     def embed(self, params: Params, tokens: torch.Tensor,
               positions: torch.Tensor) -> torch.Tensor:
-        x = params["embedding"][tokens]
-        if self.cfg.position == "learned":
-            x = x + params["pos_embedding"][positions]
         dt = torch_dtype(self.cfg.dtype)
+        # in the wider of the table's and the compute dtype until the end,
+        # as the compiled JAX model computes: a bf16 table under an f32
+        # config adds its positions and scales in f32
+        x = params["embedding"][tokens]
+        x = x.to(torch.promote_types(x.dtype, dt))
+        if self.cfg.position == "learned":
+            x = x + params["pos_embedding"][positions].to(x.dtype)
         if self.cfg.scale_embeddings:
             # Gemma scales by sqrt(D) rounded to the compute dtype
             x = x * torch.tensor(self.cfg.hidden_size ** 0.5, dtype=dt)
@@ -650,13 +669,22 @@ class DecoderModel:
                                          kv_caches, attn_fn, return_hidden)
         x = self.embed(params, tokens, positions)
         rope_cs = self.rope(x.device)
+        rope_loc = self.rope_local(x.device)
+        if rope_loc is not None and isinstance(params["layers"], dict):
+            # the JAX package scans stacked layers, where the table cannot
+            # be chosen per layer; the same config raises here too
+            raise ValueError(
+                "rope_local_theta needs the unrolled layer loop "
+                "(RuntimeConfig.scan_layers=False): the per-layer "
+                "RoPE table choice is static")
         layers = unstack_layers(params)["layers"]
         chains = params.get("chains")
         dropped = chains is not None and "wo" not in layers[0]
         kv = kv_caches
         for l, lp in enumerate(layers):
             x, kv = self._block(
-                lp, x, kv, l, positions, attn_fn, rope_cs,
+                lp, x, kv, l, positions, attn_fn,
+                self._rope_for_layer(l, rope_cs, rope_loc),
                 chain=chains[l] if dropped else None,
                 qkv_chain=chains[l - 1] if dropped and l > 0 else None)
         x = self._norm(x, params["final_norm_scale"],
@@ -678,6 +706,7 @@ class DecoderModel:
         cfg = self.cfg
         x = self.embed(params, tokens, positions)           # [B, 1, D]
         rope_cs = self.rope(x.device)
+        rope_loc = self.rope_local(x.device)
         layers, chains = params["layers"], params["chains"]
         B = x.shape[0]
         lp0 = layers[0]
@@ -687,7 +716,8 @@ class DecoderModel:
         kv = kv_caches
         for l, lp in enumerate(layers):
             q, k, v = self._heads(
-                *self._split_fused_qkv(qkv), B, 1, positions, rope_cs,
+                *self._split_fused_qkv(qkv), B, 1, positions,
+                self._rope_for_layer(l, rope_cs, rope_loc),
                 qk_scales=((lp["q_norm_scale"], lp["k_norm_scale"])
                            if cfg.qk_norm else None))
             attn_out, kv = attn_fn(q, k, v, kv, l, positions)
@@ -703,11 +733,13 @@ class DecoderModel:
         return self.logits(params, x), kv
 
     def logits(self, params: Params, hidden: torch.Tensor) -> torch.Tensor:
-        """LM head, f32 logits. A tied head contracts the stored operands
-        with f32 accumulation; an untied head rounds to the activation
-        dtype first, as the JAX package's ``linear`` does. A quantized
-        head is weight-only INT8 (or INT4) even under w8a8: the JAX model
-        never quantizes the final hidden state."""
+        """LM head, f32 logits. A tied head widens the embedding table to
+        f32 on every call and multiplies in f32: the same logits as the
+        JAX model, which contracts the stored table with f32 accumulation
+        and makes no such copy (ROADMAP C). An untied head rounds to the
+        activation dtype first, as the JAX package's ``linear`` does. A
+        quantized head is weight-only INT8 (or INT4) even under w8a8: the
+        JAX model never quantizes the final hidden state."""
         if self.cfg.tie_embeddings:
             out = torch.matmul(hidden.float(),
                                params["embedding"].float().t())

@@ -21,10 +21,15 @@ def rope_table(max_seq_len: int, head_dim: int, theta: float = 10000.0,
     ``"llama3"`` (Llama-3.1+ wavelength bands: long wavelengths divided
     by ``factor``, short kept, smooth interpolation between the
     ``low_freq_factor``/``high_freq_factor`` bands of
-    ``original_max_position_embeddings``). ``"longrope"`` waits for
-    ROADMAP queue A, other model families (Phi-3).
+    ``original_max_position_embeddings``) or ``"longrope"`` (Phi-3:
+    per-dimension ``short_factor`` / ``long_factor`` frequency divisors
+    and a ``sqrt(1 + log(ratio) / log(original))`` scale on cos and sin).
+    The long/short choice is static, made here on the table's length:
+    long iff ``max_seq_len`` exceeds ``original_max_position_embeddings``
+    (HF instead switches on every call on the running sequence length).
     """
     half = head_dim // 2
+    mscale = 1.0
     inv_freq = 1.0 / (theta ** (
         torch.arange(0, half, dtype=torch.float32, device=device) / half))
     if scaling:
@@ -44,14 +49,24 @@ def rope_table(max_seq_len: int, head_dim: int, theta: float = 10000.0,
             in_band = (wavelen >= old_len / high) & (wavelen <= old_len / low)
             inv_freq = torch.where(in_band, mid, scaled)
         elif kind == "longrope":
-            raise NotImplementedError(
-                "longrope scaling (Phi-3): ROADMAP queue A, other model "
-                "families")
+            omax = float(scaling["original_max_position_embeddings"])
+            mmax = float(scaling.get("max_position_embeddings", omax))
+            factors = (scaling["long_factor"] if max_seq_len > omax
+                       else scaling["short_factor"])
+            f = torch.tensor(factors, dtype=torch.float32, device=device)
+            if f.shape != (half,):
+                raise ValueError(
+                    f"longrope factor list must have head_dim/2={half} "
+                    f"entries, got {tuple(f.shape)}")
+            inv_freq = inv_freq / f
+            ratio = mmax / omax
+            if ratio > 1.0:
+                mscale = math.sqrt(1.0 + math.log(ratio) / math.log(omax))
         elif kind != "default":
             raise ValueError(f"unsupported rope_scaling type: {kind!r}")
     t = torch.arange(max_seq_len, dtype=torch.float32, device=device)
     freqs = torch.outer(t, inv_freq)                       # [S, half]
-    return torch.cos(freqs), torch.sin(freqs)
+    return torch.cos(freqs) * mscale, torch.sin(freqs) * mscale
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, cos: torch.Tensor,

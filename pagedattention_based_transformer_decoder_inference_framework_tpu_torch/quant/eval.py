@@ -115,7 +115,8 @@ def ppl_delta_report(cfg: ModelConfig, params: Params,
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
     """CLI: perplexity deltas on random or file-provided token sequences
-    over a random-init model (checkpoint import is a later slice)."""
+    over a native ``.npz`` checkpoint (``--weights``, e.g. one that
+    ``models/hf_stream.py`` wrote) or a random-init model."""
     import argparse
     import json
 
@@ -130,6 +131,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     ap.add_argument("--text-file", default=None,
                     help="plain text, tokenized with --tokenizer")
     ap.add_argument("--tokenizer", default="byte")
+    ap.add_argument("--weights", default=None,
+                    help="native .npz checkpoint (e.g. from hf_stream); "
+                         "default = random init")
     ap.add_argument("--backend", default="dense",
                     choices=("dense", "paged"))
     ap.add_argument("--num-seqs", type=int, default=4)
@@ -143,8 +147,13 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     cfg = preset(args.model)
     if args.backend == "dense":
         cfg.dtype = "float32"
-    params = init_params(cfg, torch.Generator(device=device).manual_seed(
-        args.seed), device)
+    if args.weights:
+        from ..models.checkpoint import load_params
+
+        params = load_params(args.weights, device=device)
+    else:
+        params = init_params(cfg, torch.Generator(
+            device=device).manual_seed(args.seed), device)
     if args.tokens_file:
         with open(args.tokens_file) as f:
             seqs = [json.loads(line)["tokens"] for line in f]

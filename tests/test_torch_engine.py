@@ -192,14 +192,30 @@ def test_eos_stops_fused_rows(engines):
 
 
 def test_engine_rejects_unported_quant():
-    """A quantized config the port does not run yet (Gemma-3's dual-theta
-    RoPE; MoE experts are ported, ``tests/test_torch_moe.py``): the
-    engine names the ROADMAP queue item by its subject."""
-    _, tcfg = frameworks("llama-tiny", "float32", quant="int8")
-    tcfg.model.rope_local_theta = 10000.0
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue A, other model families"):
-        Engine(tcfg, device="cpu")
+    """Gemma-3's dual-theta RoPE under w8a8, which this engine once
+    refused, now agrees with the JAX engine: ``gemma3-tiny`` on an INT8
+    pool with the JAX engine's quantized, fused params, a 40-token prompt
+    past the 32-token window, greedy streams identical. The same weights
+    with every layer on the global table (``rope_local_theta`` 0) give
+    other prefill logits, so the local table reaches the windowed
+    layers."""
+    jcfg, tcfg = frameworks("gemma3-tiny", "int8", quant="int8")
+    assert tcfg.model.rope_local_theta > 0
+    je = JaxEngine(jcfg, params=jax_init_params(jcfg.model,
+                                                jax.random.key(0)),
+                   interpret=True)
+    te = Engine(tcfg, params=params_from_jax(
+        jax.tree_util.tree_map(np.asarray, je.params), tcfg.model),
+        device="cpu")
+    prompts = [[(11 * i + 5) % 500 for i in range(40)], PROMPTS[1]]
+    js, ts = greedy_pair()
+    assert te.generate_batch_fused(prompts, NEW, ts) == \
+        je.generate_batch_fused(prompts, NEW, js)
+    st = te.prefill(prompts, sampling=ts)
+    tcfg.model.rope_local_theta = 0.0
+    glob = Engine(tcfg, params=te.params, device="cpu")
+    sg = glob.prefill(prompts, sampling=ts)
+    assert np.abs(st.prefill_logits - sg.prefill_logits).max() > 1e-2
 
 
 def test_score_nll_matches_jax(engines):

@@ -206,9 +206,13 @@ def test_router_loads_a_weights_file(tmp_path):
 
 
 def test_router_refuses_what_is_not_ported(tmp_path):
+    """A directory is taken as an HF checkpoint and stream-imported
+    (``tests/test_torch_hf_import.py``): one with no safetensors raises
+    ``FileNotFoundError``, as the JAX ``ShardReader`` does. Parallel
+    configs still raise, naming A7."""
     tcfg = cfg_pair()[1]
-    tcfg.weights_path = str(tmp_path)                 # an HF directory
-    with pytest.raises(NotImplementedError, match="A6"):
+    tcfg.weights_path = str(tmp_path)                 # an empty directory
+    with pytest.raises(FileNotFoundError, match="model.safetensors"):
         router.build_engine(tcfg, device="cpu")
     tcfg.weights_path = None
     for axis in ("dp", "tp", "sp"):

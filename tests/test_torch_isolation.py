@@ -32,7 +32,7 @@ MODULES = [
     "reranker.api", "reranker.export_jsonl", "reranker.plot_tree",
     "server", "server.metrics", "server.schema", "server.core",
     "server.basic", "server.app", "engine.router", "models.checkpoint",
-    "utils.profiling", "utils.debug",
+    "utils.profiling", "utils.debug", "models.hf_stream", "models.hf_import",
 ]
 #: packages the card's machine does not have
 ABSENT_ON_THE_CARD = ("pydantic", "fastapi", "uvicorn", "ml_dtypes",
@@ -60,8 +60,9 @@ def test_port_imports_without_jax():
 def test_frontends_import_without_optional_packages(tmp_path):
     """As on the card's machine: with pydantic, fastapi, uvicorn,
     ml_dtypes and safetensors (and JAX) blocked, the server, router,
-    checkpoint and CLI modules import, the schema validates and a bf16
-    checkpoint round-trips bit for bit."""
+    checkpoint, HF import and CLI modules import, the schema validates, a
+    bf16 checkpoint round-trips bit for bit and the port's reader reads a
+    bf16 safetensors file that ``chip_smoke.py``'s writer wrote."""
     blocked = ("jax", JAX_PKG) + ABSENT_ON_THE_CARD
     code = (
         "import sys\n"
@@ -73,6 +74,8 @@ def test_frontends_import_without_optional_packages(tmp_path):
         f"from {port.__name__}.engine.router import build_engine\n"
         f"from {port.__name__}.models import checkpoint\n"
         f"from {port.__name__}.cli import cli_app\n"
+        f"from {port.__name__}.models import hf_import, hf_stream\n"
+        "import chip_smoke\n"
         "req = schema.GenerateRequest(prompt='x', logit_bias={'5': 2})\n"
         "assert req.logit_bias == {5: 2.0}\n"
         "try:\n"
@@ -84,6 +87,11 @@ def test_frontends_import_without_optional_packages(tmp_path):
         f"checkpoint.save_params({{'w': w}}, {str(tmp_path / 'w.npz')!r})\n"
         f"back = checkpoint.load_params({str(tmp_path / 'w.npz')!r})['w']\n"
         "assert back.dtype == torch.bfloat16 and torch.equal(back, w)\n"
+        f"chip_smoke.write_safetensors({str(tmp_path / 'model.safetensors')!r}, "
+        "{'w': w})\n"
+        f"r = hf_stream.ShardReader({str(tmp_path)!r})\n"
+        "assert torch.equal(r.get_tensor('w'), w)\n"
+        "assert (r.get('w') == w.float().numpy()).all()\n"
         "assert not any(k.split('.')[0] in "
         f"{blocked!r} for k in sys.modules if sys.modules[k] is not None)\n"
         "print('ok')\n")
@@ -93,7 +101,9 @@ def test_frontends_import_without_optional_packages(tmp_path):
 
 
 def test_no_source_mentions_the_jax_package():
-    for path in list(PORT_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"]:
+    for path in list(PORT_DIR.rglob("*.py")) + [
+            REPO / n for n in ("chip_smoke.py", "scheduler_probe.py",
+                               "hf_import_probe.py")]:
         tree = ast.parse(path.read_text())
         for node in ast.walk(tree):
             if isinstance(node, ast.Import):
